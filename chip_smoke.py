@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    just after: every request completes, all fault counters are 0, every
    kernel launched; then one request with a flipped weight bit must show
    ``qgemm_errors > 0`` and one with a flipped high table bit
-   ``embedding_bag_errors > 0`` (both restored after);
+   ``embedding_bag_errors > 0`` (both restored after); the full-width
+   logits must be finite, and a small model's forward on the card must
+   agree with the plain forward on the CPU (1% of the logit scale, same
+   fault counters);
 5. time each kernel, its plain version and (for K1) ``torch._int_mm`` by
    CUDA events at the main path's shapes, next to the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate),
@@ -144,6 +147,68 @@ def profile_requests(torch, engine, requests) -> dict:
         f"{wall_ms:.3f} ms of request wall time; top: "
         + "; ".join(f"{k[:48]} {t:.3f}ms x{c}" for k, (t, c) in top[:8]))
     return out
+
+
+def check_outputs(torch, dev, params, ex, requests) -> dict:
+    """What comes out is right: the full-width logits of a request are
+    finite and shaped [batch]; and on a small model (the ``serve --smoke``
+    widths) the card's forward — every kernel — agrees with the plain
+    PyTorch forward on the CPU on the same weights and request, with
+    identical fault counters.  Tolerance: 1% of the logit scale, in bf16;
+    only float summation orders differ (the EmbeddingBag's, the Gram
+    product's), and a bf16 step is 2**-8 relative."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from repro_torch.core.policy import metrics_to_ints
+    from repro_torch.models.dlrm import dlrm_forward, init_dlrm
+    from repro_torch.protect import default_plan, protect
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device)
+
+    payload = requests[0].payload
+    fwd = protect(functools.partial(dlrm_forward, ex=ex), default_plan())
+    logit, _ = fwd(params, torch.from_numpy(payload["dense"]).to(dev),
+                   torch.from_numpy(payload["bags"]).to(dev))
+    if logit.shape != (payload["dense"].shape[0],) or \
+            not bool(torch.isfinite(logit).all()):
+        fail(f"full-width logits: shape {tuple(logit.shape)}, finite "
+             f"{bool(torch.isfinite(logit).all())}")
+
+    small = dataclasses.replace(ex, table_rows=512, n_tables=4, emb_dim=32,
+                                bottom_mlp=(64, 32), top_mlp=(64, 32, 1))
+    p_cpu = init_dlrm(0, small, device="cpu")
+    rng = np.random.default_rng(13)
+    dense = torch.from_numpy(
+        rng.standard_normal((10, small.n_dense)).astype(np.float32))
+    bags = torch.from_numpy(rng.integers(-1, small.table_rows,
+                                         (small.n_tables, 10, 16))
+                            .astype(np.int32))
+    fwd_s = protect(functools.partial(dlrm_forward, ex=small),
+                    default_plan())
+    l_cpu, r_cpu = fwd_s(p_cpu, dense, bags)
+    l_dev, r_dev = fwd_s(to(p_cpu, dev), dense.to(dev), bags.to(dev))
+    m_cpu = metrics_to_ints(r_cpu.as_metrics())
+    m_dev = metrics_to_ints(r_dev.as_metrics())
+    l_cpu = l_cpu.float()
+    err = float((l_dev.float().cpu() - l_cpu).abs().max())
+    scale = float(l_cpu.abs().max())
+    log(f"outputs: full-width logits finite, shape {tuple(logit.shape)}; "
+        f"small model card vs CPU max |dlogit| {err:.3g} of scale "
+        f"{scale:.3g}; counters equal {m_cpu == m_dev}")
+    if m_cpu != m_dev:
+        fail(f"small model counters differ: card {m_dev} vs CPU {m_cpu}")
+    if err > 1e-2 * max(scale, 1e-6):
+        fail(f"small model logits differ by {err:.3g} (scale {scale:.3g})")
+    return {"full_width_logits": [float(v) for v in logit.float().cpu()],
+            "small_max_abs_err": err, "small_scale": scale}
 
 
 def smi_line() -> str:
@@ -368,6 +433,7 @@ def main() -> int:
     if c_clean["qgemm_errors"] or c_clean["embedding_bag_errors"]:
         fail("errors after restoring the flipped bits")
     details["flips"] = {"weight": c_w, "table": c_t, "restored": c_clean}
+    details["outputs"] = check_outputs(torch, dev, params, ex, stream(1, 13))
 
     # ------------------------------ 5. times --------------------------------
     timer = Timer(torch)

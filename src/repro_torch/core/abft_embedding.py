@@ -58,7 +58,16 @@ def _gather_terms(table_q, alphas, betas, indices, weights):
 def embedding_bag(table_q: torch.Tensor, alphas: torch.Tensor,
                   betas: torch.Tensor, indices: torch.Tensor,
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The unprotected low-precision EB (§III-C): per-row dequant + bag sum."""
+    """The unprotected low-precision EB (§III-C): per-row dequant + bag sum.
+
+    Takes one table (``[rows, d]``, ``indices [bags, pool]``) or a stack
+    (``[tables, rows, d]``, ``[tables, bags, pool]``), gathered one table
+    at a time."""
+    if table_q.dim() == 3:
+        return torch.stack([
+            embedding_bag(table_q[t], alphas[t], betas[t], indices[t],
+                          None if weights is None else weights[t])
+            for t in range(table_q.shape[0])])
     rows, a, b, w = _gather_terms(table_q, alphas, betas, indices, weights)
     deq = a[..., None] * rows + b[..., None]             # [bags, pool, d]
     return torch.sum(w[..., None] * deq, dim=1)          # [bags, d]

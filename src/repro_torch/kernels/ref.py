@@ -32,17 +32,8 @@ def abft_qgemm_ref(a_q: torch.Tensor, b_packed: torch.Tensor,
 def abft_eb_ref(table_q: torch.Tensor, alphas: torch.Tensor,
                 betas: torch.Tensor, indices: torch.Tensor,
                 weights: Optional[torch.Tensor] = None):
-    """Plain K2: ``(R f32 [..., bags, d], rsum f32 [..., bags])``.
-
-    Takes one table (``[rows, d]`` with ``indices [bags, pool]``) or a
-    stack of them (``[tables, rows, d]`` with ``[tables, bags, pool]``),
-    which it gathers one table at a time."""
-    if table_q.dim() == 3:
-        outs = [abft_eb_ref(table_q[t], alphas[t], betas[t], indices[t],
-                            None if weights is None else weights[t])
-                for t in range(table_q.shape[0])]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+    """Plain K2: ``(R f32 [..., bags, d], rsum f32 [..., bags])`` for one
+    table or a stack of them (see :func:`repro_torch.core.embedding_bag`)."""
     r = embedding_bag(table_q, alphas, betas, indices, weights)
     return r, torch.sum(r, dim=-1)
 

@@ -204,11 +204,6 @@ class EmbeddingBagOp:
 
     def unprotected(self, encoded, indices, weights=None):
         table_q, alphas, betas, _ = encoded
-        if table_q.dim() == 3:
-            return torch.stack([
-                embedding_bag(table_q[t], alphas[t], betas[t], indices[t],
-                              None if weights is None else weights[t])
-                for t in range(table_q.shape[0])])
         return embedding_bag(table_q, alphas, betas, indices, weights)
 
 

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in several worker processes on one CPU: one intra-op
+# thread keeps torch's idle pool threads off the other workers' cores
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

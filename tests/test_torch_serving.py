@@ -6,6 +6,9 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in several worker processes on one CPU: one intra-op
+# thread keeps torch's idle pool threads off the other workers' cores
+torch.set_num_threads(1)
 
 from repro.configs.dlrm import CONFIG as J_CFG  # noqa: E402
 from repro.configs.dlrm import EXTRAS as J_EXTRAS  # noqa: E402
