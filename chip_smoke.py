@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out details.json]
 
-Phases (any failure exits non-zero; nothing is caught and passed over):
+Two paths run, each with every launch counter set to 0 just before it
+and read just after: the paper's int8 DLRM serving (kernels K1-K3) and
+int8 RWKV6-1.6B chat serving (K1-K4).  Phases (any failure exits
+non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the build times;
 3. make the full-width DLRM (26 tables x 4M rows x 128 int8, random
    weights from a seed) on the card and hold each kernel against its
@@ -15,8 +18,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    flipped weight bit and a flipped high table bit flagged exactly as the
    plain version flags them;
 4. serve 8 ``dlrm_stream`` requests through ``ServingEngine`` under the
-   default plan with every launch counter set to 0 just before and read
-   just after: every request completes, all fault counters are 0, every
+   default plan: every request completes, all fault counters are 0, every
    kernel launched; then one request with a flipped weight bit must show
    ``qgemm_errors > 0`` and one with a flipped high table bit
    ``embedding_bag_errors > 0`` (both restored after); the full-width
@@ -26,12 +28,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. time each kernel, its plain version and (for K1) ``torch._int_mm`` by
    CUDA events at the main path's shapes, next to the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate),
-   and the per-request serve latency.
+   and the per-request serve latency;
+6. make the full-width RWKV6-1.6B (24 layers, d 2048, 32 heads of 64,
+   d_ff 7168, vocab 65536; random int8 weights from a seed) on the card
+   and hold K1 and K3 (bit-exact) at its four GEMM shapes, K2 on its
+   65536 x 2048 token table, and K4 (within 2e-4, and within 2e-4 of the
+   per-token recurrence) on the prefill's own inputs of every layer, on
+   heavy-decay random inputs and on the all-``LOG_W_MIN`` worst case;
+7. serve 8 ``chat_stream`` requests (prompt 64, up to 32 new tokens, 4
+   slots) under the default plan: every request completes, all fault
+   counters are 0, K4 launched 24 times per prefill (the warm-up's
+   included); a flipped ``cm.wv`` payload bit and a flipped high bit of
+   a prompt token's embedding row are each detected and restored; the
+   smoke-size RWKV's prefill and 3 decode steps on the card agree with
+   the plain run on the CPU (same counters, logits within the stated
+   fraction of their scale);
+8. time K4 and its plain version at the prefill shape and at
+   (4, 4096, 32, 64), K1 and K3 at each GEMM shape of a step, the
+   prefill and decode steps, and the device-busy share of a few served
+   requests.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
-Without a CUDA device, or without the repository's ``src/`` beside this
-file, it exits non-zero and prints no result.
+The line before the last is ``{"kernels": [...]}``: ``launches`` is the
+count of the kernel's own path (DLRM for K1-K3, RWKV for K4), and
+``launches_by_path`` holds both.  The last line is ``{"ok": true,
+"device": {"platform": "gpu", "kind": ..., "count": 1}}``.  Without a
+CUDA device, or without the repository's ``src/`` beside this file, it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -54,6 +76,7 @@ REPLACES = {
     "abft_qgemm": "src/repro/kernels/abft_qgemm.py:153",
     "abft_embeddingbag": "src/repro/kernels/abft_embeddingbag.py:48",
     "quantize_rows": "src/repro/kernels/quantize_rows.py:36",
+    "wkv6_chunked": "src/repro/kernels/wkv6_chunked.py:78",
 }
 
 
@@ -209,6 +232,397 @@ def check_outputs(torch, dev, params, ex, requests) -> dict:
         fail(f"small model logits differ by {err:.3g} (scale {scale:.3g})")
     return {"full_width_logits": [float(v) for v in logit.float().cpu()],
             "small_max_abs_err": err, "small_scale": scale}
+
+
+def wkv_err(got, want, atol: float, rtol: float = 2e-4):
+    """(max |got - want|, worst ratio of |got - want| to the allowed
+    ``atol + rtol |want|``; <= 1 passes)."""
+    diff = (got - want).abs()
+    return (float(diff.max()),
+            float((diff / (atol + rtol * want.abs())).max()))
+
+
+def wkv_bound(b, s, h, dh, chunk):
+    """Bytes and float operations the chunked WKV6 forward needs: r, k,
+    v, lw and u read and y written once, the state read and written
+    once; per chunk and head the four products (the score tile and its
+    product only below the diagonal), the decay of S and the diagonal."""
+    n_bytes = 4 * (5 * b * s * h * dh + h * dh + 2 * b * h * dh * dh)
+    tri = chunk * (chunk - 1) // 2
+    per_chunk = (2 * chunk * dh * dh * 2 + 2 * tri * dh * 2
+                 + 2 * dh * dh + 3 * chunk * dh)
+    return n_bytes, b * h * (s // chunk) * per_chunk
+
+
+def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
+    """Phases 6-8 on RWKV6 config ``cfg`` (the full-width RWKV6-1.6B from
+    :func:`main`), with K4 also held and timed at ``big_batch_seq`` =
+    (B, S).  Returns the K4 row and the RWKV path's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import reduce_cfg
+    from repro_torch.core import LANE
+    from repro_torch.core.policy import metrics_to_ints
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
+    from repro_torch.layers import rwkv6 as rk
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.protect import default_plan
+    from repro_torch.serving import (Request, ServingEngine, TenantSpec,
+                                     chat_stream)
+
+    h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, [TenantSpec("default", default_plan())],
+                           n_slots=4, max_prompt=64, seed=0, device=dev)
+    torch.cuda.synchronize()
+    params = engine.params
+    n_int8 = sum(t.numel() for t in (
+        [params["embed"]["table"], params["head"]["w_packed"]]
+        + [params["layers"][blk][w]["w_packed"] for blk, ws in
+           (("tm", ("wr", "wk", "wv", "wg", "wo")), ("cm", ("wk", "wv")))
+           for w in ws]))
+    log(f"{cfg.name} (d {cfg.d_model}, {cfg.n_layers} layers) on the card in "
+        f"{time.perf_counter() - t0:.1f}s: {n_int8 / 1e9:.2f} GB of int8 "
+        f"(packed) weights and table")
+
+    def stream(n, seed):
+        return chat_stream(n, tenants={"default": 1.0}, rate_rps=100.0,
+                           seed=seed, mean_prompt=32, max_prompt=64,
+                           mean_output=16, max_output=32)
+
+    # ------------------- 6. kernels at the RWKV path's shapes ---------------
+    gen = torch.Generator(device=dev).manual_seed(2)
+    layers = params["layers"]
+    gemms = [("tm.wr", layers["tm"]["wr"]["w_packed"][0], (64, 4)),
+             ("cm.wk", layers["cm"]["wk"]["w_packed"][0], (64, 4)),
+             ("cm.wv", layers["cm"]["wv"]["w_packed"][0], (64, 4)),
+             ("lm_head", params["head"]["w_packed"], (1, 4))]
+    checked = []
+    for name, bp, ms_ in gemms:
+        k, n = bp.shape[0], bp.shape[1] - LANE
+        checked.append(f"{name} (k, n) = ({k}, {n}) at m = {ms_}")
+        for m in ms_:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16).float()
+            q = quantize_rows_cuda(x)
+            for g, w, what in zip(q, ref.quantize_rows_ref(x),
+                                  ("q", "alpha", "beta")):
+                if not torch.equal(g, w):
+                    fail(f"quantize_rows: {what} differs at {m}x{k}")
+            got, want = abft_qgemm_cuda(q[0], bp), ref.abft_qgemm_ref(q[0], bp)
+            for g, w, what in zip(got, want, ("C", "err_rows")):
+                if not torch.equal(g, w):
+                    fail(f"abft_qgemm: {what} differs at {name} m={m} "
+                         f"(k={k}, n={n})")
+            if int(got[1].sum()):
+                fail(f"abft_qgemm flagged clean operands at {name}")
+    log("K1 and K3 bit-exact at " + "; ".join(checked))
+
+    emb = params["embed"]
+    enc1 = (emb["table"][None], emb["alphas"][None], emb["betas"][None])
+    req0 = stream(1, 5)[0]
+    prompt = torch.from_numpy(
+        engine._chat_tokens(req0, 64).astype(np.int32)).to(dev)
+    k2_err = 0.0
+    for idx in (prompt.reshape(1, -1, 1), prompt[:4].reshape(1, -1, 1)):
+        r_k, rs_k = abft_eb_cuda(*enc1, idx)
+        r_p, rs_p = ref.abft_eb_ref(*enc1, idx)
+        e_r = float((r_k - r_p).abs().max())
+        e_s = float((rs_k - rs_p).abs().max())
+        scale = max(1.0, float(r_p.abs().max()))
+        if e_r > 1e-5 * scale or e_s > 1e-5 * cfg.d_model * scale:
+            fail(f"abft_embeddingbag off the plain version on the token "
+                 f"table: R {e_r:.3g}, rsum {e_s:.3g}")
+        k2_err = max(k2_err, e_r)
+        flags = [kops.abft_embedding_bag(emb["table"], emb["alphas"],
+                                         emb["betas"], idx[0],
+                                         emb["rowsums"],
+                                         use_kernel=uk).err_bags
+                 for uk in (True, False)]
+        if not torch.equal(flags[0], flags[1]) or bool(flags[0].any()):
+            fail("abft_embeddingbag flags differ or fire on clean rows")
+    log(f"K2 on the {tuple(emb['table'].shape)} token table at pool 1 (64 "
+        f"and 4 bags): "
+        f"max |dR| {k2_err:.3g}, flags clean and equal")
+
+    # K4 on the prefill's own inputs: capture every layer's WKV call
+    captured = []
+    real_wkv = kops.wkv_chunked
+
+    def capture(*a, **kw):
+        captured.append(([t.clone() for t in a], kw["chunk"]))
+        return real_wkv(*a, **kw)
+
+    kops.wkv_chunked = capture
+    try:
+        engine.lanes[0].prefill_fn(params, engine._chat_batch(req0))
+    finally:
+        kops.wkv_chunked = real_wkv
+    if len(captured) != cfg.n_layers:
+        fail(f"prefill ran {len(captured)} chunked WKV calls, not "
+             f"{cfg.n_layers}")
+    shape = tuple(captured[0][0][0].shape)
+    if shape != (1, 64, h, dh) or captured[0][1] != 16:
+        fail(f"unexpected prefill WKV shape {shape}, chunk "
+             f"{captured[0][1]}")
+
+    k4 = {"model_max_abs_err": 0.0, "model_worst_ratio": 0.0,
+          "model vs plain": {"y": 0.0, "S": 0.0}}
+    for args, chunk in captured:
+        y_k, s_k = wkv6_chunked_cuda(*args, chunk=chunk)
+        for name, (y_w, s_w) in (
+                ("plain", ref.wkv_chunked_ref(*args, chunk=chunk)),
+                ("recurrence", rk.wkv_recurrent(*args))):
+            # the model's r, k, v reach some tens: 2e-4 of each output's
+            # scale as the absolute part
+            for part, got, want in (("y", y_k, y_w), ("S", s_k, s_w)):
+                err, ratio = wkv_err(got, want,
+                                     2e-4 * float(want.abs().max()))
+                if not bool(torch.isfinite(got).all()) or ratio > 1.0:
+                    fail(f"wkv6_chunked off the {name} version on model "
+                         f"inputs: max |d| {err:.3g}, {ratio:.3g}x the "
+                         f"2e-4 bound")
+                if name == "plain":
+                    k4["model_max_abs_err"] = max(k4["model_max_abs_err"],
+                                                  err)
+                    k4["model vs plain"][part] = max(
+                        k4["model vs plain"][part], err)
+                k4["model_worst_ratio"] = max(k4["model_worst_ratio"],
+                                              ratio)
+    k4["model_y_scale"] = max(float(ref.wkv_chunked_ref(*a, chunk=c)[0]
+                                    .abs().max()) for a, c in captured)
+
+    def wkv_random(b, s, lw_fill=None):
+        r, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+                   for _ in range(3))
+        if lw_fill is None:
+            lw = torch.rand((b, s, h, dh), generator=gen, device=dev) \
+                * rk.LOG_W_MIN
+        else:
+            r, k, v = (torch.ones_like(r) for _ in range(3))
+            lw = torch.full_like(r, lw_fill)
+        u = torch.randn((h, dh), generator=gen, device=dev) * 0.5
+        s0 = torch.randn((b, h, dh, dh), generator=gen, device=dev) * 0.1
+        return r, k, v, lw, u, s0
+
+    heavy = wkv_random(1, 64)
+    worst = wkv_random(1, 64, rk.LOG_W_MIN)
+    big = wkv_random(*big_batch_seq)
+    big_label = str(tuple(big[0].shape))
+    for label, args, refs in (
+            ("heavy decay", heavy, ("plain", "recurrence")),
+            ("worst case", worst, ("plain", "recurrence")),
+            (big_label, big, ("plain",))):
+        y_k, s_k = wkv6_chunked_cuda(*args, chunk=16)
+        for name in refs:
+            y_w, s_w = (ref.wkv_chunked_ref(*args, chunk=16)
+                        if name == "plain" else rk.wkv_recurrent(*args))
+            errs = {}
+            for part, got, want in (("y", y_k, y_w), ("S", s_k, s_w)):
+                errs[part], ratio = wkv_err(got, want, 2e-4)
+                if not bool(torch.isfinite(got).all()) or ratio > 1.0:
+                    fail(f"wkv6_chunked off the {name} version ({label}): "
+                         f"max |d{part}| {errs[part]:.3g}, {ratio:.3g}x "
+                         f"the bound")
+            k4[f"{label} vs {name}"] = errs
+    log(f"K4 within 2e-4 of the plain version and of the recurrence on "
+        f"all {len(captured)} layers' prefill inputs (max |dy| "
+        f"{k4['model_max_abs_err']:.3g} of a scale "
+        f"{k4['model_y_scale']:.3g}), on heavy decay and the all-min "
+        f"worst case; and of the plain version at {big_label}: "
+        + json.dumps({k: v for k, v in k4.items() if " vs " in k}))
+
+    # -------------------------- 7. serve + flips ----------------------------
+    wrappers = {"abft_qgemm": abft_qgemm_cuda,
+                "abft_embeddingbag": abft_eb_cuda,
+                "quantize_rows": quantize_rows_cuda,
+                "wkv6_chunked": wkv6_chunked_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    tel = engine.run(stream(8, 0))            # the warm-up runs inside
+    launches = {k: w.launches for k, w in wrappers.items()}
+    s = tel.summary()
+    per = s["per_tenant"]["default"]
+    counters = s["faults"]["counters"]
+    n_pre = sum(ev.kind == "prefill" for ev in tel.steps)
+    n_dec = sum(ev.kind == "decode" for ev in tel.steps)
+    log(f"served {per['requests']} chat requests: {per['completed']} "
+        f"completed in {n_pre} prefills and {n_dec} decode steps; "
+        f"launches {launches}; counters "
+        f"{ {k: v for k, v in counters.items() if v} }")
+    if per["completed"] != 8 or per["aborted"]:
+        fail(f"not every chat request completed: {per}")
+    nonzero = {k: v for k, v in counters.items()
+               if v and not k.endswith("_checks")}
+    if nonzero:
+        fail(f"fault counters on a clean RWKV run: {nonzero}")
+    steps = n_pre + n_dec
+    per_step_gemms = cfg.n_layers * 7 + 1
+    if counters["qgemm_checks"] != per_step_gemms * steps or \
+            counters["embedding_bag_checks"] != steps:
+        fail(f"unexpected check counts {counters} for {steps} steps")
+    # the warm-up ran one prefill and one decode step inside the window
+    want_l = {"wkv6_chunked": cfg.n_layers * (n_pre + 1),
+              "abft_qgemm": per_step_gemms * (steps + 2),
+              "quantize_rows": per_step_gemms * (steps + 2),
+              "abft_embeddingbag": steps + 2}
+    if launches != want_l:
+        fail(f"launches {launches} differ from the path's {want_l}")
+    toks = [t for r in tel.requests for t in (r.tokens or [])]
+    if len(toks) != per["tokens_out"] or \
+            not all(0 <= t < cfg.vocab for t in toks):
+        fail("served tokens outside the vocabulary or missing")
+    pre_ms = sorted(ev.duration_s * 1e3 for ev in tel.steps
+                    if ev.kind == "prefill")
+    dec_ms = sorted(ev.duration_s * 1e3 for ev in tel.steps
+                    if ev.kind == "decode")
+    serve = {"requests": per["requests"], "prefills": n_pre,
+             "decode_steps": n_dec, "tokens_out": per["tokens_out"],
+             "prefill_ms": pre_ms, "decode_ms": dec_ms,
+             "prefill_ms_median": float(np.median(pre_ms)),
+             "decode_ms_median": float(np.median(dec_ms)),
+             "ttft_ms": per["ttft_ms"], "per_token_ms": per["per_token_ms"],
+             "decode_occupancy_mean": s["decode_occupancy_mean"],
+             "launches": launches, "counters": counters}
+
+    def one_request(seed):
+        req = Request(rid=0, tenant="default", arrival_s=0.0,
+                      prompt_len=64, max_new_tokens=2, seed=seed)
+        return req, engine.run([req], warmup=False).summary()[
+            "faults"]["counters"]
+
+    cm_wv = layers["cm"]["wv"]["w_packed"]
+    flip = (min(5, cfg.n_layers - 1), 100 % cm_wv.shape[1],
+            200 % cfg.d_model)                      # payload, stale lane
+    cm_wv[flip] ^= 0x10
+    _, c_w = one_request(11)
+    cm_wv[flip] ^= 0x10
+    req = one_request(12)[0]
+    tok = int(engine._chat_tokens(req, 64)[3])
+    emb["table"][tok, 9] ^= -128                    # high bit, stale C_T
+    _, c_t = one_request(12)
+    emb["table"][tok, 9] ^= -128
+    _, c_clean = one_request(12)
+    log(f"flipped cm.wv bit: qgemm_errors {c_w['qgemm_errors']}; flipped "
+        f"embedding bit: embedding_bag_errors "
+        f"{c_t['embedding_bag_errors']}; restored: errors "
+        f"{c_clean['qgemm_errors']}/{c_clean['embedding_bag_errors']}")
+    if c_w["qgemm_errors"] <= 0 or c_t["embedding_bag_errors"] <= 0:
+        fail("an injected RWKV flip went undetected")
+    if c_clean["qgemm_errors"] or c_clean["embedding_bag_errors"]:
+        fail("errors after restoring the flipped RWKV bits")
+    details["rwkv_flips"] = {"weight": c_w, "table": c_t,
+                             "restored": c_clean}
+
+    # the smoke-size model: card against the plain CPU run
+    small = reduce_cfg(cfg)
+    model = build_model(small)
+    p_cpu = model.init(0, device="cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        return tree.to(device)
+
+    p_dev = to(p_cpu, dev)
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, small.vocab, (2, 64)).astype(np.int32))
+    # the same port code on both sides; the card sums the WKV and the
+    # EmbeddingBag in another order, which on these inputs moved the logits
+    # by 5.3e-7 of their scale in f32 and not at all in bf16 (H100)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-4}
+    small_out = {}
+    for dtype, bound in tol.items():
+        ctx = Ctx(quant=True, plan=default_plan(), compute_dtype=dtype,
+                  wkv_chunk=small.wkv_chunk)
+        lc, cc, rc = model.prefill(p_cpu, {"tokens": tokens}, ctx)
+        ld, cd, rd = model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx)
+        worst = 0.0
+        for step in range(4):
+            mc = metrics_to_ints(rc.as_metrics())
+            md = metrics_to_ints(rd.as_metrics())
+            if mc != md:
+                fail(f"smoke RWKV counters differ at step {step}: card "
+                     f"{md} vs CPU {mc}")
+            lcf = lc.float()
+            err = float((ld.float().cpu() - lcf).abs().max()) / max(
+                float(lcf.abs().max()), 1e-6)
+            worst = max(worst, err)
+            if err > bound or not bool(torch.isfinite(ld).all()):
+                fail(f"smoke RWKV logits ({dtype}) differ by {err:.3g} of "
+                     f"the scale at step {step}")
+            if step == 3:
+                break
+            nxt = torch.argmax(lcf[:, :small.vocab], -1).to(torch.int32)
+            lc, cc, rc = model.decode(p_cpu, cc, nxt, None, ctx)
+            ld, cd, rd = model.decode(p_dev, cd, nxt.to(dev), None, ctx)
+        small_out[str(dtype)] = worst
+    log(f"smoke RWKV prefill + 3 decodes, card vs CPU: counters equal, "
+        f"max |dlogit| / scale {small_out}")
+
+    # ------------------------------ 8. times --------------------------------
+    m_args = captured[0][0]
+    nb, nops = wkv_bound(1, 64, h, dh, 16)
+    b_ms, b_by = bound_ms(nb, nops, F32_OPS_PER_S)
+    nb_big, nops_big = wkv_bound(*big_batch_seq, h, dh, 16)
+    k4_row = {
+        "name": "wkv6_chunked", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6_chunked.cu",
+        "replaces": REPLACES["wkv6_chunked"],
+        "launches": launches["wkv6_chunked"],
+        "launches_by_path": {"rwkv6": launches["wkv6_chunked"]},
+        "max_abs_err": k4["model_max_abs_err"],
+        "ms": timer.ms(lambda: wkv6_chunked_cuda(*m_args, chunk=16)),
+        "plain_ms": timer.ms(lambda: ref.wkv_chunked_ref(*m_args,
+                                                         chunk=16)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "per": f"one prefill: {cfg.n_layers} launches (one per layer) at "
+               f"{shape}, chunk 16"}
+    big_bound = bound_ms(nb_big, nops_big, F32_OPS_PER_S)
+    k4_big = {"ms": timer.ms(lambda: wkv6_chunked_cuda(*big, chunk=16), 5),
+              "plain_ms": timer.ms(lambda: ref.wkv_chunked_ref(*big,
+                                                               chunk=16), 3),
+              "bound_ms": big_bound[0], "bound_by": big_bound[1]}
+    log(f"K4 at {shape}: {k4_row['ms']:.4f} ms (bound "
+        f"{b_ms:.5f} ms by {b_by}, plain {k4_row['plain_ms']:.4f} ms); at "
+        f"{big_label}: {k4_big['ms']:.3f} ms (bound "
+        f"{big_bound[0]:.4f} ms, plain {k4_big['plain_ms']:.3f} ms)")
+    # K1 and K3 at every GEMM shape of an RWKV step (prefill m = 64,
+    # decode m = 4; the head sees m = 1 in a prefill): where a step's
+    # device time goes
+    per_shape = {}
+    for name, bp, ms_ in gemms:
+        k, n = bp.shape[0], bp.shape[1] - LANE
+        for m in ms_:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            q = quantize_rows_cuda(x)[0]
+            kb = m * k + k * (n + 1) + 4 * m * n + 4 * m
+            per_shape[f"{name} m={m} k={k} n={n}"] = {
+                "abft_qgemm_ms": timer.ms(lambda: abft_qgemm_cuda(q, bp)),
+                "abft_qgemm_bound_ms": bound_ms(
+                    kb, 2 * m * k * (n + 1), INT8_OPS_PER_S)[0],
+                "quantize_rows_ms": timer.ms(lambda: quantize_rows_cuda(x))}
+    log("K1 / K3 per RWKV shape (ms): " + "; ".join(
+        f"{k_}: {v['abft_qgemm_ms']:.4f} / {v['quantize_rows_ms']:.4f}"
+        for k_, v in per_shape.items()))
+    prof_reqs = [Request(rid=i, tenant="default", arrival_s=0.0,
+                         prompt_len=64, max_new_tokens=4, seed=40 + i)
+                 for i in range(4)]
+    serve["profile"] = profile_requests(torch, engine, prof_reqs)
+    log(f"RWKV serve: prefill step median {serve['prefill_ms_median']:.2f} "
+        f"ms, decode step median {serve['decode_ms_median']:.2f} ms, TTFT "
+        f"p50 {per['ttft_ms']['p50']:.2f} ms, per token p50 "
+        f"{per['per_token_ms']['p50']:.2f} ms")
+    details["rwkv"] = {"serve": serve, "k4_checks": k4,
+                       "gemm_shapes": per_shape,
+                       "k4_large": {big_label: k4_big},
+                       "small_card_vs_cpu": small_out}
+    return {"k4_row": k4_row, "launches": launches}
 
 
 def smi_line() -> str:
@@ -538,8 +952,17 @@ def main() -> int:
                               + 4 * 26 * 2048 * (ex.emb_dim + 1),
                               valid_big * ex.emb_dim * 4, F32_OPS_PER_S)},
     }
-    details["kernels"] = kernels
     details["profile"] = profile_requests(torch, engine, stream(4, 31))
+
+    # --------------------------- 6-8. RWKV6-1.6B ----------------------------
+    from repro_torch.configs import get_arch
+    rwkv = rwkv_phases(torch, dev, timer, details, get_arch("rwkv6-1.6b"),
+                       (4, 4096))
+    for row in kernels:
+        row["launches_by_path"] = {"dlrm": row["launches"],
+                                   "rwkv6": rwkv["launches"][row["name"]]}
+    kernels.append(rwkv["k4_row"])
+    details["kernels"] = kernels
     details["seconds"] = time.perf_counter() - t_start
     log("large shapes: " + json.dumps(details["large"]))
     log(f"serve: request ms median {details['serve']['request_ms_median']:.3f}"

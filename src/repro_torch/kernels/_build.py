@@ -24,10 +24,12 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quantize_rows", "abft_qgemm", "abft_embeddingbag")
+SOURCES = ("quantize_rows", "abft_qgemm", "abft_embeddingbag",
+           "wkv6_chunked")
 
 #: IEEE division and no FMA contraction: K2 and K3 must repeat the plain
 #: versions' float operations exactly (``-Xptxas -v`` reports registers).
+#: K4 builds with the same flags; its explicit ``fmaf`` calls still fuse.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-Xptxas", "-v")

@@ -1,4 +1,4 @@
-"""The operator surface over the three kernels, with one dispatch rule.
+"""The operator surface over the four kernels, with one dispatch rule.
 
 A CUDA tensor takes the hand-written kernel; a CPU tensor takes the plain
 PyTorch version.  An explicit ``use_kernel`` always wins: ``False`` takes
@@ -88,3 +88,18 @@ def quantize_rows(x: torch.Tensor, *, use_kernel: Optional[bool] = None):
         from repro_torch.kernels.quantize_rows import quantize_rows_cuda
         return quantize_rows_cuda(x)
     return _ref.quantize_rows_ref(x)
+
+
+def wkv_chunked(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                lwh: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+                chunk: int = 16, use_kernel: Optional[bool] = None):
+    """Chunked WKV6 forward. -> (y [B, S, H, dh], new_state [B, H, dh, dh]).
+    Inputs are float32 (see :func:`repro_torch.kernels.ref.wkv_chunked_ref`
+    for the math); the caller keeps ``chunk`` inside the f32 envelope."""
+    if _use_kernel(use_kernel, rh):
+        from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
+        return wkv6_chunked_cuda(rh.contiguous(), kh.contiguous(),
+                                 vh.contiguous(), lwh.contiguous(),
+                                 u.contiguous(), state.contiguous(),
+                                 chunk=chunk)
+    return _ref.wkv_chunked_ref(rh, kh, vh, lwh, u, state, chunk=chunk)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the four CUDA kernels.
 
 Each takes the same inputs as its kernel and returns the same outputs.
 The CPU path runs them; on the card they are the reference the kernels
@@ -53,3 +53,50 @@ def quantize_rows_ref(x: torch.Tensor):
     q = torch.clamp(torch.round((x - beta[:, None]) / alpha[:, None]),
                     -128, 127)
     return q.to(torch.int8), alpha, beta
+
+
+def wkv_chunked_ref(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                    lwh: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                    chunk: int = 16):
+    """Plain K4: the chunked matmul form of the WKV6 recurrence (the f32
+    ``layers/rwkv6.wkv_chunked`` of the JAX package).
+
+    rh/kh/vh/lwh [B, S, H, dh] f32 (lwh the log decay), u [H, dh], state
+    [B, H, dh, dh]; ``S % chunk == 0``.  With la the in-chunk cumulative
+    log decay, la_prev = la - lw and la_end = la[-1], per chunk::
+
+        y = (r e^la_prev) S + tril_-1((r e^la_prev)(k e^-la)^T) v
+            + (sum r u k) v
+        S = e^la_end S + (k e^(la_end - la))^T v
+
+    Returns ``(y [B, S, H, dh], new_state)``.  On the card it must run
+    with TF32 off: its matmuls are the float32 reference."""
+    b, s, h, dh = rh.shape
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of "
+                         f"chunk={chunk}")
+    n = s // chunk
+
+    def to_chunks(x):   # [B, S, H, K] -> [n, B, H, C, K]
+        return x.reshape(b, n, chunk, h, dh).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = map(to_chunks, (rh, kh, vh, lwh))
+    la = torch.cumsum(lwc, dim=-2)
+    la_prev = la - lwc                                # la_{t-1}, la_0 = 0
+    la_end = la[..., -1:, :]                          # [n, B, H, 1, K]
+    r_t = rc * torch.exp(la_prev)                     # bounded by |r|
+    k_in = kc * torch.exp(-la)                        # <= e^(C |lw_min|)
+    k_st = kc * torch.exp(la_end - la)                # bounded by |k|
+    diag = torch.sum(rc * u[None, None, :, None, :] * kc, dim=-1)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=rh.dtype,
+                                 device=rh.device), diagonal=-1)
+    ys = []
+    for i in range(n):
+        y_inter = r_t[i] @ state
+        scores = (r_t[i] @ k_in[i].transpose(-1, -2)) * mask
+        y = y_inter + scores @ vc[i] + diag[i][..., None] * vc[i]
+        state = (torch.exp(la_end[i][..., 0, :])[..., None] * state
+                 + k_st[i].transpose(-1, -2) @ vc[i])
+        ys.append(y)
+    y = torch.stack(ys) if ys else rh.new_zeros((0, b, h, chunk, dh))
+    return y.permute(1, 0, 3, 2, 4).reshape(b, s, h, dh), state

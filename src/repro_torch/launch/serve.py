@@ -2,10 +2,12 @@
 :class:`repro_torch.serving.ServingEngine`.
 
 ``python -m repro_torch.launch.serve --arch dlrm`` serves the full-width
-DLRM (26 tables x 4M rows x 128) on the card; ``--device cpu --smoke``
-serves a small one on the CPU through the plain PyTorch versions.  A
-seeded request stream (Poisson / bursty / trace arrivals) flows through
-the admission queue into per-tenant plan lanes; telemetry reports
+DLRM (26 tables x 4M rows x 128) on the card, and ``--arch rwkv6-1.6b``
+the full-width int8 RWKV6-1.6B (chat requests: prefill, then continuous
+batched decode over ``--slots``); ``--device cpu --smoke`` serves a
+small model on the CPU through the plain PyTorch versions.  A seeded
+request stream (Poisson / bursty / trace arrivals) flows through the
+admission queue into per-tenant plan lanes; telemetry reports
 per-tenant latency percentiles next to the ABFT fault counters::
 
     --plan "*:policy=recompute"                  # retry on detection
@@ -26,8 +28,6 @@ import sys
 
 #: flags of the JAX driver whose subsystems wait for later slices
 _NOT_PORTED = {
-    "--prompt-len": "A8 (LM decode and serving)",
-    "--decode-tokens": "A8 (LM decode and serving)",
     "--paged-kv": "A8 (paged KV cache)",
     "--kv-pages": "A8 (paged KV cache)",
     "--inject-step": "A2 (fault injection)",
@@ -68,13 +68,17 @@ def parse_tenant(arg: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Protected DLRM serving over a synthetic request "
-                    "stream, on the card (or the CPU).")
+        description="Protected DLRM or RWKV6 serving over a synthetic "
+                    "request stream, on the card (or the CPU).")
     ap.add_argument("--arch", default="dlrm")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to serve (default: the card; no fallback)")
     ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4,
-                    help="admission slots per lane")
+                    help="admission slots per lane (the decode batch)")
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="prompt bucket (prompts pad up to this)")
+    ap.add_argument("--decode-tokens", type=int, default=32,
+                    help="max new tokens per request")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--arrival", default="poisson",
                     choices=["poisson", "bursty", "trace"])
@@ -107,8 +111,8 @@ def main(argv=None) -> int:
     from repro_torch.configs.registry import get_arch
     from repro_torch.protect import (ProtectionPlan, default_plan,
                                      unprotected_plan)
-    from repro_torch.serving import (ServingEngine, TenantSpec, dlrm_stream,
-                                     tenant_weights)
+    from repro_torch.serving import (ServingEngine, TenantSpec, chat_stream,
+                                     dlrm_stream, tenant_weights)
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("repro_torch.serve")
@@ -149,42 +153,76 @@ def main(argv=None) -> int:
 
     dlrm_extras = None
     if args.smoke:
-        from repro_torch.configs.dlrm import EXTRAS
+        from repro_torch.configs import reduce_cfg
+        cfg = reduce_cfg(cfg)
         args.requests = min(args.requests, 12)
-        dlrm_extras = dataclasses.replace(
-            EXTRAS, table_rows=512, n_tables=4, emb_dim=32,
-            bottom_mlp=(64, 32), top_mlp=(64, 32, 1))
+        args.prompt_len = min(args.prompt_len, 32)
+        args.decode_tokens = min(args.decode_tokens, 8)
+        if cfg.family == "dlrm":
+            from repro_torch.configs.dlrm import EXTRAS
+            dlrm_extras = dataclasses.replace(
+                EXTRAS, table_rows=512, n_tables=4, emb_dim=32,
+                bottom_mlp=(64, 32), top_mlp=(64, 32, 1))
 
-    engine = ServingEngine(cfg, tenants, n_slots=args.slots,
-                           queue_depth=args.queue_depth, seed=args.seed,
-                           dlrm_extras=dlrm_extras, device=args.device)
+    try:
+        engine = ServingEngine(cfg, tenants, n_slots=args.slots,
+                               max_prompt=args.prompt_len,
+                               queue_depth=args.queue_depth, seed=args.seed,
+                               dlrm_extras=dlrm_extras, device=args.device)
+    except ValueError as e:             # a prompt bucket off the WKV chunks
+        ap.error(str(e))
     trace = None
     if args.trace:
         with open(args.trace) as f:
             trace = json.load(f)
-    ex = engine.dlrm_extras
-    stream = dlrm_stream(
-        args.requests, tenants=tenant_weights(tenants), rate_rps=args.rate,
-        arrival=args.arrival, seed=args.seed,
-        lookup_batch=min(ex.batch, 10), table_rows=ex.table_rows,
-        n_tables=ex.n_tables, trace=trace)
+    weights = tenant_weights(tenants)
+    if cfg.family == "dlrm":
+        ex = engine.dlrm_extras
+        stream = dlrm_stream(
+            args.requests, tenants=weights, rate_rps=args.rate,
+            arrival=args.arrival, seed=args.seed,
+            lookup_batch=min(ex.batch, 10), table_rows=ex.table_rows,
+            n_tables=ex.n_tables, trace=trace)
+    else:
+        stream = chat_stream(
+            args.requests, tenants=weights, rate_rps=args.rate,
+            arrival=args.arrival, seed=args.seed,
+            mean_prompt=max(args.prompt_len // 2, 4),
+            max_prompt=args.prompt_len,
+            mean_output=max(args.decode_tokens // 2, 1),
+            max_output=args.decode_tokens, trace=trace)
 
-    log.info("serving %d dlrm requests (%s arrivals @ %g rps) on %s, "
-             "%d lane(s)...", args.requests, args.arrival, args.rate,
-             engine.device, len(engine.lanes))
+    log.info("serving %d %s requests (%s arrivals @ %g rps) on %s, "
+             "%d slots, %d lane(s)...", args.requests, cfg.family,
+             args.arrival, args.rate, engine.device, args.slots,
+             len(engine.lanes))
     telemetry = engine.run(stream)
     s = telemetry.summary()
 
     log.info("")
-    log.info("%d requests / %d steps in %.3fs of traffic, queue depth "
-             "max %d", s["requests"], s["steps"], s["span_s"],
-             s["queue_depth_max"])
-    for tname, ts in s["per_tenant"].items():
-        log.info("  %-10s n=%-4d done=%-4d abort=%-3d "
-                 "e2e p50/p95/p99 = %.3f/%.3f/%.3f ms", tname,
-                 ts["requests"], ts["completed"], ts["aborted"],
-                 ts["e2e_ms"]["p50"], ts["e2e_ms"]["p95"],
-                 ts["e2e_ms"]["p99"])
+    if cfg.family == "dlrm":
+        log.info("%d requests / %d steps in %.3fs of traffic, queue depth "
+                 "max %d", s["requests"], s["steps"], s["span_s"],
+                 s["queue_depth_max"])
+        for tname, ts in s["per_tenant"].items():
+            log.info("  %-10s n=%-4d done=%-4d abort=%-3d "
+                     "e2e p50/p95/p99 = %.3f/%.3f/%.3f ms", tname,
+                     ts["requests"], ts["completed"], ts["aborted"],
+                     ts["e2e_ms"]["p50"], ts["e2e_ms"]["p95"],
+                     ts["e2e_ms"]["p99"])
+    else:
+        log.info("%d requests / %d steps in %.3fs of traffic — "
+                 "%.1f tok/s, queue depth max %d, decode occupancy %.2f",
+                 s["requests"], s["steps"], s["span_s"],
+                 s["throughput_tok_s"], s["queue_depth_max"],
+                 s["decode_occupancy_mean"])
+        for tname, ts in s["per_tenant"].items():
+            log.info("  %-10s n=%-4d done=%-4d abort=%-3d "
+                     "TTFT p50/p95/p99 = %.1f/%.1f/%.1f ms   "
+                     "tok p99 = %.2f ms", tname, ts["requests"],
+                     ts["completed"], ts["aborted"],
+                     ts["ttft_ms"]["p50"], ts["ttft_ms"]["p95"],
+                     ts["ttft_ms"]["p99"], ts["per_token_ms"]["p99"])
     nz = {k: v for k, v in s["faults"]["counters"].items() if v}
     log.info("fault counters: %s", nz or "all zero")
     if args.json:

@@ -1,1 +1,2 @@
-"""Layers of the port: the int8 ABFT linear and the quantized EmbeddingBag."""
+"""Layers of the port: the int8 ABFT linear, the quantized EmbeddingBag
+(DLRM tables and token embeddings), LayerNorm and the RWKV6 blocks."""

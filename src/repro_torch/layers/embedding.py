@@ -1,11 +1,13 @@
-"""Quantized EmbeddingBag + ABFT (the DLRM serving path).
+"""Quantized EmbeddingBag + ABFT: DLRM tables and LM token embeddings.
 
-Verification routes through :func:`repro_torch.protect.protected_call`
-(op kind ``embedding_bag``) so the plan controls on/off, policy and the
-Eq. (5) ``rel_bound``.  A DLRM's tables are one stacked parameter
-(``[tables, rows, d]``), served by one kernel launch with one check per
-table.  The bf16 token embedding of the JAX package belongs to the LM
-slice (ROADMAP A8).
+A token lookup is an EmbeddingBag with pooling size 1 (paper §III-C), so
+the int8 token embedding runs the same kernel and the same Eq. (5) check
+as a DLRM table.  Verification routes through
+:func:`repro_torch.protect.protected_call` (op kind ``embedding_bag``) so
+the plan controls on/off, policy and the Eq. (5) ``rel_bound``.  A DLRM's
+tables are one stacked parameter (``[tables, rows, d]``), served by one
+kernel launch with one check per table.  The bf16 token embedding of the
+JAX package belongs to the training slice (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from repro_torch.layers.common import Ctx
 from repro_torch.protect.runtime import protected_call
 
 
-def init_qembed(gen: torch.Generator, vocab: int, d: int, device="cpu"):
+def init_qembed(gen: torch.Generator, vocab: int, d: int, *, device):
     """Quantized table in [-127, 127], alphas ~ U(5e-3, 2e-2), betas ~
     U(-0.1, 0.1), with precomputed int32 row sums."""
     table = torch.randint(-127, 128, (vocab, d), dtype=torch.int8,
@@ -30,7 +32,7 @@ def init_qembed(gen: torch.Generator, vocab: int, d: int, device="cpu"):
 
 
 def init_embedding_bag(gen: torch.Generator, n_tables: int, rows: int,
-                       d: int, device="cpu"):
+                       d: int, *, device):
     """DLRM multi-hot tables, stacked ``[n_tables, rows, d]``.
 
     Tables are drawn one at a time (:func:`init_qembed`) into their slice
@@ -43,9 +45,29 @@ def init_embedding_bag(gen: torch.Generator, n_tables: int, rows: int,
                      ("rowsums", torch.int32)):
         out[k] = torch.empty((n_tables, rows), dtype=dtype, device=device)
     for t in range(n_tables):
-        for k, v in init_qembed(gen, rows, d, device).items():
+        for k, v in init_qembed(gen, rows, d, device=device).items():
             out[k][t] = v
     return out
+
+
+def qembed(p, tokens: torch.Tensor, ctx: Ctx, name: str = "embed"):
+    """tokens [...] int -> ([..., d] in the compute dtype, report): one
+    pool-1 bag per token through the protected EmbeddingBag."""
+    shape = tokens.shape
+    bags = tokens.reshape(-1, 1)
+    enc = (p["table"], p["alphas"], p["betas"], p["rowsums"])
+    r, report = protected_call("embedding_bag", enc, bags, ctx=ctx,
+                               name=name)
+    d = p["table"].shape[-1]
+    return r.to(ctx.compute_dtype).reshape(*shape, d), report
+
+
+def apply_embed(p, tokens: torch.Tensor, ctx: Ctx):
+    """Dispatch on parameter form; only the quantized table is ported."""
+    if "alphas" not in p:
+        raise NotImplementedError("the bf16 token embedding is not ported "
+                                  "yet (ROADMAP A10)")
+    return qembed(p, tokens, ctx)
 
 
 def embedding_bag_fwd(p, indices: torch.Tensor, ctx: Ctx, weights=None,

@@ -21,7 +21,7 @@ from repro_torch.protect.runtime import protected_call, rule_for
 
 
 def init_qlinear(gen: torch.Generator, d_in: int, d_out: int,
-                 bias: bool = True, device="cpu"):
+                 bias: bool = True, *, device):
     """Random-int8 quantized weight in [-127, 127], packed with a
     consistent checksum, and alpha ~ U(1e-3, 2e-3) — the JAX package's
     distributions (not its values: the generators differ)."""

@@ -1,0 +1,165 @@
+"""RWKV6 "Finch" blocks: time-mix with data-dependent decay + channel-mix.
+
+Per head (dh-dim), per timestep t::
+
+    wkv_t = S_{t-1} + (u ∘ k_t) ⊗ v_t          (bonus for current token)
+    y_t   = r_t · wkv_t
+    S_t   = diag(w_t) · S_{t-1} + k_t ⊗ v_t     (data-dependent decay w_t)
+
+with w_t = exp(-exp(w0 + lora(x_t))) ∈ (0, 1) per channel.  The
+recurrence is an outer-product state update, not a GEMM, so the paper's
+ABFT does not apply to it; the R/K/V/G/O projections and the channel-mix
+are int8 ABFT linears like any other (kernels K3 and K1 on the card).
+
+Prefill runs the recurrence in its chunked matmul form when
+``ctx.wkv_chunk`` divides the length (kernel K4 on the card); decode
+(S = 1) runs the per-token recurrence.  Only the int8 serving form of the
+layers is ported; the float (training) form waits for ROADMAP A10.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import policy
+from repro_torch.kernels import ops as kops
+from repro_torch.layers.common import Ctx
+from repro_torch.layers.linear import apply_linear, init_qlinear
+from repro_torch.layers.norms import init_layernorm, layernorm
+
+
+def _normal(gen: torch.Generator, shape, scale: float, device):
+    """The JAX package's ``param()``: standard normal times ``scale``."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device) * scale
+
+
+def init_timemix(gen: torch.Generator, d: int, n_heads: int, *, device,
+                 lora_rank: int = 64):
+    dh = d // n_heads
+
+    def q(d_in, d_out):
+        return init_qlinear(gen, d_in, d_out, bias=False, device=device)
+
+    return {
+        "mu": _normal(gen, (5, d), 0.5, device),
+        "w0": _normal(gen, (d,), 0.5, device),
+        "w_lora_a": _normal(gen, (d, lora_rank), 0.02, device),
+        "w_lora_b": _normal(gen, (lora_rank, d), 0.02, device),
+        "bonus": _normal(gen, (n_heads, dh), 0.5, device),
+        "wr": q(d, d), "wk": q(d, d), "wv": q(d, d), "wg": q(d, d),
+        "wo": q(d, d),
+        "ln_x": init_layernorm(d, device=device),
+    }
+
+
+def _token_shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
+    """[B,S,d] shifted right by one; position 0 sees x_prev (decode carry)."""
+    return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+#: log-decay clamp: w = exp(lw), lw ∈ [LOG_W_MIN, 0].  Decays below
+#: e^-5 ≈ 6.7e-3 wipe the state within one step anyway; the clamp bounds
+#: the chunked form's intra-chunk exponents (C·|lw| ≤ 80 < log f32max ≈ 88
+#: for C=16) — the same clamp the official RWKV CUDA kernels apply.
+LOG_W_MIN = -5.0
+
+
+def wkv_recurrent(rh, kh, vh, lwh, u, state):
+    """Per-token reference recurrence (the paper-faithful form; decode).
+
+    rh/kh/vh/lwh [B,S,H,dh] f32 (lwh = log decay), u [H,dh],
+    state [B,H,dh,dh].  Returns (ys [B,S,H,dh], new_state)."""
+    wh = torch.exp(lwh)
+    ys = []
+    for t in range(rh.shape[1]):
+        r_t, k_t, v_t, w_t = rh[:, t], kh[:, t], vh[:, t], wh[:, t]
+        kv = k_t[..., :, None] * v_t[..., None, :]              # [B,H,dh,dh]
+        wkv = state + u[None, :, :, None] * kv
+        ys.append((r_t[..., None, :] @ wkv)[..., 0, :])         # [B,H,dh]
+        state = w_t[..., :, None] * state + kv
+    return torch.stack(ys, dim=1), state
+
+
+def wkv_chunked(rh, kh, vh, lwh, u, state, *, chunk: int = 16):
+    """Matmul-form chunked WKV6: an exact reformulation of
+    :func:`wkv_recurrent` (same clamp), through
+    :func:`repro_torch.kernels.ops.wkv_chunked` — kernel K4 on the card,
+    :func:`repro_torch.kernels.ref.wkv_chunked_ref` on the CPU.
+
+    The intra-chunk factor e^{-la_j} reaches e^{chunk·|LOG_W_MIN|}, so the
+    chunk must keep that clear of the f32 maximum (e^88.7)."""
+    if chunk * abs(LOG_W_MIN) > 80.0:
+        raise ValueError(
+            f"chunk={chunk} exceeds the f32-safe envelope for "
+            f"LOG_W_MIN={LOG_W_MIN}; use chunk <= {int(80 / abs(LOG_W_MIN))}")
+    return kops.wkv_chunked(rh, kh, vh, lwh, u, state, chunk=chunk)
+
+
+def timemix(p, x, x_prev, state, ctx: Ctx, *, n_heads: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       policy.FaultReport]:
+    """x [B,S,d], x_prev [B,d], state S [B,H,dh,dh] (f32).
+
+    ``ctx.wkv_chunk > 0`` selects the chunked matmul form when the length
+    divides (and S > 1); otherwise the per-token recurrence runs.
+    Returns (y, new_x_prev, new_state, report)."""
+    b, s, d = x.shape
+    dh = d // n_heads
+    xs = _token_shift(x, x_prev)
+    mu = p["mu"].to(torch.float32)
+    xf, xsf = x.to(torch.float32), xs.to(torch.float32)
+
+    def mix(i):
+        return (xf + (xsf - xf) * mu[i]).to(ctx.compute_dtype)
+
+    xr, xk, xv, xw, xg = (mix(i) for i in range(5))
+    r, r1 = apply_linear(p["wr"], xr, ctx, name="tm.wr")
+    k, r2 = apply_linear(p["wk"], xk, ctx, name="tm.wk")
+    v, r3 = apply_linear(p["wv"], xv, ctx, name="tm.wv")
+    g, r4 = apply_linear(p["wg"], xg, ctx, name="tm.wg")
+    # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), log-clamped
+    lora = torch.tanh(xw.to(torch.float32) @ p["w_lora_a"].to(torch.float32)
+                      ) @ p["w_lora_b"].to(torch.float32)
+    lw = torch.clamp(-torch.exp(p["w0"].to(torch.float32) + lora),
+                     LOG_W_MIN, 0.0)                             # [B,S,d]
+
+    rh = r.reshape(b, s, n_heads, dh).to(torch.float32)
+    kh = k.reshape(b, s, n_heads, dh).to(torch.float32)
+    vh = v.reshape(b, s, n_heads, dh).to(torch.float32)
+    lwh = lw.reshape(b, s, n_heads, dh)
+    u = p["bonus"].to(torch.float32)                             # [H,dh]
+
+    chunk = ctx.wkv_chunk
+    if chunk and s > 1 and s % chunk == 0:
+        ys, state = wkv_chunked(rh, kh, vh, lwh, u, state, chunk=chunk)
+    else:
+        ys, state = wkv_recurrent(rh, kh, vh, lwh, u, state)
+    y = ys.reshape(b, s, d)
+    y = layernorm(p["ln_x"], y.to(ctx.compute_dtype))
+    y = y * F.silu(g.to(torch.float32)).to(ctx.compute_dtype)
+    y, r5 = apply_linear(p["wo"], y, ctx, name="tm.wo")
+    return (y, x[:, -1, :], state,
+            policy.merge_reports(r1, r2, r3, r4, r5))
+
+
+def init_channelmix(gen: torch.Generator, d: int, d_ff: int, *, device):
+    return {
+        "mu": _normal(gen, (2, d), 0.5, device),
+        "wk": init_qlinear(gen, d, d_ff, bias=False, device=device),
+        "wv": init_qlinear(gen, d_ff, d, bias=False, device=device),
+    }
+
+
+def channelmix(p, x, x_prev, ctx: Ctx):
+    """Squared-ReLU channel mix. Returns (y, new_x_prev, report)."""
+    xs = _token_shift(x, x_prev)
+    mu = p["mu"].to(torch.float32)
+    xf, xsf = x.to(torch.float32), xs.to(torch.float32)
+    xk = (xf + (xsf - xf) * mu[0]).to(ctx.compute_dtype)
+    k, r1 = apply_linear(p["wk"], xk, ctx, name="cm.wk")
+    k = torch.square(torch.relu(k.to(torch.float32))).to(ctx.compute_dtype)
+    y, r2 = apply_linear(p["wv"], k, ctx, name="cm.wv")
+    return y, x[:, -1, :], policy.merge_reports(r1, r2)

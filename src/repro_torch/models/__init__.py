@@ -1,2 +1,3 @@
-"""Models of the port: the paper's DLRM (:mod:`.dlrm`) and the converter
+"""Models of the port: the paper's DLRM (:mod:`.dlrm`), RWKV6
+(:mod:`.rwkv`, served through the :mod:`.base` facade) and the converter
 from the JAX package's weights (:mod:`.convert`)."""

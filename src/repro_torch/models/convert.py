@@ -4,9 +4,14 @@ The caller strips the JAX tree to plain arrays first (``LogicalParam``
 values, then ``np.asarray``), so this module imports nothing of JAX.  The
 packed layouts are shared, so the arrays move unchanged:
 
-* ``bottom`` / ``top``: lists of ``{w_packed, alpha, colsum, b}``;
-* ``tables``: ``{table, alphas, betas, rowsums}`` with a leading table
-  axis (the JAX model vmaps its table init).
+* DLRM: ``bottom`` / ``top`` lists of ``{w_packed, alpha, colsum, b}``
+  and ``tables`` ``{table, alphas, betas, rowsums}`` with a leading table
+  axis (the JAX model vmaps its table init);
+* RWKV6 (``init_rwkv(..., quant=True)``): ``embed`` ``{table, alphas,
+  betas, rowsums}``, ``ln0``/``ln_out`` ``{scale, bias}``, ``head``
+  ``{w_packed, alpha, colsum}`` and ``layers`` with every leaf stacked on
+  a leading ``[L, ...]`` axis (``ln1``, ``tm``, ``ln2``, ``cm``), which
+  :mod:`repro_torch.models.rwkv` indexes as it is.
 """
 from __future__ import annotations
 

@@ -45,7 +45,8 @@ def init_dlrm(seed: int, ex: DlrmExtras, *, table_rows: int | None = None,
     n_feat = ex.n_tables + 1
     inter_dim = ex.emb_dim + n_feat * (n_feat - 1) // 2
     top = _init_mlp_stack(gen, (inter_dim,) + ex.top_mlp, dev)
-    tables = init_embedding_bag(gen, ex.n_tables, rows, ex.emb_dim, dev)
+    tables = init_embedding_bag(gen, ex.n_tables, rows, ex.emb_dim,
+                                device=dev)
     return {"bottom": bottom, "top": top, "tables": tables}
 
 

@@ -1,22 +1,41 @@
-"""The protected serving engine of the port: DLRM lookups over plan lanes.
+"""The protected serving engine of the port: plan lanes over DLRM lookups
+and RWKV6 chat requests.
 
-:class:`ServingEngine` serves one-shot DLRM requests.  Tenants (traffic
+:class:`ServingEngine` serves one-shot DLRM requests or, for the ``ssm``
+family (RWKV6), chat requests by continuous batching.  Tenants (traffic
 classes) carry their own :class:`~repro_torch.protect.ProtectionPlan`,
-and tenants sharing a plan share a **lane**: one plan-bound forward and
-one admission batcher.  Per engine iteration, arrivals whose (virtual)
-time has come enter the admission queue; each lane admits requests FIFO
-and runs one protected forward per request; the forward's fault counters
-and its wall time land in the telemetry timeline.
+and tenants sharing a plan share a **lane**: one plan-bound set of steps
+and one fixed-slot batcher.  Per engine iteration:
+
+1. arrivals whose (virtual) time has come enter the admission queue;
+2. each lane fills its free slots FIFO from the queue: a DLRM request
+   runs one protected forward; a chat request runs a batch-1 prefill
+   (first token = TTFT) and its recurrent state is inserted into its
+   slot of the lane's batched state (in place);
+3. each LM lane with active slots runs ONE batched decode step over all
+   its slots; detect->act policies run inside (an ``abort`` fails the
+   lane's in-flight requests, never the server);
+4. finished requests retire, freeing slots for the next iteration.
 
 The clock is hybrid: arrivals are simulated offsets, service time is the
-measured wall time of each forward, ended by ``torch.cuda.synchronize``
-on the card, so SLO percentiles reflect real compute under the chosen
-plans.  The first forward of each lane runs in :meth:`warmup`, outside
-the clock.
+measured wall time of each step, ended by ``torch.cuda.synchronize`` on
+the card, so SLO percentiles reflect real compute under the chosen
+plans.  The first steps of each lane run in :meth:`warmup`, outside the
+clock.
 
-The JAX engine's LM families, paged KV cache, fault injection,
+One deliberate difference from the JAX engine: the LM lanes run with
+``Ctx.wkv_chunk = cfg.wkv_chunk``, as the JAX package's int8 prefill step
+does (``launch/dryrun.py``), so an RWKV prefill runs the chunked WKV form
+(kernel K4 on the card).  The JAX engine's ``Ctx(quant=True)`` leaves
+``wkv_chunk`` at 0 and its serving prefill runs the per-token
+recurrence.  Decode (one token) runs the recurrence either way.  Every
+prompt pads to the one bucket ``max_prompt``, so the engine refuses a
+bucket that is not a multiple of ``wkv_chunk``: each card prefill runs
+K4, none falls back to the per-token recurrence.
+
+The JAX engine's attention families, paged KV cache, fault injection,
 observability, health monitor and adaptive thresholds wait for later
-slices (ROADMAP A2, A8, A9); asking for one raises.
+slices (ROADMAP A2, A8, A9, A11); asking for one raises.
 """
 from __future__ import annotations
 
@@ -67,31 +86,56 @@ def _counters_of(metrics: dict) -> tuple:
 
 
 class _Lane:
-    """One protection plan's slice of the engine: the plan-bound forward
-    and the admission batcher."""
+    """One protection plan's slice of the engine: the plan-bound steps,
+    the batcher and (LM lanes) the batched decode state on the device."""
 
     def __init__(self, key: str, plan, tenants: List[str], n_slots: int):
         self.key = key
         self.plan = plan
         self.tenants = set(tenants)
         self.batcher = ContinuousBatcher(n_slots)
-        self.forward_fn = None
+        self.n_slots = n_slots
+        self.forward_fn = None         # dlrm one-shot lanes
+        self.prefill_fn = None         # LM lanes
+        self.decode_fn = None
+        self.cache = None
+        self.tokens = None
+        self.pos = None
 
     def accepts(self, req: Request) -> bool:
         return req.tenant in self.tenants
 
+    def reset(self):
+        """Drop the device-side decode state (lane reset after an abort)."""
+        self.cache = None
+        self.tokens = None
+        self.pos = None
+        return self.batcher.drain()
+
 
 class ServingEngine:
     def __init__(self, cfg, tenants: Sequence[TenantSpec], *,
-                 n_slots: int = 4, queue_depth: int = 0, seed: int = 0,
-                 compute_dtype=None, dlrm_extras=None, device="cuda"):
+                 n_slots: int = 4, max_prompt: int = 64,
+                 queue_depth: int = 0,
+                 seed: int = 0, compute_dtype=None, dlrm_extras=None,
+                 device="cuda"):
         from repro_torch.device import resolve_device
-        from repro_torch.models.dlrm import init_dlrm
 
-        if cfg.family != "dlrm":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP A8); "
-                "the port serves dlrm")
+        self.is_dlrm = cfg.family == "dlrm"
+        if not self.is_dlrm:
+            from repro_torch.models.base import build_model
+            # raises NotImplementedError for a family not ported yet
+            self.model = build_model(cfg)
+            if cfg.wkv_chunk and max_prompt % cfg.wkv_chunk:
+                # every prompt pads to this bucket: a bucket off the chunk
+                # grid would send each prefill to the per-token recurrence
+                raise ValueError(
+                    f"max_prompt {max_prompt} is not a multiple of "
+                    f"wkv_chunk {cfg.wkv_chunk}: the chunked WKV prefill "
+                    f"(kernel K4) runs only on whole chunks, and the chunk "
+                    f"cannot grow past the float32 envelope "
+                    f"(chunk * |LOG_W_MIN| <= 80); pick a prompt bucket on "
+                    f"the chunk grid")
         if not tenants:
             raise ValueError("need at least one TenantSpec")
         names = [t.name for t in tenants]
@@ -100,11 +144,13 @@ class ServingEngine:
 
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            # the interaction's Gram product must stay full float32
+            # the DLRM Gram product and the WKV / LoRA matmuls must stay
+            # full float32
             torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.tenants = {t.name: t for t in tenants}
         self.n_slots = n_slots
+        self.max_prompt = max_prompt
         self.queue = AdmissionQueue(max_depth=queue_depth)
         self.clock_s = 0.0
         self.global_step = 0
@@ -112,10 +158,16 @@ class ServingEngine:
                                else compute_dtype)
         self._warm = False
 
-        from repro_torch.configs.dlrm import EXTRAS
-        self.dlrm_extras = dlrm_extras if dlrm_extras is not None \
-            else EXTRAS
-        self.params = init_dlrm(seed, self.dlrm_extras, device=self.device)
+        if self.is_dlrm:
+            from repro_torch.configs.dlrm import EXTRAS
+            from repro_torch.models.dlrm import init_dlrm
+            self.dlrm_extras = dlrm_extras if dlrm_extras is not None \
+                else EXTRAS
+            self.model = None
+            self.params = init_dlrm(seed, self.dlrm_extras,
+                                    device=self.device)
+        else:
+            self.params = self.model.init(seed, device=self.device)
 
         # ------------------------- plan lanes --------------------------------
         by_plan: Dict[str, List[TenantSpec]] = {}
@@ -135,18 +187,76 @@ class ServingEngine:
 
     def _build_lane_fns(self, lane: _Lane) -> None:
         from repro_torch.core.policy import metrics_to_ints
-        from repro_torch.models.dlrm import dlrm_forward
-        from repro_torch.protect import protect
 
-        fwd_p = protect(functools.partial(dlrm_forward, ex=self.dlrm_extras),
-                        lane.plan, compute_dtype=self._compute_dtype)
+        if self.is_dlrm:
+            from repro_torch.models.dlrm import dlrm_forward
+            from repro_torch.protect import protect
+            fwd_p = protect(functools.partial(dlrm_forward,
+                                              ex=self.dlrm_extras),
+                            lane.plan, compute_dtype=self._compute_dtype)
 
-        def forward(params, dense, bags):
-            logit, rep = fwd_p(params, dense, bags)
-            # one device->host copy of every counter per request
-            return logit, metrics_to_ints(rep.as_metrics())
+            def forward(params, dense, bags):
+                logit, rep = fwd_p(params, dense, bags)
+                # one device->host copy of every counter per request
+                return logit, metrics_to_ints(rep.as_metrics())
 
-        lane.forward_fn = forward
+            lane.forward_fn = forward
+            return
+
+        from repro_torch.launch.steps import (make_decode_step,
+                                              make_prefill_step)
+        from repro_torch.layers.common import Ctx
+        # the plan-bound serving context protect() would bind, with the
+        # chunked WKV prefill (see the module docstring)
+        ctx = Ctx(quant=True, plan=lane.plan,
+                  compute_dtype=self._compute_dtype,
+                  wkv_chunk=self.cfg.wkv_chunk)
+        prefill_step = make_prefill_step(self.model, ctx)
+        decode_step = make_decode_step(self.model, ctx)
+
+        def prefill(params, batch):
+            tok, cache, metrics = prefill_step(params, batch)
+            return tok, cache, metrics_to_ints(metrics)
+
+        def decode(params, cache, tokens, pos):
+            tok, cache, metrics = decode_step(params, cache, tokens, pos)
+            return tok, cache, metrics_to_ints(metrics)
+
+        lane.prefill_fn = prefill
+        lane.decode_fn = decode
+
+    @staticmethod
+    def _insert(full, one, slot: int):
+        """Write a batch-1 state tree into row ``slot`` of the lane's
+        batched state (axis 1, after the layer axis), in place."""
+        for k, f in full.items():
+            f[:, slot] = one[k][:, 0].to(f.dtype)
+        return full
+
+    # ------------------------------ request payloads -------------------------
+
+    def _chat_tokens(self, req: Request, bucket: int) -> np.ndarray:
+        """The request's deterministic prompt tokens (the JAX engine's
+        draws from the request's seed), padded to ``bucket``; a request
+        carrying (prefix_seed, prefix_len) opens with the shared prompt."""
+        cfg = self.cfg
+        rng = np.random.default_rng(req.seed)
+        pfx = min(int(req.prefix_len or 0), bucket)
+        if pfx > 0 and req.prefix_seed is not None:
+            head = np.random.default_rng(req.prefix_seed).integers(
+                0, cfg.vocab, pfx)
+            return np.concatenate(
+                [head, rng.integers(0, cfg.vocab, bucket - pfx)])
+        return rng.integers(0, cfg.vocab, bucket)
+
+    def _chat_batch(self, req: Request) -> dict:
+        """One prompt, padded to the single fixed bucket ``max_prompt``."""
+        tokens = self._chat_tokens(req, self.max_prompt)
+        return {"tokens": torch.from_numpy(
+            tokens[None, :].astype(np.int32)).to(self.device)}
+
+    def _prefill_pos(self) -> int:
+        return self.max_prompt + self.cfg.meta_tokens
 
     def _payload(self, req: Request):
         """The request's tensors on the device, validated on the host
@@ -170,9 +280,28 @@ class ServingEngine:
     # ------------------------------ warmup -----------------------------------
 
     def warmup(self, sample: Optional[Request] = None) -> None:
-        """Run every lane's forward once outside the telemetry clock (the
-        first call builds and loads the CUDA kernels)."""
+        """Run every lane's steps once outside the telemetry clock (the
+        first call builds and loads the CUDA kernels): a DLRM forward, or
+        an LM prefill of a seed-0 prompt and one decode step."""
         if self._warm:
+            return
+        if not self.is_dlrm:
+            dummy = Request(rid=-1, tenant="_warm", arrival_s=0.0,
+                            prompt_len=self.max_prompt, max_new_tokens=1,
+                            seed=0)
+            for lane in self.lanes:
+                _, cache1, _ = lane.prefill_fn(self.params,
+                                               self._chat_batch(dummy))
+                full = self._insert(
+                    self.model.init_cache(lane.n_slots, device=self.device),
+                    cache1, 0)
+                toks = torch.zeros((lane.n_slots,), dtype=torch.int32,
+                                   device=self.device)
+                pos = torch.full((lane.n_slots,), self._prefill_pos(),
+                                 dtype=torch.int32, device=self.device)
+                lane.decode_fn(self.params, full, toks, pos)
+            self._sync()
+            self._warm = True
             return
         ex = self.dlrm_extras
         if sample is not None and sample.payload is not None:
@@ -209,9 +338,12 @@ class ServingEngine:
             arrival_s=req.arrival_s, admit_s=slot.admit_s,
             first_token_s=slot.first_token_s, finish_s=self.clock_s,
             prompt_len=req.prompt_len, tokens_out=slot.generated,
-            queue_wait_s=slot.queue_wait_s, aborted=aborted))
+            queue_wait_s=slot.queue_wait_s, aborted=aborted,
+            tokens=getattr(slot, "token_ids", None),
+            prefill_tokens=slot.prefill_tokens,
+            shared_prefix_tokens=slot.shared_prefix_tokens))
 
-    def _step_event(self, lane: _Lane, dt: float, metrics,
+    def _step_event(self, kind: str, lane: _Lane, dt: float, metrics,
                     telemetry: Telemetry,
                     errors_override: Optional[int] = None,
                     slot_rids: tuple = ()):
@@ -220,7 +352,7 @@ class ServingEngine:
         if errors_override is not None:
             errors = errors_override
         telemetry.add_step(StepEvent(
-            step=self.global_step, t_s=self.clock_s, kind="dlrm",
+            step=self.global_step, t_s=self.clock_s, kind=kind,
             lane=lane.key, duration_s=dt,
             occupancy=lane.batcher.occupancy(),
             queue_depth=self.queue.depth(), counters=counters,
@@ -232,8 +364,6 @@ class ServingEngine:
 
         req = slot_like.request
         dense, bags = self._payload(req)
-        aborted = False
-        metrics, dt = None, 0.0
         t0 = time.perf_counter()
         try:
             (_, metrics), dt = self._timed(lane.forward_fn, self.params,
@@ -241,15 +371,87 @@ class ServingEngine:
         except Exception as e:          # noqa: BLE001 - abort policy only
             if not is_fault_abort(e):
                 raise
-            self._sync()
-            dt = time.perf_counter() - t0
-            self.clock_s += dt
-            aborted = True
-        slot_like.first_token_s = None if aborted else self.clock_s
-        self._record_slot(slot_like, telemetry, aborted=aborted)
-        self._step_event(lane, dt, metrics, telemetry,
-                         errors_override=1 if aborted else None,
+            self._abort_step("dlrm", lane, t0, telemetry, (req.rid,))
+            self._record_slot(slot_like, telemetry, aborted=True)
+            return
+        slot_like.first_token_s = self.clock_s
+        self._record_slot(slot_like, telemetry)
+        self._step_event("dlrm", lane, dt, metrics, telemetry,
                          slot_rids=(req.rid,))
+
+    def _abort_step(self, kind: str, lane: _Lane, t0: float,
+                    telemetry: Telemetry, slot_rids: tuple) -> None:
+        """Policy ``abort`` fired inside a step: the step's time still
+        counts, the step records one error."""
+        self._sync()
+        dt = time.perf_counter() - t0
+        self.clock_s += dt
+        self._step_event(kind, lane, dt, None, telemetry, errors_override=1,
+                         slot_rids=slot_rids)
+
+    def _do_prefill(self, lane: _Lane, slot: Slot, telemetry: Telemetry):
+        from repro_torch.core.policy import is_fault_abort
+
+        req = slot.request
+        batch = self._chat_batch(req)
+        t0 = time.perf_counter()
+        try:
+            (tok, cache1, metrics), dt = self._timed(
+                lane.prefill_fn, self.params, batch)
+        except Exception as e:          # noqa: BLE001 - abort policy only
+            if not is_fault_abort(e):
+                raise
+            self._abort_step("prefill", lane, t0, telemetry, (req.rid,))
+            lane.batcher.retire(slot.index)
+            self._record_slot(slot, telemetry, aborted=True)
+            return
+        if lane.cache is None:
+            lane.cache = self.model.init_cache(lane.n_slots,
+                                               device=self.device)
+            lane.tokens = torch.zeros((lane.n_slots,), dtype=torch.int32,
+                                      device=self.device)
+            lane.pos = torch.zeros((lane.n_slots,), dtype=torch.int32,
+                                   device=self.device)
+        self._insert(lane.cache, cache1, slot.index)
+        lane.tokens[slot.index] = tok[0]
+        lane.pos[slot.index] = self._prefill_pos()
+        slot.pos = self._prefill_pos()
+        slot.generated = 1
+        slot.first_token_s = self.clock_s
+        slot.token_ids = [int(tok[0])]
+        slot.prefill_tokens = self.max_prompt   # full fixed-slot bucket
+        self._step_event("prefill", lane, dt, metrics, telemetry,
+                         slot_rids=(req.rid,))
+
+    def _do_decode(self, lane: _Lane, telemetry: Telemetry):
+        from repro_torch.core.policy import is_fault_abort
+
+        resident = tuple(s.request.rid
+                         for s in lane.batcher.active_slots())
+        t0 = time.perf_counter()
+        try:
+            (tok, cache, metrics), dt = self._timed(
+                lane.decode_fn, self.params, lane.cache, lane.tokens,
+                lane.pos)
+        except Exception as e:          # noqa: BLE001 - abort policy only
+            if not is_fault_abort(e):
+                raise
+            self._abort_step("decode", lane, t0, telemetry, resident)
+            for slot in lane.reset():
+                self._record_slot(slot, telemetry, aborted=True)
+            return
+        lane.cache = cache
+        lane.tokens = tok
+        lane.pos = lane.pos + 1
+        tok_host = tok.cpu().numpy()
+        for slot in lane.batcher.active_slots():
+            slot.generated += 1
+            slot.pos += 1
+            slot.token_ids.append(int(tok_host[slot.index]))
+        self._step_event("decode", lane, dt, metrics, telemetry,
+                         slot_rids=resident)
+        for slot in lane.batcher.retire_finished():
+            self._record_slot(slot, telemetry)
 
     # ------------------------------ main loop --------------------------------
 
@@ -264,10 +466,10 @@ class ServingEngine:
                 raise ValueError(f"request {r.rid} names unknown tenant "
                                  f"{r.tenant!r}; have "
                                  f"{sorted(self._lane_of)}")
-            if r.kind != "dlrm":
-                raise NotImplementedError(
-                    f"request {r.rid}: {r.kind!r} requests are not ported "
-                    "yet (ROADMAP A8)")
+            if (r.kind == "dlrm") != self.is_dlrm:
+                raise ValueError(
+                    f"request {r.rid}: a {self.cfg.family} engine does not "
+                    f"serve {r.kind!r} requests")
         if warmup:
             self.warmup(pending[0] if pending else None)
         return self._run_loop(pending, telemetry, max_iterations)
@@ -292,19 +494,30 @@ class ServingEngine:
                         prompt_len=req.prompt_len, tokens_out=0,
                         queue_wait_s=0.0, aborted=True, rejected=True))
                 i += 1
-            if not self.queue:
+            active = any(lane.batcher.occupancy() for lane in self.lanes)
+            if not self.queue and not active:
                 if i >= len(pending):
                     break
                 # idle: jump the virtual clock to the next arrival
                 self.clock_s = max(self.clock_s, pending[i].arrival_s)
                 continue
 
-            # 2. admissions, each a one-shot protected forward
+            # 2. admissions: a one-shot dlrm forward, or an LM prefill
             for lane in self.lanes:
                 for slot in lane.batcher.admit(self.queue, self.clock_s,
                                                accept=lane.accepts):
-                    lane.batcher.retire(slot.index)
-                    self._do_dlrm(lane, slot, telemetry)
+                    if slot.request.kind == "dlrm":
+                        lane.batcher.retire(slot.index)
+                        self._do_dlrm(lane, slot, telemetry)
+                    else:
+                        self._do_prefill(lane, slot, telemetry)
+                for slot in lane.batcher.retire_finished():
+                    self._record_slot(slot, telemetry)
+
+            # 3. one decode step per lane with active slots
+            for lane in self.lanes:
+                if lane.batcher.occupancy():
+                    self._do_decode(lane, telemetry)
             self.global_step += 1
 
         telemetry.finalize_injections()

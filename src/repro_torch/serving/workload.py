@@ -11,9 +11,8 @@ on/off, and trace replay — and two request kinds ride on them:
   padded multi-hot layout of the JAX package's synthetic DLRM dataset
   (``dense [B, n_dense]``, ``bags [n_tables, B, max_pool]`` with −1 pads).
 
-The DLRM half of ``repro.serving.workload``, with its imports moved to
-the port (chat streams wait for the LM serving slice): the same seed
-gives the same stream in both packages.
+A copy of ``repro.serving.workload`` with its imports moved to the port:
+the same seed gives the same stream in both packages.
 
 Everything is a pure function of the seed: a soak re-run regenerates the
 exact request stream, so faulty and clean runs are step-for-step
@@ -120,7 +119,42 @@ def sample_tenants(weights: Dict[str, float], n: int,
     return [names[i] for i in rng.choice(len(names), size=n, p=w / w.sum())]
 
 
+def _clipped_lognormal(rng, mean: float, sigma: float, lo: int,
+                       hi: int, size: int) -> np.ndarray:
+    x = rng.lognormal(np.log(max(mean, 1)), sigma, size)
+    return np.clip(np.round(x), lo, hi).astype(np.int64)
+
+
 # ------------------------------ streams -------------------------------------
+
+def chat_stream(n: int, *, tenants: Dict[str, float], rate_rps: float = 20.0,
+                arrival: str = "poisson", seed: int = 0,
+                mean_prompt: int = 32, max_prompt: int = 64,
+                mean_output: int = 12, max_output: int = 32,
+                trace: Optional[Sequence[float]] = None,
+                burst_size: int = 8, prefix_len: int = 0,
+                prefix_seed: Optional[int] = None) -> List[Request]:
+    """LM chat request stream with sampled prompt/output lengths.
+
+    ``prefix_len``/``prefix_seed`` give every request the same opening
+    system prompt (prompt lengths are floored at ``prefix_len`` so the
+    prefix is always fully present)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0xC4A7]))
+    times = make_arrivals(arrival, rate_rps, n, rng, trace=trace,
+                          burst_size=burst_size)
+    who = sample_tenants(tenants, n, rng)
+    plens = _clipped_lognormal(rng, mean_prompt, 0.4, 4, max_prompt, n)
+    olens = _clipped_lognormal(rng, mean_output, 0.5, 1, max_output, n)
+    if prefix_len > 0:
+        plens = np.maximum(plens, min(prefix_len, max_prompt))
+    return [Request(rid=i, tenant=who[i], arrival_s=float(times[i]),
+                    kind="chat", prompt_len=int(plens[i]),
+                    max_new_tokens=int(olens[i]),
+                    seed=int(rng.integers(0, 2**31 - 1)),
+                    prefix_len=prefix_len if prefix_seed is not None else 0,
+                    prefix_seed=prefix_seed)
+            for i in range(n)]
+
 
 def dlrm_stream(n: int, *, tenants: Dict[str, float], rate_rps: float = 50.0,
                 arrival: str = "poisson", seed: int = 0,
@@ -162,4 +196,4 @@ def stream_span_s(requests: Sequence[Request]) -> float:
 
 __all__ = ["Request", "ARRIVALS", "poisson_arrivals", "bursty_arrivals",
            "trace_arrivals", "make_arrivals", "sample_tenants",
-           "dlrm_stream", "stream_span_s"]
+           "chat_stream", "dlrm_stream", "stream_span_s"]

@@ -78,3 +78,99 @@ def test_eb_kernel_matches_plain(rng, dev, tables, rows, d, bags, pool,
     torch.testing.assert_close(out_k.r, out_p.r, rtol=1e-5, atol=1e-5)
     assert torch.equal(out_k.err_bags, out_p.err_bags)
     assert int(out_k.err_count.sum()) == 0
+
+
+def _wkv_args(rng, b, s, h, dh, dev, heavy=True):
+    from repro_torch.layers.rwkv6 import LOG_W_MIN
+    lo = LOG_W_MIN if heavy else -1.0
+    arrs = (rng.standard_normal((b, s, h, dh)),
+            rng.standard_normal((b, s, h, dh)),
+            rng.standard_normal((b, s, h, dh)),
+            rng.uniform(lo, 0.0, (b, s, h, dh)),
+            rng.standard_normal((h, dh)) * 0.5,
+            rng.standard_normal((b, h, dh, dh)) * 0.1)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("b,s,h,dh,chunk", [(1, 64, 4, 16, 16),
+                                            (1, 64, 32, 64, 16),
+                                            (2, 64, 3, 8, 8),
+                                            (3, 48, 5, 40, 16)])
+def test_wkv_kernel_matches_plain(rng, dev, b, s, h, dh, chunk, heavy):
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
+    from repro_torch.layers.rwkv6 import wkv_recurrent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _wkv_args(rng, b, s, h, dh, dev, heavy)
+    before = wkv6_chunked_cuda.launches
+    y, st = ops.wkv_chunked(*args, chunk=chunk)
+    assert wkv6_chunked_cuda.launches == before + 1
+    # the JAX tests' tolerance: the kernel sums in another order
+    for want in (ref.wkv_chunked_ref(*args, chunk=chunk),
+                 wkv_recurrent(*args)):
+        torch.testing.assert_close(y, want[0], rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(st, want[1], rtol=2e-4, atol=2e-4)
+
+
+def test_wkv_kernel_worst_case_and_limits(dev):
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
+    from repro_torch.layers.rwkv6 import LOG_W_MIN, wkv_recurrent
+    ones = torch.ones((1, 64, 32, 64), device=dev)
+    lw = torch.full_like(ones, LOG_W_MIN)
+    u, s0 = torch.ones((32, 64), device=dev), torch.ones((1, 32, 64, 64),
+                                                          device=dev)
+    y, st = wkv6_chunked_cuda(ones, ones, ones, lw, u, s0, chunk=16)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, wkv_recurrent(ones, ones, ones, lw, u,
+                                                s0)[0], rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="envelope"):
+        wkv6_chunked_cuda(ones, ones, ones, lw, u, s0, chunk=32)
+    wide = torch.ones((1, 16, 1, 80), device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        wkv6_chunked_cuda(wide, wide, wide, wide,
+                          torch.ones((1, 80), device=dev),
+                          torch.ones((1, 1, 80, 80), device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_prefill_state_feeds_decode_on_card(dev, dtype):
+    """The smoke RWKV on the card (K1-K4) against the plain CPU run: the
+    prefill's state (from K4) handed to 3 decode steps gives the same
+    fault counters, and logits and state within 1e-4 of their scale (the
+    same code on both sides; only the summation order differs)."""
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.core.policy import metrics_to_ints
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_cfg(get_arch("rwkv6-1.6b"))
+    model = build_model(cfg)
+    p_cpu = model.init(0, device="cpu")
+    p_dev = _to(p_cpu, dev)
+    ctx = Ctx(quant=True, wkv_chunk=16,
+              compute_dtype=getattr(torch, dtype))
+    tol = 1e-4
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    lc, cc, rc = model.prefill(p_cpu, {"tokens": tokens}, ctx)
+    ld, cd, rd = model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx)
+    for step in range(4):
+        assert metrics_to_ints(rc.as_metrics()) == \
+            metrics_to_ints(rd.as_metrics())
+        scale = float(lc.float().abs().max())
+        assert float((ld.float().cpu() - lc.float()).abs().max()) \
+            <= tol * scale
+        for k in cc:
+            s_scale = float(cc[k].abs().max())
+            assert float((cd[k].cpu() - cc[k]).abs().max()) <= tol * s_scale
+        if step == 3:
+            break
+        nxt = torch.argmax(lc.float()[:, :cfg.vocab], -1).to(torch.int32)
+        lc, cc, rc = model.decode(p_cpu, cc, nxt, None, ctx)
+        ld, cd, rd = model.decode(p_dev, cd, nxt.to(dev), None, ctx)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

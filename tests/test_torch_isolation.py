@@ -34,9 +34,12 @@ def _imported_roots(path):
 def test_port_sources_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for must in ("core/abft_gemm.py", "kernels/ops.py", "protect/runtime.py",
-                 "models/dlrm.py", "serving/engine.py", "launch/serve.py"):
+                 "models/dlrm.py", "models/rwkv.py", "layers/rwkv6.py",
+                 "kernels/wkv6_chunked.py", "serving/engine.py",
+                 "launch/serve.py"):
         assert must in names
-    for src in ("quantize_rows.cu", "abft_qgemm.cu", "abft_embeddingbag.cu"):
+    for src in ("quantize_rows.cu", "abft_qgemm.cu", "abft_embeddingbag.cu",
+                "wkv6_chunked.cu"):
         assert (PORT / "csrc" / src).is_file()
     assert (ROOT / "chip_smoke.py").is_file()
 
