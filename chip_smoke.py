@@ -16,7 +16,9 @@ non-zero; nothing is caught and passed over):
    plain PyTorch version at the main path's shapes and at one larger
    shape: integers bit-exact, floats within the stated tolerance, and a
    flipped weight bit and a flipped high table bit flagged exactly as the
-   plain version flags them;
+   plain version flags them.  K1 runs every layer in int8 and uint8, with
+   and without the column check, plus an aligned RWKV shape split across
+   a cluster and an operand off 16-byte alignment;
 4. serve 8 ``dlrm_stream`` requests through ``ServingEngine`` under the
    default plan: every request completes, all fault counters are 0, every
    kernel launched; then one request with a flipped weight bit must show
@@ -44,9 +46,12 @@ non-zero; nothing is caught and passed over):
    the plain run on the CPU (same counters, logits within the stated
    fraction of their scale);
 8. time K4 and its plain version at the prefill shape and at
-   (4, 4096, 32, 64), K1 and K3 at each GEMM shape of a step, the
-   prefill and decode steps, and the device-busy share of a few served
-   requests.
+   (4, 4096, 32, 64); K1 at each GEMM shape of a step with its weights
+   cold (cycling the layers) and warm, beside ``torch._int_mm`` on the
+   same cold weights and the byte bound, and under every split count of
+   its cluster (the evidence for the plan's rule); K3 at each shape; the
+   prefill and decode steps, and the device-busy and K1 shares of a few
+   served requests.
 
 The line before the last is ``{"kernels": [...]}``: ``launches`` is the
 count of the kernel's own path (DLRM for K1-K3, RWKV for K4), and
@@ -160,14 +165,18 @@ def profile_requests(torch, engine, requests) -> dict:
         return {"error": repr(e)}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     device_ms = sum(t for t, _ in by_name.values())
+    k1_ms = sum(t for k, (t, _) in by_name.items() if "abft_qgemm_kernel" in k)
     out = {"requests": len(requests), "wall_ms": wall_ms,
            "device_ms": device_ms,
            "busy_share": device_ms / wall_ms if wall_ms else None,
+           "k1_ms": k1_ms,
+           "k1_share": k1_ms / device_ms if device_ms else None,
            "kernels_per_request": sum(c for _, c in by_name.values())
            / len(requests),
            "top": [{"name": k, "ms": t, "count": c} for k, (t, c) in top]}
     log(f"profile of {len(requests)} requests: device {device_ms:.3f} ms of "
-        f"{wall_ms:.3f} ms of request wall time; top: "
+        f"{wall_ms:.3f} ms of request wall time, K1 {k1_ms:.3f} ms of it; "
+        f"top: "
         + "; ".join(f"{k[:48]} {t:.3f}ms x{c}" for k, (t, c) in top[:8]))
     return out
 
@@ -265,7 +274,8 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     from repro_torch.core.policy import metrics_to_ints
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
-    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    from repro_torch.kernels.abft_qgemm import BK as K1_BK, \
+        abft_qgemm_cuda, launch_plan
     from repro_torch.kernels.quantize_rows import quantize_rows_cuda
     from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
     from repro_torch.layers import rwkv6 as rk
@@ -298,12 +308,14 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     # ------------------- 6. kernels at the RWKV path's shapes ---------------
     gen = torch.Generator(device=dev).manual_seed(2)
     layers = params["layers"]
-    gemms = [("tm.wr", layers["tm"]["wr"]["w_packed"][0], (64, 4)),
-             ("cm.wk", layers["cm"]["wk"]["w_packed"][0], (64, 4)),
-             ("cm.wv", layers["cm"]["wv"]["w_packed"][0], (64, 4)),
-             ("lm_head", params["head"]["w_packed"], (1, 4))]
+    # each GEMM shape with its weights of every layer, [layers, k, n + 128]
+    gemms = [("tm.wr", layers["tm"]["wr"]["w_packed"], (64, 4)),
+             ("cm.wk", layers["cm"]["wk"]["w_packed"], (64, 4)),
+             ("cm.wv", layers["cm"]["wv"]["w_packed"], (64, 4)),
+             ("lm_head", params["head"]["w_packed"][None], (1, 4))]
     checked = []
-    for name, bp, ms_ in gemms:
+    for name, stack, ms_ in gemms:
+        bp = stack[0]
         k, n = bp.shape[0], bp.shape[1] - LANE
         checked.append(f"{name} (k, n) = ({k}, {n}) at m = {ms_}")
         for m in ms_:
@@ -314,14 +326,18 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
                                   ("q", "alpha", "beta")):
                 if not torch.equal(g, w):
                     fail(f"quantize_rows: {what} differs at {m}x{k}")
-            got, want = abft_qgemm_cuda(q[0], bp), ref.abft_qgemm_ref(q[0], bp)
-            for g, w, what in zip(got, want, ("C", "err_rows")):
-                if not torch.equal(g, w):
-                    fail(f"abft_qgemm: {what} differs at {name} m={m} "
-                         f"(k={k}, n={n})")
-            if int(got[1].sum()):
-                fail(f"abft_qgemm flagged clean operands at {name}")
-    log("K1 and K3 bit-exact at " + "; ".join(checked))
+            for col in (False, True):
+                got = abft_qgemm_cuda(q[0], bp, with_colcheck=col)
+                want = ref.abft_qgemm_ref(q[0], bp, with_colcheck=col)
+                for g, w, what in zip(got, want,
+                                      ("C", "err_rows", "col_check")):
+                    if not torch.equal(g, w):
+                        fail(f"abft_qgemm: {what} differs at {name} m={m} "
+                             f"(k={k}, n={n})")
+                if int(got[1].sum()):
+                    fail(f"abft_qgemm flagged clean operands at {name}")
+    log("K1 (C, err_rows, column check) and K3 bit-exact at "
+        + "; ".join(checked))
 
     emb = params["embed"]
     enc1 = (emb["table"][None], emb["alphas"][None], emb["betas"][None])
@@ -594,22 +610,85 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         f"{big_bound[0]:.4f} ms, plain {k4_big['plain_ms']:.3f} ms)")
     # K1 and K3 at every GEMM shape of an RWKV step (prefill m = 64,
     # decode m = 4; the head sees m = 1 in a prefill): where a step's
-    # device time goes
+    # device time goes.  K1 as the path finds its weights, cold: each call
+    # takes the next layer's slice (24 slices of each shape hold 100-350
+    # MB, above the 50 MB L2; the head's 134 MB is cold by size), and warm
+    # (one slice again and again).  The yardstick is torch._int_mm on the
+    # same cold slices, padded to n + 1 -> a multiple of 8 columns and to
+    # m = 32 rows where m <= 16 (its shape limits).
     per_shape = {}
-    for name, bp, ms_ in gemms:
-        k, n = bp.shape[0], bp.shape[1] - LANE
+    for name, stack, ms_ in gemms:
+        k, n = stack.shape[1], stack.shape[2] - LANE
+        n8 = -(-(n + 1) // 8) * 8
+        padded = [w[:, :n8].contiguous() for w in stack]
         for m in ms_:
             x = torch.randn((m, k), generator=gen, device=dev)
             q = quantize_rows_cuda(x)[0]
+            a_pad = torch.zeros((max(m, 32), k), dtype=torch.int8,
+                                device=dev)
+            a_pad[:m] = q
+            cold = itertools.cycle(list(stack))
+            cold_pad = itertools.cycle(padded)
+            reps = 2 * len(stack) if len(stack) > 1 else 10
             kb = m * k + k * (n + 1) + 4 * m * n + 4 * m
-            per_shape[f"{name} m={m} k={k} n={n}"] = {
-                "abft_qgemm_ms": timer.ms(lambda: abft_qgemm_cuda(q, bp)),
-                "abft_qgemm_bound_ms": bound_ms(
-                    kb, 2 * m * k * (n + 1), INT8_OPS_PER_S)[0],
+            b_ms = bound_ms(kb, 2 * m * k * (n + 1), INT8_OPS_PER_S)[0]
+            plan = launch_plan(m, k, n, a_addr=q.data_ptr(),
+                               b_addr=stack[0].data_ptr())
+            row = {
+                "abft_qgemm_cold_ms": timer.ms(
+                    lambda: abft_qgemm_cuda(q, next(cold)), reps),
+                "abft_qgemm_warm_ms": timer.ms(
+                    lambda: abft_qgemm_cuda(q, stack[0])),
+                "library_cold_ms": timer.ms(
+                    lambda: torch._int_mm(a_pad, next(cold_pad)), reps),
+                "abft_qgemm_bound_ms": b_ms,
+                "plan": {"bm": plan.bm, "splits": plan.splits,
+                         "blocks": plan.blocks, "aligned": plan.aligned},
                 "quantize_rows_ms": timer.ms(lambda: quantize_rows_cuda(x))}
-    log("K1 / K3 per RWKV shape (ms): " + "; ".join(
-        f"{k_}: {v['abft_qgemm_ms']:.4f} / {v['quantize_rows_ms']:.4f}"
-        for k_, v in per_shape.items()))
+            row["bound_share"] = b_ms / row["abft_qgemm_cold_ms"]
+            per_shape[f"{name} m={m} k={k} n={n}"] = row
+        del padded
+    # the evidence for the plan's split rule: K1 cold at each layer shape
+    # under every cluster size that splits k evenly enough (each result
+    # also held against the plain version), beside the plan's choice
+    sweep = {}
+    for name, stack, ms_ in gemms[:3]:
+        k, n = stack.shape[1], stack.shape[2] - LANE
+        for m in ms_:
+            q = quantize_rows_cuda(torch.randn((m, k), generator=gen,
+                                               device=dev))[0]
+            base = launch_plan(m, k, n, a_addr=q.data_ptr(),
+                               b_addr=stack[0].data_ptr())
+            want = ref.abft_qgemm_ref(q, stack[0])
+            ksteps = -(-k // K1_BK)
+            by_splits = {}
+            for s_ in range(1, 9):
+                per_ = -(-ksteps // s_)
+                if -(-ksteps // per_) != s_:
+                    continue
+                p_ = base._replace(splits=s_, k_per_split=per_ * K1_BK)
+                got = abft_qgemm_cuda(q, stack[0], plan=p_)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"abft_qgemm with {s_} splits differs at {name} "
+                         f"m={m}")
+                cold = itertools.cycle(list(stack))
+                by_splits[s_] = timer.ms(
+                    lambda: abft_qgemm_cuda(q, next(cold), plan=p_),
+                    2 * len(stack))
+            sweep[f"{name} m={m}"] = {"plan_splits": base.splits,
+                                      "blocks_per_split": base.tiles_n,
+                                      "ms_by_splits": by_splits}
+    log("K1 split sweep, cold ms by cluster size (the plan's in brackets): "
+        + "; ".join(f"{k_} [{v['plan_splits']}]: " + ", ".join(
+            f"{s_}: {t:.4f}" for s_, t in v["ms_by_splits"].items())
+            for k_, v in sweep.items()))
+    log("K1 per RWKV shape, ms cold / warm / torch._int_mm cold / bound "
+        "(share); K3 ms: " + "; ".join(
+            f"{k_}: {v['abft_qgemm_cold_ms']:.4f} / "
+            f"{v['abft_qgemm_warm_ms']:.4f} / {v['library_cold_ms']:.4f} / "
+            f"{v['abft_qgemm_bound_ms']:.5f} ({v['bound_share']:.2f}); "
+            f"{v['quantize_rows_ms']:.4f}"
+            for k_, v in per_shape.items()))
     prof_reqs = [Request(rid=i, tenant="default", arrival_s=0.0,
                          prompt_len=64, max_new_tokens=4, seed=40 + i)
                  for i in range(4)]
@@ -619,7 +698,7 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         f"p50 {per['ttft_ms']['p50']:.2f} ms, per token p50 "
         f"{per['per_token_ms']['p50']:.2f} ms")
     details["rwkv"] = {"serve": serve, "k4_checks": k4,
-                       "gemm_shapes": per_shape,
+                       "gemm_shapes": per_shape, "k1_split_sweep": sweep,
                        "k4_large": {big_label: k4_big},
                        "small_card_vs_cpu": small_out}
     return {"k4_row": k4_row, "launches": launches}
@@ -647,10 +726,10 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.dlrm import CONFIG, EXTRAS
-    from repro_torch.core import LANE, table_rowsums
+    from repro_torch.core import LANE, pack_encoded_b, table_rowsums
     from repro_torch.kernels import _build, ops as kops, ref
     from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
-    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda, launch_plan
     from repro_torch.kernels.quantize_rows import quantize_rows_cuda
     from repro_torch.protect import default_plan
     from repro_torch.serving import ServingEngine, TenantSpec, dlrm_stream
@@ -705,28 +784,49 @@ def main() -> int:
         return torch.randint(lo, hi, (rows, cols), generator=gen,
                              device=dev).to(dtype)
 
-    # K1: every layer at m = 10 (int8, the path's type) plus uint8 and the
-    # column check on one, and the larger m = 2048 shape on top.1
-    k1_cases = [(rand_i8(m, k), p["w_packed"], False)
-                for (k, _), p in zip(shapes, layers)]
-    k1_cases.append((rand_i8(m, 479, torch.uint8), layers[3]["w_packed"],
-                     True))
-    k1_cases.append((rand_i8(2048, 1024), layers[4]["w_packed"], True))
-    for a, bp, col in k1_cases:
-        got = abft_qgemm_cuda(a, bp, with_colcheck=col)
-        want = ref.abft_qgemm_ref(a, bp, with_colcheck=col)
-        for g, w, what in zip(got, want, ("C", "err_rows", "col_check")):
-            check_equal("abft_qgemm", g, w, f"{what} at {tuple(a.shape)}")
-        if int(got[1].sum()) != 0:
-            fail("abft_qgemm flagged clean operands")
+    # K1: every layer at m = 10 in int8 (the path's type) and uint8, each
+    # with and without the column check (two variants of the kernel); an
+    # aligned RWKV shape split across a cluster; A off 16-byte alignment;
+    # and the larger m = 2048 shape on top.1
+    k1_main = [(rand_i8(m, k), p["w_packed"]) for (k, _), p in
+               zip(shapes, layers)]
+    k1_cases = k1_main + [(rand_i8(m, k, torch.uint8), p["w_packed"])
+                          for (k, _), p in zip(shapes, layers)]
+    bp_rwkv = pack_encoded_b(torch.randint(-127, 128, (2048, 2048),
+                                           generator=gen, device=dev)
+                             .to(torch.int8))
+    k1_cases.append((rand_i8(64, 2048), bp_rwkv))
+    a_off = torch.empty(64 * 2048 + 16, dtype=torch.int8, device=dev)
+    a_off = a_off[1:1 + 64 * 2048].view(64, 2048)
+    a_off.copy_(rand_i8(64, 2048))
+    k1_cases.append((a_off, bp_rwkv))
+    a_big, bp_big = rand_i8(2048, 1024), layers[4]["w_packed"]
+    k1_cases.append((a_big, bp_big))
+    paths = set()
+    for a, bp in k1_cases:
+        plan = launch_plan(a.shape[0], a.shape[1], bp.shape[1] - LANE,
+                           a_addr=a.data_ptr(), b_addr=bp.data_ptr())
+        paths.add((plan.bm, plan.splits, plan.aligned))
+        for col in (False, True):
+            got = abft_qgemm_cuda(a, bp, with_colcheck=col)
+            want = ref.abft_qgemm_ref(a, bp, with_colcheck=col)
+            for g, w, what in zip(got, want, ("C", "err_rows", "col_check")):
+                check_equal("abft_qgemm", g, w,
+                            f"{what} at {tuple(a.shape)} {a.dtype} "
+                            f"(k, n) = {(bp.shape[0], bp.shape[1] - LANE)} "
+                            f"col_check={col}")
+            if int(got[1].sum()) != 0:
+                fail("abft_qgemm flagged clean operands")
     bad_bp = layers[3]["w_packed"].clone()
     bad_bp[100, 200] ^= 0x08                       # payload bit, stale lane
-    a = k1_cases[3][0]
+    a = k1_main[3][0]
     got, want = abft_qgemm_cuda(a, bad_bp), ref.abft_qgemm_ref(a, bad_bp)
     check_equal("abft_qgemm", got[1], want[1], "err_rows under a flip")
     if int(got[1].sum()) == 0:
         fail("abft_qgemm missed a flipped weight bit")
-    log(f"K1 bit-exact on {len(k1_cases)} shapes; flip flags "
+    log(f"K1 bit-exact in C, err_rows and the column check on "
+        f"{len(k1_cases)} cases, each with and without the check; plans "
+        f"(bm, splits, aligned) {sorted(paths)}; flip flags "
         f"{int(got[1].sum())}/{m} rows as the plain version does")
 
     # K3: the input width of every layer at m = 10 (bf16-rounded, as the
@@ -851,7 +951,6 @@ def main() -> int:
 
     # ------------------------------ 5. times --------------------------------
     timer = Timer(torch)
-    k1_main = k1_cases[:8]
     k3_main = k3_inputs[:8]
     req_bag_sets = [torch.from_numpy(r.payload["bags"]).to(dev)
                     for r in stream(20, 21)]
@@ -877,7 +976,7 @@ def main() -> int:
 
     def int_mm_cases():
         out = []
-        for (a, bp, _), (k, n) in zip(k1_main, shapes):
+        for (a, bp), (k, n) in zip(k1_main, shapes):
             kp, np_ = -(-k // 8) * 8, -(-(n + 1) // 8) * 8
             ap = torch.zeros((32, kp), dtype=torch.int8, device=dev)
             ap[:m, :k] = a
@@ -896,8 +995,8 @@ def main() -> int:
         library_k1 = None
     rows = [
         ("abft_qgemm", "src/repro_torch/csrc/abft_qgemm.cu",
-         timer.ms(seq(lambda a, b, c: abft_qgemm_cuda(a, b), k1_main)),
-         timer.ms(seq(lambda a, b, c: ref.abft_qgemm_ref(a, b), k1_main)),
+         timer.ms(seq(abft_qgemm_cuda, k1_main)),
+         timer.ms(seq(ref.abft_qgemm_ref, k1_main)),
          bound_ms(k1_bytes, k1_ops, INT8_OPS_PER_S), library_k1),
         ("abft_embeddingbag", "src/repro_torch/csrc/abft_embeddingbag.cu",
          timer.ms(eb_fn(abft_eb_cuda)), timer.ms(eb_fn(ref.abft_eb_ref)),
@@ -921,8 +1020,9 @@ def main() -> int:
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
             "per": per[name]})
 
-    # the larger shapes, for the record
-    a_big, bp_big, _ = k1_cases[-1]
+    # the larger shapes, for the record (the library call's operand is
+    # padded to n + 8 columns outside the timed region)
+    b_big = bp_big[:, :1032].contiguous()
     big_bag_sets = [big_bags] + [
         torch.randint(0, ex.table_rows, big_bags.shape, generator=gen,
                       device=dev, dtype=torch.int32) for _ in range(3)]
@@ -933,9 +1033,8 @@ def main() -> int:
             "ms": timer.ms(lambda: abft_qgemm_cuda(a_big, bp_big), 10),
             "plain_ms": timer.ms(lambda: ref.abft_qgemm_ref(a_big, bp_big),
                                  10),
-            "library_ms": (timer.ms(lambda: torch._int_mm(
-                a_big, bp_big[:, :1032].contiguous()), 10)
-                if library_k1 is not None else None),
+            "library_ms": (timer.ms(lambda: torch._int_mm(a_big, b_big), 10)
+                           if library_k1 is not None else None),
             "bound": bound_ms(2048 * 1024 + 1024 * 1025 + 4 * 2048 * 1028,
                               2 * 2048 * 1024 * 1025, INT8_OPS_PER_S)},
         "quantize_rows 2048x1024": {

@@ -4,29 +4,39 @@ Replaces ``src/repro/kernels/abft_qgemm.py::abft_qgemm_pallas``.
 Source: ``csrc/abft_qgemm.cu``; plain version:
 :func:`repro_torch.kernels.ref.abft_qgemm_ref`.
 
-What bounds it on the H100: bytes, on the DLRM path.  At m = 10 each
-weight byte is used in 10 multiply-adds, far below the card's ~590
-int8 operations per byte of HBM traffic, so the least time is reading
-B'[:, :n+1] once.  At large m (the paper's Fig. 5 GEMMs) it turns to
-operations, where this first version — integer multiply-adds on the CUDA
-cores, not the tensor cores — sits far from the int8 peak; ``wgmma`` and
-TMA are the later work.
+What bounds it on the H100: bytes.  Every serving shape has m <= 64
+(RWKV prefill 64, decode 4, the head 1 in a prefill; DLRM 10), so each
+weight byte feeds at most 128 int8 operations, far below the ~590 per
+byte at which the tensor cores rather than HBM would be the limit.  The
+least time is one read of ``B'[:, :n+1]``.
 
-Design: 64 x 64 output tiles over (m, n+1) — only column n of the
-128-lane checksum block is computed, the other 127 lanes are TPU padding.
-The Pallas kernel carries the row sum across N tiles in grid order; here
-blocks run in any order, so each adds its tile's ``Σ (C mod 127)``
-(already reduced below 127) into an int32 row buffer with ``atomicAdd``
-and a finisher compares it with ``C[:, n] mod 127``.  The optional column
-check is a matvec over the operand tiles accumulated with unsigned
-atomics, exact in any order.  uint8 A is multiplied as unsigned values,
-so no zero-point correction is needed.  Ragged edges are masked in the
-kernel; nothing is padded or copied.
+Design: stream B' once, at full width, from enough SMs.  Tensor cores
+(``mma.sync`` m16n8k32, u8 x s8 for uint8 A, so no zero-point shift) on
+tiles of 128 columns x 128 k rows, which the TMA copies into a 4-stage
+ring of shared memory.  B' stays N-major as stored (it is the very memory
+a fault campaign corrupts); the kernel transposes 4 x 4 bytes in
+registers to the K-major fragments.  At m <= 64 one row tile covers m,
+so K is split across a thread-block cluster of up to 8 blocks, reduced
+through distributed shared memory, as far as one wave of blocks allows
+(one block an SM: an SM streams at about its share of HBM).  The row
+verify across N tiles adds per-row ``Σ (C mod 127)`` partials with
+atomics, and the last block of a row tile to arrive sets the flags and
+leaves the row sums and its ticket zeroed, in a buffer kept per device
+and stream: one kernel per call (plus a zeroed column-check buffer under
+the ``correct`` policy).  Ragged shapes (k or ldb off a multiple of 16,
+an operand off 16-byte alignment, which the TMA cannot map) stage the
+same tiles with masked byte loads in the same kernel.
+
+:func:`launch_plan` makes the launch plan (row tile, split count, the
+aligned or ragged path) on the host, so the CPU tests check it; the C
+entry checks it again.  A shape the kernel does not take raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,23 +45,114 @@ from repro_torch.kernels import _build
 
 _NAME = "abft_qgemm"
 
+#: the H100's streaming multiprocessors: the split aims at one wave of
+#: blocks, at most one on each
+SMS = 132
+#: the cluster sizes the plan takes, largest first: at most the portable 8,
+#: and 5 and 7 measured slower than 6 in chip_smoke.py's split sweep
+CLUSTER_SIZES = (8, 6, 4, 3, 2, 1)
+BN = 128                # tile columns (one 128-byte line of B' per k row)
+BK = 128                # k rows per pipeline stage; a split is whole stages
+STAGES = 4
+MAX_K = 2**16           # int32 sums of |a| <= 255 times |b| <= 128 stay exact
+MAX_ROW_TILES = 65535   # the grid's y dimension
+
+
+class QgemmPlan(NamedTuple):
+    bm: int             # rows per tile: 16, 32 or 64
+    tiles_m: int
+    tiles_n: int        # over the n + 1 columns C and the checksum need
+    splits: int         # K splits = the thread-block cluster size
+    k_per_split: int    # a multiple of BK
+    aligned: bool       # 16-byte cp.async copies (else masked byte loads)
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+    @property
+    def smem_bytes(self) -> int:
+        # 128-byte rows of A and B' per stage, and the slack that aligns
+        # the ring to 1024 bytes
+        return STAGES * (self.bm + BK) * BN + 1024
+
+    def k_ranges(self, k: int):
+        """The ``[start, end)`` k rows of each split."""
+        return [(s * self.k_per_split, min(k, (s + 1) * self.k_per_split))
+                for s in range(self.splits)]
+
+
+def launch_plan(m: int, k: int, n: int, *, a_addr: int = 0,
+                b_addr: int = 0) -> QgemmPlan:
+    """The launch of ``A [m, k] @ B' [k, n + 128]`` with A and B' at
+    device addresses ``a_addr`` and ``b_addr`` (only their alignment is
+    read).  Raises ``ValueError`` for a shape the kernel does not take."""
+    return _plan(m, k, n, a_addr % 16 == 0 and b_addr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(m: int, k: int, n: int, ptrs_aligned: bool) -> QgemmPlan:
+    if m < 1 or k < 1 or n < 1:
+        raise ValueError(f"empty GEMM m={m} k={k} n={n}")
+    bm = 16 if m <= 16 else 32 if m <= 32 else 64
+    tiles_m = math.ceil(m / bm)
+    if k > MAX_K or tiles_m > MAX_ROW_TILES:
+        raise ValueError(f"unsupported GEMM shape m={m} k={k} n={n}")
+    tiles_n = math.ceil((n + 1) / BN)
+    aligned = ptrs_aligned and k % 16 == 0 and (n + LANE) % 16 == 0
+    # the largest cluster that keeps the grid to one wave; a whole SM
+    # streams B' at about its share of HBM, so a second block on an SM
+    # doubles that SM's time (chip_smoke.py's split sweep)
+    ksteps = math.ceil(k / BK)
+    for splits in CLUSTER_SIZES:
+        if splits > ksteps or (splits > 1 and
+                               tiles_m * tiles_n * splits > SMS):
+            continue
+        steps_per = math.ceil(ksteps / splits)
+        if math.ceil(ksteps / steps_per) == splits:     # no split empty
+            break
+    return QgemmPlan(bm, tiles_m, tiles_n, splits, steps_per * BK, aligned)
+
+
+#: per (device, stream): int32 [rows | tickets | check], the row sums and
+#: tickets zero at rest (each launch leaves the ones it used zeroed, and
+#: launches on one stream run in order)
+_SCRATCH: dict = {}
+
+
+def _scratch(dev: torch.device, stream: int, m: int, tiles_m: int):
+    """Pointers to zeroed row sums [m] and tickets [tiles_m] and to the
+    check scratch [m], in the stream's persistent buffer (grown, zeroed,
+    when too small)."""
+    buf, rows, tickets = _SCRATCH.get((dev.index, stream), (None, 0, 0))
+    if m > rows or tiles_m > tickets:
+        rows, tickets = max(m, 2 * rows), max(tiles_m, 2 * tickets)
+        buf = torch.zeros((2 * rows + tickets,), dtype=torch.int32,
+                          device=dev)
+        _SCRATCH[(dev.index, stream)] = (buf, rows, tickets)
+    base = buf.data_ptr()
+    return base, base + 4 * rows, base + 4 * (rows + tickets)
+
 
 @functools.cache
 def _launch():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.entry(_NAME, "abft_qgemm_launch",
-                        [p, i, p, p, p, p, p, i, i, i, i, p])
+                        [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                         p])
 
 
 def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
-                    with_colcheck: bool = False):
+                    with_colcheck: bool = False,
+                    plan: Optional[QgemmPlan] = None):
     """Run the fused ABFT GEMM on the card.
 
     ``a_q``: int8 or uint8 [m, k]; ``b_packed``: int8 [k, n + 128] from
     :func:`repro_torch.core.pack_encoded_b`; both contiguous CUDA tensors
     on one device.  Returns ``(C int32 [m, n], err_rows int32 [m])``, plus
     the Eq.-1 column check ``colsum(A) @ B`` (int32 [n]) when
-    ``with_colcheck``.
+    ``with_colcheck``.  ``plan`` replaces :func:`launch_plan`'s choice
+    (to measure the rule); the C entry refuses one that does not fit.
     """
     if not (a_q.is_cuda and b_packed.is_cuda) or a_q.device != b_packed.device:
         raise ValueError("abft_qgemm_cuda needs both operands on one CUDA "
@@ -70,27 +171,27 @@ def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
     if k != k2 or n < 1 or k < 1:
         raise ValueError(f"shape mismatch: A {tuple(a_q.shape)}, "
                          f"B' {tuple(b_packed.shape)}")
-    # int32 accumulation of |a| <= 255 times |b| <= 128 stays exact below
-    # k = 2**16; the grid's y dimension holds at most 65535 row tiles
-    if k > 2**16 or m > 65535 * 64:
-        raise ValueError(f"unsupported GEMM shape m={m} k={k} n={n}")
     dev = a_q.device
     c = torch.empty((m, n), dtype=torch.int32, device=dev)
     err = torch.empty((m,), dtype=torch.int32, device=dev)
-    col = (torch.empty((n,), dtype=torch.int32, device=dev)
-           if with_colcheck else None)
     if m == 0:
-        if col is not None:
-            col.zero_()
-            return c, err, col
+        if with_colcheck:
+            return c, err, torch.zeros((n,), dtype=torch.int32, device=dev)
         return c, err
-    scratch = torch.empty((2 * m,), dtype=torch.int32, device=dev)
+    if plan is None:
+        plan = launch_plan(m, k, n, a_addr=a_q.data_ptr(),
+                           b_addr=b_packed.data_ptr())
+    col = (torch.zeros((n,), dtype=torch.int32, device=dev)
+           if with_colcheck else None)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rowsum, ticket, check = _scratch(dev, stream, m, plan.tiles_m)
         rc = _launch()(a_q.data_ptr(), int(a_q.dtype == torch.uint8),
                        b_packed.data_ptr(), c.data_ptr(), err.data_ptr(),
-                       None if col is None else col.data_ptr(),
-                       scratch.data_ptr(), m, n, k, ldb,
-                       torch.cuda.current_stream().cuda_stream)
+                       rowsum, check, ticket,
+                       None if col is None else col.data_ptr(), m, n, k, ldb,
+                       plan.bm, plan.splits, plan.k_per_split,
+                       int(plan.aligned), stream)
     _build.check(_NAME, rc)
     abft_qgemm_cuda.launches += 1
     if with_colcheck:

@@ -29,19 +29,64 @@ def _packed(rng, k, n, dev):
     return pack_encoded_b(b).to(dev)
 
 
+def _misaligned(a):
+    """``a`` copied to one byte past a 16-byte boundary (still contiguous),
+    so the kernel must take its masked path."""
+    flat = torch.empty(a.numel() + 16, dtype=a.dtype, device=a.device)
+    out = flat[1:1 + a.numel()].view(a.shape)
+    out.copy_(a)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 1
+    return out
+
+
 @pytest.mark.parametrize("dtype", ["int8", "uint8"])
-@pytest.mark.parametrize("m,k,n", [(10, 13, 512), (10, 256, 1), (1, 64, 64),
-                                   (130, 70, 300), (65, 1024, 129)])
-def test_qgemm_kernel_bit_exact(rng, dev, m, k, n, dtype):
+@pytest.mark.parametrize("flip", ["middle", "last_split", "checksum"])
+@pytest.mark.parametrize("m,k,n,fill", [
+    (10, 13, 512, "random"), (10, 256, 1, "random"), (1, 64, 64, "random"),
+    (130, 70, 300, "random"), (65, 1024, 129, "random"),
+    # the RWKV serving shapes: split K across a cluster, the head unsplit
+    (64, 2048, 2048, "random"), (4, 7168, 2048, "random"),
+    (1, 2048, 65536, "random"),
+    # the extremes of the int32 sums and of the column check's wraparound
+    (64, 7168, 2048, "extreme"),
+    # A off 16-byte alignment at an otherwise aligned shape
+    (64, 2048, 2048, "misaligned")])
+def test_qgemm_kernel_bit_exact(rng, dev, m, k, n, fill, flip, dtype):
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda, launch_plan
     lo, hi = (-128, 128) if dtype == "int8" else (0, 256)
-    a = torch.from_numpy(rng.integers(lo, hi, size=(m, k)).astype(dtype))
-    a = a.to(dev)
-    bp = _packed(rng, k, n, dev)
+    if fill == "extreme":
+        a = np.full((m, k), lo if dtype == "int8" else hi - 1, dtype=dtype)
+        bp = pack_encoded_b(torch.full((k, n), -127,
+                                       dtype=torch.int8)).to(dev)
+    else:
+        a = rng.integers(lo, hi, size=(m, k)).astype(dtype)
+        bp = _packed(rng, k, n, dev)
+    a = torch.from_numpy(a).to(dev)
+    if fill == "misaligned":
+        a = _misaligned(a)
+        assert not launch_plan(m, k, n, a_addr=a.data_ptr(),
+                               b_addr=bp.data_ptr()).aligned
+    before = abft_qgemm_cuda.launches
     got = ops.abft_qgemm(a, bp, with_colcheck=True)
     want = ref.abft_qgemm_ref(a, bp, with_colcheck=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    bp[k // 2, n // 2] ^= 0x04                  # stale checksum lane
+    assert int(got[1].sum()) == 0
+    plain_path = ops.abft_qgemm(a, bp)         # the kernel without the check
+    for g, w in zip(plain_path, want[:2]):
+        assert torch.equal(g, w)
+    assert abft_qgemm_cuda.launches == before + 2
+    first, last = launch_plan(m, k, n).k_ranges(k)[-1]
+    row, lane = {"middle": (k // 2, n // 2),
+                 # a payload bit in the last K split's range
+                 "last_split": ((first + last) // 2, n - 1),
+                 # the checksum lane itself
+                 "checksum": (k // 2, n)}[flip]
+    # the flip shows in a row's check only where A[i, row] * 4 is not 0
+    # mod 127: take the next k row where some A[i, row] qualifies
+    live = (a.cpu().to(torch.int64) % 127 != 0).any(dim=0).nonzero()
+    row = int(live[live >= row].min())
+    bp[row, lane] ^= 0x04
     g_err = ops.abft_qgemm(a, bp)[1]
     assert torch.equal(g_err, ref.abft_qgemm_ref(a, bp)[1])
     assert int(g_err.sum()) > 0
