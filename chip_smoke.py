@@ -18,7 +18,12 @@ non-zero; nothing is caught and passed over):
    flipped weight bit and a flipped high table bit flagged exactly as the
    plain version flags them.  K1 runs every layer in int8 and uint8, with
    and without the column check, plus an aligned RWKV shape split across
-   a cluster and an operand off 16-byte alignment;
+   a cluster and an operand off 16-byte alignment; K3 every layer width
+   in bf16 (the path's type) and f32.  K1 is launched as the
+   programmatic dependent of the kernel before it, so it is also held
+   bit-exact right after K3, right after an in-place flip of a B' byte,
+   right after another K1 on the same scratch and right after the
+   ``correct`` policy's repair;
 4. serve 8 ``dlrm_stream`` requests through ``ServingEngine`` under the
    default plan: every request completes, all fault counters are 0, every
    kernel launched; then one request with a flipped weight bit must show
@@ -30,13 +35,18 @@ non-zero; nothing is caught and passed over):
 5. time each kernel, its plain version and (for K1) ``torch._int_mm`` by
    CUDA events at the main path's shapes, next to the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate),
-   and the per-request serve latency;
+   the time K3 adds in front of K1 (K3 -> K1 against K1 alone over a
+   request's layers), and the per-request serve latency; K3 and K4 must
+   be handed the path's bf16 activations, with no cast before them;
 6. make the full-width RWKV6-1.6B (24 layers, d 2048, 32 heads of 64,
    d_ff 7168, vocab 65536; random int8 weights from a seed) on the card
-   and hold K1 and K3 (bit-exact) at its four GEMM shapes, K2 on its
+   and hold K1 and K3 (bit-exact; K3 on bf16 and f32) at its four GEMM
+   shapes, K1 under PDL in the four positions of phase 3, K2 on its
    65536 x 2048 token table, and K4 (within 2e-4, and within 2e-4 of the
-   per-token recurrence) on the prefill's own inputs of every layer, on
-   heavy-decay random inputs and on the all-``LOG_W_MIN`` worst case;
+   per-token recurrence) on the prefill's own bf16 inputs of every layer
+   and at batch 1 and 2, dh 64 and 32, chunk 16 and 8, on heavy-decay
+   random inputs and on the all-``LOG_W_MIN`` worst case, in bf16 and
+   f32, staged by 16- and by 4-byte copies;
 7. serve 8 ``chat_stream`` requests (prompt 64, up to 32 new tokens, 4
    slots) under the default plan: every request completes, all fault
    counters are 0, K4 launched 24 times per prefill (the warm-up's
@@ -45,11 +55,13 @@ non-zero; nothing is caught and passed over):
    smoke-size RWKV's prefill and 3 decode steps on the card agree with
    the plain run on the CPU (same counters, logits within the stated
    fraction of their scale);
-8. time K4 and its plain version at the prefill shape and at
-   (4, 4096, 32, 64); K1 at each GEMM shape of a step with its weights
+8. time K4 and its plain version at the prefill shape (r, k, v in bf16
+   and f32) and at (4, 4096, 32, 64); K1 at each GEMM shape of a step
+   with its weights
    cold (cycling the layers) and warm, beside ``torch._int_mm`` on the
    same cold weights and the byte bound, and under every split count of
-   its cluster (the evidence for the plan's rule); K3 at each shape; the
+   its cluster (the evidence for the plan's rule); K3 at each shape, and
+   K3 -> K1 against K1 alone on the same cold weights; the
    prefill and decode steps, and the device-busy and K1 shares of a few
    served requests.
 
@@ -77,11 +89,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 
+# the pl.pallas_call of each TPU kernel
 REPLACES = {
-    "abft_qgemm": "src/repro/kernels/abft_qgemm.py:153",
-    "abft_embeddingbag": "src/repro/kernels/abft_embeddingbag.py:48",
-    "quantize_rows": "src/repro/kernels/quantize_rows.py:36",
-    "wkv6_chunked": "src/repro/kernels/wkv6_chunked.py:78",
+    "abft_qgemm": "src/repro/kernels/abft_qgemm.py:237",
+    "abft_embeddingbag": "src/repro/kernels/abft_embeddingbag.py:67",
+    "quantize_rows": "src/repro/kernels/quantize_rows.py:42",
+    "wkv6_chunked": "src/repro/kernels/wkv6_chunked.py:99",
 }
 
 
@@ -166,6 +179,10 @@ def profile_requests(torch, engine, requests) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     device_ms = sum(t for t, _ in by_name.values())
     k1_ms = sum(t for k, (t, _) in by_name.items() if "abft_qgemm_kernel" in k)
+    ours = {name: [sum(v[i] for k, v in by_name.items() if name in k)
+                   for i in (0, 1)]
+            for name in ("abft_qgemm_kernel", "abft_eb_kernel",
+                         "quantize_rows_kernel", "wkv6_chunked_kernel")}
     out = {"requests": len(requests), "wall_ms": wall_ms,
            "device_ms": device_ms,
            "busy_share": device_ms / wall_ms if wall_ms else None,
@@ -173,6 +190,7 @@ def profile_requests(torch, engine, requests) -> dict:
            "k1_share": k1_ms / device_ms if device_ms else None,
            "kernels_per_request": sum(c for _, c in by_name.values())
            / len(requests),
+           "ours_ms_and_count": ours,
            "top": [{"name": k, "ms": t, "count": c} for k, (t, c) in top]}
     log(f"profile of {len(requests)} requests: device {device_ms:.3f} ms of "
         f"{wall_ms:.3f} ms of request wall time, K1 {k1_ms:.3f} ms of it; "
@@ -251,16 +269,185 @@ def wkv_err(got, want, atol: float, rtol: float = 2e-4):
             float((diff / (atol + rtol * want.abs())).max()))
 
 
-def wkv_bound(b, s, h, dh, chunk):
+def wkv_bound(b, s, h, dh, chunk, itemsize=4):
     """Bytes and float operations the chunked WKV6 forward needs: r, k,
-    v, lw and u read and y written once, the state read and written
-    once; per chunk and head the four products (the score tile and its
-    product only below the diagonal), the decay of S and the diagonal."""
-    n_bytes = 4 * (5 * b * s * h * dh + h * dh + 2 * b * h * dh * dh)
+    v (``itemsize`` bytes each), lw and u read and y written once, the
+    state read and written once; per chunk and head the four products
+    (the score tile and its product only below the diagonal), the decay
+    of S and the diagonal."""
+    n_bytes = (b * s * h * dh * (3 * itemsize + 8)
+               + 4 * (h * dh + 2 * b * h * dh * dh))
     tri = chunk * (chunk - 1) // 2
     per_chunk = (2 * chunk * dh * dh * 2 + 2 * tri * dh * 2
                  + 2 * dh * dh + 3 * chunk * dh)
     return n_bytes, b * h * (s // chunk) * per_chunk
+
+
+def kernel_input_dtypes(run):
+    """``run()`` with the K3 and K4 wrappers watched: the types of the x
+    (K3) and of the r, k, v (K4) each was handed.  A cast before either
+    kernel would show as float32 here.  Returns ``(run's result, {name:
+    [dtypes]})``."""
+    import repro_torch.kernels.quantize_rows as k3
+    import repro_torch.kernels.wkv6_chunked as k4
+    real = {"quantize_rows": k3.quantize_rows_cuda,
+            "wkv6_chunked": k4.wkv6_chunked_cuda}
+    seen = {name: set() for name in real}
+
+    def watch(name, n_args):
+        def call(*a, **kw):
+            seen[name].add(tuple(str(t.dtype).replace("torch.", "")
+                                 for t in a[:n_args]))
+            return real[name](*a, **kw)
+        # the wrapper counts its launch under its module-level name, which
+        # is this function while it watches
+        call.launches = 0
+        return call
+
+    k3.quantize_rows_cuda = watch("quantize_rows", 1)
+    k4.wkv6_chunked_cuda = watch("wkv6_chunked", 3)
+    try:
+        out = run()
+    finally:
+        k3.quantize_rows_cuda = real["quantize_rows"]
+        k4.wkv6_chunked_cuda = real["wkv6_chunked"]
+    return out, {name: sorted(v) for name, v in seen.items()}
+
+
+def pdl_hazards(torch, dev, gen, cases) -> list:
+    """K1 is launched as the programmatic dependent of whatever kernel
+    comes before it.  Hold it bit-exact with its plain version (C and
+    err_rows) in the four positions where that kernel touches what K1
+    reads or writes: right after K3 (which writes A); right after an
+    in-place flip of a B' byte and the flip back; right after another K1
+    on the same row-sum scratch (as ``recompute`` runs it), alternating
+    flagged and clean calls; and right after the ``correct`` policy's
+    repair, which must give back the clean C.  ``cases`` are (label, m,
+    B') at the path's shapes; each position queues its launches with no
+    synchronisation between them, and the comparisons come after."""
+    from repro_torch.core import LANE
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+    from repro_torch.protect.plan import ResolvedRule
+    from repro_torch.protect.runtime import protected_call
+
+    def flags(got, a, bp, what):
+        for g, w, part in zip(got, ref.abft_qgemm_ref(a, bp),
+                              ("C", "err_rows")):
+            if not torch.equal(g, w):
+                fail(f"K1 under PDL {what}: {part} differs from the plain "
+                     f"version")
+        return int(got[1].sum())
+
+    def i8(m, k):
+        return torch.randint(-128, 128, (m, k), generator=gen,
+                             device=dev).to(torch.int8)
+
+    done = []
+    for label, m, bp in cases:
+        k, n = bp.shape[0], bp.shape[1] - LANE
+        row, lane = k // 3, n // 2
+        hot, cold = i8(m, k), i8(m, k)
+        hot[:, row] = 1                 # a flip in B'[row] shows in every
+        cold[:, row] = 0                # row of C, and in none
+        b_clean = bp.clone()            # B' as each launch finds it
+        b_flip = bp.clone()
+        b_flip[row, lane] ^= 0x10
+        colsum = torch.sum(b_clean[:, :n].to(torch.int32), dim=0,
+                           dtype=torch.int32)
+        xs = [torch.randn((m, k), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(3)]
+        torch.cuda.synchronize()
+        # 1. K3 -> K1, three times over
+        after_k3 = []
+        for x in xs:
+            q = quantize_rows_cuda(x)[0]
+            after_k3.append((q, abft_qgemm_cuda(q, bp)))
+        # 2. an in-place flip of a B' byte, K1; the flip back, K1
+        bp[row, lane] ^= 0x10
+        flipped = abft_qgemm_cuda(hot, bp)
+        bp[row, lane] ^= 0x10
+        restored = abft_qgemm_cuda(hot, bp)
+        # 3. K1 after K1 on the one scratch, flagged and clean in turns
+        bp[row, lane] ^= 0x10
+        chain = [(a, abft_qgemm_cuda(a, bp)) for a in (hot, cold) * 3]
+        # 4. the correct policy repairs C for the flipped B'; K1 at once
+        fixed, rep = protected_call("qgemm", (bp, colsum), hot,
+                                    rule=ResolvedRule(policy="correct"))
+        after_fix = abft_qgemm_cuda(cold, bp)
+        bp[row, lane] ^= 0x10
+        torch.cuda.synchronize()
+
+        for x, (q, got) in zip(xs, after_k3):
+            if not torch.equal(q, ref.quantize_rows_ref(x.float())[0]):
+                fail(f"K3 on bf16 differs from the plain version at {label}")
+            if flags(got, q, b_clean, f"after K3 at {label}"):
+                fail(f"K1 after K3 flagged clean operands at {label}")
+        if flags(flipped, hot, b_flip, f"after a flip at {label}") != m or \
+                flags(restored, hot, b_clean, f"after the flip back at "
+                                              f"{label}"):
+            fail(f"K1 right after an in-place flip of B' at {label} did not "
+                 f"flag exactly the flipped byte's rows")
+        for a, got in chain:
+            if flags(got, a, b_flip, f"after K1 at {label}") != \
+                    (m if a is hot else 0):
+                fail(f"K1 after K1 on one scratch at {label}: wrong flags")
+        if flags(after_fix, cold, b_flip, f"after the repair at {label}"):
+            fail(f"K1 after the correct repair flagged at {label}")
+        if not torch.equal(fixed, ref.abft_qgemm_ref(hot, b_clean)[0]) or \
+                int(rep.corrections) != 1:
+            fail(f"the correct policy did not repair the flip at {label}")
+        if not torch.equal(bp, b_clean):
+            fail(f"B' was not restored at {label}")
+        del b_clean, b_flip
+        done.append(label)
+    return done
+
+
+def pair_times(timer, calls, reps: int, rounds: int = 3) -> dict:
+    """K3 -> K1 against K1 alone over the same calls.  ``calls`` holds
+    (x, q, next_b) per qlinear: x the bf16 activation, q its int8 rows
+    (K3's output, made beforehand) and next_b the weight each K1 call
+    takes (cycling cold slices where there are several).  The pair runs
+    K1 on K3's fresh output, as the path does; its excess over K1 alone
+    is what K3 adds (``exposed_ms``), the time programmatic dependent
+    launch should hide.  The same two with both kernels launched as plain
+    stream successors (``*_no_pdl_ms``) show what it buys.  Medians over
+    ``rounds`` rounds, in turns."""
+    import numpy as np
+
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+
+    def alone(pdl):
+        for _, q, next_b in calls:
+            abft_qgemm_cuda(q, next_b(), pdl=pdl)
+
+    def pair(pdl):
+        for x, _, next_b in calls:
+            abft_qgemm_cuda(quantize_rows_cuda(x, pdl=pdl)[0], next_b(),
+                            pdl=pdl)
+
+    def k3():
+        for x, _, _ in calls:
+            quantize_rows_cuda(x)
+
+    order = [("k1_alone_ms", lambda: alone(True)),
+             ("pair_ms", lambda: pair(True)),
+             ("pair_no_pdl_ms", lambda: pair(False)),
+             ("k1_alone_no_pdl_ms", lambda: alone(False)),
+             ("k3_ms", k3)]
+    runs = {key: [] for key, _ in order}
+    for r in range(rounds):
+        for key, fn in (order if r % 2 == 0 else order[::-1]):
+            runs[key].append(timer.ms(fn, reps))
+    out = {k: float(np.median(v)) for k, v in runs.items()}
+    out["exposed_ms"] = out["pair_ms"] - out["k1_alone_ms"]
+    out["exposed_no_pdl_ms"] = out["pair_no_pdl_ms"] - \
+        out["k1_alone_no_pdl_ms"]
+    out["runs"] = runs
+    return out
 
 
 def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
@@ -277,7 +464,7 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     from repro_torch.kernels.abft_qgemm import BK as K1_BK, \
         abft_qgemm_cuda, launch_plan
     from repro_torch.kernels.quantize_rows import quantize_rows_cuda
-    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda, wkv_plan
     from repro_torch.layers import rwkv6 as rk
     from repro_torch.layers.common import Ctx
     from repro_torch.models.base import build_model
@@ -320,12 +507,14 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         checked.append(f"{name} (k, n) = ({k}, {n}) at m = {ms_}")
         for m in ms_:
             x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16).float()
+                torch.bfloat16)
             q = quantize_rows_cuda(x)
-            for g, w, what in zip(q, ref.quantize_rows_ref(x),
-                                  ("q", "alpha", "beta")):
-                if not torch.equal(g, w):
-                    fail(f"quantize_rows: {what} differs at {m}x{k}")
+            for g, w, g32, what in zip(q, ref.quantize_rows_ref(x),
+                                       quantize_rows_cuda(x.float()),
+                                       ("q", "alpha", "beta")):
+                if not (torch.equal(g, w) and torch.equal(g32, w)):
+                    fail(f"quantize_rows: {what} differs at {m}x{k} (bf16 "
+                         f"or its f32 cast)")
             for col in (False, True):
                 got = abft_qgemm_cuda(q[0], bp, with_colcheck=col)
                 want = ref.abft_qgemm_ref(q[0], bp, with_colcheck=col)
@@ -336,8 +525,15 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
                              f"(k={k}, n={n})")
                 if int(got[1].sum()):
                     fail(f"abft_qgemm flagged clean operands at {name}")
-    log("K1 (C, err_rows, column check) and K3 bit-exact at "
-        + "; ".join(checked))
+    log("K1 (C, err_rows, column check) and K3 (bf16 and f32) bit-exact "
+        "at " + "; ".join(checked))
+    hazards = pdl_hazards(torch, dev, gen, [
+        (f"{name} (k, n) = ({st.shape[1]}, {st.shape[2] - LANE}) m = {ms_[0]}",
+         ms_[0], st[0]) for name, st, ms_ in gemms] + [
+        ("cm.wv m = 4", 4, layers["cm"]["wv"]["w_packed"][1])])
+    log("K1 under PDL bit-exact after K3, after an in-place flip of B', "
+        "after K1 on the same scratch and after the correct repair at "
+        + "; ".join(hazards))
 
     emb = params["embed"]
     enc1 = (emb["table"][None], emb["alphas"][None], emb["betas"][None])
@@ -387,13 +583,17 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         fail(f"unexpected prefill WKV shape {shape}, chunk "
              f"{captured[0][1]}")
 
+    if captured[0][0][0].dtype != torch.bfloat16:
+        fail(f"the prefill handed K4 {captured[0][0][0].dtype} r, k, v, not "
+             f"its bf16 projections")
     k4 = {"model_max_abs_err": 0.0, "model_worst_ratio": 0.0,
           "model vs plain": {"y": 0.0, "S": 0.0}}
     for args, chunk in captured:
         y_k, s_k = wkv6_chunked_cuda(*args, chunk=chunk)
+        f32 = [t.float() for t in args[:3]] + list(args[3:])
         for name, (y_w, s_w) in (
                 ("plain", ref.wkv_chunked_ref(*args, chunk=chunk)),
-                ("recurrence", rk.wkv_recurrent(*args))):
+                ("recurrence", rk.wkv_recurrent(*f32))):
             # the model's r, k, v reach some tens: 2e-4 of each output's
             # scale as the absolute part
             for part, got, want in (("y", y_k, y_w), ("S", s_k, s_w)):
@@ -413,45 +613,67 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     k4["model_y_scale"] = max(float(ref.wkv_chunked_ref(*a, chunk=c)[0]
                                     .abs().max()) for a, c in captured)
 
-    def wkv_random(b, s, lw_fill=None):
-        r, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+    def wkv_random(b, s, dh_, decay):
+        r, k, v = (torch.randn((b, s, h, dh_), generator=gen, device=dev)
                    for _ in range(3))
-        if lw_fill is None:
-            lw = torch.rand((b, s, h, dh), generator=gen, device=dev) \
+        if decay == "heavy":
+            lw = torch.rand((b, s, h, dh_), generator=gen, device=dev) \
                 * rk.LOG_W_MIN
-        else:
+        else:               # all LOG_W_MIN on unit inputs: kin at e^(5 C)
             r, k, v = (torch.ones_like(r) for _ in range(3))
-            lw = torch.full_like(r, lw_fill)
-        u = torch.randn((h, dh), generator=gen, device=dev) * 0.5
-        s0 = torch.randn((b, h, dh, dh), generator=gen, device=dev) * 0.1
-        return r, k, v, lw, u, s0
+            lw = torch.full_like(r, rk.LOG_W_MIN)
+        u = torch.randn((h, dh_), generator=gen, device=dev) * 0.5
+        s0 = torch.randn((b, h, dh_, dh_), generator=gen, device=dev) * 0.1
+        return [r, k, v, lw, u, s0]
 
-    heavy = wkv_random(1, 64)
-    worst = wkv_random(1, 64, rk.LOG_W_MIN)
-    big = wkv_random(*big_batch_seq)
+    # K4 at batch 1 and 2, dh 64 and 32, chunk 16 and 8, heavy and all-min
+    # decay, r/k/v in bf16 and f32, staged by 16- and by 4-byte copies; and
+    # at big_batch_seq against the plain version only (the recurrence is a
+    # Python loop over its tokens)
+    cases = [(f"B{b_} dh{dh_} chunk{ch_} {decay}",
+              wkv_random(b_, 64, dh_, decay), ch_, True)
+             for b_, dh_, ch_, decay in itertools.product(
+                 (1, 2), (64, 32), (16, 8), ("heavy", "all_min"))]
+    big = wkv_random(*big_batch_seq, dh, "heavy")
     big_label = str(tuple(big[0].shape))
-    for label, args, refs in (
-            ("heavy decay", heavy, ("plain", "recurrence")),
-            ("worst case", worst, ("plain", "recurrence")),
-            (big_label, big, ("plain",))):
-        y_k, s_k = wkv6_chunked_cuda(*args, chunk=16)
-        for name in refs:
-            y_w, s_w = (ref.wkv_chunked_ref(*args, chunk=16)
-                        if name == "plain" else rk.wkv_recurrent(*args))
-            errs = {}
-            for part, got, want in (("y", y_k, y_w), ("S", s_k, s_w)):
-                errs[part], ratio = wkv_err(got, want, 2e-4)
-                if not bool(torch.isfinite(got).all()) or ratio > 1.0:
-                    fail(f"wkv6_chunked off the {name} version ({label}): "
-                         f"max |d{part}| {errs[part]:.3g}, {ratio:.3g}x "
-                         f"the bound")
-            k4[f"{label} vs {name}"] = errs
+    cases.append((big_label, big, 16, False))
+    worst_ratio = {}
+    for label, args, ch_, with_rec in cases:
+        b_, s_, _, dh_ = args[0].shape
+        for dtype in (torch.bfloat16, torch.float32):
+            rkv = [t.to(dtype) for t in args[:3]]
+            refs = [("plain", ref.wkv_chunked_ref(*rkv, *args[3:],
+                                                  chunk=ch_))]
+            if with_rec:
+                refs.append(("recurrence", rk.wkv_recurrent(
+                    *(t.float() for t in rkv), *args[3:])))
+            for vec in (16, 4):
+                plan = wkv_plan(b_, h, dh_, ch_, seq=s_,
+                                itemsize=rkv[0].element_size())
+                y_k, s_k = wkv6_chunked_cuda(*rkv, *args[3:], chunk=ch_,
+                                             plan=plan._replace(vec=vec))
+                way = f"{vec}-byte copies"
+                for name, (y_w, s_w) in refs:
+                    errs = {}
+                    for part, got, want in (("y", y_k, y_w),
+                                            ("S", s_k, s_w)):
+                        errs[part], ratio = wkv_err(got, want, 2e-4)
+                        if not bool(torch.isfinite(got).all()) or \
+                                ratio > 1.0:
+                            fail(f"wkv6_chunked ({way}, {dtype}) off the "
+                                 f"{name} version ({label}): max "
+                                 f"|d{part}| {errs[part]:.3g}, "
+                                 f"{ratio:.3g}x the bound")
+                        worst_ratio[name] = max(
+                            worst_ratio.get(name, 0.0), ratio)
+                    k4[f"{label} {str(dtype)[6:]} {way} vs {name}"] = errs
     log(f"K4 within 2e-4 of the plain version and of the recurrence on "
-        f"all {len(captured)} layers' prefill inputs (max |dy| "
+        f"all {len(captured)} layers' bf16 prefill inputs (max |dy| "
         f"{k4['model_max_abs_err']:.3g} of a scale "
-        f"{k4['model_y_scale']:.3g}), on heavy decay and the all-min "
-        f"worst case; and of the plain version at {big_label}: "
-        + json.dumps({k: v for k, v in k4.items() if " vs " in k}))
+        f"{k4['model_y_scale']:.3g}); on {len(cases) - 1} cases (batch 1 "
+        f"and 2, dh 64 and 32, chunk 16 and 8, heavy and all-min decay) "
+        f"and at {big_label} (plain only), each in bf16 and f32, staged by "
+        f"16- and 4-byte copies: worst error {worst_ratio} of the bound")
 
     # -------------------------- 7. serve + flips ----------------------------
     wrappers = {"abft_qgemm": abft_qgemm_cuda,
@@ -582,10 +804,18 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         f"max |dlogit| / scale {small_out}")
 
     # ------------------------------ 8. times --------------------------------
-    m_args = captured[0][0]
-    nb, nops = wkv_bound(1, 64, h, dh, 16)
+    m_args = captured[0][0]             # bf16 r, k, v, as the path hands
+    nb, nops = wkv_bound(1, 64, h, dh, 16, itemsize=2)
     b_ms, b_by = bound_ms(nb, nops, F32_OPS_PER_S)
     nb_big, nops_big = wkv_bound(*big_batch_seq, h, dh, 16)
+    # on the path's bf16 and on the f32 cast
+    f32_args = [t.float() for t in m_args[:3]] + list(m_args[3:])
+    k4_plans = {}
+    for dname, a_ in (("bfloat16", m_args), ("float32", f32_args)):
+        plan = wkv_plan(1, h, dh, 16, seq=64, itemsize=a_[0].element_size())
+        k4_plans[dname] = {
+            "plan": plan._asdict(), "blocks": plan.blocks,
+            "ms": timer.ms(lambda: wkv6_chunked_cuda(*a_, chunk=16))}
     k4_row = {
         "name": "wkv6_chunked", "route": "cuda",
         "source": "src/repro_torch/csrc/wkv6_chunked.cu",
@@ -598,14 +828,19 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
                                                          chunk=16)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "per": f"one prefill: {cfg.n_layers} launches (one per layer) at "
-               f"{shape}, chunk 16"}
+               f"{shape}, chunk 16, r/k/v bf16",
+        "plan": wkv_plan(1, h, dh, 16, seq=64, itemsize=2)._asdict(),
+        "by_dtype": k4_plans}
     big_bound = bound_ms(nb_big, nops_big, F32_OPS_PER_S)
     k4_big = {"ms": timer.ms(lambda: wkv6_chunked_cuda(*big, chunk=16), 5),
               "plain_ms": timer.ms(lambda: ref.wkv_chunked_ref(*big,
                                                                chunk=16), 3),
               "bound_ms": big_bound[0], "bound_by": big_bound[1]}
-    log(f"K4 at {shape}: {k4_row['ms']:.4f} ms (bound "
-        f"{b_ms:.5f} ms by {b_by}, plain {k4_row['plain_ms']:.4f} ms); at "
+    log(f"K4 at {shape}: {k4_row['ms']:.4f} ms with plan {k4_row['plan']} "
+        f"(bound {b_ms:.5f} ms by {b_by}, plain {k4_row['plain_ms']:.4f} "
+        f"ms); by r/k/v type: "
+        + "; ".join(f"{k_} ({v['blocks']} blocks) {v['ms']:.4f}"
+                    for k_, v in k4_plans.items()) + "; at "
         f"{big_label}: {k4_big['ms']:.3f} ms (bound "
         f"{big_bound[0]:.4f} ms, plain {k4_big['plain_ms']:.3f} ms)")
     # K1 and K3 at every GEMM shape of an RWKV step (prefill m = 64,
@@ -634,7 +869,12 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
             b_ms = bound_ms(kb, 2 * m * k * (n + 1), INT8_OPS_PER_S)[0]
             plan = launch_plan(m, k, n, a_addr=q.data_ptr(),
                                b_addr=stack[0].data_ptr())
+            x16 = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            cold_pair = itertools.cycle(list(stack))
             row = {
+                "pair": pair_times(timer, [(x16, quantize_rows_cuda(x16)[0],
+                                            lambda: next(cold_pair))], reps),
                 "abft_qgemm_cold_ms": timer.ms(
                     lambda: abft_qgemm_cuda(q, next(cold)), reps),
                 "abft_qgemm_warm_ms": timer.ms(
@@ -644,7 +884,9 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
                 "abft_qgemm_bound_ms": b_ms,
                 "plan": {"bm": plan.bm, "splits": plan.splits,
                          "blocks": plan.blocks, "aligned": plan.aligned},
-                "quantize_rows_ms": timer.ms(lambda: quantize_rows_cuda(x))}
+                "quantize_rows_ms": timer.ms(lambda: quantize_rows_cuda(x)),
+                "quantize_rows_bf16_ms": timer.ms(
+                    lambda: quantize_rows_cuda(x16))}
             row["bound_share"] = b_ms / row["abft_qgemm_cold_ms"]
             per_shape[f"{name} m={m} k={k} n={n}"] = row
         del padded
@@ -683,16 +925,29 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
             f"{s_}: {t:.4f}" for s_, t in v["ms_by_splits"].items())
             for k_, v in sweep.items()))
     log("K1 per RWKV shape, ms cold / warm / torch._int_mm cold / bound "
-        "(share); K3 ms: " + "; ".join(
+        "(share); K3 ms f32 / bf16; K3 -> K1 pair ms, K1 alone, exposed: "
+        + "; ".join(
             f"{k_}: {v['abft_qgemm_cold_ms']:.4f} / "
             f"{v['abft_qgemm_warm_ms']:.4f} / {v['library_cold_ms']:.4f} / "
             f"{v['abft_qgemm_bound_ms']:.5f} ({v['bound_share']:.2f}); "
-            f"{v['quantize_rows_ms']:.4f}"
+            f"{v['quantize_rows_ms']:.4f} / "
+            f"{v['quantize_rows_bf16_ms']:.4f}; {v['pair']['pair_ms']:.4f}, "
+            f"{v['pair']['k1_alone_ms']:.4f}, "
+            f"{v['pair']['exposed_ms']:.4f} (no PDL "
+            f"{v['pair']['pair_no_pdl_ms']:.4f}, "
+            f"{v['pair']['k1_alone_no_pdl_ms']:.4f}, "
+            f"{v['pair']['exposed_no_pdl_ms']:.4f})"
             for k_, v in per_shape.items()))
     prof_reqs = [Request(rid=i, tenant="default", arrival_s=0.0,
                          prompt_len=64, max_new_tokens=4, seed=40 + i)
                  for i in range(4)]
-    serve["profile"] = profile_requests(torch, engine, prof_reqs)
+    serve["profile"], dtypes = kernel_input_dtypes(
+        lambda: profile_requests(torch, engine, prof_reqs))
+    serve["kernel_input_dtypes"] = dtypes
+    if dtypes != {"quantize_rows": [("bfloat16",)],
+                  "wkv6_chunked": [("bfloat16",) * 3]}:
+        fail(f"K3 and K4 were handed {dtypes} on the RWKV path, not its "
+             f"bf16 activations uncast")
     log(f"RWKV serve: prefill step median {serve['prefill_ms_median']:.2f} "
         f"ms, decode step median {serve['decode_ms_median']:.2f} ms, TTFT "
         f"p50 {per['ttft_ms']['p50']:.2f} ms, per token p50 "
@@ -829,16 +1084,25 @@ def main() -> int:
         f"(bm, splits, aligned) {sorted(paths)}; flip flags "
         f"{int(got[1].sum())}/{m} rows as the plain version does")
 
-    # K3: the input width of every layer at m = 10 (bf16-rounded, as the
-    # path hands it over) and one larger shape
+    # K3: the input width of every layer at m = 10, in bf16 as the path
+    # hands it over and in its f32 cast, and one larger f32 shape
     k3_inputs = [torch.randn((m, k), generator=gen, device=dev)
-                 .to(torch.bfloat16).float() for k, _ in shapes]
+                 .to(torch.bfloat16) for k, _ in shapes]
     k3_inputs.append(torch.randn((2048, 1024), generator=gen, device=dev))
-    for x in k3_inputs:
+    k3_cases = k3_inputs + [x.float() for x in k3_inputs[:len(shapes)]]
+    for x in k3_cases:
         for g, w, what in zip(quantize_rows_cuda(x), ref.quantize_rows_ref(x),
                               ("q", "alpha", "beta")):
-            check_equal("quantize_rows", g, w, f"{what} at {tuple(x.shape)}")
-    log(f"K3 bit-exact in q, alpha, beta on {len(k3_inputs)} shapes")
+            check_equal("quantize_rows", g, w,
+                        f"{what} at {tuple(x.shape)} {x.dtype}")
+    log(f"K3 bit-exact in q, alpha, beta on {len(k3_cases)} cases (every "
+        f"layer width in bf16 and f32)")
+    hazards = pdl_hazards(torch, dev, gen, [
+        (f"layer {i} (k, n) = {shapes[i]} m = {m}", m,
+         layers[i]["w_packed"]) for i in (0, 3, 7)])
+    log("K1 under PDL bit-exact after K3, after an in-place flip of B', "
+        "after K1 on the same scratch and after the correct repair at "
+        + "; ".join(hazards))
 
     # K2: one request's bags over all 26 full tables, then the paper's
     # Table I pooling (2048 bags x 100) over all of them
@@ -966,7 +1230,7 @@ def main() -> int:
     k1_bytes = sum(m * k + k * (n + 1) + 4 * m * n + 4 * m
                    for k, n in shapes)
     k1_ops = sum(2 * m * k * (n + 1) for k, n in shapes)
-    k3_bytes = sum(5 * m * k + 8 * m for k, _ in shapes)
+    k3_bytes = sum(3 * m * k + 8 * m for k, _ in shapes)   # bf16 in
     k3_ops = sum(6 * m * k for k, _ in shapes)
     valid = int((req_bags >= 0).sum())
     t_, b_, p_ = req_bags.shape
@@ -993,6 +1257,18 @@ def main() -> int:
     except RuntimeError as e:
         log(f"torch._int_mm refused the padded shapes: {e}")
         library_k1 = None
+    # K3 -> K1 over one request's 8 layers (the weights warm: 1.9 MB)
+    dlrm_pair = pair_times(
+        timer, [(x, quantize_rows_cuda(x)[0], lambda bp=bp: bp)
+                for x, (_, bp) in zip(k3_main, k1_main)], 20)
+    log(f"DLRM request, K3 -> K1 over 8 layers {dlrm_pair['pair_ms']:.4f} "
+        f"ms, K1 alone {dlrm_pair['k1_alone_ms']:.4f}, K3 alone "
+        f"{dlrm_pair['k3_ms']:.4f}: K3 exposed "
+        f"{dlrm_pair['exposed_ms'] / 8 * 1e3:.3f} us a launch (without "
+        f"PDL: pair {dlrm_pair['pair_no_pdl_ms']:.4f}, K1 alone "
+        f"{dlrm_pair['k1_alone_no_pdl_ms']:.4f}, exposed "
+        f"{dlrm_pair['exposed_no_pdl_ms'] / 8 * 1e3:.3f} us)")
+    details["dlrm_k3_k1_pair"] = dlrm_pair
     rows = [
         ("abft_qgemm", "src/repro_torch/csrc/abft_qgemm.cu",
          timer.ms(seq(abft_qgemm_cuda, k1_main)),
@@ -1010,7 +1286,7 @@ def main() -> int:
            "abft_embeddingbag": "one request: 1 launch, 26 tables x 10 "
                                 "bags x <=16 slots",
            "quantize_rows": "one request: 8 launches, the layer input "
-                            "widths at m=10"}
+                            "widths at m=10, bf16"}
     kernels = []
     for name, source, ms, plain_ms, (bms, by), lib in rows:
         kernels.append({
@@ -1019,6 +1295,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
             "per": per[name]})
+    kernels[2]["exposed_in_k1_pair_ms"] = dlrm_pair["exposed_ms"]
 
     # the larger shapes, for the record (the library call's operand is
     # padded to n + 8 columns outside the timed region)
@@ -1027,6 +1304,8 @@ def main() -> int:
         torch.randint(0, ex.table_rows, big_bags.shape, generator=gen,
                       device=dev, dtype=torch.int32) for _ in range(3)]
     it_big = itertools.cycle(big_bag_sets)
+    k3_tiny = torch.randn((1, 8), generator=gen, device=dev).to(
+        torch.bfloat16)
     valid_big = int(big_bags.numel())
     details["large"] = {
         "abft_qgemm m=2048 k=1024 n=1024": {
@@ -1037,6 +1316,12 @@ def main() -> int:
                            if library_k1 is not None else None),
             "bound": bound_ms(2048 * 1024 + 1024 * 1025 + 4 * 2048 * 1028,
                               2 * 2048 * 1024 * 1025, INT8_OPS_PER_S)},
+        # a chain of the smallest K3: what a launch costs with nothing to
+        # do, each a programmatic dependent of the last, and without that
+        "quantize_rows 1x8 (launch floor)": {
+            "ms": timer.ms(lambda: quantize_rows_cuda(k3_tiny), 50),
+            "no_pdl_ms": timer.ms(
+                lambda: quantize_rows_cuda(k3_tiny, pdl=False), 50)},
         "quantize_rows 2048x1024": {
             "ms": timer.ms(lambda: quantize_rows_cuda(k3_inputs[-1]), 10),
             "plain_ms": timer.ms(
@@ -1051,7 +1336,12 @@ def main() -> int:
                               + 4 * 26 * 2048 * (ex.emb_dim + 1),
                               valid_big * ex.emb_dim * 4, F32_OPS_PER_S)},
     }
-    details["profile"] = profile_requests(torch, engine, stream(4, 31))
+    details["profile"], dtypes = kernel_input_dtypes(
+        lambda: profile_requests(torch, engine, stream(4, 31)))
+    details["kernel_input_dtypes"] = dtypes
+    if dtypes != {"quantize_rows": [("bfloat16",)], "wkv6_chunked": []}:
+        fail(f"K3 was handed {dtypes} on the DLRM path, not its bf16 "
+             f"activations uncast")
 
     # --------------------------- 6-8. RWKV6-1.6B ----------------------------
     from repro_torch.configs import get_arch

@@ -55,6 +55,15 @@
 //   alignment, which the TMA cannot map) stage the same swizzled tiles with
 //   masked byte loads; the compute and epilogue are shared.
 //
+// - Programmatic dependent launch: the kernel is launched with programmatic
+//   stream serialization, so it may start while the kernel before it runs
+//   (K3, the row quantizer that writes A, lets it at once).  Until its
+//   griddepcontrol.wait it only sets up shared memory: the mbarriers, the
+//   zeroed row partials and a prefetch of the two tensor maps (kernel
+//   parameters, not global memory).  No global read or write comes before
+//   the wait, on the TMA and the masked path alike, so the launch is safe
+//   whatever kernel precedes it.
+//
 // The launch plan (row tile, split count, aligned or ragged) is made in
 // Python and checked here.
 #include "common.cuh"
@@ -243,13 +252,24 @@ abft_qgemm_kernel(const TA* __restrict__ a_in, const int8_t* __restrict__ b_in,
   const int ke = min(k, kb + k_per_split);
   const int nsteps = (ke - kb + BK - 1) / BK;
 
+  // Nothing global before the wait: the kernel before this one may still
+  // be running (see the note on programmatic dependent launch above).
   if (tid < BM) rowpart[tid] = 0;
   if constexpr (ALIGNED) {
     if (tid == 0) {
       for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&amap))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&bmap))
+                   : "memory");
     }
   }
+  // returns once the previous grid has completed and its writes are
+  // visible (at once when the kernel was not launched as a dependent)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   __syncthreads();
 
   int acc[MFRAG][4][4];
@@ -446,6 +466,7 @@ struct Args {
   unsigned* ticket;
   unsigned* col;
   int m, n, k, ldb, splits, k_per_split;
+  bool pdl;
 };
 
 using EncodeTiled = CUresult (*)(
@@ -504,13 +525,17 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = kSmem;
   cfg.stream = s;
-  cudaLaunchAttribute at[1];
+  cudaLaunchAttribute at[2];
   at[0].id = cudaLaunchAttributeClusterDimension;
   at[0].val.clusterDim.x = p.splits;
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
+  // a programmatic dependent of the previous kernel in the stream: it may
+  // launch while that kernel runs (K3 lets it), and waits in the kernel
+  at[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = at;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = p.pdl ? 2 : 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<const TA*>(p.a),
                             static_cast<const int8_t*>(p.b), p.c, p.err,
                             p.rowsum, p.check, p.ticket, p.col, amap, bmap,
@@ -547,12 +572,14 @@ cudaError_t dispatch_rows(int bm, bool aligned, const Args& p,
 // int32 [m] is scratch.  The plan: row tile bm (16, 32 or 64), splits (the
 // cluster size, 1-8) of k_per_split rows each (a multiple of 64, covering
 // k with no empty split), and aligned (16-byte copies; needs both operands
-// and k, ldb on 16-byte multiples).
+// and k, ldb on 16-byte multiples).  pdl = 1 launches it as the programmatic
+// dependent of the previous kernel in the stream (0 only to measure what
+// that buys).
 REPRO_API int abft_qgemm_launch(const void* a, int a_unsigned, const void* b,
                                 void* c, void* err, void* rowsum, void* check,
                                 void* ticket, void* col, int m, int n, int k,
                                 int ldb, int bm, int splits, int k_per_split,
-                                int aligned, void* stream) {
+                                int aligned, int pdl, void* stream) {
   const bool split_ok = splits >= 1 && splits <= kMaxSplits &&
                         k_per_split > 0 && k_per_split % BK == 0 &&
                         static_cast<int64_t>(splits) * k_per_split >= k &&
@@ -566,7 +593,7 @@ REPRO_API int abft_qgemm_launch(const void* a, int a_unsigned, const void* b,
   const Args p = {a, b, static_cast<int32_t*>(c), static_cast<int32_t*>(err),
                   static_cast<int32_t*>(rowsum), static_cast<int32_t*>(check),
                   static_cast<unsigned*>(ticket), static_cast<unsigned*>(col),
-                  m, n, k, ldb, splits, k_per_split};
+                  m, n, k, ldb, splits, k_per_split, pdl != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = a_unsigned
                             ? dispatch_rows<uint8_t>(bm, aligned, p, s)

@@ -27,6 +27,20 @@ the ``correct`` policy).  Ragged shapes (k or ldb off a multiple of 16,
 an operand off 16-byte alignment, which the TMA cannot map) stage the
 same tiles with masked byte loads in the same kernel.
 
+Every launch is a programmatic dependent launch (Hopper PDL): K1 may
+start while the kernel before it in the stream still runs, and K3, the
+row quantizer that writes A, lets it start at once.  Its launch and its
+prologue then overlap K3.  The rule that keeps this safe whatever kernel
+comes before: **nothing global before the wait.**  Until
+``griddepcontrol.wait`` a block only carves its shared memory, zeroes its
+row partials, initialises its mbarriers and prefetches the two tensor
+maps; it reads and writes no global memory (not A, which K3 writes; not
+B', which a fault injection or a repair may just have changed; not the
+row-sum scratch, which the previous K1 leaves zeroed; not C, which the
+allocator may have handed over from a kernel still reading it).  The wait
+returns once the previous grid has completed and its writes are visible.
+A refused launch raises; nothing falls back to a plain launch.
+
 :func:`launch_plan` makes the launch plan (row tile, split count, the
 aligned or ragged path) on the host, so the CPU tests check it; the C
 entry checks it again.  A shape the kernel does not take raises.
@@ -139,12 +153,12 @@ def _launch():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.entry(_NAME, "abft_qgemm_launch",
                         [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                         p])
+                         i, p])
 
 
 def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
                     with_colcheck: bool = False,
-                    plan: Optional[QgemmPlan] = None):
+                    plan: Optional[QgemmPlan] = None, pdl: bool = True):
     """Run the fused ABFT GEMM on the card.
 
     ``a_q``: int8 or uint8 [m, k]; ``b_packed``: int8 [k, n + 128] from
@@ -153,6 +167,8 @@ def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
     the Eq.-1 column check ``colsum(A) @ B`` (int32 [n]) when
     ``with_colcheck``.  ``plan`` replaces :func:`launch_plan`'s choice
     (to measure the rule); the C entry refuses one that does not fit.
+    ``pdl=False`` launches K1 as a plain successor of the kernel before it,
+    only to measure what programmatic dependent launch buys.
     """
     if not (a_q.is_cuda and b_packed.is_cuda) or a_q.device != b_packed.device:
         raise ValueError("abft_qgemm_cuda needs both operands on one CUDA "
@@ -191,7 +207,7 @@ def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
                        rowsum, check, ticket,
                        None if col is None else col.data_ptr(), m, n, k, ldb,
                        plan.bm, plan.splits, plan.k_per_split,
-                       int(plan.aligned), stream)
+                       int(plan.aligned), int(pdl), stream)
     _build.check(_NAME, rc)
     abft_qgemm_cuda.launches += 1
     if with_colcheck:

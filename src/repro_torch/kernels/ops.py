@@ -82,24 +82,37 @@ def abft_embedding_bag(table_q, alphas, betas, indices, rowsums,
 
 def quantize_rows(x: torch.Tensor, *, use_kernel: Optional[bool] = None):
     """Per-row signed-int8 dynamic quantization. -> (q, alpha, beta).
-    The input is cast to float32 here, as the JAX wrapper casts it."""
-    x = x.to(torch.float32).contiguous()
+
+    The kernel reads float32 and bfloat16 as they are (its bf16 -> f32
+    conversion is exact, in registers); any other type is cast to float32
+    first.  The plain path casts to float32, as the JAX wrapper does."""
     if _use_kernel(use_kernel, x):
-        from repro_torch.kernels.quantize_rows import quantize_rows_cuda
-        return quantize_rows_cuda(x)
+        from repro_torch.kernels.quantize_rows import DTYPES, \
+            quantize_rows_cuda
+        if x.dtype not in DTYPES:
+            x = x.to(torch.float32)
+        return quantize_rows_cuda(x.contiguous())
     return _ref.quantize_rows_ref(x)
 
 
 def wkv_chunked(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                 lwh: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
                 chunk: int = 16, use_kernel: Optional[bool] = None):
-    """Chunked WKV6 forward. -> (y [B, S, H, dh], new_state [B, H, dh, dh]).
-    Inputs are float32 (see :func:`repro_torch.kernels.ref.wkv_chunked_ref`
-    for the math); the caller keeps ``chunk`` inside the f32 envelope."""
+    """Chunked WKV6 forward. -> (y [B, S, H, dh], new_state [B, H, dh, dh]),
+    both float32 (see :func:`repro_torch.kernels.ref.wkv_chunked_ref` for
+    the math); the caller keeps ``chunk`` inside the f32 envelope.
+
+    ``lwh``, ``u`` and ``state`` are float32.  The kernel reads r, k and v
+    in float32 or bfloat16 as they are (bf16 -> f32 is exact); any other
+    type, or a bf16 head width it cannot copy in 4-byte units, is cast to
+    float32 first.  The plain path casts to float32, as the JAX layer
+    does."""
     if _use_kernel(use_kernel, rh):
-        from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
-        return wkv6_chunked_cuda(rh.contiguous(), kh.contiguous(),
-                                 vh.contiguous(), lwh.contiguous(),
-                                 u.contiguous(), state.contiguous(),
-                                 chunk=chunk)
+        from repro_torch.kernels.wkv6_chunked import takes, \
+            wkv6_chunked_cuda
+        rkv = ((rh, kh, vh) if takes(rh, kh, vh) else
+               (t.to(torch.float32) for t in (rh, kh, vh)))
+        return wkv6_chunked_cuda(*(t.contiguous() for t in rkv),
+                                 lwh.contiguous(), u.contiguous(),
+                                 state.contiguous(), chunk=chunk)
     return _ref.wkv_chunked_ref(rh, kh, vh, lwh, u, state, chunk=chunk)

@@ -4,17 +4,33 @@ Replaces ``src/repro/kernels/quantize_rows.py::quantize_rows_pallas``.
 Source: ``csrc/quantize_rows.cu``; plain version:
 :func:`repro_torch.kernels.ref.quantize_rows_ref`.
 
-What bounds it on the H100: bytes.  It reads 4 bytes and writes 1 per
-element (plus 8 per row) and does a handful of float operations per
-element, far below the card's ratio of operations to bytes.  On the DLRM
-path rows are at most 1024 wide and m is the lookup batch (10), so one
-call moves at most ~50 KB and its time is the launch itself.
+What bounds it on the H100: its launch.  It reads 2 or 4 bytes and writes
+1 per element (plus 8 per row) and does a handful of float operations per
+element; on the serving paths one call moves at most 1.4 MB (64 RWKV rows
+of 7168 bf16) and mostly under 30 KB (DLRM rows <= 1024 wide at m = 10),
+under half a microsecond at 3.35 TB/s, while a launch in a stream costs
+about two (1.76 us chained, measured on an H100 80GB HBM3 at 700 W;
+``PERF.md``).
 
-Design: one block of 256 threads per row — a min/max reduction, then a
-second pass over the row (now in L1/L2) that writes q.  The arithmetic is
-written with round-to-nearest intrinsics, IEEE division and ``rintf``, so
-q, alpha and beta are bit-exact with the plain version; that is what
-makes the GEMM's int32 output, and hence its checks, equal on both paths.
+Design: one block of 256 threads per row -- a min/max reduction, then a
+second pass that writes q, 16 bytes a thread where the rows are aligned,
+from the words each thread loaded at once in the first pass and kept in
+registers.  The input is float32 or bfloat16, converted
+in registers (exactly), so the RWKV path hands its bf16 activations over
+with no cast kernel in between.  The arithmetic is written with
+round-to-nearest intrinsics, IEEE division and ``rintf``, so q, alpha and
+beta are bit-exact with the plain version on the float32 cast of the same
+input; that is what makes the GEMM's int32 output, and hence its checks,
+equal on both paths.
+
+The launch cost is hidden instead of shaved (Hopper's programmatic
+dependent launch): every block of K3 executes
+``griddepcontrol.launch_dependents`` first, and K1, the GEMM that consumes
+q, is launched as its programmatic dependent (see
+:mod:`repro_torch.kernels.abft_qgemm`), so K1's launch and prologue run
+while K3 does.  K3 is itself launched as the dependent of the kernel
+before it, and waits for that grid (``griddepcontrol.wait``) before it
+touches global memory.
 """
 from __future__ import annotations
 
@@ -31,19 +47,28 @@ _NAME = "quantize_rows"
 @functools.cache
 def _launch():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.entry(_NAME, "quantize_rows_launch", [p, p, p, p, i, i, p])
+    return _build.entry(_NAME, "quantize_rows_launch",
+                        [p, i, p, p, p, i, i, i, p])
 
 
-def quantize_rows_cuda(x: torch.Tensor):
-    """f32 [m, n] on the card -> (q int8 [m, n], alpha f32 [m], beta f32 [m]).
+#: the input types the kernel reads
+DTYPES = (torch.float32, torch.bfloat16)
 
-    ``x`` must be a contiguous float32 CUDA tensor with ``n >= 1``; the
-    caller casts (``kernels.ops.quantize_rows`` does)."""
+
+def quantize_rows_cuda(x: torch.Tensor, *, pdl: bool = True):
+    """f32 or bf16 [m, n] on the card -> (q int8 [m, n], alpha f32 [m],
+    beta f32 [m]).
+
+    ``x`` must be a contiguous float32 or bfloat16 CUDA tensor with
+    ``n >= 1``; the caller casts any other type
+    (``kernels.ops.quantize_rows`` does).  ``pdl=False`` launches K3 as a
+    plain successor of the kernel before it, only to measure what
+    programmatic dependent launch buys."""
     if not x.is_cuda:
         raise ValueError("quantize_rows_cuda needs a CUDA tensor")
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous float32 [m, n], got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    if x.dtype not in DTYPES or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous float32 or bfloat16 "
+                         f"[m, n], got {x.dtype} {tuple(x.shape)}")
     m, n = x.shape
     if n < 1 or m >= 2**31 or m * n >= 2**62:
         raise ValueError(f"unsupported shape {tuple(x.shape)}")
@@ -53,8 +78,9 @@ def quantize_rows_cuda(x: torch.Tensor):
     if m == 0:
         return q, alpha, beta
     with torch.cuda.device(x.device):
-        err = _launch()(x.data_ptr(), q.data_ptr(), alpha.data_ptr(),
-                        beta.data_ptr(), m, n,
+        err = _launch()(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                        q.data_ptr(), alpha.data_ptr(),
+                        beta.data_ptr(), m, n, int(pdl),
                         torch.cuda.current_stream().cuda_stream)
     _build.check(_NAME, err)
     quantize_rows_cuda.launches += 1

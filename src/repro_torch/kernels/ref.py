@@ -69,8 +69,11 @@ def wkv_chunked_ref(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
             + (sum r u k) v
         S = e^la_end S + (k e^(la_end - la))^T v
 
-    Returns ``(y [B, S, H, dh], new_state)``.  On the card it must run
-    with TF32 off: its matmuls are the float32 reference."""
+    r, k and v may come in bfloat16; they are cast to float32 here
+    (exactly), as the JAX layer casts them.  Returns ``(y [B, S, H, dh],
+    new_state)``.  On the card it must run with TF32 off: its matmuls are
+    the float32 reference."""
+    rh, kh, vh = (t.to(torch.float32) for t in (rh, kh, vh))
     b, s, h, dh = rh.shape
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of "

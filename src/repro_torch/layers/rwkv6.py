@@ -126,17 +126,18 @@ def timemix(p, x, x_prev, state, ctx: Ctx, *, n_heads: int
     lw = torch.clamp(-torch.exp(p["w0"].to(torch.float32) + lora),
                      LOG_W_MIN, 0.0)                             # [B,S,d]
 
-    rh = r.reshape(b, s, n_heads, dh).to(torch.float32)
-    kh = k.reshape(b, s, n_heads, dh).to(torch.float32)
-    vh = v.reshape(b, s, n_heads, dh).to(torch.float32)
+    rh, kh, vh = (t.reshape(b, s, n_heads, dh) for t in (r, k, v))
     lwh = lw.reshape(b, s, n_heads, dh)
     u = p["bonus"].to(torch.float32)                             # [H,dh]
 
     chunk = ctx.wkv_chunk
     if chunk and s > 1 and s % chunk == 0:
+        # r, k, v in the compute dtype: K4 reads bf16 as it is and the
+        # plain path casts to f32 (exact), as the JAX layer does
         ys, state = wkv_chunked(rh, kh, vh, lwh, u, state, chunk=chunk)
     else:
-        ys, state = wkv_recurrent(rh, kh, vh, lwh, u, state)
+        ys, state = wkv_recurrent(*(t.to(torch.float32)
+                                    for t in (rh, kh, vh)), lwh, u, state)
     y = ys.reshape(b, s, d)
     y = layernorm(p["ln_x"], y.to(ctx.compute_dtype))
     y = y * F.silu(g.to(torch.float32)).to(ctx.compute_dtype)

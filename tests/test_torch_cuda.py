@@ -100,6 +100,129 @@ def test_quantize_rows_kernel_bit_exact(rng, dev, m, n):
         assert torch.equal(g, w)
 
 
+# the rows K3 sees on the two serving paths: every DLRM layer's input
+# width at the lookup batch, the RWKV projections' at prefill (64),
+# decode (4) and the head in a prefill (1); and a ragged odd width
+K3_SHAPES = ([(10, k) for k in (13, 512, 256, 479, 1024)]
+             + [(m, k) for m in (64, 4, 1) for k in (2048, 7168)]
+             + [(3, 1001)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n", K3_SHAPES)
+def test_quantize_rows_kernel_reads_bf16(rng, dev, m, n, dtype):
+    """K3 reads float32 and bfloat16 as they are: q, alpha, beta bit-exact
+    with the plain version on the float32 cast, one launch, no cast."""
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+    x = torch.from_numpy((rng.standard_normal((m, n)) * 3)
+                         .astype(np.float32)).to(dev)
+    x = x.to(getattr(torch, dtype))
+    before = quantize_rows_cuda.launches
+    got = ops.quantize_rows(x)
+    assert quantize_rows_cuda.launches == before + 1
+    for g, w in zip(got, ref.quantize_rows_ref(x.float())):
+        assert torch.equal(g, w)
+
+
+def test_quantize_rows_kernel_at_ties(dev):
+    """Rows whose quotients (x - beta) / alpha fall on half-integers and
+    just beside them: the kernel multiplies by 1/alpha and divides exactly
+    only near a tie, and must round as the IEEE quotient does."""
+    half = torch.arange(511, dtype=torch.float32) * 0.5     # alpha 1, beta 128
+    near = half + torch.tensor([0.0, 3e-5, -3e-5, 1e-6, -1e-6]).repeat(103)[
+        :511]
+    scaled = half * 0.37 - 11.0                             # alpha 0.37
+    x = torch.stack([half, near, scaled, scaled.flip(0)]).to(dev)
+    for g, w in zip(ops.quantize_rows(x), ref.quantize_rows_ref(x)):
+        assert torch.equal(g, w)
+
+
+def _k1_case(rng, m, k, n, dev):
+    a = torch.from_numpy(rng.integers(-128, 128, size=(m, k))
+                         .astype(np.int8)).to(dev)
+    return a, _packed(rng, k, n, dev)
+
+
+def _k1_equal(got, a, bp):
+    want = ref.abft_qgemm_ref(a, bp)
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# (m, k, n) of K1 in the hazard positions: a DLRM layer (the masked path),
+# the RWKV prefill and decode projections (split K), the head
+PDL_SHAPES = [(10, 479, 1024), (64, 2048, 2048), (4, 7168, 2048),
+              (1, 2048, 65536)]
+
+
+@pytest.mark.parametrize("m,k,n", PDL_SHAPES)
+def test_qgemm_pdl_after_quantize_rows(rng, dev, m, k, n):
+    """K1 launched as K3's programmatic dependent, with no synchronisation
+    in between: bit-exact with the plain version on K3's output."""
+    bp = _packed(rng, k, n, dev)
+    xs = [torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+          .to(dev).to(torch.bfloat16) for _ in range(4)]
+    outs = []
+    for x in xs:                        # K3 -> K1, K3 -> K1, ...
+        q = ops.quantize_rows(x)[0]
+        outs.append((q, ops.abft_qgemm(q, bp)))
+    for x, (q, got) in zip(xs, outs):
+        assert torch.equal(q, ref.quantize_rows_ref(x.float())[0])
+        assert _k1_equal(got, q, bp)
+        assert int(got[1].sum()) == 0
+
+
+@pytest.mark.parametrize("m,k,n", PDL_SHAPES)
+def test_qgemm_pdl_after_in_place_flip(rng, dev, m, k, n):
+    """K1 right after a kernel that flips a B' byte in place sees the
+    flipped byte (and, after the flip back, the clean one)."""
+    a, bp = _k1_case(rng, m, k, n, dev)
+    a[:, k // 3] = 1                    # so the flipped row shows
+    clean = ops.abft_qgemm(a, bp)
+    bp[k // 3, n // 2] ^= 0x10          # an elementwise kernel on B'
+    flipped = ops.abft_qgemm(a, bp)
+    bp[k // 3, n // 2] ^= 0x10
+    restored = ops.abft_qgemm(a, bp)
+    torch.cuda.synchronize()
+    assert int(clean[1].sum()) == 0 and int(restored[1].sum()) == 0
+    assert int(flipped[1].sum()) == m
+    assert _k1_equal(restored, a, bp)
+    bp[k // 3, n // 2] ^= 0x10
+    assert _k1_equal(flipped, a, bp)
+
+
+@pytest.mark.parametrize("m,k,n", PDL_SHAPES)
+def test_qgemm_pdl_after_qgemm_on_same_scratch(rng, dev, m, k, n):
+    """Back-to-back K1 calls on one stream share the row-sum and ticket
+    scratch that each leaves zeroed (as ``recompute`` runs K1 twice)."""
+    cases = [_k1_case(rng, m, k, n, dev) for _ in range(2)]
+    cases[1][1][7, 3] ^= 0x20           # the second one flagged
+    cases[1][0][:, 7] = 1
+    outs = [ops.abft_qgemm(a, bp) for a, bp in cases * 3]
+    for (a, bp), got in zip(cases * 3, outs):
+        assert _k1_equal(got, a, bp)
+    assert [int(o[1].sum()) for o in outs] == [0, m] * 3
+
+
+def test_qgemm_pdl_after_correct_repair(rng, dev):
+    """Under ``correct`` a flipped weight is repaired in C; the K1 launched
+    right after the repair's kernels is bit-exact, and so is the repair."""
+    from repro_torch.protect.plan import ResolvedRule
+    from repro_torch.protect.runtime import protected_call
+    m, k, n = 64, 2048, 2048
+    a, bp = _k1_case(rng, m, k, n, dev)
+    colsum = ops.abft_qgemm(a.new_ones((1, k)), bp)[0][0]   # sum of B
+    clean_c = ops.abft_qgemm(a, bp)[0]
+    bp[100, 200] ^= 0x08
+    rule = ResolvedRule(policy="correct")
+    a2, bp2 = _k1_case(rng, 4, k, n, dev)
+    fixed, report = protected_call("qgemm", (bp, colsum), a, rule=rule)
+    after = ops.abft_qgemm(a2, bp2)     # right behind the repair
+    bp[100, 200] ^= 0x08
+    assert torch.equal(fixed, clean_c)
+    assert int(report.corrections) == 1
+    assert _k1_equal(after, a2, bp2)
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("tables,rows,d,bags,pool", [(3, 1000, 128, 10, 16),
                                                      (2, 64, 40, 5, 100),
@@ -155,6 +278,45 @@ def test_wkv_kernel_matches_plain(rng, dev, b, s, h, dh, chunk, heavy):
                  wkv_recurrent(*args)):
         torch.testing.assert_close(y, want[0], rtol=2e-4, atol=2e-4)
         torch.testing.assert_close(st, want[1], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("vec", [16, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", ["heavy", "all_min"])
+@pytest.mark.parametrize("b,s,h,dh,chunk", [(1, 64, 32, 64, 16),
+                                            (2, 64, 8, 64, 8),
+                                            (1, 64, 32, 32, 16),
+                                            (2, 32, 4, 32, 8)])
+def test_wkv_kernel_dtypes_and_copies(rng, dev, b, s, h, dh, chunk, decay,
+                                      dtype, vec):
+    """K4 on r, k, v in their own type, staged by 16- and by 4-byte copies:
+    within 2e-4 of the plain version and of the recurrence; in bf16 equal,
+    bit for bit, to the same launch on the float32 cast (the conversion is
+    exact)."""
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda, wkv_plan
+    from repro_torch.layers.rwkv6 import LOG_W_MIN, wkv_recurrent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _wkv_args(rng, b, s, h, dh, dev)
+    if decay == "all_min":
+        args[3] = torch.full_like(args[3], LOG_W_MIN)
+    rkv = [a.to(getattr(torch, dtype)) for a in args[:3]]
+    plan = wkv_plan(b, h, dh, chunk, seq=s, itemsize=rkv[0].element_size())
+    assert plan.blocks == b * h * (dh // 16) and plan.vec == 16
+    before = wkv6_chunked_cuda.launches
+    y, st = wkv6_chunked_cuda(*rkv, *args[3:], chunk=chunk,
+                              plan=plan._replace(vec=vec))
+    assert wkv6_chunked_cuda.launches == before + 1
+    assert y.dtype == st.dtype == torch.float32
+    f32 = [t.float() for t in rkv]
+    for want in (ref.wkv_chunked_ref(*rkv, *args[3:], chunk=chunk),
+                 wkv_recurrent(*f32, *args[3:])):
+        torch.testing.assert_close(y, want[0], rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(st, want[1], rtol=2e-4, atol=2e-4)
+    if dtype == "bfloat16":
+        plan32 = wkv_plan(b, h, dh, chunk, seq=s)._replace(vec=vec)
+        y32, st32 = wkv6_chunked_cuda(*f32, *args[3:], chunk=chunk,
+                                      plan=plan32)
+        assert torch.equal(y, y32) and torch.equal(st, st32)
 
 
 def test_wkv_kernel_worst_case_and_limits(dev):
