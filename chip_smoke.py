@@ -23,7 +23,15 @@ non-zero; nothing is caught and passed over):
    programmatic dependent of the kernel before it, so it is also held
    bit-exact right after K3, right after an in-place flip of a B' byte,
    right after another K1 on the same scratch and right after the
-   ``correct`` policy's repair;
+   ``correct`` policy's repair.  K2 on one request's bags and on the
+   paper's Table I pooling (26 x 2048 bags x 100): R bit-exact with the
+   slot-order sum of the plain terms (also for indices past the table),
+   rsum within 1e-5 of d x max|R|, flags and counts equal to the plain
+   branch at rel_bound 1e-3 and 1e-5 and to K2's formula on its own
+   rsum at 1e-3, 1e-5 and 1e-7; each of the 8 bits of a table byte
+   flipped, flagged as the plain branch flags it; and, as a programmatic
+   dependent, right after an in-place table flip, an alpha change and
+   another K2 on the same output allocation and counters;
 4. serve 8 ``dlrm_stream`` requests through ``ServingEngine`` under the
    default plan: every request completes, all fault counters are 0, every
    kernel launched; then one request with a flipped weight bit must show
@@ -32,9 +40,13 @@ non-zero; nothing is caught and passed over):
    logits must be finite, and a small model's forward on the card must
    agree with the plain forward on the CPU (1% of the logit scale, same
    fault counters);
-5. time each kernel, its plain version and (for K1) ``torch._int_mm`` by
-   CUDA events at the main path's shapes, next to the least time the card
-   could take (bytes over 3.35 TB/s or operations over the peak rate),
+5. count the device operations of one protected EmbeddingBag call by
+   the profiler (K2 alone in the card branch, at most 2 with the protect
+   layer's sum); time each kernel, its plain version and (for K1)
+   ``torch._int_mm`` by CUDA events at the main path's shapes (K2 on
+   cold rows and at Table I), next to the least
+   time the card could take (bytes over 3.35 TB/s or operations over the
+   peak rate; for K2 also with each random scale load a 32-byte sector),
    the time K3 adds in front of K1 (K3 -> K1 against K1 alone over a
    request's layers), and the per-request serve latency; K3 and K4 must
    be handed the path's bf16 activations, with no cast before them;
@@ -42,7 +54,9 @@ non-zero; nothing is caught and passed over):
    d_ff 7168, vocab 65536; random int8 weights from a seed) on the card
    and hold K1 and K3 (bit-exact; K3 on bf16 and f32) at its four GEMM
    shapes, K1 under PDL in the four positions of phase 3, K2 on its
-   65536 x 2048 token table, and K4 (within 2e-4, and within 2e-4 of the
+   65536 x 2048 token table at 64 and 4 tokens (the checks and PDL
+   positions of phase 3, and its time on cold rows beside both bounds),
+   and K4 (within 2e-4, and within 2e-4 of the
    per-token recurrence) on the prefill's own bf16 inputs of every layer
    and at batch 1 and 2, dh 64 and 32, chunk 16 and 8, on heavy-decay
    random inputs and on the all-``LOG_W_MIN`` worst case, in bf16 and
@@ -405,6 +419,180 @@ def pdl_hazards(torch, dev, gen, cases) -> list:
     return done
 
 
+def eb_checks(torch, enc, bags, label: str) -> dict:
+    """K2 against its plain versions on one index set of the stacked tables
+    ``enc`` = (table, alphas, betas, C_T): R bit-exact with the slot-order
+    sum of the plain terms; rsum within 1e-5 of d x max|R| of the plain
+    rsum (another order over d); flags and counts equal to K2's formula
+    written plainly (``ref.eb_check_slot_order``) on K2's own rsum at
+    rel_bound 1e-3, 1e-5 and 1e-7, and to the plain branch (``verify_bags``)
+    at 1e-3 and 1e-5, where no clean bag may be flagged.  At 1e-7 the bound
+    is about an ulp of a bag's magnitude, so round-off decides some clean
+    bags in any order: how many the plain branch decides otherwise is
+    reported, not held."""
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    table, al, be, rs = enc
+    d = table.shape[-1]
+    want_r = ref.abft_eb_slot_order_ref(table, al, be, bags)
+    _, rsum_p = ref.abft_eb_ref(table, al, be, bags)
+    scale = max(1.0, float(want_r.abs().max()))
+    out = {"rsum_max_abs_err": 0.0}
+    for rel in (1e-3, 1e-5, 1e-7):
+        r, rsum, flags, count = abft_eb_cuda(table, al, be, bags, rs,
+                                             rel_bound=rel)
+        if not torch.equal(r, want_r):
+            fail(f"abft_embeddingbag: R differs from the slot-order sum at "
+                 f"{label} ({int((r != want_r).sum())} elements)")
+        e_s = float((rsum - rsum_p).abs().max())
+        if e_s > 1e-5 * d * scale:
+            fail(f"abft_embeddingbag: rsum off by {e_s:.3g} at {label}")
+        out["rsum_max_abs_err"] = max(out["rsum_max_abs_err"], e_s)
+        mirror = ref.eb_check_slot_order(rsum, al, be, bags, rs, d,
+                                         rel_bound=rel)
+        if not torch.equal(flags, mirror) or not torch.equal(
+                count, flags.sum(-1, dtype=torch.int32)):
+            fail(f"abft_embeddingbag: flags or counts differ from its "
+                 f"formula on its own rsum at {label}, rel_bound {rel:g}")
+        plain = kops.abft_embedding_bag(table, al, be, bags, rs,
+                                        rel_bound=rel, use_kernel=False)
+        if rel == 1e-7:
+            out["flagged_at_1e-7"] = int(flags.sum())
+            out["plain_branch_differs_at_1e-7"] = int(
+                (flags != plain.err_bags).sum())
+            continue
+        if not (torch.equal(flags, plain.err_bags)
+                and torch.equal(count, plain.err_count)):
+            fail(f"abft_embeddingbag: flags differ from the plain branch at "
+                 f"{label}, rel_bound {rel:g}")
+        if bool(flags.any()):
+            fail(f"abft_embeddingbag flagged clean tables at {label}")
+    return out
+
+
+def eb_flip_sweep(torch, enc, bags) -> list:
+    """One bit of a table byte that bag 0 of table 0 reads flipped (C_T
+    left stale), each of the 8 positions in turn: the card branch's flags
+    and counts equal to the plain branch's at rel_bound 1e-3 and 1e-5.
+    Returns the bags flagged per bit at 1e-5."""
+    from repro_torch.core import table_rowsums
+    from repro_torch.kernels import ops as kops
+    table, al, be, rs = enc
+    row, col = int(bags[0, 0, 0]), 5
+    flagged = []
+    for bit in range(8):
+        mask = -128 if bit == 7 else 1 << bit
+        table[0, row, col] ^= mask
+        for rel in (1e-3, 1e-5):
+            got, want = (kops.abft_embedding_bag(table, al, be, bags, rs,
+                                                 rel_bound=rel, use_kernel=uk)
+                         for uk in (True, False))
+            if not (torch.equal(got.err_bags, want.err_bags)
+                    and torch.equal(got.err_count, want.err_count)):
+                fail(f"abft_embeddingbag: flags differ from the plain branch "
+                     f"with bit {bit} flipped, rel_bound {rel:g}")
+        flagged.append(int(got.err_count.sum()))
+        table[0, row, col] ^= mask
+    if not flagged[7]:
+        fail("abft_embeddingbag missed a flipped high table bit")
+    if not torch.equal(table_rowsums(table[0, row]), rs[0, row]):
+        fail("the flipped table row was not restored")
+    return flagged
+
+
+def eb_pdl_hazards(torch, enc, bags) -> None:
+    """K2 is launched as the programmatic dependent of whatever kernel
+    comes before it.  Held with no synchronisation between that kernel and
+    K2, in the three positions where it writes what K2 reads or writes:
+    right after an in-place flip of a table byte (a torch kernel) and the
+    flip back; right after an in-place change of a row's alpha and the
+    change back; and right after another K2 whose R and rsum were freed,
+    so the allocator hands their memory over, on the same counters, bags
+    that read the flipped row and bags that do not in turns."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    table, al, be, rs = enc
+    row = int(bags[0, 0, 0])
+    cold = torch.where(bags == row, (row + 1) % table.shape[1], bags)
+    torch.cuda.synchronize()
+    table[0, row, 9] ^= -128
+    flipped = abft_eb_cuda(table, al, be, bags, rs)
+    table[0, row, 9] ^= -128
+    restored = abft_eb_cuda(table, al, be, bags, rs)
+    al[0, row] *= 4.0
+    scaled = abft_eb_cuda(table, al, be, bags, rs)
+    al[0, row] *= 0.25                                # exact: back
+    after_alpha = abft_eb_cuda(table, al, be, bags, rs)
+    table[0, row, 9] ^= -128
+    chain, ptrs = [], set()
+    for idx in (bags, cold) * 3:
+        r, rsum, flags, count = abft_eb_cuda(table, al, be, idx, rs)
+        ptrs.add(r.data_ptr())
+        chain.append((idx is bags, flags, count))
+        del r, rsum
+    last = abft_eb_cuda(table, al, be, bags, rs)
+    ptrs.add(last[0].data_ptr())
+    torch.cuda.synchronize()
+    want_flipped = ref.abft_eb_slot_order_ref(table, al, be, bags)
+    table[0, row, 9] ^= -128
+    want = ref.abft_eb_slot_order_ref(table, al, be, bags)
+    al[0, row] *= 4.0
+    want_scaled = ref.abft_eb_slot_order_ref(table, al, be, bags)
+    al[0, row] *= 0.25
+    for name, got in (("an in-place table flip", flipped),
+                      ("K2 on the same allocation", last)):
+        if not torch.equal(got[0], want_flipped) or \
+                not bool(got[2][0, 0]) or \
+                int(got[3].sum()) != int(got[2].sum()):
+            fail(f"K2 right after {name}: R or flags wrong")
+    for name, got, r_want in (("the flip back", restored, want),
+                              ("an alpha change", scaled, want_scaled),
+                              ("the alpha change back", after_alpha, want)):
+        if not torch.equal(got[0], r_want) or bool(got[2].any()) or \
+                int(got[3].sum()):
+            fail(f"K2 right after {name}: R or flags wrong")
+    for hot, flags, count in chain:
+        if bool(flags[0, 0]) != hot or bool(flags.any()) != hot or \
+                not torch.equal(count, flags.sum(-1, dtype=torch.int32)):
+            fail("K2 right after K2 on the same counters: wrong flags")
+    if len(ptrs) > 2:
+        fail("the allocator did not hand K2's freed R over")
+
+
+def eb_bounds(bags, d: int):
+    """K2's least time, ``(useful, sectors)``, each ``(ms, by)``.  Useful
+    bytes: each valid slot's d-byte row and its alpha, beta and C_T, the
+    indices read once, R, rsum, the flags and the counts written once;
+    sectors: the same with each random alpha, beta and C_T load a 32-byte
+    sector.  Operations: 4 a row element, ~10 a slot for the check, and
+    rsum's adds."""
+    valid = int((bags >= 0).sum())
+    t, b, p = bags.shape
+    rest = 4 * t * b * p + t * b * (4 * d + 5) + 4 * t
+    ops = valid * (4 * d + 10) + t * b * d
+    return (bound_ms(valid * (d + 12) + rest, ops, F32_OPS_PER_S),
+            bound_ms(valid * (d + 3 * 32) + rest, ops, F32_OPS_PER_S))
+
+
+def device_ops(torch, fn) -> list:
+    """The device operations (kernels, copies, fills) one call of ``fn``
+    runs, by the profiler, after a warm-up call: ``[(name, count)]``.
+    Fails if the profiler traces nothing on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(ev.key, ev.count) for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA]
+    if not ops:
+        fail("the profiler traced no device operation")
+    return ops
+
+
 def pair_times(timer, calls, reps: int, rounds: int = 3) -> dict:
     """K3 -> K1 against K1 alone over the same calls.  ``calls`` holds
     (x, q, next_b) per qlinear: x the bf16 activation, q its int8 rows
@@ -536,31 +724,37 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         + "; ".join(hazards))
 
     emb = params["embed"]
-    enc1 = (emb["table"][None], emb["alphas"][None], emb["betas"][None])
+    enc4 = (emb["table"][None], emb["alphas"][None], emb["betas"][None],
+            emb["rowsums"][None])
     req0 = stream(1, 5)[0]
     prompt = torch.from_numpy(
         engine._chat_tokens(req0, 64).astype(np.int32)).to(dev)
-    k2_err = 0.0
-    for idx in (prompt.reshape(1, -1, 1), prompt[:4].reshape(1, -1, 1)):
-        r_k, rs_k = abft_eb_cuda(*enc1, idx)
-        r_p, rs_p = ref.abft_eb_ref(*enc1, idx)
-        e_r = float((r_k - r_p).abs().max())
-        e_s = float((rs_k - rs_p).abs().max())
-        scale = max(1.0, float(r_p.abs().max()))
-        if e_r > 1e-5 * scale or e_s > 1e-5 * cfg.d_model * scale:
-            fail(f"abft_embeddingbag off the plain version on the token "
-                 f"table: R {e_r:.3g}, rsum {e_s:.3g}")
-        k2_err = max(k2_err, e_r)
-        flags = [kops.abft_embedding_bag(emb["table"], emb["alphas"],
-                                         emb["betas"], idx[0],
-                                         emb["rowsums"],
-                                         use_kernel=uk).err_bags
-                 for uk in (True, False)]
-        if not torch.equal(flags[0], flags[1]) or bool(flags[0].any()):
-            fail("abft_embeddingbag flags differ or fire on clean rows")
+    k2 = {"checks": {}, "times": {}}
+    for n_bags in (64, 4):
+        idx = prompt[:n_bags].reshape(1, -1, 1)
+        label = f"{n_bags} tokens"
+        k2["checks"][label] = eb_checks(torch, enc4, idx, label)
+        # cold rows: each launch looks up fresh random tokens
+        sets = [torch.randint(0, cfg.vocab, idx.shape, generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(16)]
+        it = itertools.cycle(sets)
+        (b_ms, _), (s_ms, _) = eb_bounds(idx, cfg.d_model)
+        k2["times"][label] = {
+            "ms": timer.ms(lambda: abft_eb_cuda(*enc4[:3], next(it),
+                                                enc4[3]), 32),
+            "plain_ms": timer.ms(lambda: kops.abft_embedding_bag(
+                *enc4[:3], next(it), enc4[3], use_kernel=False), 8),
+            "bound_ms": b_ms, "sector_bound_ms": s_ms}
+    eb_pdl_hazards(torch, enc4, prompt.reshape(1, -1, 1))
     log(f"K2 on the {tuple(emb['table'].shape)} token table at pool 1 (64 "
-        f"and 4 bags): "
-        f"max |dR| {k2_err:.3g}, flags clean and equal")
+        f"and 4 bags): R bit-exact with the slot-order sum, flags equal to "
+        f"the plain branch at rel_bound 1e-3 and 1e-5 and to its formula at "
+        f"all three, under PDL after a table flip, an alpha change and "
+        f"another K2; ms (cold) / plain / bound / sector bound: "
+        + "; ".join(f"{k}: {v['ms']:.5f} / {v['plain_ms']:.4f} / "
+                    f"{v['bound_ms']:.6f} / {v['sector_bound_ms']:.6f}"
+                    for k, v in k2["times"].items()))
 
     # K4 on the prefill's own inputs: capture every layer's WKV call
     captured = []
@@ -952,11 +1146,11 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         f"ms, decode step median {serve['decode_ms_median']:.2f} ms, TTFT "
         f"p50 {per['ttft_ms']['p50']:.2f} ms, per token p50 "
         f"{per['per_token_ms']['p50']:.2f} ms")
-    details["rwkv"] = {"serve": serve, "k4_checks": k4,
+    details["rwkv"] = {"serve": serve, "k4_checks": k4, "k2": k2,
                        "gemm_shapes": per_shape, "k1_split_sweep": sweep,
                        "k4_large": {big_label: k4_big},
                        "small_card_vs_cpu": small_out}
-    return {"k4_row": k4_row, "launches": launches}
+    return {"k4_row": k4_row, "launches": launches, "k2_times": k2["times"]}
 
 
 def smi_line() -> str:
@@ -981,7 +1175,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.dlrm import CONFIG, EXTRAS
-    from repro_torch.core import LANE, pack_encoded_b, table_rowsums
+    from repro_torch.core import LANE, pack_encoded_b
     from repro_torch.kernels import _build, ops as kops, ref
     from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
     from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda, launch_plan
@@ -1115,47 +1309,33 @@ def main() -> int:
     big_bags = torch.randint(0, ex.table_rows, (ex.n_tables, 2048, 100),
                              generator=gen, device=dev, dtype=torch.int32)
     enc = (tables["table"], tables["alphas"], tables["betas"])
-    k2_err = 0.0
-    for bags in (req_bags, big_bags):
-        r_k, rs_k = abft_eb_cuda(*enc, bags)
-        r_p, rs_p = ref.abft_eb_ref(*enc, bags)
-        # same rounded terms, summed in another order: R over <= 100 slots
-        # within 1e-5 of its largest magnitude, rsum over d = 128 within
-        # 1e-5 of the largest |R| times d
-        tol_r = 1e-5 * max(1.0, float(r_p.abs().max()))
-        tol_s = 1e-5 * ex.emb_dim * max(1.0, float(r_p.abs().max()))
-        e_r = float((r_k - r_p).abs().max())
-        e_s = float((rs_k - rs_p).abs().max())
-        if e_r > tol_r or e_s > tol_s:
-            fail(f"abft_embeddingbag off the plain version at "
-                 f"{tuple(bags.shape)}: R {e_r:.3g} > {tol_r:.3g} or rsum "
-                 f"{e_s:.3g} > {tol_s:.3g}")
-        if bags is req_bags:
-            k2_err = max(e_r, e_s)
-        flags = [kops.abft_embedding_bag(*enc, bags, tables["rowsums"],
-                                         use_kernel=uk).err_bags
-                 for uk in (True, False)]
-        check_equal("abft_embeddingbag", flags[0], flags[1],
-                    f"clean flags at {tuple(bags.shape)}")
-        if bool(flags[0].any()):
-            fail("abft_embeddingbag flagged clean tables")
-    row = int(req_bags[0, 0, 0])
-    clean_byte = tables["table"][0, row, 5].clone()
-    tables["table"][0, row, 5] ^= -128                # high bit, stale C_T
-    flags = [kops.abft_embedding_bag(*enc, req_bags, tables["rowsums"],
-                                     use_kernel=uk).err_bags
-             for uk in (True, False)]
-    tables["table"][0, row, 5] = clean_byte
-    check_equal("abft_embeddingbag", flags[0], flags[1], "flags under a flip")
-    if not bool(flags[0][0].any()):
-        fail("abft_embeddingbag missed a flipped high table bit")
-    if not torch.equal(table_rowsums(tables["table"][0]),
-                       tables["rowsums"][0]):
-        fail("table 0 was not restored")
-    errs["abft_embeddingbag"] = k2_err
-    log(f"K2 within tolerance at {tuple(req_bags.shape)} and "
-        f"{tuple(big_bags.shape)} (max |dR| {k2_err:.3g} on the request); "
-        f"flip flags {int(flags[0].sum())} bag(s) as the plain version does")
+    enc4 = enc + (tables["rowsums"],)
+    past = req_bags.clone()                        # past the table: last row
+    past[0, 0, 0], past[-1, -1, 0] = ex.table_rows + 7, 2**31 - 1
+    k2_checks = {}
+    for label, bags in (("request", req_bags), ("Table I", big_bags)):
+        k2_checks[label] = eb_checks(torch, enc4, bags,
+                                     f"{label} {tuple(bags.shape)}")
+    want = ref.abft_eb_slot_order_ref(*enc, past)
+    if not torch.equal(abft_eb_cuda(*enc4[:3], past, enc4[3])[0], want):
+        fail("abft_embeddingbag: an index past the table did not read its "
+             "last row")
+    k2_flips = eb_flip_sweep(torch, enc4, req_bags)
+    eb_pdl_hazards(torch, enc4, req_bags)
+    errs["abft_embeddingbag"] = k2_checks["request"]["rsum_max_abs_err"]
+    details["k2_checks"] = {**k2_checks, "flip_sweep_flagged": k2_flips}
+    log(f"K2 at {tuple(req_bags.shape)} and {tuple(big_bags.shape)}: R "
+        f"bit-exact with the slot-order sum (and past the table), rsum "
+        f"within 1e-5 x d x max|R| (max |d| "
+        f"{errs['abft_embeddingbag']:.3g}), flags and counts equal to the "
+        f"plain branch at rel_bound 1e-3 and 1e-5 and to its formula on its "
+        f"own rsum at 1e-3, 1e-5 and 1e-7 (at 1e-7 "
+        + ", ".join(f"{k}: {v['flagged_at_1e-7']} flagged, plain branch "
+                    f"differs on {v['plain_branch_differs_at_1e-7']}"
+                    for k, v in k2_checks.items())
+        + f"); bits 0-7 of a table byte flipped: bags flagged {k2_flips} "
+          f"as the plain branch flags them; under PDL right after a table "
+          f"flip, an alpha change and another K2")
 
     # ----------------------------- 4. serve ---------------------------------
     wrappers = {"abft_qgemm": abft_qgemm_cuda,
@@ -1223,20 +1403,39 @@ def main() -> int:
         return lambda: [fn(*c) for c in cases]
 
     # cycling index sets: each K2 launch gathers fresh rows, cold in L2
-    def eb_fn(fn):
-        it = itertools.cycle(req_bag_sets)
-        return lambda: fn(*enc, next(it))
+    def eb_fn(sets):
+        it = itertools.cycle(sets)
+        return lambda: abft_eb_cuda(*enc, next(it), tables["rowsums"])
+
+    def eb_plain_fn(sets):
+        it = itertools.cycle(sets)
+        return lambda: kops.abft_embedding_bag(*enc, next(it),
+                                               tables["rowsums"],
+                                               use_kernel=False)
 
     k1_bytes = sum(m * k + k * (n + 1) + 4 * m * n + 4 * m
                    for k, n in shapes)
     k1_ops = sum(2 * m * k * (n + 1) for k, n in shapes)
     k3_bytes = sum(3 * m * k + 8 * m for k, _ in shapes)   # bf16 in
     k3_ops = sum(6 * m * k for k, _ in shapes)
-    valid = int((req_bags >= 0).sum())
-    t_, b_, p_ = req_bags.shape
-    k2_bytes = valid * (ex.emb_dim + 8) + 4 * t_ * b_ * p_ \
-        + 4 * t_ * b_ * (ex.emb_dim + 1)
-    k2_ops = valid * ex.emb_dim * 4 + t_ * b_ * ex.emb_dim
+    (k2_bound, k2_by), (k2_sectors, _) = eb_bounds(req_bags, ex.emb_dim)
+    # one protected EmbeddingBag call on the card: the card branch of ops
+    # (K2 alone) and the protect layer around it (K2 and the count's sum)
+    from repro_torch.protect.plan import ResolvedRule
+    from repro_torch.protect.runtime import protected_call
+    eb_ops = {
+        "ops.abft_embedding_bag": device_ops(
+            torch, lambda: kops.abft_embedding_bag(*enc, req_bags,
+                                                   tables["rowsums"])),
+        "protected_call": device_ops(
+            torch, lambda: protected_call("embedding_bag", enc4, req_bags,
+                                          rule=ResolvedRule()))}
+    n_ops = {k: sum(c for _, c in v) for k, v in eb_ops.items()}
+    log(f"device operations of one protected EmbeddingBag call: {n_ops} "
+        f"({eb_ops})")
+    if n_ops["ops.abft_embedding_bag"] != 1 or n_ops["protected_call"] > 2:
+        fail(f"a protected EmbeddingBag call ran {n_ops} device operations")
+    details["eb_device_ops"] = eb_ops
 
     def int_mm_cases():
         out = []
@@ -1275,8 +1474,8 @@ def main() -> int:
          timer.ms(seq(ref.abft_qgemm_ref, k1_main)),
          bound_ms(k1_bytes, k1_ops, INT8_OPS_PER_S), library_k1),
         ("abft_embeddingbag", "src/repro_torch/csrc/abft_embeddingbag.cu",
-         timer.ms(eb_fn(abft_eb_cuda)), timer.ms(eb_fn(ref.abft_eb_ref)),
-         bound_ms(k2_bytes, k2_ops, F32_OPS_PER_S), None),
+         timer.ms(eb_fn(req_bag_sets)), timer.ms(eb_plain_fn(req_bag_sets)),
+         (k2_bound, k2_by), None),
         ("quantize_rows", "src/repro_torch/csrc/quantize_rows.cu",
          timer.ms(seq(quantize_rows_cuda, [(x,) for x in k3_main])),
          timer.ms(seq(ref.quantize_rows_ref, [(x,) for x in k3_main])),
@@ -1296,6 +1495,7 @@ def main() -> int:
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
             "per": per[name]})
     kernels[2]["exposed_in_k1_pair_ms"] = dlrm_pair["exposed_ms"]
+    kernels[1]["sector_bound_ms"] = k2_sectors
 
     # the larger shapes, for the record (the library call's operand is
     # padded to n + 8 columns outside the timed region)
@@ -1303,10 +1503,9 @@ def main() -> int:
     big_bag_sets = [big_bags] + [
         torch.randint(0, ex.table_rows, big_bags.shape, generator=gen,
                       device=dev, dtype=torch.int32) for _ in range(3)]
-    it_big = itertools.cycle(big_bag_sets)
     k3_tiny = torch.randn((1, 8), generator=gen, device=dev).to(
         torch.bfloat16)
-    valid_big = int(big_bags.numel())
+    (big_bound, _), (big_sectors, _) = eb_bounds(big_bags, ex.emb_dim)
     details["large"] = {
         "abft_qgemm m=2048 k=1024 n=1024": {
             "ms": timer.ms(lambda: abft_qgemm_cuda(a_big, bp_big), 10),
@@ -1329,12 +1528,9 @@ def main() -> int:
             "bound": bound_ms(5 * 2048 * 1024 + 8 * 2048, 6 * 2048 * 1024,
                               F32_OPS_PER_S)},
         "abft_embeddingbag 26x2048 bags x 100": {
-            "ms": timer.ms(lambda: abft_eb_cuda(*enc, next(it_big)), 4),
-            "plain_ms": timer.ms(lambda: ref.abft_eb_ref(*enc, next(it_big)),
-                                 2),
-            "bound": bound_ms(valid_big * (ex.emb_dim + 8) + 4 * valid_big
-                              + 4 * 26 * 2048 * (ex.emb_dim + 1),
-                              valid_big * ex.emb_dim * 4, F32_OPS_PER_S)},
+            "ms": timer.ms(eb_fn(big_bag_sets), 4),
+            "plain_ms": timer.ms(eb_plain_fn(big_bag_sets), 2),
+            "bound": big_bound, "sector_bound_ms": big_sectors},
     }
     details["profile"], dtypes = kernel_input_dtypes(
         lambda: profile_requests(torch, engine, stream(4, 31)))
@@ -1350,6 +1546,7 @@ def main() -> int:
     for row in kernels:
         row["launches_by_path"] = {"dlrm": row["launches"],
                                    "rwkv6": rwkv["launches"][row["name"]]}
+    kernels[1]["rwkv_token_table"] = rwkv["k2_times"]
     kernels.append(rwkv["k4_row"])
     details["kernels"] = kernels
     details["seconds"] = time.perf_counter() - t_start

@@ -80,8 +80,10 @@ def verify_bags(rsum: torch.Tensor, alphas: torch.Tensor, betas: torch.Tensor,
     """The Eq. (5) compare: per-bag error flags from the output row sums.
 
     ``rsum`` is ``Σ_j R_b[j]`` ([bags]), however the forward pass produced
-    it (a reduction of R or the kernel's fused block sum).  This is the one
-    definition of the check, shared by every execution path.
+    it (a reduction of R or the kernel's fused block sum).  The plain path
+    calls it; on the card K2 makes the same compare in its own launch
+    (its terms summed in slot order), and the tests hold K2's flags to
+    this definition.
 
     |RSum - CSum| > bound  =>  soft error (Alg. 2 line 5).  The bound
     scales with Σ|terms| rather than with the result: float round-off

@@ -48,7 +48,10 @@ def abft_embedding_bag(table_q, alphas, betas, indices, rowsums,
 
     Takes one table (``[rows, d]``, ``indices [bags, pool]``; err_count
     is a scalar) or a stack (``[tables, rows, d]``, ``[tables, bags,
-    pool]``; err_count is a ``[tables]`` vector, one check per table)."""
+    pool]``; err_count is a ``[tables]`` vector, one check per table).
+    On the card the whole call is K2, which makes the compare of
+    :func:`repro_torch.core.verify_bags` itself (its terms summed in slot
+    order); the plain path calls ``verify_bags``."""
     stacked = table_q.dim() == 3
     if not stacked:
         out = abft_embedding_bag(table_q[None], alphas[None], betas[None],
@@ -57,14 +60,17 @@ def abft_embedding_bag(table_q, alphas, betas, indices, rowsums,
                                  rel_bound=rel_bound, use_kernel=use_kernel)
         return AbftEbOut(out.r[0], out.err_bags[0], out.err_count[0])
     if _use_kernel(use_kernel, table_q):
+        # one kernel: the gather, R, rsum, the Eq. (5) compare (verify_bags'
+        # terms in slot order) and the per-table count
         from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
-        r, rsum = abft_eb_cuda(
+        r, _, err_bags, err_count = abft_eb_cuda(
             table_q, alphas, betas, indices.to(torch.int32).contiguous(),
-            None if weights is None else weights.contiguous())
-    else:
-        r, rsum = _ref.abft_eb_ref(table_q, alphas, betas, indices, weights)
-    # ONE Eq. (5) definition for every path: the tables are flattened into
-    # one row space so a single verify_bags call checks every bag
+            rowsums, None if weights is None else weights.contiguous(),
+            rel_bound=rel_bound)
+        return AbftEbOut(r, err_bags, err_count)
+    r, rsum = _ref.abft_eb_ref(table_q, alphas, betas, indices, weights)
+    # ONE Eq. (5) definition for the plain path: the tables are flattened
+    # into one row space so a single verify_bags call checks every bag
     tables, rows, d = table_q.shape
     offs = (torch.arange(tables, device=indices.device)
             * rows).reshape(-1, 1, 1)

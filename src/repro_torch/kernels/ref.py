@@ -10,8 +10,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import LANE, MOD, column_check, embedding_bag, \
-    int_matmul
+from repro_torch.core import EB_REL_BOUND, LANE, MOD, column_check, \
+    embedding_bag, int_matmul
 
 
 def abft_qgemm_ref(a_q: torch.Tensor, b_packed: torch.Tensor,
@@ -36,6 +36,64 @@ def abft_eb_ref(table_q: torch.Tensor, alphas: torch.Tensor,
     table or a stack of them (see :func:`repro_torch.core.embedding_bag`)."""
     r = embedding_bag(table_q, alphas, betas, indices, weights)
     return r, torch.sum(r, dim=-1)
+
+
+def _eb_slots(alphas, betas, indices, weights, rowsums=None):
+    """Per slot of a stack (``alphas [tables, rows]``, ``indices [tables,
+    bags, pool]``): the table and row read, alpha, beta, the weight (0 on
+    a padded slot) and, with ``rowsums``, C_T as float32.  A padded slot
+    reads row 0, as the plain version does; an index past the table reads
+    its last row, as K2 does."""
+    valid = indices >= 0
+    safe = torch.where(valid, indices.long().clamp(max=alphas.shape[1] - 1),
+                       0)
+    t = torch.arange(alphas.shape[0], device=indices.device)[:, None, None]
+    a, b = alphas[t, safe], betas[t, safe]
+    w = torch.ones_like(a) if weights is None else weights
+    w = torch.where(valid, w, torch.zeros_like(w))
+    ct = None if rowsums is None else rowsums[t, safe].to(torch.float32)
+    return safe, t, a, b, w, ct
+
+
+def abft_eb_slot_order_ref(table_q: torch.Tensor, alphas: torch.Tensor,
+                           betas: torch.Tensor, indices: torch.Tensor,
+                           weights: Optional[torch.Tensor] = None):
+    """K2's R for a stack of tables, each element summed over the slots in
+    slot order from 0 (a plain loop over slots): the order K2 sums in, so
+    its R equals this bit for bit.  The terms are the plain version's,
+    ``w * (alpha * row + beta)``, each rounded on its own.  For tests and
+    ``chip_smoke.py``; the CPU path takes :func:`abft_eb_ref`."""
+    safe, t, a, b, w, _ = _eb_slots(alphas, betas, indices, weights)
+    acc = torch.zeros(indices.shape[:2] + (table_q.shape[-1],),
+                      dtype=torch.float32, device=table_q.device)
+    for p in range(indices.shape[-1]):
+        row = table_q[t[..., 0], safe[..., p]].to(torch.float32)
+        acc = acc + w[..., p, None] * (a[..., p, None] * row
+                                       + b[..., p, None])
+    return acc
+
+
+def eb_check_slot_order(rsum: torch.Tensor, alphas: torch.Tensor,
+                        betas: torch.Tensor, indices: torch.Tensor,
+                        rowsums: torch.Tensor, d: int,
+                        weights: Optional[torch.Tensor] = None,
+                        rel_bound: float = EB_REL_BOUND) -> torch.Tensor:
+    """K2's Eq. (5) compare for a stack, written plainly: the terms of
+    :func:`repro_torch.core.verify_bags` one for one, with ``csum`` and
+    ``mag`` summed in slot order from 0 as K2 sums them.  Given K2's own
+    rsum it gives K2's flags bit for bit.  -> err_bags bool [tables,
+    bags]."""
+    _, _, a, b, w, ct = _eb_slots(alphas, betas, indices, weights, rowsums)
+    csum = torch.zeros(indices.shape[:2], dtype=torch.float32,
+                       device=rsum.device)
+    mag = torch.zeros_like(csum)
+    for p in range(indices.shape[-1]):
+        csum = csum + w[..., p] * (a[..., p] * ct[..., p] + d * b[..., p])
+        mag = mag + torch.abs(w[..., p]) * (
+            torch.abs(a[..., p]) * torch.abs(ct[..., p])
+            + d * torch.abs(b[..., p]))
+    tol = rel_bound * torch.clamp(mag, min=1.0)
+    return torch.abs(rsum - csum) > tol
 
 
 def quantize_rows_ref(x: torch.Tensor):

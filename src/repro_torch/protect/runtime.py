@@ -20,6 +20,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.core.policy import (abort_if_errors, empty_report,
                                      op_report, with_recompute)
 from repro_torch.protect.ops import get_op
@@ -39,6 +41,13 @@ def rule_for(ctx, op: str, name: str = "") -> ResolvedRule:
     if op in ("kv_cache", "kv_cache_paged"):
         return ResolvedRule(enabled=False)
     return ResolvedRule(enabled=bool(getattr(ctx, "abft", True)))
+
+
+def _total(counts):
+    """An int32 count (or vector of counts) summed in int32, as ``jnp.sum``
+    keeps it: one reduction, where torch's default int64 sum would first
+    cast the counts on the card (a second kernel)."""
+    return counts.sum(dtype=torch.int32)
 
 
 def protected_call(op: str, encoded, *inputs, ctx=None,
@@ -82,11 +91,11 @@ def protected_call(op: str, encoded, *inputs, ctx=None,
 
         out, err, retries = with_recompute(
             run, max_retries=rule.max_retries)()
-        return out, op_report(op, err.sum(), checks=err.numel(),
-                              retries=retries.sum())
+        return out, op_report(op, _total(err), checks=err.numel(),
+                              retries=_total(retries))
 
     out, check = adapter(encoded, *inputs, rule=rule, **call_kwargs)
     if policy_name == "abort":
         abort_if_errors(check.err_count)
-    return out, op_report(op, check.err_count.sum(),
+    return out, op_report(op, _total(check.err_count),
                           checks=check.err_count.numel())

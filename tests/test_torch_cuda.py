@@ -223,29 +223,234 @@ def test_qgemm_pdl_after_correct_repair(rng, dev):
     assert _k1_equal(after, a2, bp2)
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("tables,rows,d,bags,pool", [(3, 1000, 128, 10, 16),
-                                                     (2, 64, 40, 5, 100),
-                                                     (1, 8, 300, 3, 2)])
-def test_eb_kernel_matches_plain(rng, dev, tables, rows, d, bags, pool,
-                                 weighted):
-    t = torch.from_numpy(rng.integers(-127, 128, size=(tables, rows, d))
-                         .astype(np.int8)).to(dev)
-    al = torch.from_numpy(rng.uniform(5e-3, 2e-2, size=(tables, rows))
-                          .astype(np.float32)).to(dev)
-    be = torch.from_numpy(rng.uniform(-0.1, 0.1, size=(tables, rows))
-                          .astype(np.float32)).to(dev)
-    idx = torch.from_numpy(rng.integers(-1, rows, size=(tables, bags, pool))
-                           .astype(np.int32)).to(dev)
-    w = (torch.from_numpy(rng.uniform(0.5, 2, size=(tables, bags, pool))
-                          .astype(np.float32)).to(dev) if weighted else None)
-    out_k = ops.abft_embedding_bag(t, al, be, idx, table_rowsums(t), w)
-    out_p = ops.abft_embedding_bag(t, al, be, idx, table_rowsums(t), w,
+def _eb_case(rng, dev, tables, rows, d, bags, pool, weighted=False,
+             dyadic=False, padding="tail"):
+    """A stack of int8 tables with their scales and C_T, and padded
+    indices, optionally weighted; ``dyadic`` scales make every sum exact
+    in float32, so the flags do not depend on the order.  ``padding``
+    "tail" pads each bag after a random pool of at least one slot;
+    "anywhere" draws -1 at any slot and pads the first bag of each table
+    whole."""
+    t = rng.integers(-127, 128, size=(tables, rows, d)).astype(np.int8)
+    if dyadic:
+        al = rng.integers(1, 5, size=(tables, rows)) * 2.0**-10
+        be = rng.integers(-100, 101, size=(tables, rows)) * 2.0**-10
+        w = rng.integers(1, 5, size=(tables, bags, pool)) * 0.5
+    else:
+        al = rng.uniform(5e-3, 2e-2, size=(tables, rows))
+        be = rng.uniform(-0.1, 0.1, size=(tables, rows))
+        w = rng.uniform(0.5, 2, size=(tables, bags, pool))
+    if padding == "anywhere":
+        idx = rng.integers(-1, rows, size=(tables, bags, pool))
+        idx[:, 0, :] = -1
+    else:
+        idx = rng.integers(0, rows, size=(tables, bags, pool))
+        pools = rng.integers(1, pool + 1, size=(tables, bags))
+        idx = np.where(np.arange(pool)[None, None, :] < pools[..., None],
+                       idx, -1)
+    t = torch.from_numpy(t).to(dev)
+    out = [t, torch.from_numpy(al.astype(np.float32)).to(dev),
+           torch.from_numpy(be.astype(np.float32)).to(dev),
+           torch.from_numpy(idx.astype(np.int32)).to(dev), table_rowsums(t)]
+    return out + [torch.from_numpy(w.astype(np.float32)).to(dev)
+                  if weighted else None]
+
+
+def _eb_held(t, al, be, idx, rs, w, rel, *, exact_flags=True):
+    """K2 (through the card branch and its wrapper) against the plain
+    versions: R bit-exact with the slot-order sum, rsum within 1e-5 of
+    d x max|R|, the flags and counts equal to the mirror on K2's own rsum
+    and (``exact_flags``) to the plain branch.  Returns the flags."""
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    d = t.shape[-1]
+    before = abft_eb_cuda.launches
+    out = ops.abft_embedding_bag(t, al, be, idx, rs, w, rel_bound=rel)
+    assert abft_eb_cuda.launches == before + 1          # one kernel a call
+    r, rsum, flags, count = abft_eb_cuda(t, al, be, idx, rs, w,
+                                         rel_bound=rel)
+    assert torch.equal(out.r, r) and torch.equal(out.err_bags, flags)
+    assert torch.equal(out.err_count, count)
+    assert torch.equal(r, ref.abft_eb_slot_order_ref(t, al, be, idx, w))
+    idx_c = idx.clamp(max=t.shape[1] - 1)
+    plain = ops.abft_embedding_bag(t, al, be, idx_c, rs, w, rel_bound=rel,
                                    use_kernel=False)
-    # same rounded terms summed in another order
-    torch.testing.assert_close(out_k.r, out_p.r, rtol=1e-5, atol=1e-5)
-    assert torch.equal(out_k.err_bags, out_p.err_bags)
-    assert int(out_k.err_count.sum()) == 0
+    _, rsum_p = ref.abft_eb_ref(t, al, be, idx_c, w)
+    scale = max(1.0, float(plain.r.abs().max()))
+    assert float((rsum - rsum_p).abs().max()) <= 1e-5 * d * scale
+    mirror = ref.eb_check_slot_order(rsum, al, be, idx, rs, d, w, rel)
+    assert torch.equal(flags, mirror)
+    assert torch.equal(count, flags.sum(-1, dtype=torch.int32))
+    if exact_flags:
+        assert torch.equal(flags, plain.err_bags)
+        assert torch.equal(count, plain.err_count)
+    return flags
+
+
+# (tables, rows, d, bags, pool): a DLRM request and the Table I pooling at
+# d 128, the RWKV token table's d 2048 at pool 1 (64 and 4 bags), the
+# narrow vector widths, and ragged d (byte loads)
+EB_CARD_SHAPES = [(3, 1000, 128, 10, 16), (2, 64, 40, 5, 100),
+                  (1, 8, 300, 3, 2), (26, 4096, 128, 10, 16),
+                  (4, 5000, 128, 300, 100), (1, 65536, 2048, 64, 1),
+                  (1, 65536, 2048, 4, 1), (2, 300, 16, 9, 33),
+                  (2, 300, 32, 9, 20), (2, 300, 64, 9, 20),
+                  (2, 300, 256, 9, 40), (2, 300, 48, 9, 20),
+                  (1, 50, 4096, 3, 5)]
+
+
+@pytest.mark.parametrize("padding", ["tail", "anywhere"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tables,rows,d,bags,pool", EB_CARD_SHAPES)
+def test_eb_kernel_matches_plain(rng, dev, tables, rows, d, bags, pool,
+                                 weighted, padding):
+    t, al, be, idx, rs, w = _eb_case(rng, dev, tables, rows, d, bags, pool,
+                                     weighted, padding=padding)
+    for rel in (1e-3, 1e-5):
+        assert not _eb_held(t, al, be, idx, rs, w, rel).any()
+    # at 1e-7 round-off decides some clean bags on random scales: K2 must
+    # equal its mirror on its own rsum (checked inside), not every order
+    _eb_held(t, al, be, idx, rs, w, 1e-7, exact_flags=False)
+    # indices past the table read its last row
+    idx[0, 0, 0] = rows + 5
+    idx[-1, -1, 0] = 2**31 - 1
+    _eb_held(t, al, be, idx, rs, w, 1e-5)
+
+
+# random scales at 1e-3 and 1e-5; at 1e-7 round-off decides some clean
+# bags on random scales (test_eb_kernel_matches_plain), so there only the
+# dyadic scales, whose sums are exact in every order
+@pytest.mark.parametrize("dyadic,rel", [(False, 1e-3), (False, 1e-5),
+                                        (True, 1e-3), (True, 1e-5),
+                                        (True, 1e-7)])
+@pytest.mark.parametrize("tables,rows,d,bags,pool", [
+    (26, 4096, 128, 10, 16), (1, 65536, 2048, 4, 1), (2, 300, 40, 5, 16)])
+def test_eb_kernel_flags_under_bit_flips(rng, dev, tables, rows, d, bags,
+                                         pool, dyadic, rel):
+    """Each of the 8 bits of a table byte flipped (C_T left stale): flags
+    and counts equal to the plain branch, on dyadic scales at every bound
+    and on random scales at 1e-3 and 1e-5."""
+    t, al, be, idx, rs, w = _eb_case(rng, dev, tables, rows, d, bags, pool,
+                                     True, dyadic)
+    tab, bag = tables - 1, bags // 2
+    row, col = int(idx[tab, bag, 0]), d // 3
+    caught = []
+    for bit in range(8):
+        t[tab, row, col] ^= -128 if bit == 7 else 1 << bit
+        flags = _eb_held(t, al, be, idx, rs, w, rel)
+        t[tab, row, col] ^= -128 if bit == 7 else 1 << bit
+        caught.append(bool(flags[tab, bag]))
+    assert caught[7]
+
+
+def _hazard_case(rng, dev):
+    return _eb_case(rng, dev, 26, 4096, 128, 10, 16, weighted=True)
+
+
+def test_eb_pdl_after_in_place_table_flip(rng, dev):
+    """K2 launched right behind the torch kernel that flips a table byte
+    in place (and right behind the one that flips it back), no
+    synchronisation in between: it reads the flipped byte."""
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    t, al, be, idx, rs, w = _hazard_case(rng, dev)
+    row = int(idx[3, 2, 0])
+    torch.cuda.synchronize()
+    t[3, row, 9] ^= -128
+    flipped = abft_eb_cuda(t, al, be, idx, rs, w)
+    t[3, row, 9] ^= -128
+    restored = abft_eb_cuda(t, al, be, idx, rs, w)
+    torch.cuda.synchronize()
+    assert bool(flipped[2][3, 2]) and int(flipped[3][3]) >= 1
+    assert int(flipped[3].sum()) == int(flipped[3][3])
+    assert not restored[2].any() and int(restored[3].sum()) == 0
+    t[3, row, 9] ^= -128
+    assert torch.equal(flipped[0], ref.abft_eb_slot_order_ref(t, al, be, idx,
+                                                              w))
+
+
+def test_eb_pdl_after_in_place_alpha_change(rng, dev):
+    """K2 right behind an in-place change of a row's alpha: R uses the new
+    alpha, and the check (C_T unchanged, alpha scaling both sides) stays
+    clean."""
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    t, al, be, idx, rs, w = _hazard_case(rng, dev)
+    row = int(idx[5, 1, 0])
+    torch.cuda.synchronize()
+    al[5, row] *= 4.0
+    got = abft_eb_cuda(t, al, be, idx, rs, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref.abft_eb_slot_order_ref(t, al, be, idx, w))
+    assert not got[2].any()
+
+
+def test_eb_pdl_after_eb_on_same_allocation(rng, dev):
+    """K2 right behind another K2 whose R and rsum were freed, so the
+    allocator hands the same memory over, and on the same counters and
+    tickets: flagged and clean calls in turns, queued with no
+    synchronisation, each with its own flags and counts."""
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    t, al, be, idx, rs, w = _hazard_case(rng, dev)
+    t_bad = t.clone()
+    row = int(idx[0, 0, 0])
+    t_bad[0, row, 3] ^= -128
+    torch.cuda.synchronize()
+    outs, ptrs = [], set()
+    for tab in (t_bad, t) * 4:
+        r, rsum, flags, count = abft_eb_cuda(tab, al, be, idx, rs, w)
+        ptrs.add(r.data_ptr())
+        outs.append((tab is t_bad, flags, count))
+        del r, rsum
+    last = abft_eb_cuda(t_bad, al, be, idx, rs, w)
+    ptrs.add(last[0].data_ptr())
+    torch.cuda.synchronize()
+    assert len(ptrs) <= 2                    # the allocation was reused
+    for bad, flags, count in outs + [(True, last[2], last[3])]:
+        assert bool(flags[0, 0]) == bad and bool(flags.any()) == bad
+        assert torch.equal(count, flags.sum(-1, dtype=torch.int32))
+    assert torch.equal(last[0], ref.abft_eb_slot_order_ref(t_bad, al, be,
+                                                           idx, w))
+
+
+def test_eb_entry_refuses_a_plan_that_does_not_fit(rng, dev):
+    """The C entry checks the launch plan it is handed (the wrapper's comes
+    from eb_plan): one that does not fit returns cudaErrorInvalidValue and
+    writes nothing."""
+    from repro_torch.kernels import abft_embeddingbag as eb
+    t, al, be, idx, rs, _ = _eb_case(rng, dev, 2, 100, 128, 5, 16)
+    plan = eb.eb_plan(2, 5, 16, 128, 100, table_addr=t.data_ptr())
+    r = torch.full((2, 5, 128), 7.0, device=dev)
+    rsum = torch.empty((2, 5), device=dev)
+    flags = torch.empty((2, 5), dtype=torch.bool, device=dev)
+    count = torch.empty((2,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in (plan._replace(groups=2), plan._replace(groups=8),
+                plan._replace(lanes=4), plan._replace(vec=False),
+                plan._replace(blocks_per_table=1),
+                plan._replace(warps_per_bag=2, bags_per_block=8)):
+        rc = eb._launch()(
+            t.data_ptr(), al.data_ptr(), be.data_ptr(), rs.data_ptr(),
+            idx.data_ptr(), None, r.data_ptr(), rsum.data_ptr(),
+            flags.data_ptr(), count.data_ptr(), eb._scratch(dev, stream, 2),
+            2, 100, 128, 5, 16, 1e-5, int(bad.vec), bad.lanes, bad.groups,
+            bad.warps_per_bag, bad.bags_per_block, bad.blocks_per_table,
+            stream)
+        assert rc == 1, bad                  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert bool((r == 7.0).all())
+
+
+def test_protected_eb_call_is_one_kernel(rng, dev):
+    """A protected EmbeddingBag call on the card (the DLRM layer's route)
+    launches K2 once, with the plan's rel_bound."""
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    from repro_torch.protect.plan import ResolvedRule
+    from repro_torch.protect.runtime import protected_call
+    t, al, be, idx, rs, _ = _hazard_case(rng, dev)
+    before = abft_eb_cuda.launches
+    r, report = protected_call("embedding_bag", (t, al, be, rs), idx,
+                               rule=ResolvedRule(rel_bound=1e-3))
+    assert abft_eb_cuda.launches == before + 1
+    assert int(report.as_metrics()["abft/embedding_bag_errors"]) == 0
+    assert torch.equal(r, ref.abft_eb_slot_order_ref(t, al, be, idx))
 
 
 def _wkv_args(rng, b, s, h, dh, dev, heavy=True):
