@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Two paths run, each with every launch counter set to 0 just before it
-and read just after: the paper's int8 DLRM serving (kernels K1-K3) and
-int8 RWKV6-1.6B chat serving (K1-K4).  Phases (any failure exits
+Three paths run, each with every launch counter set to 0 just before it
+and read just after: the paper's int8 DLRM serving (kernels K1-K3), int8
+RWKV6-1.6B chat serving (K1-K4), and the main-path resilience campaign
+(K1, K2).  Phases (any failure exits
 non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
@@ -34,9 +35,11 @@ non-zero; nothing is caught and passed over):
    another K2 on the same output allocation and counters;
 4. serve 8 ``dlrm_stream`` requests through ``ServingEngine`` under the
    default plan: every request completes, all fault counters are 0, every
-   kernel launched; then one request with a flipped weight bit must show
-   ``qgemm_errors > 0`` and one with a flipped high table bit
-   ``embedding_bag_errors > 0`` (both restored after); the full-width
+   kernel launched; then faults through the engine's ``FaultInjection``:
+   a transient flip of ``top.0``'s packed weight, a high bit of a table
+   row the request gathers, and a persistent ``top.0`` flip, each flagged
+   at its step (the persistent one at every later request) and each
+   victim leaf bit-identical afterwards (by fingerprint); the full-width
    logits must be finite, and a small model's forward on the card must
    agree with the plain forward on the CPU (1% of the logit scale, same
    fault counters);
@@ -64,11 +67,19 @@ non-zero; nothing is caught and passed over):
 7. serve 8 ``chat_stream`` requests (prompt 64, up to 32 new tokens, 4
    slots) under the default plan: every request completes, all fault
    counters are 0, K4 launched 24 times per prefill (the warm-up's
-   included); a flipped ``cm.wv`` payload bit and a flipped high bit of
-   a prompt token's embedding row are each detected and restored; the
-   smoke-size RWKV's prefill and 3 decode steps on the card agree with
-   the plain run on the CPU (same counters, logits within the stated
-   fraction of their scale);
+   included); ``FaultInjection`` flips of a ``cm.wv`` payload bit and of
+   a high bit of a prompt token's embedding row are each flagged at their
+   step and the leaves restored bit for bit; the smoke-size RWKV's
+   prefill and 3 decode steps on the card agree with the plain run on
+   the CPU at a 64- and at a 24-token prompt (off the WKV chunk grid: K4
+   on the first 16 tokens, the recurrence on the rest): the same
+   counters; where an activation's int8 codes first differ, a rounding
+   split, printed; run free, logits within 1e-4 of their scale up to that
+   split (and in bf16 within 2**-4 after it); run in lockstep, the CPU
+   taking the card's codes at each rounding split, within 1e-4 at every
+   step; and the
+   smoke-size engines at a 24-token bucket serve the same requests with
+   the same counters on the card and on the CPU;
 8. time K4 and its plain version at the prefill shape (r, k, v in bf16
    and f32) and at (4, 4096, 32, 64); K1 at each GEMM shape of a step
    with its weights
@@ -77,11 +88,27 @@ non-zero; nothing is caught and passed over):
    its cluster (the evidence for the plan's rule); K3 at each shape, and
    K3 -> K1 against K1 alone on the same cold weights; the
    prefill and decode steps, and the device-busy and K1 shares of a few
-   served requests.
+   served requests;
+9. run the port's ``quick``, ``pallas`` (quick) and ``paper`` campaign
+   grids on the card through K1 and K2 at the JAX grids' sample counts,
+   seed 0 (artifacts beside ``--out``); every main-path cell of the
+   committed ``BENCH_campaign_pallas_quick.json`` (7) and
+   ``BENCH_campaign_quick.json`` (10) baselines must overlap its baseline
+   by 95% Wilson interval in detection and in false positives; the
+   port's differ record against both is printed, with the cells where its
+   ``det_tol`` 0.02 verdict disagrees with the Wilson gate; each cell's
+   rates, overhead and phase times (CUDA events) are printed; K1 and K2
+   are held to their plain versions at every shape the grids hand them
+   (K1 bit-exact, clean and with a fault in B'; K2 as in phase 3); and
+   every cell that launches K1 or K2, run with the kernels and with its
+   plain versions from one seed, must decide every trial alike: the
+   GEMM's bit for bit, the EmbeddingBag's but for at most 1% of its
+   trials, each within float32 round-off of the bound and shown to be
+   K2's own formula on an rsum within round-off of the float64 sum.
 
 The line before the last is ``{"kernels": [...]}``: ``launches`` is the
 count of the kernel's own path (DLRM for K1-K3, RWKV for K4), and
-``launches_by_path`` holds both.  The last line is ``{"ok": true,
+``launches_by_path`` holds all three.  The last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": 1}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
@@ -281,6 +308,72 @@ def wkv_err(got, want, atol: float, rtol: float = 2e-4):
     diff = (got - want).abs()
     return (float(diff.max()),
             float((diff / (atol + rtol * want.abs())).max()))
+
+
+#: two runs' inputs to one quantization "agree" within this fraction of
+#: the row's largest magnitude (phase 7's logit fraction) or one unit in
+#: the last place of the element, whichever is larger
+SPLIT_INPUT_TOL = 1e-4
+
+
+def code_split(torch, cpu_calls, card_calls):
+    """The first activation quantization whose int8 codes differ between a
+    CPU run and a card run of the same model, or None.  Each list holds
+    ``[x, q, alpha, beta]`` per call, in call order.  At the elements whose
+    codes differ it reports: the largest code step; whether each side's
+    pre-quantization value ``u = (x - beta) / alpha`` (float64) lies on its
+    own side of the rounding boundary between the two codes, up to 1e-3 of
+    a step (``straddle``); the largest input difference as a share of the
+    row's largest magnitude, and whether every input pair agrees within
+    :data:`SPLIT_INPUT_TOL` of it or one ulp of the element.  Up to four
+    of those elements are listed with each side's x, u and code."""
+    if len(cpu_calls) != len(card_calls):
+        fail(f"the CPU and the card quantized {len(cpu_calls)} and "
+             f"{len(card_calls)} activations in one step")
+    for i, (c, d) in enumerate(zip(cpu_calls, card_calls)):
+        if torch.equal(c[1], d[1]):
+            continue
+        (xc, qc, ac, bc), (xd, qd, ad, bd) = c, d
+        where = qc != qd
+        x64c, x64d = xc.double(), xd.double()
+        uc = (x64c - bc.double()[:, None]) / ac.double()[:, None]
+        ud = (x64d - bd.double()[:, None]) / ad.double()[:, None]
+        edge = torch.minimum(qc, qd).double() + 0.5
+        straddle = (torch.minimum(uc, ud) <= edge + 1e-3) & \
+            (torch.maximum(uc, ud) >= edge - 1e-3)
+        row = torch.maximum(x64c.abs().amax(1), x64d.abs().amax(1))[:, None]
+        dx = (x64c - x64d).abs()
+        mant = {torch.bfloat16: 7, torch.float16: 10}.get(xc.dtype, 23)
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(x64c.abs(), x64d.abs()).clamp(min=1e-30))) - mant)
+        agree = dx <= torch.maximum(SPLIT_INPUT_TOL * row, ulp)
+        elems = [{"row": r, "col": col, "x_cpu": float(xc[r, col]),
+                  "x_card": float(xd[r, col]), "u_cpu": float(uc[r, col]),
+                  "u_card": float(ud[r, col]), "q_cpu": int(qc[r, col]),
+                  "q_card": int(qd[r, col])}
+                 for r, col in where.nonzero().tolist()[:4]]
+        return {"call": i, "shape": list(xc.shape),
+                "dtype": str(xc.dtype).replace("torch.", ""),
+                "codes_differ": int(where.sum()),
+                "max_code_step": int((qc.long() - qd.long()).abs().max()),
+                "straddle": bool(straddle[where].all()),
+                "inputs_agree": bool(agree[where].all()),
+                "max_input_diff_of_row_where_codes_differ": float(
+                    (dx / row.clamp(min=1e-30))[where].max()),
+                "max_input_diff_of_row": float(
+                    (dx / row.clamp(min=1e-30)).max()),
+                "alpha_equal": torch.equal(ac, ad),
+                "beta_equal": torch.equal(bc, bd), "elements": elems}
+    return None
+
+
+def code_split_is_rounding(split) -> bool:
+    """A split of the int8 codes that round-off explains: no code more than
+    one step from the other side's, each side's pre-quantization value on
+    its own side of the boundary between them, and the inputs in
+    agreement wherever the codes differ."""
+    return split["max_code_step"] <= 1 and split["straddle"] and \
+        split["inputs_agree"]
 
 
 def wkv_bound(b, s, h, dh, chunk, itemsize=4):
@@ -928,28 +1021,45 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         return req, engine.run([req], warmup=False).summary()[
             "faults"]["counters"]
 
-    cm_wv = layers["cm"]["wv"]["w_packed"]
-    flip = (min(5, cfg.n_layers - 1), 100 % cm_wv.shape[1],
-            200 % cfg.d_model)                      # payload, stale lane
-    cm_wv[flip] ^= 0x10
-    _, c_w = one_request(11)
-    cm_wv[flip] ^= 0x10
-    req = one_request(12)[0]
-    tok = int(engine._chat_tokens(req, 64)[3])
-    emb["table"][tok, 9] ^= -128                    # high bit, stale C_T
-    _, c_t = one_request(12)
-    emb["table"][tok, 9] ^= -128
+    # faults through FaultInjection, each at the step of one request's
+    # prefill (and its decode): a cm.wv payload bit, and a high bit of the
+    # embedding row of one of the prompt's tokens
+    from repro_torch.serving import FaultInjection
+
+    def inject_run(req, inj, leaf):
+        engine.reset_state()
+        before = leaf_fingerprint(torch, leaf)
+        tel = engine.run([req], inject=[inj], warmup=False)
+        return tel, before, leaf_fingerprint(torch, leaf)
+
+    def request(seed):
+        return Request(rid=0, tenant="default", arrival_s=0.0,
+                       prompt_len=64, max_new_tokens=2, seed=seed)
+
+    tel, fp0, fp1 = inject_run(request(11), FaultInjection(
+        step=0, victim="cm.wv", seed=0), layers["cm"]["wv"]["w_packed"])
+    r_flips = {"weight": check_injection(tel, 0, [0], fp0, fp1,
+                                         "RWKV cm.wv flip")}
+    req = request(12)
+    prompt_rows = set(engine._chat_tokens(req, 64).tolist())
+    e_seed = injection_seed(
+        torch, emb["table"], "embed.table",
+        lambda idx: idx // emb["table"].shape[1] in prompt_rows)
+    tel, fp0, fp1 = inject_run(req, FaultInjection(
+        step=0, victim="embed", seed=e_seed), emb["table"])
+    r_flips["table"] = check_injection(tel, 0, [0], fp0, fp1,
+                                       "RWKV embedding flip")
+    r_flips["table"]["seed"] = e_seed
+    engine.reset_state()
     _, c_clean = one_request(12)
-    log(f"flipped cm.wv bit: qgemm_errors {c_w['qgemm_errors']}; flipped "
-        f"embedding bit: embedding_bag_errors "
-        f"{c_t['embedding_bag_errors']}; restored: errors "
-        f"{c_clean['qgemm_errors']}/{c_clean['embedding_bag_errors']}")
-    if c_w["qgemm_errors"] <= 0 or c_t["embedding_bag_errors"] <= 0:
-        fail("an injected RWKV flip went undetected")
     if c_clean["qgemm_errors"] or c_clean["embedding_bag_errors"]:
-        fail("errors after restoring the flipped RWKV bits")
-    details["rwkv_flips"] = {"weight": c_w, "table": c_t,
-                             "restored": c_clean}
+        fail("errors after restoring the injected RWKV flips")
+    r_flips["restored"] = c_clean
+    log(f"FaultInjection on RWKV: {r_flips['weight']['victim']} and "
+        f"{r_flips['table']['victim']} (seed {e_seed}, a prompt token's "
+        f"row) each flagged at its step 0 only; both leaves bit-identical "
+        f"afterwards; a clean request after: no errors")
+    details["rwkv_flips"] = r_flips
 
     # the smoke-size model: card against the plain CPU run
     small = reduce_cfg(cfg)
@@ -962,40 +1072,168 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         return tree.to(device)
 
     p_dev = to(p_cpu, dev)
-    tokens = torch.from_numpy(np.random.default_rng(13).integers(
-        0, small.vocab, (2, 64)).astype(np.int32))
     # the same port code on both sides; the card sums the WKV and the
-    # EmbeddingBag in another order, which on these inputs moved the logits
-    # by 5.3e-7 of their scale in f32 and not at all in bf16 (H100)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-4}
-    small_out = {}
-    for dtype, bound in tol.items():
-        ctx = Ctx(quant=True, plan=default_plan(), compute_dtype=dtype,
-                  wkv_chunk=small.wkv_chunk)
-        lc, cc, rc = model.prefill(p_cpu, {"tokens": tokens}, ctx)
-        ld, cd, rd = model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx)
-        worst = 0.0
+    # EmbeddingBag in another order.  A 24-token prompt is off the 16-token
+    # WKV chunk grid: K4 runs its first 16 tokens and the per-token
+    # recurrence the other 8.  Every activation quantization (K3 on the
+    # card, its plain version on the CPU) is watched, and where the two
+    # runs' int8 codes first differ the split must be a rounding one
+    # (code_split_is_rounding); it is printed with its element and
+    # pre-quantization values.  Each case runs twice:
+    # * free: the logits are held to 1e-4 of their scale at every step
+    #   before that split, and from it an f32 run stays at 1e-4 and a bf16
+    #   run is held to 2**-4, the bf16 allowance the CPU tests hold the
+    #   port to against the JAX package (tests/test_torch_rwkv.py);
+    # * lockstep: the card runs each step first, and the CPU run takes the
+    #   card's codes (q, alpha, beta) at every quantization where the two
+    #   split by a rounding, and fails at any other split.  Given the same
+    #   codes, every step's logits are held to 1e-4.
+    # Both hold the counters equal, and the greedy tokens wherever the
+    # CPU's top-two margin leaves room for the bound
+    after_split = {torch.float32: 1e-4, torch.bfloat16: 2.0**-4}
+    watch = {"side": "card", "lockstep": False, "step": 0, "at": 0,
+             "card": [], "cpu": [], "taken": []}
+    real_quant = kops.quantize_rows
+
+    def quantize(x, **kw):
+        out = real_quant(x, **kw)
+        got = [t.detach().to("cpu", copy=True) for t in (x, *out)]
+        watch[watch["side"]].append(got)
+        if watch["side"] == "card" or not watch["lockstep"]:
+            return out
+        i = len(watch["cpu"]) - 1
+        if i >= len(watch["card"]):
+            fail("the CPU run quantized more activations than the card's")
+        card = watch["card"][i]
+        if torch.equal(out[0], card[1]):
+            return out
+        split = code_split(torch, [got], [card])
+        split.update(step=watch["step"], call=i)
+        if not code_split_is_rounding(split):
+            fail(f"smoke RWKV in lockstep: the int8 codes part by more "
+                 f"than a rounding: {split}")
+        watch["taken"].append(split)
+        return tuple(t.to(x.device) for t in card[1:])
+
+    def both(step, on_card, on_cpu):
+        watch.update(step=step)
+        watch["card"].clear()
+        watch["cpu"].clear()
+        watch["side"] = "card"
+        dev_out = on_card()
+        watch["side"] = "cpu"
+        cpu_out = on_cpu()
+        if len(watch["cpu"]) != len(watch["card"]):
+            fail(f"the CPU and the card quantized {len(watch['cpu'])} and "
+                 f"{len(watch['card'])} activations at step {step}")
+        return cpu_out, dev_out
+
+    def run_case(tokens, ctx, lockstep):
+        watch.update(lockstep=lockstep, taken=[])
+        label = f"{ctx.compute_dtype}, prompt {tokens.shape[1]}, " + (
+            "lockstep" if lockstep else "free")
+        (lc, cc, rc), (ld, cd, rd) = both(
+            0, lambda: model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx),
+            lambda: model.prefill(p_cpu, {"tokens": tokens}, ctx))
+        split, errs = None, []
         for step in range(4):
+            if split is None and not lockstep:
+                split = code_split(torch, watch["cpu"], watch["card"])
+                if split is not None:
+                    split["step"] = step
+                    if not code_split_is_rounding(split):
+                        fail(f"smoke RWKV ({label}): the int8 codes part at "
+                             f"step {step} by more than a rounding: {split}")
             mc = metrics_to_ints(rc.as_metrics())
             md = metrics_to_ints(rd.as_metrics())
             if mc != md:
-                fail(f"smoke RWKV counters differ at step {step}: card "
-                     f"{md} vs CPU {mc}")
-            lcf = lc.float()
-            err = float((ld.float().cpu() - lcf).abs().max()) / max(
-                float(lcf.abs().max()), 1e-6)
-            worst = max(worst, err)
+                fail(f"smoke RWKV counters differ at step {step} ({label}): "
+                     f"card {md} vs CPU {mc}")
+            lcf, ldf = lc.float(), ld.float().cpu()
+            scale = max(float(lcf.abs().max()), 1e-6)
+            err = float((ldf - lcf).abs().max()) / scale
+            lcf, ldf = lcf[:, :small.vocab], ldf[:, :small.vocab]
+            bound = 1e-4 if split is None else after_split[ctx.compute_dtype]
+            errs.append(err)
             if err > bound or not bool(torch.isfinite(ld).all()):
-                fail(f"smoke RWKV logits ({dtype}) differ by {err:.3g} of "
-                     f"the scale at step {step}")
+                fail(f"smoke RWKV logits ({label}) differ by {err:.3g} of "
+                     f"the scale at step {step} (bound {bound:g}; first code "
+                     f"split {split})")
+            # two logits each within bound * scale move their gap by at
+            # most twice that
+            top2 = torch.topk(lcf, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * bound * scale
+            if not torch.equal(ldf.argmax(-1)[clear], lcf.argmax(-1)[clear]):
+                fail(f"smoke RWKV ({label}): the card's greedy token differs "
+                     f"at step {step}")
             if step == 3:
                 break
-            nxt = torch.argmax(lcf[:, :small.vocab], -1).to(torch.int32)
-            lc, cc, rc = model.decode(p_cpu, cc, nxt, None, ctx)
-            ld, cd, rd = model.decode(p_dev, cd, nxt.to(dev), None, ctx)
-        small_out[str(dtype)] = worst
-    log(f"smoke RWKV prefill + 3 decodes, card vs CPU: counters equal, "
-        f"max |dlogit| / scale {small_out}")
+            nxt = torch.argmax(lcf, -1).to(torch.int32)
+            (lc, cc, rc), (ld, cd, rd) = both(
+                step + 1,
+                lambda: model.decode(p_dev, cd, nxt.to(dev), None, ctx),
+                lambda: model.decode(p_cpu, cc, nxt, None, ctx))
+        if lockstep:
+            return {"err_of_scale_by_step": errs,
+                    "codes_taken_from_the_card": len(watch["taken"]),
+                    "first_taken": (watch["taken"] or [None])[0]}
+        return {"err_of_scale_by_step": errs, "first_code_split": split}
+
+    small_out = {}
+    kops.quantize_rows = quantize
+    try:
+        for seq in (64, 24):
+            tokens = torch.from_numpy(np.random.default_rng(13).integers(
+                0, small.vocab, (2, seq)).astype(np.int32))
+            for dtype in (torch.float32, torch.bfloat16):
+                ctx = Ctx(quant=True, plan=default_plan(),
+                          compute_dtype=dtype, wkv_chunk=small.wkv_chunk)
+                for lockstep in (False, True):
+                    small_out[f"prompt {seq} {str(dtype)[6:]} "
+                              + ("lockstep" if lockstep else "free")] = \
+                        run_case(tokens, ctx, lockstep)
+    finally:
+        kops.quantize_rows = real_quant
+    log("smoke RWKV prefill + 3 decodes, card vs CPU: counters equal; "
+        "|dlogit| / scale by step, and the first int8 code split (free) or "
+        "the codes the CPU took from the card at rounding splits "
+        "(lockstep): " + "; ".join(
+            f"{k}: {[f'{e:.3g}' for e in v['err_of_scale_by_step']]}, "
+            + (f"split {v['first_code_split']}" if "first_code_split" in v
+               else f"{v['codes_taken_from_the_card']} taken, the first "
+                    f"{v['first_taken']}")
+            for k, v in small_out.items()))
+
+    # the smoke-size engines at a 24-token bucket, on the card and on the
+    # CPU with the same weights and requests: every request served, the
+    # same fault counters, K4 launched for the prefills' whole chunk
+    def small_engine(device):
+        return ServingEngine(small, [TenantSpec("default", default_plan())],
+                             n_slots=4, max_prompt=24, seed=0, device=device)
+
+    def bucket_requests():
+        return [Request(rid=i, tenant="default", arrival_s=0.0,
+                        prompt_len=24, max_new_tokens=4, seed=60 + i)
+                for i in range(4)]
+
+    eng_cpu, eng_dev = small_engine("cpu"), small_engine(dev)
+    eng_dev.params = to(eng_cpu.params, dev)
+    eng_dev.warmup()
+    wkv6_chunked_cuda.launches = 0
+    bucket = {}
+    for where, eng in (("cpu", eng_cpu), ("card", eng_dev)):
+        tel_b = eng.run(bucket_requests())
+        per_b = tel_b.summary()["per_tenant"]["default"]
+        bucket[where] = {"completed": per_b["completed"],
+                         "counters": tel_b.summary()["faults"]["counters"]}
+    bucket["k4_launches"] = wkv6_chunked_cuda.launches
+    if bucket["cpu"] != bucket["card"] or bucket["card"]["completed"] != 4 \
+            or bucket["k4_launches"] != 4 * small.n_layers:
+        fail(f"the 24-token bucket served differently on the card: {bucket}")
+    log(f"smoke RWKV engine at a 24-token bucket: 4 requests on the card "
+        f"and on the CPU, counters equal "
+        f"{ {k: v for k, v in bucket['card']['counters'].items() if v} }, "
+        f"K4 {bucket['k4_launches']} launches (one per layer a prefill)")
 
     # ------------------------------ 8. times --------------------------------
     m_args = captured[0][0]             # bf16 r, k, v, as the path hands
@@ -1149,8 +1387,387 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     details["rwkv"] = {"serve": serve, "k4_checks": k4, "k2": k2,
                        "gemm_shapes": per_shape, "k1_split_sweep": sweep,
                        "k4_large": {big_label: k4_big},
-                       "small_card_vs_cpu": small_out}
+                       "small_card_vs_cpu": small_out,
+                       "bucket_24": bucket}
     return {"k4_row": k4_row, "launches": launches, "k2_times": k2["times"]}
+
+
+def leaf_fingerprint(torch, leaf) -> tuple:
+    """Two int64 sums of a leaf's bit patterns, plain and weighted by
+    position, taken in chunks (a DLRM table stack holds 1.33e10 bytes):
+    a changed element changes them, and a restored flip leaves both as
+    they were."""
+    from repro_torch.core.inject import signed_view
+
+    flat = signed_view(leaf)
+    s1 = torch.zeros((), dtype=torch.int64, device=leaf.device)
+    s2 = torch.zeros_like(s1)
+    step = 1 << 26
+    for i in range(0, flat.numel(), step):
+        c = flat[i:i + step].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+        s1 += c.sum()
+        s2 += (c * w).sum()
+    return int(s1), int(s2)
+
+
+def injection_seed(torch, leaf, path: str, reads, min_bit: int = 4) -> int:
+    """The first seed from 0 whose :class:`FaultInjection` draw on
+    ``leaf`` lands on an element ``reads(flat_index)`` says the requests
+    read, at a bit of at least ``min_bit``: a fault in a row the request
+    gathers, high in its byte, as the hand flips of earlier versions of
+    this script chose.  The draws are the engine's own (a CPU generator
+    per seed)."""
+    from repro_torch.core.inject import draw_bitflip_live
+
+    meta = torch.empty(leaf.shape, dtype=leaf.dtype, device="meta")
+    for seed in range(1_000_000):
+        idx, bit = draw_bitflip_live(torch.Generator().manual_seed(seed),
+                                     meta, path)
+        if bit >= min_bit and reads(idx):
+            return seed
+    fail(f"no injection seed below 1e6 hits a row the request reads "
+         f"({path})")
+
+
+def check_injection(tel, step: int, flagged_steps, fp_before, fp_after,
+                    what: str) -> dict:
+    """An injected fault flagged at its step (and only at
+    ``flagged_steps``), the leaf bit-identical afterwards."""
+    (inj,) = tel.injections
+    flagged = sorted({ev.step for ev in tel.steps if ev.errors})
+    if not inj.detected or inj.detect_step != step or \
+            flagged != list(flagged_steps):
+        fail(f"{what}: injected at step {inj.step}, detected "
+             f"{inj.detected} at step {inj.detect_step}; flagged steps "
+             f"{flagged}, expected {list(flagged_steps)}")
+    if fp_after != fp_before:
+        fail(f"{what}: the victim leaf {inj.victim} differs from its clean "
+             f"value after the run")
+    return {"victim": inj.victim, "step": inj.step,
+            "detect_step": inj.detect_step, "flagged_steps": flagged,
+            "persistent": inj.persistent,
+            "counters": tel.summary()["faults"]["counters"]}
+
+
+#: the campaign targets whose protected call launches K1 or K2 on the card
+KERNEL_TARGETS = ("gemm_packed", "gemm_pallas", "embedding_bag", "eb_pallas")
+#: at most this share of an EmbeddingBag cell's trials may be decided
+#: differently by K2 and its plain version, each within
+#: ``targets.EB_ROUND_OFF`` of the bound and explained by K2's own rsum
+EB_SPLIT_SHARE = 0.01
+
+
+def campaign_plans() -> list:
+    """The distinct cell plans of the quick, pallas (quick) and paper grids
+    at seed 0, as phase 9 runs them."""
+    from repro_torch.campaign import grids, spec
+
+    plans = {}
+    for specs in (grids.quick_specs(seed=0),
+                  grids.pallas_specs(seed=0, quick=True),
+                  grids.paper_specs(seed=0)):
+        for sp in specs:
+            plans.update(dict.fromkeys(spec.expand(sp)[0]))
+    return list(plans)
+
+
+def kernels_at_campaign_shapes(torch, dev, plans) -> list:
+    """K1 and K2 held to their plain versions at every shape the grids hand
+    them, on the first cell state of each shape, built as the campaign
+    builds it.  K1 (uint8 A, as the cells draw it): C, err_rows and the
+    column check bit-exact with ``ref.abft_qgemm_ref``, clean (no row
+    flagged) and with the cell's first fault in B'.  K2, on the cell's
+    first trial's bags: :func:`eb_checks` (R bit-exact with the slot-order
+    sum, rsum within round-off of the plain rsum, flags equal to the plain
+    branch) and :func:`eb_flip_sweep`.  Returns what was held, by shape."""
+    from repro_torch.campaign.executor import _generators
+    from repro_torch.campaign.targets import get_target, inject_, restore_
+    from repro_torch.core import LANE
+    from repro_torch.core.inject import signed_view
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda, launch_plan
+
+    first = {}
+    for p in plans:
+        if p.target in KERNEL_TARGETS:
+            kind = "K1" if p.target.startswith("gemm") else "K2"
+            first.setdefault((kind, p.shape), p)
+    done = []
+    for (kind, shape), p in first.items():
+        target = get_target(p.target)
+        g_build, g_trial, _ = _generators(p.seed)
+        st = target.build(p, g_build, device=dev)
+        (trial,) = target.draw(st, p, g_trial, 1, True)
+        label = f"{p.target} {'x'.join(map(str, shape))}"
+        if kind == "K2":
+            enc = tuple(x[None] for x in st["enc"])
+            bags = trial.indices[None].contiguous()
+            eb_checks(torch, enc, bags, label)
+            eb_flip_sweep(torch, enc, bags)
+            done.append(f"K2 {label}")
+            continue
+        a, packed, n = st["a"], st["packed"], st["n"]
+        faults = [f._replace(index=(f.index // n) * (n + LANE) + f.index % n)
+                  for f in trial.faults]
+        for faulty in (False, True):
+            undo = inject_(signed_view(packed), faults, 8)[0] \
+                if faulty else []
+            for col in (False, True):
+                got = abft_qgemm_cuda(a, packed, with_colcheck=col)
+                want = ref.abft_qgemm_ref(a, packed, with_colcheck=col)
+                for g, w, what in zip(got, want,
+                                      ("C", "err_rows", "col_check")):
+                    if not torch.equal(g, w):
+                        fail(f"abft_qgemm: {what} differs from the plain "
+                             f"version at {label} (a fault in B': "
+                             f"{faulty}, column check {col})")
+                if not faulty and int(got[1].sum()):
+                    fail(f"abft_qgemm flagged clean operands at {label}")
+            restore_(undo, 8)
+        lp = launch_plan(*a.shape, n, a_addr=a.data_ptr(),
+                         b_addr=packed.data_ptr())
+        done.append(f"K1 {label} (bm {lp.bm}, splits {lp.splits}, "
+                    f"aligned {lp.aligned})")
+    return done
+
+
+def eb_split_cause(torch, dev, plan, trial) -> dict:
+    """Why K2 and its plain version decide an EmbeddingBag trial
+    differently: K2 on the trial's faulted table and bags, its flags equal
+    to its own Eq. (5) formula on its own rsum (``ref.eb_check_slot_order``),
+    and the largest distance of that rsum from the float64 RSum, as a
+    share of each bag's bound.  The split is the order of the sums alone
+    when the flags equal the formula and that distance is within
+    ``targets.EB_ROUND_OFF``."""
+    from repro_torch.campaign.executor import _generators
+    from repro_torch.campaign.targets import (eb_sums64, get_target,
+                                              inject_, restore_)
+    from repro_torch.core.inject import signed_view
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    from repro_torch.protect.ops import EMBEDDING_BAG
+
+    st = get_target(plan.target).build(plan, _generators(plan.seed)[0],
+                                       device=dev)
+    ((rsum64, _, bound64),) = eb_sums64(st, plan, [trial])
+    table, al, be, rs = st["enc"]
+    rel = EMBEDDING_BAG.default_rel_bound if plan.rel_bound is None \
+        else plan.rel_bound
+    undo, _ = inject_(signed_view(table), trial.faults, 8)
+    idx = trial.indices[None].contiguous()
+    _, rsum, flags, _ = abft_eb_cuda(table[None], al[None], be[None], idx,
+                                     rs[None], rel_bound=rel)
+    mirror = ref.eb_check_slot_order(rsum, al[None], be[None], idx, rs[None],
+                                     table.shape[-1], rel_bound=rel)
+    restore_(undo, 8)
+    return {"k2_flagged": bool(flags.any()),
+            "k2_flags_are_its_formula": torch.equal(flags, mirror),
+            "k2_rsum_off_f64_of_bound": float(
+                ((rsum[0].cpu().double() - rsum64).abs() / bound64).max())}
+
+
+def trial_for_trial(torch, dev, plans) -> dict:
+    """Every cell of the grids whose protected call launches K1 or K2, run
+    twice on the card from its seed: with the kernels and with
+    ``plain=True``.  The kernel run must launch one kernel per trial and
+    the plain run none; the corrupted and the clean flags must be equal,
+    and the GEMM's detection flags bit for bit.  An EmbeddingBag trial may
+    be decided differently only within ``targets.EB_ROUND_OFF`` of its
+    bound, by at most :data:`EB_SPLIT_SHARE` of the cell's trials, and
+    only where :func:`eb_split_cause` shows K2 deciding by its own formula
+    on an rsum within round-off of the float64 one.  The trials inside
+    that window are counted, agreeing and differing."""
+    import dataclasses
+
+    from repro_torch.campaign.executor import _generators, run_cell
+    from repro_torch.campaign.targets import (EB_ROUND_OFF, eb_margins,
+                                              get_target)
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+
+    out = {}
+    for plan in plans:
+        if plan.target not in KERNEL_TARGETS:
+            continue
+        cid = f"{plan.cell_id} n={plan.samples}"
+        plan = dataclasses.replace(plan, measure_overhead=False)
+        runs, launched = {}, {}
+        for plain in (False, True):
+            abft_qgemm_cuda.launches = abft_eb_cuda.launches = 0
+            runs[plain] = run_cell(plan, device=dev, plain=plain)
+            launched[plain] = (abft_qgemm_cuda.launches
+                               + abft_eb_cuda.launches)
+        n = plan.samples + plan.clean_samples
+        if launched[False] != n or launched[True] != 0:
+            fail(f"{cid}: kernel launches {launched} (the kernel run must "
+                 f"launch one per trial, {n}, the plain run none)")
+        k, p = runs[False], runs[True]
+        if not torch.equal(k.trials[:, 1], p.trials[:, 1]):
+            fail(f"{cid}: the kernel and plain runs corrupted different "
+                 f"trials")
+        if not torch.equal(k.clean, p.clean):
+            fail(f"{cid}: clean flags differ between kernel and plain "
+                 f"({int((k.clean != p.clean).sum())} of "
+                 f"{plan.clean_samples})")
+        differ = (k.trials[:, 0] != p.trials[:, 0]).nonzero()[:, 0].tolist()
+        row = {"target": plan.target, "trials": plan.samples,
+               "clean": plan.clean_samples,
+               "detected_kernel": int(k.trials[:, 0].sum()),
+               "detected_plain": int(p.trials[:, 0].sum()),
+               "differ": differ}
+        out[cid] = row
+        if plan.target.startswith("gemm"):
+            if differ:
+                fail(f"{cid}: {len(differ)} trials decided differently by "
+                     f"K1 and its plain version")
+            continue
+        target = get_target(plan.target)
+        g_build, g_trial, _ = _generators(plan.seed)
+        state = target.build(plan, g_build, device=dev)
+        trials = target.draw(state, plan, g_trial, plan.samples, True)
+        margins = eb_margins(state, plan, trials)
+        window = [i for i, m in enumerate(margins) if abs(m) <= EB_ROUND_OFF]
+        causes = {i: eb_split_cause(torch, dev, plan, trials[i])
+                  for i in differ}
+        row.update(in_window=len(window),
+                   in_window_differ=len(set(window) & set(differ)),
+                   margins_of_differing=[margins[i] for i in differ],
+                   causes=causes)
+        cap = max(1, int(EB_SPLIT_SHARE * plan.samples))
+        if len(differ) > cap or not set(differ) <= set(window):
+            fail(f"{cid}: K2 and its plain version decide trials {differ} "
+                 f"differently, margins {row['margins_of_differing']} "
+                 f"({len(window)} trials within {EB_ROUND_OFF} of the "
+                 f"bound; at most {cap} may differ, all inside it)")
+        for i, c in causes.items():
+            if c["k2_flagged"] != bool(k.trials[i, 0]) or \
+                    not c["k2_flags_are_its_formula"] or \
+                    c["k2_rsum_off_f64_of_bound"] > EB_ROUND_OFF:
+                fail(f"{cid}: trial {i}, decided differently by K2 and its "
+                     f"plain version, is not a split of round-off: {c}")
+    return out
+
+
+def campaign_phase(torch, dev, out_dir) -> dict:
+    """Phase 9: the port's quick, pallas (quick) and paper grids on the
+    card through K1 and K2, at the JAX grids' sample counts and seed 0;
+    every main-path cell of the two committed JAX baselines held to its
+    baseline by overlapping Wilson intervals (detection and FP); the
+    port's differ record at its default tolerances printed beside it;
+    then K1 and K2 against their plain versions at every shape the grids
+    hand them, and the kernel and plain runs of every cell that launches
+    them, trial for trial."""
+    from repro_torch.campaign import grids
+    from repro_torch.campaign.artifacts import load_artifact
+    from repro_torch.campaign.diff import (diff_artifacts, format_diff,
+                                           wilson_gate)
+    from repro_torch.campaign.executor import run_campaign
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
+
+    wrappers = {"abft_qgemm": abft_qgemm_cuda,
+                "abft_embeddingbag": abft_eb_cuda,
+                "quantize_rows": quantize_rows_cuda,
+                "wkv6_chunked": wkv6_chunked_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    runs = {name: run_campaign(name, specs, device=dev, out_dir=out_dir)
+            for name, specs in (
+                ("quick", grids.quick_specs(seed=0)),
+                ("pallas_quick", grids.pallas_specs(seed=0, quick=True)),
+                ("paper", grids.paper_specs(seed=0)))}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    seconds = time.perf_counter() - t0
+    log(f"campaign grids on the card in {seconds:.1f}s: "
+        + ", ".join(f"{k} {len(v['cells'])} cells" for k, v in runs.items())
+        + f"; launches {launches}"
+        + (f"; artifacts in {out_dir}" if out_dir else ""))
+    if launches["abft_qgemm"] <= 0 or launches["abft_embeddingbag"] <= 0:
+        fail(f"the campaign did not run through K1 and K2: {launches}")
+
+    cells = {}
+    for name, res in runs.items():
+        for c in res["cells"]:
+            m = c["metrics"]
+            bd = m.get("overhead_breakdown") or {}
+            cells[c["cell_id"] if name != "pallas_quick"
+                  else "pallas:" + c["cell_id"]] = {
+                "detection_rate": m["detection_rate"], "ci95": m["ci95"],
+                "fp_rate": m["fp_rate"], "samples": m["samples"],
+                "clean_samples": m["clean_samples"],
+                "analytic_bound": m.get("analytic_bound"),
+                "overhead": m.get("overhead"),
+                "protected_ms": (m["protected_s"] * 1e3
+                                 if m.get("protected_s") else None),
+                "unprotected_ms": (m["unprotected_s"] * 1e3
+                                   if m.get("unprotected_s") else None),
+                "phases_ms": {k: v * 1e3 for k, v in bd.items()}}
+            ov = m.get("overhead")
+            log(f"  [{name}] {c['cell_id']}: detect "
+                f"{m['detection_rate']:.4f} (n {m['samples']}, ci "
+                f"{m['ci95'][0]:.4f}-{m['ci95'][1]:.4f}), fp "
+                f"{m['fp_rate']:.4f} (n {m['clean_samples']})"
+                + ("" if ov is None else
+                   f", overhead {ov:+.4f} (protected "
+                   f"{m['protected_s'] * 1e3:.4f} ms, unprotected "
+                   f"{m['unprotected_s'] * 1e3:.4f} ms by CUDA events)")
+                + ("" if not bd else "; phases ms " + ", ".join(
+                    f"{k} {v * 1e3:.4f}" for k, v in bd.items())))
+
+    gates = {}
+    base_dir = ROOT / "benchmarks" / "baselines"
+    for name, n_cells in (("pallas_quick", 7), ("quick", 10)):
+        base = load_artifact(str(base_dir / f"BENCH_campaign_{name}.json"))
+        gate = wilson_gate(base, runs[name])
+        diff = diff_artifacts(base, runs[name])
+        for line in format_diff(diff).splitlines():
+            if line:
+                log(f"  | {line}")
+        overlap = {c["cell_id"]: c for c in gate["cells"]}
+        det_regressed = sorted(r["cell_id"] for r in diff["regressions"]
+                               if r["kind"] == "detection_rate")
+        # the differ's verdict at det_tol 0.02 against the Wilson gate
+        disagree = [cid for cid in overlap
+                    if (cid in det_regressed)
+                    == overlap[cid]["detection"]["overlap"]]
+        log(f"  Wilson gate vs {name}: {len(gate['cells'])} cells, failed "
+            f"{gate['failed']}, uncovered {gate['uncovered']}; differ at "
+            f"det_tol 0.02 disagrees with the gate on {disagree}")
+        gates[name] = {"failed": gate["failed"],
+                       "uncovered": gate["uncovered"],
+                       "differ_regressions": diff["regressions"],
+                       "differ_disagrees_with_wilson": disagree,
+                       "cells": gate["cells"]}
+        if len(gate["cells"]) != n_cells or gate["failed"]:
+            fail(f"campaign vs the {name} baseline: {len(gate['cells'])} of "
+                 f"{n_cells} cells gated, failing Wilson overlap: "
+                 f"{gate['failed']}")
+    t1 = time.perf_counter()
+    plans = campaign_plans()
+    shapes = kernels_at_campaign_shapes(torch, dev, plans)
+    log(f"K1 and K2 against their plain versions at all {len(shapes)} "
+        f"shapes the grids hand them ({time.perf_counter() - t1:.1f}s): "
+        + "; ".join(shapes))
+    t1 = time.perf_counter()
+    tft = trial_for_trial(torch, dev, plans)
+    gemm = [v for v in tft.values() if v["target"].startswith("gemm")]
+    log(f"kernel vs plain, trial for trial on the card "
+        f"({time.perf_counter() - t1:.1f}s): {len(gemm)} K1 cells, "
+        f"{sum(v['trials'] + v['clean'] for v in gemm)} trials, every flag "
+        f"equal; K2 cells: " + "; ".join(
+            f"{cid}: {v['detected_kernel']}/{v['trials']} and "
+            f"{v['detected_plain']}/{v['trials']} detected, "
+            f"{v['in_window']} trials within round-off of the bound "
+            f"({v['in_window'] - v['in_window_differ']} agree, "
+            f"{v['in_window_differ']} differ: {v['differ']}, margins "
+            f"{v['margins_of_differing']}, causes {v['causes']})"
+            for cid, v in tft.items() if not v["target"].startswith("gemm")))
+    return {"launches": launches, "seconds": seconds, "cells": cells,
+            "gates": gates, "kernel_shapes": shapes, "trial_for_trial": tft}
 
 
 def smi_line() -> str:
@@ -1372,25 +1989,61 @@ def main() -> int:
         return engine.run(stream(1, seed), warmup=False).summary()[
             "faults"]["counters"]
 
-    w_packed = params["bottom"][0]["w_packed"]
-    w_packed[4, 100] ^= 0x10                          # payload, stale lane
-    c_w = one_request(11)
-    w_packed[4, 100] ^= 0x10
+    # faults through the engine's FaultInjection, each flipped in place
+    # before its step and checked on the leaf afterwards: a transient flip
+    # of top.0's packed weight at the second of three requests; a high
+    # bit of a table row the request gathers; a persistent top.0 flip,
+    # flagged at every later request until reset_state restores it
+    from repro_torch.serving import FaultInjection
+
+    def slow(n, seed):            # one request per engine step
+        return dlrm_stream(n, tenants={"default": 1.0}, rate_rps=0.01,
+                           seed=seed, lookup_batch=m,
+                           table_rows=ex.table_rows, n_tables=ex.n_tables)
+
+    def inject_run(reqs, inj, leaf):
+        engine.reset_state()
+        before = leaf_fingerprint(torch, leaf)
+        tel = engine.run(reqs, inject=[inj], warmup=False)
+        if inj.persistent:
+            engine.reset_state()
+        return tel, before, leaf_fingerprint(torch, leaf)
+
+    top0 = params["top"][0]["w_packed"]
+    tel, fp0, fp1 = inject_run(slow(3, 11), FaultInjection(
+        step=1, victim="top.0", seed=0), top0)
+    flips = {"weight": check_injection(tel, 1, [1], fp0, fp1,
+                                       "DLRM top.0 flip")}
     req = stream(1, 12)[0]
-    row = int(req.payload["bags"][0, 0, 0])
-    tables["table"][0, row, 9] ^= -128                # high bit, stale C_T
-    c_t = engine.run([req], warmup=False).summary()["faults"]["counters"]
-    tables["table"][0, row, 9] ^= -128
+    bags = req.payload["bags"]
+
+    def reads(idx):
+        t, row = divmod(idx // ex.emb_dim, ex.table_rows)
+        return row in set(bags[t].reshape(-1).tolist())
+
+    t_seed = injection_seed(torch, tables["table"], "tables.table", reads)
+    tel, fp0, fp1 = inject_run([req], FaultInjection(
+        step=0, victim="tables", seed=t_seed), tables["table"])
+    flips["table"] = check_injection(tel, 0, [0], fp0, fp1,
+                                     "DLRM table flip")
+    flips["table"]["seed"] = t_seed
+    tel, fp0, fp1 = inject_run(slow(4, 13), FaultInjection(
+        step=1, victim="top.0", persistent=True, seed=1), top0)
+    flips["persistent"] = check_injection(tel, 1, [1, 2, 3], fp0, fp1,
+                                          "DLRM persistent top.0 flip")
+    engine.reset_state()
     c_clean = one_request(12)
-    log(f"flipped weight: qgemm_errors {c_w['qgemm_errors']}; flipped "
-        f"table bit: embedding_bag_errors {c_t['embedding_bag_errors']}; "
-        f"restored: errors {c_clean['qgemm_errors']}/"
-        f"{c_clean['embedding_bag_errors']}")
-    if c_w["qgemm_errors"] <= 0 or c_t["embedding_bag_errors"] <= 0:
-        fail("an injected flip went undetected")
     if c_clean["qgemm_errors"] or c_clean["embedding_bag_errors"]:
-        fail("errors after restoring the flipped bits")
-    details["flips"] = {"weight": c_w, "table": c_t, "restored": c_clean}
+        fail("errors after restoring the injected flips")
+    flips["restored"] = c_clean
+    log(f"FaultInjection on DLRM: {flips['weight']['victim']} flagged at "
+        f"step {flips['weight']['detect_step']} only; "
+        f"{flips['table']['victim']} (seed {t_seed}, a row the request "
+        f"reads) flagged at step {flips['table']['detect_step']}; the "
+        f"persistent flip flagged at steps "
+        f"{flips['persistent']['flagged_steps']}; every leaf bit-identical "
+        f"afterwards (fingerprints); a clean request after: no errors")
+    details["flips"] = flips
     details["outputs"] = check_outputs(torch, dev, params, ex, stream(1, 13))
 
     # ------------------------------ 5. times --------------------------------
@@ -1543,11 +2196,17 @@ def main() -> int:
     from repro_torch.configs import get_arch
     rwkv = rwkv_phases(torch, dev, timer, details, get_arch("rwkv6-1.6b"),
                        (4, 4096))
-    for row in kernels:
-        row["launches_by_path"] = {"dlrm": row["launches"],
-                                   "rwkv6": rwkv["launches"][row["name"]]}
+    # ----------------------- 9. the campaign grids --------------------------
+    camp_dir = str(Path(args.out).parent / "campaign") if args.out else None
+    campaign = campaign_phase(torch, dev, camp_dir)
+    details["campaign"] = campaign
     kernels[1]["rwkv_token_table"] = rwkv["k2_times"]
     kernels.append(rwkv["k4_row"])
+    for row in kernels:
+        row["launches_by_path"] = {
+            "dlrm": row["launches"] if row["name"] != "wkv6_chunked" else 0,
+            "rwkv6": rwkv["launches"][row["name"]],
+            "campaign": campaign["launches"][row["name"]]}
     details["kernels"] = kernels
     details["seconds"] = time.perf_counter() - t_start
     log("large shapes: " + json.dumps(details["large"]))

@@ -13,7 +13,9 @@ projection and the token embedding:
 - :mod:`repro_torch.protect`  — plans, adapters, the protected-call runtime
 - :mod:`repro_torch.layers`, :mod:`repro_torch.models` — the int8 DLRM
   and RWKV6
-- :mod:`repro_torch.serving`, :mod:`repro_torch.launch.serve` — serving
+- :mod:`repro_torch.serving`, :mod:`repro_torch.launch.serve` — serving,
+  with weight-fault injection
+- :mod:`repro_torch.campaign` — the main-path resilience campaign
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

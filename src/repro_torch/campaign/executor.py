@@ -1,0 +1,170 @@
+"""The campaign executor.
+
+One cell = hundreds of (inject → run → count) trials.  The JAX package
+vmaps a cell's trials over a key batch; here a cell loops over its trials
+on one device.  Each trial's flags stay on the device, and the host reads
+them once per chunk of :data:`CHUNK` trials, so the card is not stalled by
+a synchronisation per trial.  Faults and bags are drawn on CPU generators
+(:func:`_generators`), so one seed gives the same trials on the CPU and on
+the card.
+
+On the card the protected calls run the CUDA kernels; a kernel that fails
+to build or launch fails the cell (nothing falls back).  Cells of targets
+that are not ported yet are skipped, naming the ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.campaign.metrics import CellMetrics, compute_metrics
+from repro_torch.campaign.spec import CampaignSpec, CellPlan, expand
+from repro_torch.campaign.targets import Trial, get_target
+from repro_torch.campaign.timing import median_time, phase_breakdown
+from repro_torch.device import resolve_device
+
+#: trials whose flags the host reads in one synchronisation
+CHUNK = 256
+
+
+@dataclasses.dataclass
+class CellResult:
+    plan: CellPlan
+    metrics: CellMetrics
+    seconds: float
+    #: per faulty trial: (detected, corrupted), and per clean trial the
+    #: flag (host bool tensors, in trial order)
+    trials: torch.Tensor
+    clean: torch.Tensor
+
+
+def _generators(seed: int) -> Tuple[torch.Generator, ...]:
+    """CPU generators for a cell's build, faulty trials and clean trials."""
+    states = np.random.SeedSequence(seed).generate_state(3)
+    return tuple(torch.Generator().manual_seed(int(s)) for s in states)
+
+
+def _run_trials(trial: Callable[[Trial], tuple], trials: Sequence[Trial],
+                device: torch.device, chunk: int = CHUNK) -> torch.Tensor:
+    """``trial(t) -> (detected, corrupted)`` over ``trials``; returns the
+    host bool tensor ``[len(trials), 2]``.  Flags that are Python bools
+    (a bit flip always changes its element) never leave the host."""
+    true = torch.ones((), dtype=torch.bool, device=device)
+    false = torch.zeros((), dtype=torch.bool, device=device)
+    out = []
+    for i in range(0, len(trials), chunk):
+        flags = []
+        for t in trials[i:i + chunk]:
+            flags.extend(f if torch.is_tensor(f) else (true if f else false)
+                         for f in trial(t))
+        out.append(torch.stack(flags).reshape(-1, 2).cpu())
+    return torch.cat(out) if out else torch.zeros((0, 2), dtype=torch.bool)
+
+
+def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
+             chunk: int = CHUNK) -> CellResult:
+    """Run one cell on ``device``.  The protected calls run the kernels
+    where the operands are CUDA tensors (the port's rule), unless
+    ``plain`` asks for the plain versions on any device."""
+    dev = resolve_device(device)
+    target = get_target(plan.target)
+    if target.missing is not None:
+        raise NotImplementedError(f"target {plan.target} is not ported yet "
+                                  f"(ROADMAP {target.missing})")
+    t0 = time.perf_counter()
+    g_build, g_trial, g_clean = _generators(plan.seed)
+    state = target.build(plan, g_build, device=dev, plain=plain)
+
+    def trial(t):
+        return target.trial(state, plan, t)
+
+    flags = _run_trials(trial, target.draw(state, plan, g_trial,
+                                           plan.samples, True), dev, chunk)
+    detected, corrupted = (int(c) for c in flags.sum(0))
+    det_and_cor = int((flags[:, 0] & flags[:, 1]).sum())
+
+    clean = torch.zeros((0,), dtype=torch.bool)
+    if plan.clean_samples > 0:
+        clean = _run_trials(trial, target.draw(state, plan, g_clean,
+                                               plan.clean_samples, False),
+                            dev, chunk)[:, 0]
+
+    protected_s = unprotected_s = None
+    overhead_breakdown = None
+    if plan.measure_overhead and target.overhead is not None:
+        prot, unprot = target.overhead(state, plan)
+        protected_s = median_time(prot, device=dev)
+        unprotected_s = median_time(unprot, device=dev)
+    if plan.measure_overhead and target.overhead_phases is not None:
+        overhead_breakdown = phase_breakdown(
+            target.overhead_phases(state, plan), device=dev)
+
+    metrics = compute_metrics(
+        samples=plan.samples, detected=detected, corrupted=corrupted,
+        detected_and_corrupted=det_and_cor,
+        clean_samples=plan.clean_samples,
+        false_positives=int(clean.sum()),
+        analytic_bound=target.analytic_bound(plan),
+        protected_s=protected_s, unprotected_s=unprotected_s,
+        overhead_breakdown=overhead_breakdown)
+    return CellResult(plan=plan, metrics=metrics,
+                      seconds=time.perf_counter() - t0, trials=flags,
+                      clean=clean)
+
+
+def run_specs(specs: Sequence[CampaignSpec], *, device="cuda",
+              chunk: int = CHUNK,
+              verbose: Optional[Callable[[str], None]] = None
+              ) -> Tuple[List[CellResult], List[dict]]:
+    """Expand and execute a list of specs; returns (results, skipped)."""
+    results: List[CellResult] = []
+    skipped: List[dict] = []
+    for spec in specs:
+        plans, skips = expand(spec)
+        skipped.extend(skips)
+        for plan in plans:
+            missing = get_target(plan.target).missing
+            if missing is not None:
+                skipped.append({"cell_id": plan.cell_id,
+                                "reason": f"target {plan.target} is not "
+                                          f"ported yet (ROADMAP {missing})"})
+                continue
+            r = run_cell(plan, device=device, chunk=chunk)
+            results.append(r)
+            if verbose:
+                m = r.metrics
+                verbose(f"[{r.plan.cell_id}] n={m.samples} "
+                        f"detect={m.detection_rate:.4f} "
+                        f"escape={m.escape_rate:.4f} fp={m.fp_rate:.4f} "
+                        f"({r.seconds:.1f}s)")
+    return results, skipped
+
+
+def run_campaign(name: str, specs: Sequence[CampaignSpec], *,
+                 device="cuda", out_dir: Optional[str] = None,
+                 chunk: int = CHUNK,
+                 verbose: Optional[Callable[[str], None]] = None) -> dict:
+    """Execute specs, assemble the artifact dict, optionally write it."""
+    from repro_torch.campaign.artifacts import (campaign_to_dict,
+                                                write_artifacts)
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    results, skipped = run_specs(specs, device=dev, chunk=chunk,
+                                 verbose=verbose)
+    result = campaign_to_dict(
+        name, list(specs),
+        [{"plan": r.plan, "metrics": r.metrics, "seconds": r.seconds}
+         for r in results],
+        skipped, wall_s=time.perf_counter() - t0,
+        seed=specs[0].seed if specs else 0, device=dev)
+    if out_dir is not None:
+        write_artifacts(result, out_dir)
+    return result
+
+
+__all__ = ["CHUNK", "CellResult", "run_cell", "run_specs", "run_campaign"]

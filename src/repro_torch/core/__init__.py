@@ -3,9 +3,11 @@
 - :mod:`repro_torch.core.abft_gemm`      — Algorithm 1 (quantized GEMM)
 - :mod:`repro_torch.core.abft_embedding` — Algorithm 2 (quantized EmbeddingBag)
 - :mod:`repro_torch.core.policy`         — FaultReport + detect->act policies
+- :mod:`repro_torch.core.inject`         — the fault models (bit flips,
+  random values, bit bands) and the victim choice over parameter trees
 
-The KV-cache, float-GEMM, injection and checksum modules of ``repro.core``
-wait for later slices (ROADMAP A2, A8, A10).
+The KV-cache, float-GEMM and checksum modules of ``repro.core`` wait for
+later slices (ROADMAP A4, A7).
 """
 from repro_torch.core.abft_gemm import (
     LANE,

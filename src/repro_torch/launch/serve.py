@@ -13,9 +13,13 @@ per-tenant latency percentiles next to the ABFT fault counters::
     --plan "*:policy=recompute"                  # retry on detection
     --tenant "premium:2=*:policy=recompute" \
     --tenant "batch=*:policy=log,embedding_bag:off"
+    --inject-step 7 --inject-victim cm.wv        # transient flip at step 7
+    --inject-step 7 --inject-persistent          # ... left in place
 
-The JAX driver's flags for parts not ported yet are rejected with the
-ROADMAP item that ports them.
+``--inject-step`` restores the clean weight right after the faulty step
+(unless ``--inject-persistent``), and the log says whether and when the
+flip was flagged.  The JAX serve CLI's flags for parts not ported yet
+are rejected with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -30,9 +34,6 @@ import sys
 _NOT_PORTED = {
     "--paged-kv": "A8 (paged KV cache)",
     "--kv-pages": "A8 (paged KV cache)",
-    "--inject-step": "A2 (fault injection)",
-    "--inject-victim": "A2 (fault injection)",
-    "--inject-persistent": "A2 (fault injection)",
     "--obs-dir": "A9 (observability)",
     "--obs-flush-every": "A9 (observability)",
     "--monitor": "A9 (health monitor)",
@@ -100,6 +101,16 @@ def main(argv=None) -> int:
                          "(repeatable; replaces --plan)")
     ap.add_argument("--no-abft", action="store_true",
                     help="unprotected baseline (= --plan '*:off')")
+    ap.add_argument("--inject-step", type=int, action="append",
+                    default=None, metavar="STEP",
+                    help="flip a weight bit before this engine step "
+                         "(repeatable — a burst of transient faults)")
+    ap.add_argument("--inject-victim", default=None,
+                    help="victim leaf-path pattern (e.g. 'cm.wv', "
+                         "'top.0'); default: largest int8 leaf")
+    ap.add_argument("--inject-persistent", action="store_true",
+                    help="leave the flipped bit in place (default: "
+                         "restore the clean weight after the step)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None,
                     help="write the full telemetry timeline here")
@@ -111,8 +122,9 @@ def main(argv=None) -> int:
     from repro_torch.configs.registry import get_arch
     from repro_torch.protect import (ProtectionPlan, default_plan,
                                      unprotected_plan)
-    from repro_torch.serving import (ServingEngine, TenantSpec, chat_stream,
-                                     dlrm_stream, tenant_weights)
+    from repro_torch.serving import (FaultInjection, ServingEngine,
+                                     TenantSpec, chat_stream, dlrm_stream,
+                                     tenant_weights)
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("repro_torch.serve")
@@ -169,7 +181,7 @@ def main(argv=None) -> int:
                                max_prompt=args.prompt_len,
                                queue_depth=args.queue_depth, seed=args.seed,
                                dlrm_extras=dlrm_extras, device=args.device)
-    except ValueError as e:             # a prompt bucket off the WKV chunks
+    except ValueError as e:             # e.g. duplicate tenant names
         ap.error(str(e))
     trace = None
     if args.trace:
@@ -192,11 +204,22 @@ def main(argv=None) -> int:
             mean_output=max(args.decode_tokens // 2, 1),
             max_output=args.decode_tokens, trace=trace)
 
+    inject = None
+    if args.inject_step:
+        inject = [FaultInjection(step=s, victim=args.inject_victim,
+                                 persistent=args.inject_persistent,
+                                 seed=args.seed + 17 * i)
+                  for i, s in enumerate(sorted(args.inject_step))
+                  if s >= 0]
+
     log.info("serving %d %s requests (%s arrivals @ %g rps) on %s, "
              "%d slots, %d lane(s)...", args.requests, cfg.family,
              args.arrival, args.rate, engine.device, args.slots,
              len(engine.lanes))
-    telemetry = engine.run(stream)
+    try:
+        telemetry = engine.run(stream, inject=inject)
+    except ValueError as e:             # a victim pattern matching no leaf
+        ap.error(str(e))
     s = telemetry.summary()
 
     log.info("")
@@ -225,6 +248,14 @@ def main(argv=None) -> int:
                      ts["ttft_ms"]["p99"], ts["per_token_ms"]["p99"])
     nz = {k: v for k, v in s["faults"]["counters"].items() if v}
     log.info("fault counters: %s", nz or "all zero")
+    for inj in telemetry.injections:
+        if inj.detected:
+            log.info(">>> injected %s at step %d: DETECTED after %d "
+                     "step(s) (%.2f ms)", inj.victim, inj.step,
+                     inj.latency_steps, 1e3 * inj.latency_s)
+        else:
+            log.info(">>> injected %s at step %d: NOT detected "
+                     "(masked or escaped)", inj.victim, inj.step)
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as fp:

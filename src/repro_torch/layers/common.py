@@ -17,7 +17,7 @@ class Ctx:
     legacy booleans apply: ``abft`` gates int8 GEMM + EB verification and
     ``float_abft`` gates float-GEMM ABFT.  ``wkv_chunk > 0`` selects the
     chunked matmul form of the RWKV6 WKV recurrence (kernel K4 on the
-    card) wherever the sequence length divides.  The JAX context's
+    card) over a prefill's whole chunks.  The JAX context's
     sharding, scan and cost-probe fields and its bf16 WKV operands
     (``wkv_mm_bf16``) belong to slices not ported yet.
     """

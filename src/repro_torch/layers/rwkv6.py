@@ -11,9 +11,10 @@ recurrence is an outer-product state update, not a GEMM, so the paper's
 ABFT does not apply to it; the R/K/V/G/O projections and the channel-mix
 are int8 ABFT linears like any other (kernels K3 and K1 on the card).
 
-Prefill runs the recurrence in its chunked matmul form when
-``ctx.wkv_chunk`` divides the length (kernel K4 on the card); decode
-(S = 1) runs the per-token recurrence.  Only the int8 serving form of the
+Prefill runs the recurrence in its chunked matmul form over the whole
+chunks of ``ctx.wkv_chunk`` (kernel K4 on the card) and the per-token
+recurrence over the tail, carrying the state; decode (S = 1) runs the
+per-token recurrence.  Only the int8 serving form of the
 layers is ported; the float (training) form waits for ROADMAP A10.
 """
 from __future__ import annotations
@@ -103,8 +104,9 @@ def timemix(p, x, x_prev, state, ctx: Ctx, *, n_heads: int
                        policy.FaultReport]:
     """x [B,S,d], x_prev [B,d], state S [B,H,dh,dh] (f32).
 
-    ``ctx.wkv_chunk > 0`` selects the chunked matmul form when the length
-    divides (and S > 1); otherwise the per-token recurrence runs.
+    ``ctx.wkv_chunk > 0`` runs the chunked matmul form over the first
+    ``(S // chunk) * chunk`` tokens (S > 1) and the per-token recurrence
+    over the rest, carrying the state; otherwise the recurrence runs alone.
     Returns (y, new_x_prev, new_state, report)."""
     b, s, d = x.shape
     dh = d // n_heads
@@ -131,14 +133,21 @@ def timemix(p, x, x_prev, state, ctx: Ctx, *, n_heads: int
     u = p["bonus"].to(torch.float32)                             # [H,dh]
 
     chunk = ctx.wkv_chunk
-    if chunk and s > 1 and s % chunk == 0:
+    head = (s // chunk) * chunk if chunk and s > 1 else 0
+    ys = []
+    if head:
         # r, k, v in the compute dtype: K4 reads bf16 as it is and the
         # plain path casts to f32 (exact), as the JAX layer does
-        ys, state = wkv_chunked(rh, kh, vh, lwh, u, state, chunk=chunk)
-    else:
-        ys, state = wkv_recurrent(*(t.to(torch.float32)
-                                    for t in (rh, kh, vh)), lwh, u, state)
-    y = ys.reshape(b, s, d)
+        y_head, state = wkv_chunked(rh[:, :head], kh[:, :head],
+                                    vh[:, :head], lwh[:, :head], u, state,
+                                    chunk=chunk)
+        ys.append(y_head)
+    if head < s:
+        y_tail, state = wkv_recurrent(
+            *(t[:, head:].to(torch.float32) for t in (rh, kh, vh)),
+            lwh[:, head:], u, state)
+        ys.append(y_tail)
+    y = (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)).reshape(b, s, d)
     y = layernorm(p["ln_x"], y.to(ctx.compute_dtype))
     y = y * F.silu(g.to(torch.float32)).to(ctx.compute_dtype)
     y, r5 = apply_linear(p["wo"], y, ctx, name="tm.wo")

@@ -69,15 +69,16 @@ class QGemmOp:
 
     Schemes: ``packed`` (fused checksum column: the CUDA kernel on the
     card, the plain version on the CPU), ``cuda`` (force the kernel; its
-    synonym ``pallas`` keeps JAX plan strings valid), ``unfused`` (the
-    BLAS-2 baseline the paper argues against, §IV-A3).
+    synonym ``pallas`` keeps JAX plan strings valid), ``plain`` (the plain
+    PyTorch version on any device), ``unfused`` (the BLAS-2 baseline the
+    paper argues against, §IV-A3).
 
     ``encoded`` may also be ``(packed, colsum_ref)`` where ``colsum_ref``
     is the exact int32 column sums of the clean B block; with it the
     ``correct`` policy also repairs single *weight* flips.
     """
     name = "qgemm"
-    schemes = ("packed", "cuda", "pallas", "unfused")
+    schemes = ("packed", "plain", "cuda", "pallas", "unfused")
     supports_correct = True
     lane = LANE
 
@@ -120,10 +121,10 @@ class QGemmOp:
             col = column_check(a_q, b_q) if want_col else None
             return c, Check(err, err_rows,
                             self._aux(col, a_q, packed, colsum_ref))
-        if scheme not in ("packed", "cuda", "pallas"):
+        if scheme not in ("packed", "plain", "cuda", "pallas"):
             raise ValueError(f"unknown qgemm scheme {scheme!r}; "
                              f"have {self.schemes}")
-        use_kernel = True if scheme in ("cuda", "pallas") else None
+        use_kernel = {"packed": None, "plain": False}.get(scheme, True)
         out = kops.abft_qgemm(a_q, packed, use_kernel=use_kernel,
                               with_colcheck=want_col)
         if want_col:

@@ -11,8 +11,8 @@ the op-keyed fault counters.
     telemetry = engine.run(chat_stream(8, tenants={"default": 1.0}))
 """
 from repro_torch.serving.batcher import ContinuousBatcher, Slot
-from repro_torch.serving.engine import (ServingEngine, TenantSpec,
-                                        tenant_weights)
+from repro_torch.serving.engine import (FaultInjection, ServingEngine,
+                                        TenantSpec, tenant_weights)
 from repro_torch.serving.queue import AdmissionQueue
 from repro_torch.serving.telemetry import (InjectionRecord, RequestRecord,
                                            StepEvent, Telemetry,
@@ -24,7 +24,7 @@ from repro_torch.serving.workload import (ARRIVALS, Request, bursty_arrivals,
                                           trace_arrivals)
 
 __all__ = [
-    "ServingEngine", "TenantSpec", "tenant_weights",
+    "ServingEngine", "TenantSpec", "FaultInjection", "tenant_weights",
     "ContinuousBatcher", "Slot", "AdmissionQueue",
     "Telemetry", "RequestRecord", "StepEvent", "InjectionRecord",
     "percentiles_ms",

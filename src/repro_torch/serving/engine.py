@@ -26,16 +26,20 @@ clock.
 One deliberate difference from the JAX engine: the LM lanes run with
 ``Ctx.wkv_chunk = cfg.wkv_chunk``, as the JAX package's int8 prefill step
 does (``launch/dryrun.py``), so an RWKV prefill runs the chunked WKV form
-(kernel K4 on the card).  The JAX engine's ``Ctx(quant=True)`` leaves
-``wkv_chunk`` at 0 and its serving prefill runs the per-token
-recurrence.  Decode (one token) runs the recurrence either way.  Every
-prompt pads to the one bucket ``max_prompt``, so the engine refuses a
-bucket that is not a multiple of ``wkv_chunk``: each card prefill runs
-K4, none falls back to the per-token recurrence.
+(kernel K4 on the card) over the prompt bucket's whole chunks and the
+per-token recurrence over the rest.  The JAX engine's ``Ctx(quant=True)``
+leaves ``wkv_chunk`` at 0 and its serving prefill runs the recurrence
+alone.  Decode (one token) runs the recurrence either way.
 
-The JAX engine's attention families, paged KV cache, fault injection,
-observability, health monitor and adaptive thresholds wait for later
-slices (ROADMAP A2, A8, A9, A11); asking for one raises.
+Fault injection is first-class: a :class:`FaultInjection` flips one bit
+of a plan-path-addressed weight leaf in place before a global step (on
+the engine's stream, ahead of the kernels that read it) and flips it back
+after the step unless the fault is persistent; telemetry records each
+injection and the step that flagged it.
+
+The JAX engine's attention families, paged KV cache and KV-cache
+injection, observability, health monitor and adaptive thresholds wait
+for later slices (ROADMAP A4, A5); asking for one raises.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ import torch
 
 from repro_torch.serving.batcher import ContinuousBatcher, Slot
 from repro_torch.serving.queue import AdmissionQueue
-from repro_torch.serving.telemetry import RequestRecord, StepEvent, Telemetry
+from repro_torch.serving.telemetry import (InjectionRecord, RequestRecord,
+                                           StepEvent, Telemetry)
 from repro_torch.serving.workload import Request
 
 
@@ -63,6 +68,23 @@ class TenantSpec:
     def resolved_plan(self):
         from repro_torch.protect import default_plan
         return self.plan if self.plan is not None else default_plan()
+
+
+@dataclasses.dataclass
+class FaultInjection:
+    """Flip one bit of a weight leaf before global step ``step``.
+
+    ``victim`` is a dotted leaf-path pattern (:mod:`repro_torch.core.inject`;
+    None = the largest int8 leaf); the element and bit are drawn from
+    ``seed`` over the leaf's live region.  The flip is restored after the
+    step unless ``persistent`` (then :meth:`ServingEngine.reset_state`
+    restores it).  ``target="kv"`` (a KV-cache payload flip) waits for
+    ROADMAP A4."""
+    step: int
+    victim: Optional[str] = None
+    persistent: bool = False
+    seed: int = 0
+    target: str = "weights"
 
 
 def tenant_weights(tenants: Sequence[TenantSpec]) -> Dict[str, float]:
@@ -126,16 +148,6 @@ class ServingEngine:
             from repro_torch.models.base import build_model
             # raises NotImplementedError for a family not ported yet
             self.model = build_model(cfg)
-            if cfg.wkv_chunk and max_prompt % cfg.wkv_chunk:
-                # every prompt pads to this bucket: a bucket off the chunk
-                # grid would send each prefill to the per-token recurrence
-                raise ValueError(
-                    f"max_prompt {max_prompt} is not a multiple of "
-                    f"wkv_chunk {cfg.wkv_chunk}: the chunked WKV prefill "
-                    f"(kernel K4) runs only on whole chunks, and the chunk "
-                    f"cannot grow past the float32 envelope "
-                    f"(chunk * |LOG_W_MIN| <= 80); pick a prompt bucket on "
-                    f"the chunk grid")
         if not tenants:
             raise ValueError("need at least one TenantSpec")
         names = [t.name for t in tenants]
@@ -157,6 +169,8 @@ class ServingEngine:
         self._compute_dtype = (torch.bfloat16 if compute_dtype is None
                                else compute_dtype)
         self._warm = False
+        #: applied injections: [(leaf, flat_index, bit, persistent)]
+        self._injection_state: list = []
 
         if self.is_dlrm:
             from repro_torch.configs.dlrm import EXTRAS
@@ -316,6 +330,52 @@ class ServingEngine:
         self._sync()
         self._warm = True
 
+    # ------------------------------ fault injection --------------------------
+
+    def _apply_injection(self, inj: FaultInjection,
+                         telemetry: Telemetry) -> None:
+        """Flip the injection's bit in place (one device operation on the
+        current stream, so the kernels of the step see it)."""
+        from repro_torch.core.inject import (draw_bitflip_live, flip_bit_,
+                                             leaf_paths, victim_leaf_index)
+
+        idx, path = victim_leaf_index(self.params, inj.victim)
+        leaf = leaf_paths(self.params)[idx][1]
+        gen = torch.Generator().manual_seed(inj.seed)
+        flat_index, bit = draw_bitflip_live(gen, leaf, path)
+        flip_bit_(leaf, flat_index, bit)
+        self._injection_state.append((leaf, flat_index, bit,
+                                      inj.persistent))
+        telemetry.add_injection(InjectionRecord(
+            step=self.global_step, victim=path, clock_s=self.clock_s,
+            persistent=inj.persistent))
+
+    def _restore_injection(self, *, include_persistent: bool = False):
+        """Undo applied injections in reverse application order: transient
+        ones always, persistent ones only on request (:meth:`reset_state`).
+        Each flip is undone by flipping its bit again, bit for bit."""
+        from repro_torch.core.inject import flip_bit_
+
+        keep = []
+        for leaf, flat_index, bit, persistent in \
+                reversed(self._injection_state):
+            if persistent and not include_persistent:
+                keep.append((leaf, flat_index, bit, persistent))
+                continue
+            flip_bit_(leaf, flat_index, bit)
+        self._injection_state = list(reversed(keep))
+
+    def reset_state(self) -> None:
+        """Fresh run state (clock, queue, lanes) with the built steps kept.
+        Any still-applied (persistent) injected fault is restored."""
+        if self._injection_state:
+            self._restore_injection(include_persistent=True)
+        self.clock_s = 0.0
+        self.global_step = 0
+        self.queue = AdmissionQueue(max_depth=self.queue.max_depth)
+        for lane in self.lanes:
+            lane.reset()
+
     # ------------------------------ engine steps -----------------------------
 
     def _sync(self) -> None:
@@ -344,7 +404,7 @@ class ServingEngine:
             shared_prefix_tokens=slot.shared_prefix_tokens))
 
     def _step_event(self, kind: str, lane: _Lane, dt: float, metrics,
-                    telemetry: Telemetry,
+                    telemetry: Telemetry, injected: bool = False,
                     errors_override: Optional[int] = None,
                     slot_rids: tuple = ()):
         counters, errors = (_counters_of(metrics) if metrics is not None
@@ -356,10 +416,11 @@ class ServingEngine:
             lane=lane.key, duration_s=dt,
             occupancy=lane.batcher.occupancy(),
             queue_depth=self.queue.depth(), counters=counters,
-            errors=errors, slot_rids=tuple(slot_rids)))
+            errors=errors, injected=injected, slot_rids=tuple(slot_rids)))
         return errors
 
-    def _do_dlrm(self, lane: _Lane, slot_like: Slot, telemetry: Telemetry):
+    def _do_dlrm(self, lane: _Lane, slot_like: Slot, telemetry: Telemetry,
+                 injected: bool = False):
         from repro_torch.core.policy import is_fault_abort
 
         req = slot_like.request
@@ -371,25 +432,28 @@ class ServingEngine:
         except Exception as e:          # noqa: BLE001 - abort policy only
             if not is_fault_abort(e):
                 raise
-            self._abort_step("dlrm", lane, t0, telemetry, (req.rid,))
+            self._abort_step("dlrm", lane, t0, telemetry, injected,
+                             (req.rid,))
             self._record_slot(slot_like, telemetry, aborted=True)
             return
         slot_like.first_token_s = self.clock_s
         self._record_slot(slot_like, telemetry)
-        self._step_event("dlrm", lane, dt, metrics, telemetry,
+        self._step_event("dlrm", lane, dt, metrics, telemetry, injected,
                          slot_rids=(req.rid,))
 
     def _abort_step(self, kind: str, lane: _Lane, t0: float,
-                    telemetry: Telemetry, slot_rids: tuple) -> None:
+                    telemetry: Telemetry, injected: bool,
+                    slot_rids: tuple) -> None:
         """Policy ``abort`` fired inside a step: the step's time still
         counts, the step records one error."""
         self._sync()
         dt = time.perf_counter() - t0
         self.clock_s += dt
-        self._step_event(kind, lane, dt, None, telemetry, errors_override=1,
-                         slot_rids=slot_rids)
+        self._step_event(kind, lane, dt, None, telemetry, injected,
+                         errors_override=1, slot_rids=slot_rids)
 
-    def _do_prefill(self, lane: _Lane, slot: Slot, telemetry: Telemetry):
+    def _do_prefill(self, lane: _Lane, slot: Slot, telemetry: Telemetry,
+                    injected: bool = False):
         from repro_torch.core.policy import is_fault_abort
 
         req = slot.request
@@ -401,7 +465,8 @@ class ServingEngine:
         except Exception as e:          # noqa: BLE001 - abort policy only
             if not is_fault_abort(e):
                 raise
-            self._abort_step("prefill", lane, t0, telemetry, (req.rid,))
+            self._abort_step("prefill", lane, t0, telemetry, injected,
+                             (req.rid,))
             lane.batcher.retire(slot.index)
             self._record_slot(slot, telemetry, aborted=True)
             return
@@ -420,10 +485,11 @@ class ServingEngine:
         slot.first_token_s = self.clock_s
         slot.token_ids = [int(tok[0])]
         slot.prefill_tokens = self.max_prompt   # full fixed-slot bucket
-        self._step_event("prefill", lane, dt, metrics, telemetry,
+        self._step_event("prefill", lane, dt, metrics, telemetry, injected,
                          slot_rids=(req.rid,))
 
-    def _do_decode(self, lane: _Lane, telemetry: Telemetry):
+    def _do_decode(self, lane: _Lane, telemetry: Telemetry,
+                   injected: bool = False):
         from repro_torch.core.policy import is_fault_abort
 
         resident = tuple(s.request.rid
@@ -436,7 +502,8 @@ class ServingEngine:
         except Exception as e:          # noqa: BLE001 - abort policy only
             if not is_fault_abort(e):
                 raise
-            self._abort_step("decode", lane, t0, telemetry, resident)
+            self._abort_step("decode", lane, t0, telemetry, injected,
+                             resident)
             for slot in lane.reset():
                 self._record_slot(slot, telemetry, aborted=True)
             return
@@ -448,7 +515,7 @@ class ServingEngine:
             slot.generated += 1
             slot.pos += 1
             slot.token_ids.append(int(tok_host[slot.index]))
-        self._step_event("decode", lane, dt, metrics, telemetry,
+        self._step_event("decode", lane, dt, metrics, telemetry, injected,
                          slot_rids=resident)
         for slot in lane.batcher.retire_finished():
             self._record_slot(slot, telemetry)
@@ -456,10 +523,21 @@ class ServingEngine:
     # ------------------------------ main loop --------------------------------
 
     def run(self, requests: Sequence[Request], *,
+            inject: Optional[Sequence[FaultInjection]] = None,
             telemetry: Optional[Telemetry] = None, warmup: bool = True,
             max_iterations: int = 1_000_000) -> Telemetry:
-        """Serve ``requests`` to completion and return the timeline."""
+        """Serve ``requests`` to completion and return the timeline, with
+        the ``inject`` faults applied at their global steps."""
         telemetry = telemetry if telemetry is not None else Telemetry()
+        injections = sorted(inject or [], key=lambda j: j.step)
+        for inj in injections:
+            if inj.target == "kv":
+                raise NotImplementedError(
+                    "KV-cache injection is not ported yet (ROADMAP A4: the "
+                    "port serves no KV cache)")
+            if inj.target != "weights":
+                raise ValueError(f"unknown injection target "
+                                 f"{inj.target!r}; have ('weights', 'kv')")
         pending = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
         for r in pending:
             if r.tenant not in self._lane_of:
@@ -472,11 +550,18 @@ class ServingEngine:
                     f"serve {r.kind!r} requests")
         if warmup:
             self.warmup(pending[0] if pending else None)
-        return self._run_loop(pending, telemetry, max_iterations)
+        try:
+            return self._run_loop(pending, injections, telemetry,
+                                  max_iterations)
+        finally:
+            # a transient flip never outlives the run, even one that raised
+            self._restore_injection()
 
-    def _run_loop(self, pending, telemetry, max_iterations) -> Telemetry:
+    def _run_loop(self, pending, injections, telemetry,
+                  max_iterations) -> Telemetry:
         i = 0
         it = 0
+        inj_i = 0
         while True:
             it += 1
             if it > max_iterations:
@@ -502,26 +587,37 @@ class ServingEngine:
                 self.clock_s = max(self.clock_s, pending[i].arrival_s)
                 continue
 
+            injected_now = (inj_i < len(injections)
+                            and injections[inj_i].step <= self.global_step)
+            if injected_now:
+                self._apply_injection(injections[inj_i], telemetry)
+                inj_i += 1
+
             # 2. admissions: a one-shot dlrm forward, or an LM prefill
             for lane in self.lanes:
                 for slot in lane.batcher.admit(self.queue, self.clock_s,
                                                accept=lane.accepts):
                     if slot.request.kind == "dlrm":
                         lane.batcher.retire(slot.index)
-                        self._do_dlrm(lane, slot, telemetry)
+                        self._do_dlrm(lane, slot, telemetry, injected_now)
                     else:
-                        self._do_prefill(lane, slot, telemetry)
+                        self._do_prefill(lane, slot, telemetry,
+                                         injected_now)
                 for slot in lane.batcher.retire_finished():
                     self._record_slot(slot, telemetry)
 
             # 3. one decode step per lane with active slots
             for lane in self.lanes:
                 if lane.batcher.occupancy():
-                    self._do_decode(lane, telemetry)
+                    self._do_decode(lane, telemetry, injected_now)
+
+            if injected_now:
+                self._restore_injection()
             self.global_step += 1
 
         telemetry.finalize_injections()
         return telemetry
 
 
-__all__ = ["ServingEngine", "TenantSpec", "tenant_weights"]
+__all__ = ["ServingEngine", "TenantSpec", "FaultInjection",
+           "tenant_weights"]

@@ -110,7 +110,7 @@ def test_serve_cli_smoke_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--inject-step", "2"], "A2"), (["--paged-kv", "8"], "A8"),
+    (["--obs-dir", "obs"], "A9"), (["--paged-kv", "8"], "A8"),
     (["--monitor"], "A9"), (["--device-count", "2"], "A12"),
     (["--arch", "llama3.2-1b"], "A8")])
 def test_serve_cli_rejects_unported_parts(capsys, flag, item):
