@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Three paths run, each with every launch counter set to 0 just before it
+Six paths run, each with every launch counter set to 0 just before it
 and read just after: the paper's int8 DLRM serving (kernels K1-K3), int8
-RWKV6-1.6B chat serving (K1-K4), and the main-path resilience campaign
-(K1, K2).  Phases (any failure exits
-non-zero; nothing is caught and passed over):
+RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign (K1,
+K2), the ``thresholds`` grid (K2), the paper's overhead benchmarks (K1,
+K2 and their unprotected instances) and the float DLRM converted to int8
+(K1-K3).  Phases (any failure exits non-zero; nothing is caught and
+passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one
@@ -104,14 +106,40 @@ non-zero; nothing is caught and passed over):
    plain versions from one seed, must decide every trial alike: the
    GEMM's bit for bit, the EmbeddingBag's but for at most 1% of its
    trials, each within float32 round-off of the bound and shown to be
-   K2's own formula on an rsum within round-off of the float64 sum.
+   K2's own formula on an rsum within round-off of the float64 sum;
+10. run the port's ``thresholds`` grid on the card (15 EB cells,
+   rel_bound 1e-7 to 1e-3, 400 faulty and 400 clean trials, seed 0) and
+   print its tradeoff curve: detection must overlap the committed JAX
+   baseline by Wilson interval in every cell, FP at 1e-6 to 1e-3; at 1e-7
+   (ROADMAP §C2: round-off decides clean bags) the FP rate is printed
+   beside the baseline's and the plain branch's, and every trial is
+   replayed through K2 with its flags held bag for bag to K2's own Eq. (5)
+   formula on its own rsum;
+11. run the paper's overhead benchmarks (``repro_torch.benchmarks``):
+   Fig. 5 over the 28 DLRM GEMM shapes (K1, cold and warm, and with the
+   encoding, against K1's unprotected instance) and Table I at d 32-256
+   on 4M-row tables (K2 against its unprotected instance, fresh indices
+   every launch), by CUDA events in alternating rounds; print both tables
+   in full; the unprotected instances bit-exact to the protected kernels
+   (C's first n columns, R) and to their plain versions, and no median
+   overhead below -5%;
+12. the full-width float DLRM over phase 3's tables, 8 batches of
+   ``SyntheticDLRMDataset``: ``float_gemm`` on, 0 errors clean; a flipped
+   exponent bit of a ``top.0`` weight flagged at ``top.0`` and nowhere
+   else, and 0 errors once restored; converted by ``quantize_dlrm`` and
+   served on the same batches through K1-K3 with 0 errors; the float vs
+   int8 CTR gap printed.
 
-The line before the last is ``{"kernels": [...]}``: ``launches`` is the
-count of the kernel's own path (DLRM for K1-K3, RWKV for K4), and
-``launches_by_path`` holds all three.  The last line is ``{"ok": true,
-"device": {"platform": "gpu", "kind": ..., "count": 1}}``.  Without a
-CUDA device, or without the repository's ``src/`` beside this file, it
-exits non-zero and prints no result.
+The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
+unprotected instances; ``launches`` is the count of the kernel's own path
+(DLRM for K1-K3, RWKV for K4, the overhead benchmarks for the unprotected
+instances), and ``launches_by_path`` holds every kernel's count on each
+of the six paths (DLRM serve, RWKV serve, campaign, thresholds, overhead,
+float DLRM), all six counts set to 0 just before each path and read just
+after.  The last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+Without a CUDA device, or without the repository's ``src/`` beside this
+file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -124,11 +152,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM published peaks (dense), at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 
 # the pl.pallas_call of each TPU kernel
 REPLACES = {
@@ -147,49 +170,36 @@ def fail(msg: str) -> None:
     raise SystemExit(f"[chip_smoke] FAILED: {msg}")
 
 
-def bound_ms(n_bytes: float, ops: float, ops_rate: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def all_wrappers() -> dict:
+    """Every kernel's wrapper, by name: K1-K4 and the two unprotected
+    instances the overhead benchmarks time."""
+    from repro_torch.kernels.abft_embeddingbag import (abft_eb_cuda,
+                                                       eb_unprotected_cuda)
+    from repro_torch.kernels.abft_qgemm import (abft_qgemm_cuda,
+                                                 qgemm_unprotected_cuda)
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
+    return {"abft_qgemm": abft_qgemm_cuda,
+            "abft_embeddingbag": abft_eb_cuda,
+            "quantize_rows": quantize_rows_cuda,
+            "wkv6_chunked": wkv6_chunked_cuda,
+            "qgemm_unprotected": qgemm_unprotected_cuda,
+            "eb_unprotected": eb_unprotected_cuda}
 
 
-class Timer:
-    """Device time of a sequence of launches, by CUDA events.
+def zero_launches() -> dict:
+    """:func:`all_wrappers` with every launch count set to 0: called just
+    before a path is driven."""
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
 
-    The launches are enqueued behind a spin kernel long enough to cover
-    their host-side enqueue, so they run back to back and the events
-    bracket device time only, not the host's launch gaps."""
 
-    def __init__(self, torch):
-        self.torch = torch
-        s, e = self._events()
-        s.record()
-        torch.cuda._sleep(20_000_000)
-        e.record()
-        torch.cuda.synchronize()
-        self.cycles_per_ms = 20_000_000 / s.elapsed_time(e)
-
-    def _events(self):
-        ev = self.torch.cuda.Event
-        return ev(enable_timing=True), ev(enable_timing=True)
-
-    def ms(self, fn, n: int = 20) -> float:
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        s, e = self._events()
-        torch.cuda._sleep(int(self.cycles_per_ms * (1.5 * host_ms + 1.0)))
-        s.record()
-        for _ in range(n):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / n
+def read_launches(wrappers: dict) -> dict:
+    """The launch count of each of ``wrappers`` (:func:`zero_launches`'
+    result), read just after the path."""
+    return {k: w.launches for k, w in wrappers.items()}
 
 
 def profile_requests(torch, engine, requests) -> dict:
@@ -659,6 +669,7 @@ def eb_bounds(bags, d: int):
     sectors: the same with each random alpha, beta and C_T load a 32-byte
     sector.  Operations: 4 a row element, ~10 a slot for the check, and
     rsum's adds."""
+    from repro_torch.benchmarks.common import F32_OPS_PER_S, bound_ms
     valid = int((bags >= 0).sum())
     t, b, p = bags.shape
     rest = 4 * t * b * p + t * b * (4 * d + 5) + 4 * t
@@ -737,6 +748,8 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     (B, S).  Returns the K4 row and the RWKV path's launch counts."""
     import numpy as np
 
+    from repro_torch.benchmarks.common import (F32_OPS_PER_S,
+                                               INT8_OPS_PER_S, bound_ms)
     from repro_torch.configs import reduce_cfg
     from repro_torch.core import LANE
     from repro_torch.core.policy import metrics_to_ints
@@ -963,14 +976,9 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         f"16- and 4-byte copies: worst error {worst_ratio} of the bound")
 
     # -------------------------- 7. serve + flips ----------------------------
-    wrappers = {"abft_qgemm": abft_qgemm_cuda,
-                "abft_embeddingbag": abft_eb_cuda,
-                "quantize_rows": quantize_rows_cuda,
-                "wkv6_chunked": wkv6_chunked_cuda}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = zero_launches()
     tel = engine.run(stream(8, 0))            # the warm-up runs inside
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches(wrappers)
     s = tel.summary()
     per = s["per_tenant"]["default"]
     counters = s["faults"]["counters"]
@@ -995,7 +1003,8 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     want_l = {"wkv6_chunked": cfg.n_layers * (n_pre + 1),
               "abft_qgemm": per_step_gemms * (steps + 2),
               "quantize_rows": per_step_gemms * (steps + 2),
-              "abft_embeddingbag": steps + 2}
+              "abft_embeddingbag": steps + 2,
+              "qgemm_unprotected": 0, "eb_unprotected": 0}
     if launches != want_l:
         fail(f"launches {launches} differ from the path's {want_l}")
     toks = [t for r in tel.requests for t in (r.tokens or [])]
@@ -1253,7 +1262,6 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
         "source": "src/repro_torch/csrc/wkv6_chunked.cu",
         "replaces": REPLACES["wkv6_chunked"],
         "launches": launches["wkv6_chunked"],
-        "launches_by_path": {"rwkv6": launches["wkv6_chunked"]},
         "max_abs_err": k4["model_max_abs_err"],
         "ms": timer.ms(lambda: wkv6_chunked_cuda(*m_args, chunk=16)),
         "plain_ms": timer.ms(lambda: ref.wkv_chunked_ref(*m_args,
@@ -1663,24 +1671,15 @@ def campaign_phase(torch, dev, out_dir) -> dict:
     from repro_torch.campaign.diff import (diff_artifacts, format_diff,
                                            wilson_gate)
     from repro_torch.campaign.executor import run_campaign
-    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
-    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
-    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
-    from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda
 
-    wrappers = {"abft_qgemm": abft_qgemm_cuda,
-                "abft_embeddingbag": abft_eb_cuda,
-                "quantize_rows": quantize_rows_cuda,
-                "wkv6_chunked": wkv6_chunked_cuda}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = zero_launches()
     t0 = time.perf_counter()
     runs = {name: run_campaign(name, specs, device=dev, out_dir=out_dir)
             for name, specs in (
                 ("quick", grids.quick_specs(seed=0)),
                 ("pallas_quick", grids.pallas_specs(seed=0, quick=True)),
                 ("paper", grids.paper_specs(seed=0)))}
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches(wrappers)
     seconds = time.perf_counter() - t0
     log(f"campaign grids on the card in {seconds:.1f}s: "
         + ", ".join(f"{k} {len(v['cells'])} cells" for k, v in runs.items())
@@ -1768,6 +1767,372 @@ def campaign_phase(torch, dev, out_dir) -> dict:
             for cid, v in tft.items() if not v["target"].startswith("gemm")))
     return {"launches": launches, "seconds": seconds, "cells": cells,
             "gates": gates, "kernel_shapes": shapes, "trial_for_trial": tft}
+
+
+#: the bound at which float32 round-off decides a clean bag's Eq. (5) flag
+#: (ROADMAP §C2): the thresholds gate holds K2 to its own formula there
+ROUND_OFF_BOUND = 1e-7
+
+
+def thresholds_phase(torch, dev, out_dir) -> dict:
+    """Phase 10: the port's ``thresholds`` grid on the card (15 EB cells,
+    rel_bound 1e-7 to 1e-3, 400 faulty and 400 clean trials each, seed
+    0), held to the committed JAX baseline by overlapping 95% Wilson
+    intervals: detection in every cell, false positives at 1e-6 to 1e-3.
+    At 1e-7 (ROADMAP §C2) round-off decides the clean bags, so the FP rate
+    is printed beside the baseline's interval and the plain branch's, not
+    gated against them; instead every trial of those cells is replayed
+    through K2 and its flags held, bag for bag, to K2's own Eq. (5) formula
+    on its own rsum (``ref.eb_check_slot_order``), and its decisions to
+    the campaign's.  Returns the counts and the launches of the grid's
+    run (counted from zero)."""
+    from repro_torch.campaign import grids
+    from repro_torch.campaign.artifacts import (load_artifact,
+                                                threshold_curve,
+                                                threshold_curve_markdown)
+    from repro_torch.campaign.diff import wilson_gate
+    from repro_torch.campaign.executor import (_generators, run_campaign,
+                                               run_cell)
+    from repro_torch.campaign.metrics import wilson_interval
+    from repro_torch.campaign.spec import expand
+    from repro_torch.campaign.targets import get_target, inject_, restore_
+    from repro_torch.core.inject import signed_view
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+
+    specs = grids.thresholds_specs(seed=0)
+    wrappers = zero_launches()
+    t0 = time.perf_counter()
+    res = run_campaign("thresholds", specs, device=dev, out_dir=out_dir)
+    launches = read_launches(wrappers)
+    seconds = time.perf_counter() - t0
+    if launches["abft_embeddingbag"] != 15 * 800:
+        fail(f"the thresholds grid launched K2 "
+             f"{launches['abft_embeddingbag']} times, not one per trial "
+             f"(12000): {launches}")
+    for line in threshold_curve_markdown(res).splitlines():
+        log(f"  | {line}")
+    base = load_artifact(str(ROOT / "benchmarks" / "baselines"
+                             / "BENCH_campaign_thresholds.json"))
+    gate = wilson_gate(base, res)
+    if len(gate["cells"]) != 15 or gate["uncovered"]:
+        fail(f"thresholds: {len(gate['cells'])} of 15 cells gated, "
+             f"uncovered {gate['uncovered']}")
+    failed = []
+    for c in gate["cells"]:
+        rb = float(c["cell_id"].rsplit("/rb", 1)[1])
+        ok = c["detection"]["overlap"] and (
+            rb == ROUND_OFF_BOUND or c["fp"]["overlap"])
+        log(f"  thresholds {c['cell_id']}: detection card "
+            f"{c['detection']['new']} vs JAX {c['detection']['old']}; FP "
+            f"card {c['fp']['new']} vs JAX {c['fp']['old']}"
+            + (" (not gated: §C2)" if rb == ROUND_OFF_BOUND else "")
+            + ("" if ok else "  FAILED"))
+        if not ok:
+            failed.append(c["cell_id"])
+    if failed:
+        fail(f"thresholds cells outside the JAX baseline's intervals: "
+             f"{failed}")
+
+    round_off = {}
+    plans = [p for p in expand(specs[0])[0] if p.rel_bound == ROUND_OFF_BOUND]
+    for plan in plans:
+        k = run_cell(plan, device=dev)
+        p = run_cell(plan, device=dev, plain=True)
+        target = get_target(plan.target)
+        g_build, g_trial, g_clean = _generators(plan.seed)
+        st = target.build(plan, g_build, device=dev)
+        table, al, be, rs = st["enc"]
+        runs = (("faulty", target.draw(st, plan, g_trial, plan.samples,
+                                       True), k.trials[:, 0]),
+                ("clean", target.draw(st, plan, g_clean,
+                                      plan.clean_samples, False), k.clean))
+        row = {}
+        for kind, trials, decided in runs:
+            rsums, flags = [], []
+            for t in trials:
+                undo, _ = inject_(signed_view(table), t.faults, 8)
+                _, rsum, f, _ = abft_eb_cuda(
+                    table[None], al[None], be[None], t.indices[None],
+                    rs[None], rel_bound=plan.rel_bound)
+                restore_(undo, 8)
+                rsums.append(rsum[0])
+                flags.append(f[0])
+            rsum, flags = torch.stack(rsums), torch.stack(flags)
+            idx = torch.stack([t.indices for t in trials])
+            n = len(trials)
+            mirror = ref.eb_check_slot_order(
+                rsum, al.expand(n, -1), be.expand(n, -1), idx,
+                rs.expand(n, -1), table.shape[-1],
+                rel_bound=plan.rel_bound)
+            if not torch.equal(flags, mirror):
+                fail(f"{plan.cell_id} ({kind}): K2's flags differ from its "
+                     f"own Eq. (5) formula on {int((flags != mirror).sum())}"
+                     f" bags")
+            if not torch.equal(flags.any(-1).cpu(), decided):
+                fail(f"{plan.cell_id} ({kind}): the replay decided "
+                     f"{int((flags.any(-1).cpu() != decided).sum())} trials "
+                     f"otherwise than the campaign run")
+            row[kind] = {"trials": n, "flagged": int(decided.sum()),
+                         "bags_flagged": int(flags.sum())}
+        fp_k, fp_p = int(k.clean.sum()), int(p.clean.sum())
+        b = next(c for c in base["cells"] if c["cell_id"] == plan.cell_id)
+        bm = b["metrics"]
+        row.update(
+            card_fp=fp_k / plan.clean_samples,
+            card_fp_ci95=wilson_interval(fp_k, plan.clean_samples),
+            plain_fp=fp_p / plan.clean_samples,
+            plain_fp_ci95=wilson_interval(fp_p, plan.clean_samples),
+            jax_fp=bm["fp_rate"],
+            jax_fp_ci95=wilson_interval(bm["false_positives"],
+                                        bm["clean_samples"]))
+        round_off[plan.cell_id] = row
+        log(f"  §C2 {plan.cell_id}: K2 FP {row['card_fp']:.4f} "
+            f"{row['card_fp_ci95']}, plain branch {row['plain_fp']:.4f} "
+            f"{row['plain_fp_ci95']}, JAX CPU baseline {row['jax_fp']:.4f} "
+            f"{row['jax_fp_ci95']}; K2's flags equal its own formula on "
+            f"its own rsum in all {row['faulty']['trials']} faulty and "
+            f"{row['clean']['trials']} clean trials "
+            f"({row['clean']['bags_flagged']} clean bags flagged)")
+    log(f"thresholds grid on the card in {seconds:.1f}s: 15 cells gated "
+        f"(detection 15, FP 12), launches {launches}")
+    return {"launches": launches, "seconds": seconds, "gate": gate,
+            "round_off": round_off, "curve": threshold_curve(res)}
+
+
+#: an overhead median below this means the timing, not the check, is wrong
+MIN_OVERHEAD = -0.05
+
+
+def overhead_phase(torch, dev, timer) -> dict:
+    """Phase 11: the paper's overhead benchmarks on the card
+    (``repro_torch.benchmarks``): Fig. 5 over the 28 DLRM GEMM shapes and
+    Table I over d 32-256 on 4M-row tables, each protected kernel against
+    its own unprotected instance by CUDA events in alternating rounds.
+    Both tables are printed in full; every cell must hold the unprotected
+    result bit-exact to the protected kernel's (C's first n columns, R),
+    and no median overhead may read below :data:`MIN_OVERHEAD`.  Then the
+    two instances are held to their plain versions at every shape the
+    benchmarks hand them and timed for the kernels line."""
+    from repro_torch.benchmarks import eb_overhead, gemm_overhead
+    from repro_torch.benchmarks.common import (F32_OPS_PER_S,
+                                               INT8_OPS_PER_S, bound_ms)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abft_embeddingbag import eb_unprotected_cuda
+    from repro_torch.kernels.abft_qgemm import qgemm_unprotected_cuda
+
+    wrappers = zero_launches()
+    t0 = time.perf_counter()
+    gemm = gemm_overhead.run(dev, timer=timer)
+    eb = eb_overhead.run(dev, timer=timer)
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    for line in (gemm_overhead.table(gemm) + "\n"
+                 + eb_overhead.table(eb)).splitlines():
+        log(f"  | {line}")
+    bad = [r["shape"] for r in gemm if not r["exact"]] + \
+        [(r["d"], r["mode"]) for r in eb if not r["exact"]]
+    if bad:
+        fail(f"an unprotected instance differs from its protected kernel "
+             f"at {bad}")
+    low = [(r["shape"], k, r[k]["median"]) for r in gemm
+           for k in ("overhead_cold", "overhead_warm", "overhead_encode")
+           if r[k]["median"] < MIN_OVERHEAD] + \
+        [((r["d"], r["mode"]), "overhead", r["overhead"]["median"])
+         for r in eb if r["overhead"]["median"] < MIN_OVERHEAD]
+    if low:
+        fail(f"a protected kernel timed faster than its unprotected "
+             f"instance: {low}")
+    log(f"overhead benchmarks in {seconds:.1f}s: {len(gemm)} GEMM shapes, "
+        f"{len(eb)} EB cells; unprotected results bit-exact; launches "
+        f"{launches}")
+    if min(launches[k] for k in ("abft_qgemm", "abft_embeddingbag",
+                                 "qgemm_unprotected", "eb_unprotected")) <= 0:
+        fail(f"the overhead benchmarks did not run through their kernels: "
+             f"{launches}")
+
+    # the instances against their plain versions, at the benchmarks' shapes
+    # and inputs, and timed for the kernels line (warm GEMM, cold EB)
+    cases = []
+    for m, n, k in gemm_overhead.GEMM_SHAPES:
+        a, _, bp = gemm_overhead.operands(m, n, k, dev)
+        cases.append((a, bp))
+    for a, bp in cases:
+        if not torch.equal(qgemm_unprotected_cuda(a, bp),
+                           ref.qgemm_ref(a, bp)):
+            fail(f"qgemm_unprotected differs from its plain version at "
+                 f"{tuple(a.shape)} x {tuple(bp.shape)}")
+    g_bytes = sum(gemm_overhead.unprotected_bytes(*r["shape"]) for r in gemm)
+    g_ops = sum(2 * m * n * k for m, n, k in gemm_overhead.GEMM_SHAPES)
+    eb_cases, eb_err, e_bytes, e_ops = [], 0.0, 0, 0
+    for d in eb_overhead.DIMS:
+        enc = eb_overhead.make_table(eb_overhead.ROWS, d, dev)
+        gen = torch.Generator(device=dev).manual_seed(d + 1)
+        for weighted in (False, True):
+            idx = torch.randint(0, eb_overhead.ROWS, (1, eb_overhead.BATCH,
+                                                      eb_overhead.POOL),
+                                dtype=torch.int32, generator=gen,
+                                device=dev)
+            w = (torch.rand(idx.shape, generator=gen, device=dev) + 0.5
+                 if weighted else None)
+            args = (enc[0], enc[1], enc[2], idx, w)
+            r = eb_unprotected_cuda(*args)
+            if not torch.equal(r, ref.abft_eb_slot_order_ref(*args)):
+                fail(f"eb_unprotected differs from the slot-order sum at "
+                     f"d {d} ({'weighted' if weighted else 'regular'})")
+            plain = ref.eb_ref(*args)
+            err = float((r - plain).abs().max())
+            scale = max(1.0, float(plain.abs().max()))
+            if err > 1e-5 * eb_overhead.POOL * scale:
+                fail(f"eb_unprotected off its plain version by {err} at d "
+                     f"{d}")
+            eb_err = max(eb_err, err)
+            eb_cases.append(args)
+            e_bytes += eb_overhead.unprotected_bytes(d, weighted)
+            e_ops += 3 * eb_overhead.BATCH * eb_overhead.POOL * d
+
+    def seq(fn, cs):
+        return lambda: [fn(*c) for c in cs]
+
+    try:
+        library = timer.ms(seq(torch._int_mm, [
+            gemm_overhead.int_mm_operands(a, bp) for a, bp in cases]), 10)
+    except RuntimeError as e:
+        log(f"torch._int_mm refused a padded Fig. 5 shape: {e}")
+        library = None
+    rows = [
+        {"name": "qgemm_unprotected", "source":
+         "src/repro_torch/csrc/abft_qgemm.cu", "replaces":
+         "benchmarks/gemm_overhead.py:40", "max_abs_err": 0.0,
+         "ms": timer.ms(seq(qgemm_unprotected_cuda, cases), 10),
+         "plain_ms": timer.ms(seq(ref.qgemm_ref, cases), 5),
+         "bound": bound_ms(g_bytes, g_ops, INT8_OPS_PER_S),
+         "library_ms": library,
+         "per": "the 28 Fig. 5 shapes, one launch each, uint8 A, warm"},
+        {"name": "eb_unprotected", "source":
+         "src/repro_torch/csrc/abft_embeddingbag.cu", "replaces":
+         "src/repro/core/abft_embedding.py:61", "max_abs_err": eb_err,
+         "ms": timer.ms(seq(eb_unprotected_cuda, eb_cases), 10),
+         "plain_ms": timer.ms(seq(ref.eb_ref, eb_cases), 5),
+         "bound": bound_ms(e_bytes, e_ops, F32_OPS_PER_S),
+         "library_ms": None,
+         "per": "the 8 Table I cells (d 32-256, regular and weighted), "
+                "one launch each, 4M-row tables"}]
+    return {"gemm": gemm, "eb": eb, "seconds": seconds, "rows": rows,
+            "launches": launches}
+
+
+def float_dlrm_phase(torch, dev, ex, tables) -> dict:
+    """Phase 12: the full-width float DLRM (``init_dlrm(..., quant=False)``:
+    float bottom and top MLPs over phase 3's 26 x 4M x 128 int8 tables,
+    not a second set) on 8 batches of ``SyntheticDLRMDataset``.  With
+    ``float_gemm`` on (each layer's row sums encoded once,
+    ``encode_linear``): 0 errors on the clean batches; a high exponent bit
+    of one ``top.0`` weight flipped in place is flagged with the rule on
+    at ``top.0`` alone, and not with it on everywhere else; restored, 0
+    errors again.  Then the model converted by ``quantize_dlrm``
+    (``quantize_linear`` per layer) serves the same batches through K1-K3
+    with 0 errors; the gap between the float and int8 CTR scores is
+    printed.  Returns the figures and the int8 run's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.dlrm import CONFIG
+    from repro_torch.core.inject import flip_bit_
+    from repro_torch.core.policy import metrics_to_ints
+    from repro_torch.data import DataConfig, SyntheticDLRMDataset
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.layers.common import Ctx
+    from repro_torch.layers.linear import apply_linear, encode_linear
+    from repro_torch.models.dlrm import dlrm_forward, init_dlrm, \
+        quantize_dlrm
+    from repro_torch.protect import ProtectionPlan, default_plan
+
+    t0 = time.perf_counter()
+    p = init_dlrm(7, ex, quant=False, tables=tables, device=dev)
+    p = dict(p, bottom=[encode_linear(lp) for lp in p["bottom"]],
+             top=[encode_linear(lp) for lp in p["top"]])
+    ds = SyntheticDLRMDataset(CONFIG, ShapeConfig("serve", "prefill", 1,
+                                                  ex.batch),
+                              DataConfig(seed=0))
+    batches = [to_device(ds.batch_at(s), dev) for s in range(8)]
+    f32 = torch.float32
+
+    def ctx(plan, dtype=f32):
+        return Ctx(plan=ProtectionPlan.parse(plan), compute_dtype=dtype)
+
+    def run(params, c, which=None):
+        out, counts = [], []
+        for b in (batches if which is None else [batches[which]]):
+            logit, rep = dlrm_forward(params, b["dense"], b["bags"], c, ex)
+            out.append(logit.float())
+            counts.append(metrics_to_ints(rep.as_metrics()))
+        total = {k: sum(c_[k] for c_ in counts) for k in counts[0]}
+        return torch.cat(out), total
+
+    layers = len(ex.bottom_mlp) + len(ex.top_mlp)
+    logit_f, clean = run(p, ctx("float_gemm:on"))
+    if clean["abft/float_gemm_checks"] != 8 * layers or \
+            clean["abft/float_gemm_errors"] or clean["abft/eb_errors"] or \
+            not bool(torch.isfinite(logit_f).all()):
+        fail(f"float DLRM, clean: {clean}")
+    # the top.0 input column the flip meets: the bottom MLP's largest mean
+    # output feature of the first batch (|x| well below the f32 range
+    # times 2**128 of the flipped weight)
+    x = batches[0]["dense"].float()
+    for i, lp in enumerate(p["bottom"]):
+        x, _ = apply_linear(lp, x, ctx("off"))
+        x = torch.relu(x)
+    k0 = int(x.mean(0).argmax())
+    w = p["top"][0]["w"]
+    at, bit = k0 * w.shape[1] + 3, 30
+    if float(w.view(-1)[at].abs()) >= 2.0 or float(x[:, k0].max()) > 100:
+        fail("float DLRM flip: the chosen weight or input is out of range")
+    before = w.clone()
+    flip_bit_(w, at, bit)
+    _, at_top0 = run(p, ctx("float_gemm/top.0:on"), which=0)
+    _, elsewhere = run(p, ctx("float_gemm:on,float_gemm/top.0:off"), which=0)
+    flip_bit_(w, at, bit)
+    if not torch.equal(w, before):
+        fail("float DLRM flip: the weight was not restored")
+    _, again = run(p, ctx("float_gemm:on"))
+    if at_top0["abft/float_gemm_errors"] < 1 or \
+            elsewhere["abft/float_gemm_errors"] or \
+            again["abft/float_gemm_errors"]:
+        fail(f"float DLRM flip of top.0.w[{k0}, 3] bit {bit}: errors with "
+             f"the rule at top.0 {at_top0}, elsewhere {elsewhere}, after "
+             f"the restore {again}")
+
+    q = quantize_dlrm(p)
+    wrappers = zero_launches()
+    logit_q, served = run(q, Ctx(quant=True, plan=default_plan(),
+                                 compute_dtype=torch.bfloat16))
+    launches = read_launches(wrappers)
+    if served["abft/qgemm_checks"] != 8 * layers or \
+            served["abft/qgemm_errors"] or served["abft/eb_errors"] or \
+            min(launches[k] for k in ("abft_qgemm", "abft_embeddingbag",
+                                      "quantize_rows")) <= 0 or \
+            not bool(torch.isfinite(logit_q).all()):
+        fail(f"the int8 conversion of the float DLRM: {served}, launches "
+             f"{launches}")
+    ctr_f, ctr_q = torch.sigmoid(logit_f), torch.sigmoid(logit_q)
+    gap = {"logit_max_abs": float((logit_f - logit_q).abs().max()),
+           "logit_scale": float(logit_f.abs().max()),
+           "ctr_max_abs": float((ctr_f - ctr_q).abs().max()),
+           "ctr_mean_abs": float((ctr_f - ctr_q).abs().mean())}
+    seconds = time.perf_counter() - t0
+    log(f"float DLRM ({ex.n_tables} x {ex.table_rows} x {ex.emb_dim} tables "
+        f"shared with phase 3) on 8 batches of {ex.batch} in "
+        f"{seconds:.1f}s: float_gemm {clean['abft/float_gemm_checks']} "
+        f"checks, 0 errors; top.0.w[{k0}, 3] bit {bit} flipped: "
+        f"{at_top0['abft/float_gemm_errors']} rows flagged at top.0, 0 "
+        f"elsewhere, 0 after the restore; int8 by quantize_linear through "
+        f"K1-K3: {served['abft/qgemm_checks']} checks, 0 errors, launches "
+        f"{launches}; float vs int8 CTR: max |d| {gap['ctr_max_abs']:.3g}, "
+        f"mean {gap['ctr_mean_abs']:.3g} (logits max |d| "
+        f"{gap['logit_max_abs']:.3g} of scale {gap['logit_scale']:.3g})")
+    return {"seconds": seconds, "clean": clean, "flip": {
+        "weight": f"top.0.w[{k0}, 3]", "bit": bit,
+        "flagged_rows_at_top0": at_top0["abft/float_gemm_errors"]},
+        "int8": served, "gap": gap, "launches": launches}
 
 
 def smi_line() -> str:
@@ -1955,13 +2320,9 @@ def main() -> int:
           f"flip, an alpha change and another K2")
 
     # ----------------------------- 4. serve ---------------------------------
-    wrappers = {"abft_qgemm": abft_qgemm_cuda,
-                "abft_embeddingbag": abft_eb_cuda,
-                "quantize_rows": quantize_rows_cuda}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = zero_launches()
     tel = engine.run(stream(8, 0))
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches(wrappers)
     s = tel.summary()
     per = s["per_tenant"]["default"]
     counters = s["faults"]["counters"]
@@ -1977,7 +2338,8 @@ def main() -> int:
     if counters["qgemm_checks"] != 8 * 8 or \
             counters["embedding_bag_checks"] != 8 * ex.n_tables:
         fail(f"unexpected check counts {counters}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("abft_qgemm", "abft_embeddingbag",
+                                 "quantize_rows")) <= 0:
         fail(f"a kernel of the path never launched: {launches}")
     serve_ms = sorted(ev.duration_s * 1e3 for ev in tel.steps)
     details["serve"] = {"requests": per["requests"],
@@ -2047,7 +2409,10 @@ def main() -> int:
     details["outputs"] = check_outputs(torch, dev, params, ex, stream(1, 13))
 
     # ------------------------------ 5. times --------------------------------
-    timer = Timer(torch)
+    from repro_torch.benchmarks.common import (F32_OPS_PER_S,
+                                               INT8_OPS_PER_S, Timer,
+                                               bound_ms)
+    timer = Timer()
     k3_main = k3_inputs[:8]
     req_bag_sets = [torch.from_numpy(r.payload["bags"]).to(dev)
                     for r in stream(20, 21)]
@@ -2200,13 +2565,39 @@ def main() -> int:
     camp_dir = str(Path(args.out).parent / "campaign") if args.out else None
     campaign = campaign_phase(torch, dev, camp_dir)
     details["campaign"] = campaign
+    # ------------------- 10. the thresholds grid (K2) ----------------------
+    thresholds = thresholds_phase(torch, dev, camp_dir)
+    details["thresholds"] = thresholds
+    # ------------- 11. the overhead benchmarks (Fig. 5, Table I) -----------
+    overhead = overhead_phase(torch, dev, timer)
+    details["overhead"] = overhead
+    # ------------------------- 12. the float DLRM --------------------------
+    details["float_dlrm"] = float_dlrm = float_dlrm_phase(torch, dev, ex,
+                                                          tables)
     kernels[1]["rwkv_token_table"] = rwkv["k2_times"]
     kernels.append(rwkv["k4_row"])
+    for r in overhead["rows"]:
+        (bms, by) = r.pop("bound")
+        kernels.append({
+            "name": r["name"], "route": "cuda", "source": r["source"],
+            "replaces": r["replaces"],
+            "launches": overhead["launches"][r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": r["library_ms"], "per": r["per"],
+            "baseline_of": {"qgemm_unprotected": "abft_qgemm",
+                            "eb_unprotected": "abft_embeddingbag"}[r["name"]],
+            "note": "the unprotected instance the overhead benchmarks time; "
+                    "not a TPU kernel's port"})
+    # each path's counts were set to 0 just before it and read just after
+    by_path = {"dlrm": launches, "rwkv6": rwkv["launches"],
+               "campaign": campaign["launches"],
+               "thresholds": thresholds["launches"],
+               "overhead": overhead["launches"],
+               "float_dlrm": float_dlrm["launches"]}
     for row in kernels:
-        row["launches_by_path"] = {
-            "dlrm": row["launches"] if row["name"] != "wkv6_chunked" else 0,
-            "rwkv6": rwkv["launches"][row["name"]],
-            "campaign": campaign["launches"][row["name"]]}
+        row["launches_by_path"] = {p: counts[row["name"]]
+                                   for p, counts in by_path.items()}
     details["kernels"] = kernels
     details["seconds"] = time.perf_counter() - t_start
     log("large shapes: " + json.dumps(details["large"]))

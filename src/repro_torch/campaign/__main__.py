@@ -6,6 +6,7 @@ Examples::
     python -m repro_torch.campaign --quick                  # on the card
     python -m repro_torch.campaign --grid pallas --quick --device cpu
     python -m repro_torch.campaign --grid paper --seed 7 --out bench/
+    python -m repro_torch.campaign --grid thresholds --device cpu --out t/
     python -m repro_torch.campaign --diff OLD.json NEW.json # exit 1 on
                                                             # regression
 
@@ -36,7 +37,7 @@ class _NotPorted(argparse.Action):
 
 
 def main(argv=None) -> int:
-    from repro_torch.campaign.grids import NOT_PORTED
+    from repro_torch.campaign.grids import GRIDS, NOT_PORTED
 
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.campaign",
@@ -46,11 +47,11 @@ def main(argv=None) -> int:
                     help="shorthand for --grid quick; with --grid pallas "
                          "or paper, their quick variants")
     ap.add_argument("--grid", default=None,
-                    help="quick, pallas or paper")
+                    help="quick, pallas, paper or thresholds")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=0,
                     help="override the per-cell sample count (quick / "
-                         "pallas grids)")
+                         "pallas / thresholds grids)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the cells run (default: the card; no "
                          "fallback)")
@@ -83,33 +84,36 @@ def main(argv=None) -> int:
 
     grid = args.grid or ("quick" if args.quick else None)
     if grid is None:
-        ap.error("pick a grid (--quick / --grid {quick,pallas,paper}) or "
-                 "--diff OLD NEW")
+        ap.error("pick a grid (--quick / --grid "
+                 "{quick,pallas,paper,thresholds}) or --diff OLD NEW")
     if grid in NOT_PORTED:
         ap.error(f"--grid {grid} is not ported yet (ROADMAP "
                  f"{NOT_PORTED[grid]})")
-    if grid not in ("quick", "pallas", "paper"):
-        ap.error(f"unknown grid {grid!r} (quick, pallas or paper)")
+    if grid not in GRIDS:
+        ap.error(f"unknown grid {grid!r} ({', '.join(GRIDS)})")
 
     from repro_torch.campaign.artifacts import (breakdown_markdown,
-                                                markdown_table)
+                                                markdown_table,
+                                                threshold_curve_markdown)
     from repro_torch.campaign.executor import CHUNK, run_campaign
-    from repro_torch.campaign.grids import (pallas_specs, paper_specs,
-                                            quick_specs)
 
     if grid == "quick":
-        specs = quick_specs(seed=args.seed, samples=args.samples or 600)
+        specs = GRIDS[grid](seed=args.seed, samples=args.samples or 600)
     elif grid == "paper":
-        specs = paper_specs(seed=args.seed, quick=args.quick)
+        specs = GRIDS[grid](seed=args.seed, quick=args.quick)
+    elif grid == "thresholds":
+        specs = GRIDS[grid](seed=args.seed, samples=args.samples or 400)
     else:
-        specs = pallas_specs(seed=args.seed, quick=args.quick,
-                             samples=args.samples)
+        specs = GRIDS[grid](seed=args.seed, quick=args.quick,
+                            samples=args.samples)
     name = "pallas_quick" if grid == "pallas" and args.quick else grid
     result = run_campaign(name, specs, device=args.device, out_dir=args.out,
                           chunk=args.chunk or CHUNK,
                           verbose=lambda s: print(s, flush=True))
     print()
     print(markdown_table(result))
+    if grid == "thresholds":
+        print(threshold_curve_markdown(result))
     bd = breakdown_markdown(result)
     if bd:
         print(bd)

@@ -15,6 +15,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.campaign.metrics import CellMetrics
 from repro_torch.campaign.spec import CampaignSpec
 
 SCHEMA_VERSION = 1
@@ -68,6 +69,9 @@ def write_artifacts(result: dict, out_dir: str = ".") -> tuple:
         f.write("\n")
     with open(md_path, "w") as f:
         f.write(markdown_table(result))
+        lat = latency_markdown(result)
+        if lat:
+            f.write("\n" + lat)
         bd = breakdown_markdown(result)
         if bd:
             f.write("\n" + bd)
@@ -81,6 +85,21 @@ def load_artifact(path: str) -> dict:
         raise ValueError(
             f"artifact schema {result.get('schema')} != {SCHEMA_VERSION}")
     return result
+
+
+def cell_metrics(result: dict, cell_id: str) -> CellMetrics:
+    for c in result["cells"]:
+        if c["cell_id"] == cell_id:
+            return CellMetrics.from_dict(c["metrics"])
+    raise KeyError(f"no cell {cell_id!r} in artifact "
+                   f"{result.get('campaign')!r}")
+
+
+def find_cells(result: dict, **field_values) -> List[dict]:
+    """Filter cells by plan fields, e.g. ``target="gemm_packed",
+    fault_model="bitflip"``."""
+    return [c for c in result["cells"]
+            if all(c["plan"].get(k) == v for k, v in field_values.items())]
 
 
 def _fmt_pct(x: Optional[float]) -> str:
@@ -124,6 +143,49 @@ def markdown_table(result: dict) -> str:
     return "\n".join(lines)
 
 
+def latency_markdown(result: dict) -> str:
+    """Detection-latency + divergence summary for soak-protocol cells
+    (those carrying ``steps``), as the JAX package renders it: the
+    histogram column reads ``t0:n0 t1:n1 ...`` — n trials first detected
+    t steps after the upset; the shards column is ``N✓`` when the cell's
+    collective was verified, with per-shard attribution in brackets.
+    Empty when no cell has the soak columns (every grid the port runs
+    today: its targets are single-shot)."""
+    lines = ["# Soak cells: detection latency & divergence", "",
+             "| cell | steps | shards | latency hist | mean lat |"
+             " div (mean/max) | loss div |",
+             "|---|---|---|---|---|---|---|"]
+    found = False
+    for c in result["cells"]:
+        m = c["metrics"]
+        if m.get("steps") is None:
+            continue
+        found = True
+        hist = m.get("detection_latency_hist") or []
+        hist_s = " ".join(f"{t}:{n}" for t, n in enumerate(hist) if n) \
+            or "—"
+        lat = m.get("mean_detection_latency")
+        shards_s = "—" if m.get("shards") is None else str(m["shards"])
+        if m.get("collective_verified"):
+            shards_s += "✓"
+            if m.get("shard_detections"):
+                shards_s += " [{}]".format(
+                    " ".join(str(n) for n in m["shard_detections"]))
+        lines.append(
+            "| `{cid}` | {steps} | {sh} | {hist} | {lat} | "
+            "{dm:.2e}/{dx:.2e} | {ld:.2e} |".format(
+                cid=c["cell_id"], steps=m["steps"], sh=shards_s,
+                hist=hist_s,
+                lat="—" if lat is None else f"{lat:.2f}",
+                dm=m.get("divergence_mean") or 0.0,
+                dx=m.get("divergence_max") or 0.0,
+                ld=m.get("loss_divergence_mean") or 0.0))
+    if not found:
+        return ""
+    lines.append("")
+    return "\n".join(lines)
+
+
 def breakdown_markdown(result: dict) -> str:
     """Per-phase overhead accounting for cells that measured it: median
     ms and the phase's share of the cell's phase total per column (the
@@ -153,6 +215,40 @@ def breakdown_markdown(result: dict) -> str:
     return "\n".join(lines)
 
 
+def threshold_curve(result: dict, target: str = "embedding_bag") -> dict:
+    """Detection-vs-FP tradeoff per bit band from a rel_bound sweep.
+
+    Returns ``{band: [(rel_bound, detection_rate, fp_rate), ...]}`` sorted
+    by bound — the curve the ``thresholds`` grid exists to produce."""
+    curves: dict = {}
+    for c in result["cells"]:
+        if c["plan"].get("target") != target:
+            continue
+        rb = c["plan"].get("rel_bound")
+        if rb is None:
+            continue
+        m = c["metrics"]
+        curves.setdefault(c["plan"]["bit_band"], []).append(
+            (rb, m["detection_rate"], m["fp_rate"]))
+    return {band: sorted(pts) for band, pts in curves.items()}
+
+
+def threshold_curve_markdown(result: dict,
+                             target: str = "embedding_bag") -> str:
+    curves = threshold_curve(result, target)
+    lines = [f"# EB rel_bound tradeoff curves (`{target}`)", ""]
+    for band, pts in sorted(curves.items()):
+        lines += [f"## band `{band}`", "",
+                  "| rel_bound | detection | false positives |",
+                  "|---|---|---|"]
+        for rb, det, fp in pts:
+            lines.append(f"| {rb:g} | {_fmt_pct(det)} | {_fmt_pct(fp)} |")
+        lines.append("")
+    return "\n".join(lines)
+
+
 __all__ = ["campaign_to_dict", "write_artifacts", "load_artifact",
-           "markdown_table", "breakdown_markdown", "environment_info",
+           "cell_metrics", "find_cells", "markdown_table",
+           "latency_markdown", "breakdown_markdown", "threshold_curve",
+           "threshold_curve_markdown", "environment_info",
            "SCHEMA_VERSION"]

@@ -7,6 +7,7 @@
              ``decode_step`` specs stay in the grid; their cells are
              skipped until ROADMAP A4 ports the targets.
 ``paper``  — the paper's Tables II + III campaigns at full shape coverage.
+``thresholds`` — EB rel_bound sweep: detection-vs-FP tradeoff per bit band.
 ``pallas`` — kernel parity: the identical bit-flip grid through the kernel
              targets and the reference schemes, gated on overlapping
              detection intervals, with the overhead columns.
@@ -73,6 +74,22 @@ def paper_specs(seed: int = 0, quick: bool = False) -> List[CampaignSpec]:
     ]
 
 
+def thresholds_specs(seed: int = 0,
+                     samples: int = 400) -> List[CampaignSpec]:
+    """EB ``rel_bound`` sweep: the detection-vs-false-positive tradeoff
+    curve per bit band.  Tight bounds catch low-bit flips but flag
+    round-off on clean bags; the paper's 1e-5 sits between.  Clean samples
+    run at every bound so the FP side of the curve is measured, not
+    assumed."""
+    return [CampaignSpec(
+        name="eb-thresholds",
+        targets=("embedding_bag",),
+        fault_models=("bitflip",),
+        bit_bands=("significant", "low", "sign"),
+        rel_bounds=(1e-7, 1e-6, 1e-5, 1e-4, 1e-3),
+        samples=samples, clean_samples=samples, seed=seed)]
+
+
 def pallas_specs(seed: int = 0, quick: bool = False,
                  samples: int = 0) -> List[CampaignSpec]:
     """Kernel detection parity: the SAME bit-flip grid through the kernel
@@ -103,7 +120,6 @@ def pallas_specs(seed: int = 0, quick: bool = False,
 
 #: the JAX package's other grids and the ROADMAP items that port them
 NOT_PORTED = {
-    "thresholds": "A2 (the EB rel_bound sweep)",
     "soak": "A4 (LM decode and serving)",
     "victims": "A4 (LM decode and serving)",
     "serving_soak": "A4 (LM decode and serving)",
@@ -115,4 +131,9 @@ NOT_PORTED = {
 }
 
 
-__all__ = ["quick_specs", "paper_specs", "pallas_specs", "NOT_PORTED"]
+#: the grids the port runs, by CLI name
+GRIDS = {"quick": quick_specs, "paper": paper_specs,
+         "thresholds": thresholds_specs, "pallas": pallas_specs}
+
+__all__ = ["quick_specs", "paper_specs", "thresholds_specs", "pallas_specs",
+           "GRIDS", "NOT_PORTED"]

@@ -3,11 +3,13 @@
 - :mod:`repro_torch.core.abft_gemm`      — Algorithm 1 (quantized GEMM)
 - :mod:`repro_torch.core.abft_embedding` — Algorithm 2 (quantized EmbeddingBag)
 - :mod:`repro_torch.core.policy`         — FaultReport + detect->act policies
+- :mod:`repro_torch.core.abft_float`     — float ABFT for bf16/f32 GEMMs
+  (beyond the paper)
 - :mod:`repro_torch.core.inject`         — the fault models (bit flips,
   random values, bit bands) and the victim choice over parameter trees
 
-The KV-cache, float-GEMM and checksum modules of ``repro.core`` wait for
-later slices (ROADMAP A4, A7).
+The KV-cache and checksum modules of ``repro.core`` wait for a later
+slice (ROADMAP A4).
 """
 from repro_torch.core.abft_gemm import (
     LANE,
@@ -39,6 +41,11 @@ from repro_torch.core.abft_embedding import (
     table_rowsums,
     verify_bags,
 )
+from repro_torch.core.abft_float import (
+    FloatAbftOut,
+    abft_gemm_f32,
+    encode_weight_f32,
+)
 from repro_torch.core.policy import (
     FaultAbort,
     FaultReport,
@@ -57,6 +64,7 @@ __all__ = [
     "detect_prob_b_bitflip", "detect_prob_b_random", "detect_prob_c_random",
     "EB_REL_BOUND", "AbftEbOut", "table_rowsums", "embedding_bag",
     "abft_embedding_bag", "verify_bags", "eb_overhead_model",
+    "FloatAbftOut", "abft_gemm_f32", "encode_weight_f32",
     "FaultAbort", "FaultReport", "op_report", "merge_reports",
     "empty_report",
 ]

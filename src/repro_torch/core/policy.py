@@ -138,6 +138,16 @@ def metrics_to_ints(metrics: dict) -> Dict[str, int]:
     return out
 
 
+def gemm_report(err_count: Count, recomputes: Count = 0) -> FaultReport:
+    """Legacy helper: one verified int8 GEMM."""
+    return op_report("qgemm", err_count, retries=recomputes)
+
+
+def eb_report(err_count: Count) -> FaultReport:
+    """Legacy helper: one verified EmbeddingBag."""
+    return op_report("embedding_bag", err_count)
+
+
 def with_recompute(op: Callable, max_retries: int = 1):
     """Wrap an ABFT op ``op() -> (out, err)`` with detect->recompute.
 
@@ -179,3 +189,66 @@ def abort_if_errors(err) -> None:
     n = int(torch.as_tensor(err).sum())
     if n > 0:
         raise FaultAbort(f"ABFT detected {n} corrupted op(s)")
+
+
+def with_log(op: Callable):
+    """Policy ``log``: pass-through with zero retries (uniform arity with
+    the other policies: ``op() -> (out, err)`` becomes
+    ``(out, err, retries)``)."""
+    def wrapped(*args, **kwargs):
+        out, err = op(*args, **kwargs)
+        return out, err, torch.zeros_like(torch.as_tensor(err))
+
+    return wrapped
+
+
+def with_correct(op: Callable):
+    """Policy ``correct``: single-error repair via row+column checksums.
+
+    ``op() -> (c, err_rows, err_count, col_check)`` where ``col_check`` is
+    the exact expected int32 column-sum vector
+    (:func:`repro_torch.core.abft_gemm.encode_activation_checksum` of A,
+    times B).  A successfully repaired result reports zero residual
+    errors; a multi-error result keeps its count so an outer
+    recompute/abort layer still sees it.  Returns ``(c, err_count,
+    corrections)``.
+    """
+    from repro_torch.core.abft_gemm import correct_single_error
+
+    def wrapped(*args, **kwargs):
+        c, err_rows, err_count, col_check = op(*args, **kwargs)
+        corrected, applied = correct_single_error(c, err_rows, col_check)
+        err_count = torch.as_tensor(err_count, device=applied.device)
+        residual = torch.where(applied, torch.zeros_like(err_count),
+                               err_count).to(torch.int32)
+        return corrected, residual, applied.to(torch.int32)
+
+    return wrapped
+
+
+def with_abort(op: Callable):
+    """Policy ``abort``: raise :class:`FaultAbort` when ``err > 0``
+    (serving: fail the REQUEST, never the server); callers catch it, or
+    test with :func:`is_fault_abort`."""
+    def wrapped(*args, **kwargs):
+        out, err = op(*args, **kwargs)
+        abort_if_errors(err)
+        return out, err, torch.zeros_like(torch.as_tensor(err))
+
+    return wrapped
+
+
+#: name -> wrapper; ``correct`` expects the 4-tuple GEMM contract (see
+#: :func:`with_correct`), the rest wrap any ``op() -> (out, err)``.
+POLICIES = {
+    "log": with_log,
+    "recompute": with_recompute,
+    "correct": with_correct,
+    "abort": with_abort,
+}
+
+
+def apply_policy(name: str, op: Callable, **kwargs):
+    if name not in POLICIES:
+        raise KeyError(f"unknown policy {name!r}; have {sorted(POLICIES)}")
+    return POLICIES[name](op, **kwargs)

@@ -53,6 +53,12 @@
 // block that draws the last ticket writes the count and re-zeroes the
 // word, so a call is this one kernel.
 //
+// The unprotected instance (CHECK = false) is the overhead benchmarks'
+// baseline, the counterpart of core.embedding_bag, which the JAX benchmark
+// times (benchmarks/eb_overhead.py): R alone, through the same plan and
+// loops, without the C_T gather, the check's terms, rsum, the compare or
+// the count.
+//
 // Launched with programmatic stream serialization (Hopper PDL): it may
 // start while the kernel before it runs, so it touches no global memory
 // before griddepcontrol.wait (that kernel may be writing the indices, a
@@ -188,6 +194,7 @@ struct Gathered {
 // The pass's slot base + lane, gathered by this lane (nothing where it is
 // past the pool).  A padded slot is row 0 with weight 0; an index past the
 // table reads its last row.
+template <bool CHECK>
 __device__ __forceinline__ Gathered gather(const EbArgs& p, int t,
                                            int64_t flat, int base, int n,
                                            int lane, float df) {
@@ -202,7 +209,7 @@ __device__ __forceinline__ Gathered gather(const EbArgs& p, int t,
   g.q.y = __ldg(p.betas + tr);
   g.q.z = valid ? (p.weights == nullptr ? 1.0f : __ldg(p.weights + at))
                 : 0.0f;
-  g.mag = check_terms(g.q, __ldg(p.rowsums + tr), df);
+  if constexpr (CHECK) g.mag = check_terms(g.q, __ldg(p.rowsums + tr), df);
   return g;
 }
 
@@ -216,7 +223,7 @@ __device__ __forceinline__ void publish(PassSlots& ps, const Gathered& g,
 }
 
 // A bag on one warp, G slots a warp load (16-byte words, lanes * G <= 32).
-template <int G>
+template <int G, bool CHECK>
 __device__ void bag_grouped(const EbArgs& p, int t, int64_t flat, int lane,
                             PassSlots& ps, float& part, float& csum,
                             float& mag) {
@@ -235,7 +242,7 @@ __device__ void bag_grouped(const EbArgs& p, int t, int64_t flat, int lane,
 
   for (int base = 0; base < p.pool; base += kPass) {
     const int n = min(kPass, p.pool - base);
-    const Gathered gs = gather(p, t, flat, base, n, lane, df);
+    const Gathered gs = gather<CHECK>(p, t, flat, base, n, lane, df);
     for (int c0 = 0; c0 < n; c0 += kInflight * G) {
       uint4 v[kInflight];
 #pragma unroll
@@ -258,8 +265,10 @@ __device__ void bag_grouped(const EbArgs& p, int t, int64_t flat, int lane,
           const int s = c0 + k * G + gg;
           if (s >= n) break;
           const float4 q = ps.q[s];
-          csum = __fadd_rn(csum, q.w);
-          mag = __fadd_rn(mag, ps.mag[s]);
+          if constexpr (CHECK) {
+            csum = __fadd_rn(csum, q.w);
+            mag = __fadd_rn(mag, ps.mag[s]);
+          }
           float f[C];
 #pragma unroll
           for (int c = 0; c < NC; ++c) bytes4(x[gg][c], f + 4 * c);
@@ -275,9 +284,10 @@ __device__ void bag_grouped(const EbArgs& p, int t, int64_t flat, int lane,
     for (int c = 0; c < C / 4; ++c) {
       out[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2],
                            acc[4 * c + 3]);
-      part = __fadd_rn(part, __fadd_rn(__fadd_rn(acc[4 * c], acc[4 * c + 1]),
-                                       __fadd_rn(acc[4 * c + 2],
-                                                 acc[4 * c + 3])));
+      if constexpr (CHECK)
+        part = __fadd_rn(part,
+                         __fadd_rn(__fadd_rn(acc[4 * c], acc[4 * c + 1]),
+                                   __fadd_rn(acc[4 * c + 2], acc[4 * c + 3])));
     }
   }
 }
@@ -285,7 +295,7 @@ __device__ void bag_grouped(const EbArgs& p, int t, int64_t flat, int lane,
 // A bag on a team of warps_per_bag warps, one slot a load: each lane owns
 // one word (16 bytes on the vector path, 1 on the byte path) of the row
 // at a time, over the row in steps of the team's lanes.
-template <bool VEC>
+template <bool VEC, bool CHECK>
 __device__ void bag_wide(const EbArgs& p, int t, int64_t flat, int wit,
                          int lane, PassSlots& ps, float& part, float& csum,
                          float& mag) {
@@ -303,7 +313,7 @@ __device__ void bag_wide(const EbArgs& p, int t, int64_t flat, int wit,
     for (int e = 0; e < E; ++e) acc[e] = 0.0f;
     for (int base = 0; base < p.pool; base += kPass) {
       const int n = min(kPass, p.pool - base);
-      const Gathered gs = gather(p, t, flat, base, n, lane, df);
+      const Gathered gs = gather<CHECK>(p, t, flat, base, n, lane, df);
       for (int c0 = 0; c0 < n; c0 += kInflight) {
         Word v[kInflight];
 #pragma unroll
@@ -324,7 +334,7 @@ __device__ void bag_wide(const EbArgs& p, int t, int64_t flat, int wit,
         for (int k = 0; k < kInflight; ++k) {
           if (c0 + k >= n) break;
           const float4 q = ps.q[c0 + k];
-          if (w0 == 0) {
+          if (CHECK && w0 == 0) {
             csum = __fadd_rn(csum, q.w);
             mag = __fadd_rn(mag, ps.mag[c0 + k]);
           }
@@ -352,8 +362,47 @@ __device__ void bag_wide(const EbArgs& p, int t, int64_t flat, int wit,
       } else {
         out[w] = acc[0];
       }
+      if constexpr (CHECK) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) part = __fadd_rn(part, acc[e]);
+        for (int e = 0; e < E; ++e) part = __fadd_rn(part, acc[e]);
+      }
+    }
+  }
+}
+
+// The check's end of a bag: rsum (lanes, then warps), the bag leader's
+// compare and flag, and the table's count through its 64-bit word.
+__device__ __forceinline__ void finish_check(const EbArgs& p, int t,
+                                             int64_t flat, bool live,
+                                             int wit, int lane, int warp,
+                                             float part, float csum,
+                                             float mag, float* s_part,
+                                             unsigned* s_flagged) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    part = __fadd_rn(part, __shfl_xor_sync(kFull, part, off));
+  if (lane == 0) s_part[warp] = part;
+  __syncthreads();
+  if (live && wit == 0 && lane == 0) {
+    float rs = s_part[warp];
+    for (int k = 1; k < p.warps_per_bag; ++k)
+      rs = __fadd_rn(rs, s_part[warp + k]);
+    // torch.clamp(mag, min=1) keeps a NaN, so the compare is then false
+    const float tol = __fmul_rn(p.rel_bound, mag < 1.0f ? 1.0f : mag);
+    const bool flag = fabsf(__fsub_rn(rs, csum)) > tol;
+    p.rsum[flat] = rs;
+    p.err_bags[flat] = flag ? 1 : 0;
+    if (flag) atomicAdd(s_flagged, 1u);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // one atomic: every earlier block's flags are in what it returns
+    const unsigned long long was = atomicAdd(
+        p.tally + t, (static_cast<unsigned long long>(*s_flagged) << 32) + 1);
+    if (static_cast<unsigned>(was) ==
+        static_cast<unsigned>(p.blocks_per_table - 1)) {
+      p.err_count[t] = static_cast<int32_t>((was >> 32) + *s_flagged);
+      p.tally[t] = 0ull;
     }
   }
 }
@@ -361,7 +410,8 @@ __device__ void bag_wide(const EbArgs& p, int t, int64_t flat, int wit,
 // G = 4: one warp a bag, 4 slots a warp load (vector path); G = 1: a
 // team of warps a bag, 16-byte (VEC) or byte words.  The d-128 path
 // (G = 4) fits 3 blocks an SM without spilling; the others keep 2.
-template <int G, bool VEC>
+// CHECK = false: the unprotected instance, R alone.
+template <int G, bool VEC, bool CHECK>
 __global__ void __launch_bounds__(kMaxThreads, G == 4 ? 3 : 2)
 abft_eb_kernel(const EbArgs p) {
   __shared__ PassSlots s_slots[kMaxWarps];
@@ -389,40 +439,18 @@ abft_eb_kernel(const EbArgs p) {
   float mag = 0.0f;
   if (live) {
     if constexpr (G > 1)
-      bag_grouped<G>(p, t, flat, lane, s_slots[warp], part, csum, mag);
+      bag_grouped<G, CHECK>(p, t, flat, lane, s_slots[warp], part, csum,
+                            mag);
     else
-      bag_wide<VEC>(p, t, flat, wit, lane, s_slots[warp], part, csum, mag);
+      bag_wide<VEC, CHECK>(p, t, flat, wit, lane, s_slots[warp], part, csum,
+                           mag);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    part = __fadd_rn(part, __shfl_xor_sync(kFull, part, off));
-  if (lane == 0) s_part[warp] = part;
-  __syncthreads();
-  if (live && wit == 0 && lane == 0) {
-    float rs = s_part[warp];
-    for (int k = 1; k < p.warps_per_bag; ++k)
-      rs = __fadd_rn(rs, s_part[warp + k]);
-    // torch.clamp(mag, min=1) keeps a NaN, so the compare is then false
-    const float tol = __fmul_rn(p.rel_bound, mag < 1.0f ? 1.0f : mag);
-    const bool flag = fabsf(__fsub_rn(rs, csum)) > tol;
-    p.rsum[flat] = rs;
-    p.err_bags[flat] = flag ? 1 : 0;
-    if (flag) atomicAdd(&s_flagged, 1u);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // one atomic: every earlier block's flags are in what it returns
-    const unsigned long long was = atomicAdd(
-        p.tally + t, (static_cast<unsigned long long>(s_flagged) << 32) + 1);
-    if (static_cast<unsigned>(was) ==
-        static_cast<unsigned>(p.blocks_per_table - 1)) {
-      p.err_count[t] = static_cast<int32_t>((was >> 32) + s_flagged);
-      p.tally[t] = 0ull;
-    }
-  }
+  if constexpr (CHECK)
+    finish_check(p, t, flat, live, wit, lane, warp, part, csum, mag, s_part,
+                 &s_flagged);
 }
 
-template <int G, bool VEC>
+template <int G, bool VEC, bool CHECK>
 cudaError_t launch(const EbArgs& a, int blocks, int threads,
                    cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
@@ -435,7 +463,38 @@ cudaError_t launch(const EbArgs& a, int blocks, int threads,
   at[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, abft_eb_kernel<G, VEC>, a);
+  return cudaLaunchKernelEx(&cfg, abft_eb_kernel<G, VEC, CHECK>, a);
+}
+
+// The plan fits the shape (kernels/abft_embeddingbag.eb_plan's rules).
+bool plan_fits(const void* table, const void* r, int tables, long long rows,
+               int d, int bags, int pool, int vec, int lanes, int groups,
+               int warps_per_bag, int bags_per_block, int blocks_per_table) {
+  const int team = warps_per_bag * bags_per_block;
+  return tables >= 1 && bags >= 1 && pool >= 0 && d >= 1 && rows >= 1 &&
+         rows < (1ll << 31) && warps_per_bag >= 1 && bags_per_block >= 1 &&
+         team <= kMaxWarps &&
+         blocks_per_table == (bags + bags_per_block - 1) / bags_per_block &&
+         static_cast<long long>(tables) * blocks_per_table < (1ll << 31) &&
+         (vec ? d % 16 == 0 && lanes == d / 16 &&
+                    reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(r) % 16 == 0
+              : lanes == d && groups == 1) &&
+         (groups == 1 || (groups == 4 && vec && warps_per_bag == 1 &&
+                          lanes * groups <= 32 && 32 % lanes == 0));
+}
+
+template <bool CHECK>
+int launch_plan(const EbArgs& a, int tables, int vec, int groups,
+                cudaStream_t s) {
+  const int blocks = tables * a.blocks_per_table;
+  const int threads = 32 * a.warps_per_bag * a.bags_per_block;
+  const cudaError_t e =
+      groups == 4 ? launch<4, true, CHECK>(a, blocks, threads, s)
+      : vec       ? launch<1, true, CHECK>(a, blocks, threads, s)
+                  : launch<1, false, CHECK>(a, blocks, threads, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -456,22 +515,10 @@ REPRO_API int abft_eb_launch(
     int tables, long long rows, int d, int bags, int pool, float rel_bound,
     int vec, int lanes, int groups, int warps_per_bag, int bags_per_block,
     int blocks_per_table, void* stream) {
-  const int team = warps_per_bag * bags_per_block;
-  const bool fits =
-      tables >= 1 && bags >= 1 && pool >= 0 && d >= 1 && rows >= 1 &&
-      rows < (1ll << 31) && warps_per_bag >= 1 &&
-      bags_per_block >= 1 && team <= kMaxWarps &&
-      blocks_per_table == (bags + bags_per_block - 1) / bags_per_block &&
-      static_cast<long long>(tables) * blocks_per_table < (1ll << 31) &&
-      (vec ? d % 16 == 0 && lanes == d / 16 &&
-                 reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
-                 reinterpret_cast<uintptr_t>(r) % 16 == 0
-           : lanes == d && groups == 1) &&
-      (groups == 1 ||
-       (groups == 4 && vec && warps_per_bag == 1 && lanes * groups <= 32 &&
-        32 % lanes == 0));
-  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
-  EbArgs a;
+  if (!plan_fits(table, r, tables, rows, d, bags, pool, vec, lanes, groups,
+                 warps_per_bag, bags_per_block, blocks_per_table))
+    return static_cast<int>(cudaErrorInvalidValue);
+  EbArgs a = {};
   a.table = static_cast<const int8_t*>(table);
   a.alphas = static_cast<const float*>(alphas);
   a.betas = static_cast<const float*>(betas);
@@ -492,12 +539,37 @@ REPRO_API int abft_eb_launch(
   a.bags_per_block = bags_per_block;
   a.blocks_per_table = blocks_per_table;
   a.rel_bound = rel_bound;
-  const int blocks = tables * blocks_per_table;
-  const int threads = 32 * team;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = groups == 4 ? launch<4, true>(a, blocks, threads, s)
-                        : vec       ? launch<1, true>(a, blocks, threads, s)
-                                    : launch<1, false>(a, blocks, threads, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_plan<true>(a, tables, vec, groups,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The unprotected instance: the same inputs but C_T -> r f32 [tables,
+// bags, d] alone, with the same plan; launched as a programmatic
+// dependent, as K2 is.
+REPRO_API int eb_unprotected_launch(
+    const void* table, const void* alphas, const void* betas,
+    const void* indices, const void* weights, void* r, int tables,
+    long long rows, int d, int bags, int pool, int vec, int lanes,
+    int groups, int warps_per_bag, int bags_per_block, int blocks_per_table,
+    void* stream) {
+  if (!plan_fits(table, r, tables, rows, d, bags, pool, vec, lanes, groups,
+                 warps_per_bag, bags_per_block, blocks_per_table))
+    return static_cast<int>(cudaErrorInvalidValue);
+  EbArgs a = {};
+  a.table = static_cast<const int8_t*>(table);
+  a.alphas = static_cast<const float*>(alphas);
+  a.betas = static_cast<const float*>(betas);
+  a.indices = static_cast<const int32_t*>(indices);
+  a.weights = static_cast<const float*>(weights);
+  a.r = static_cast<float*>(r);
+  a.rows = rows;
+  a.d = d;
+  a.bags = bags;
+  a.pool = pool;
+  a.lanes = lanes;
+  a.warps_per_bag = warps_per_bag;
+  a.bags_per_block = bags_per_block;
+  a.blocks_per_table = blocks_per_table;
+  return launch_plan<false>(a, tables, vec, groups,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -64,6 +64,15 @@
 //   the wait, on the TMA and the masked path alike, so the launch is safe
 //   whatever kernel precedes it.
 //
+// The unprotected instance (PROT = false) is the overhead benchmarks'
+// baseline, the counterpart of the plain int8 GEMM the JAX benchmarks time
+// (benchmarks/gemm_overhead.py::_plain): C = A @ B'[:, :n] from the same
+// packed operand, through the same mainloop, tile shapes and split of K,
+// without the checksum column (its tile when n is a multiple of 128, and
+// its lane in the map), the mod-127 epilogue, the row-sum scratch or the
+// ticket.  It is
+// built for uint8 A only, as the benchmark draws A.
+//
 // The launch plan (row tile, split count, aligned or ragged) is made in
 // Python and checked here.
 #include "common.cuh"
@@ -175,16 +184,18 @@ __device__ __forceinline__ void copy16_masked(uint8_t* dst,
   *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Stage the A tile [BM, BK] and the B tile [BK, BN] of k0 into one slot.
+// Stage the A tile [BM, BK] and the B tile [BK, BN] of k0 into one slot;
+// ncols = n + 1 (C and the checksum column) or n (unprotected).
 // Aligned: one thread has the TMA copy both tiles, completing on bar (the
-// B map ends 16 columns past n, so a tile past the checksum column reads
-// 16 bytes a row).  Ragged: every thread stages with masked byte loads.
-// Either way rows past m and k rows past ke read as zero.
+// B map of the protected kernel ends 16 columns past n, so a tile past the
+// checksum column reads 16 bytes a row).  Ragged: every thread stages with
+// masked byte loads.  Either way rows past m and k rows past ke read as
+// zero.
 template <int BM, bool ALIGNED>
 __device__ __forceinline__ void load_stage(
     uint8_t* as, uint8_t* bs, uint64_t* bar, const CUtensorMap* amap,
     const CUtensorMap* bmap, const uint8_t* a, const uint8_t* b, int m0,
-    int n0, int k0, int ke, int m, int n, int k, int ldb, int tid) {
+    int n0, int k0, int ke, int m, int ncols, int k, int ldb, int tid) {
   if constexpr (ALIGNED) {
     if (tid == 0) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -197,7 +208,7 @@ __device__ __forceinline__ void load_stage(
     for (int e = tid; e < BK * 8; e += kThreads) {
       const int r = e >> 3;
       const int ch = e & 7;
-      if (n0 + 16 * ch > n) continue;     // past the checksum column: unread
+      if (n0 + 16 * ch >= ncols) continue;    // past the columns used: unread
       copy16_masked(bs + swz(r, 16 * ch),
                     b + static_cast<int64_t>(k0 + r) * ldb + n0 + 16 * ch,
                     r < krows ? 16 : 0);
@@ -212,7 +223,7 @@ __device__ __forceinline__ void load_stage(
   }
 }
 
-template <typename TA, int MFRAG, bool ALIGNED, bool COLCHK>
+template <typename TA, int MFRAG, bool ALIGNED, bool COLCHK, bool PROT>
 __global__ void __launch_bounds__(kThreads)
 abft_qgemm_kernel(const TA* __restrict__ a_in, const int8_t* __restrict__ b_in,
                   int32_t* __restrict__ c, int32_t* __restrict__ err,
@@ -227,6 +238,8 @@ abft_qgemm_kernel(const TA* __restrict__ a_in, const int8_t* __restrict__ b_in,
   constexpr bool kUnsigned = std::is_same<TA, uint8_t>::value;
   static_assert(BM * kRedStride * 4 <= kStages * kStageBytes,
                 "the partial sums reuse the drained ring");
+  static_assert(PROT || !COLCHK, "the column check is the protected kernel's");
+  const int ncols = PROT ? n + 1 : n;     // the columns of B' read
 
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -287,7 +300,7 @@ abft_qgemm_kernel(const TA* __restrict__ a_in, const int8_t* __restrict__ b_in,
       load_stage<BM, ALIGNED>(ring + s * kStageBytes,
                               ring + s * kStageBytes + kABytes, &full[s],
                               &amap, &bmap, a, b, m0, n0, kb + s * BK, ke, m,
-                              n, k, ldb, tid);
+                              ncols, k, ldb, tid);
   }
 
   for (int step = 0; step < nsteps; ++step) {
@@ -299,7 +312,7 @@ abft_qgemm_kernel(const TA* __restrict__ a_in, const int8_t* __restrict__ b_in,
       uint8_t* slot = ring + (nx % kStages) * kStageBytes;
       load_stage<BM, ALIGNED>(slot, slot + kABytes, &full[nx % kStages],
                               &amap, &bmap, a, b, m0, n0, kb + nx * BK, ke, m,
-                              n, k, ldb, tid);
+                              ncols, k, ldb, tid);
     }
 
     const uint8_t* as = ring + (step % kStages) * kStageBytes;
@@ -424,15 +437,16 @@ abft_qgemm_kernel(const TA* __restrict__ a_in, const int8_t* __restrict__ b_in,
       for (int t = 0; t < 4; ++t) {
         if (gc0 + t < n) {
           c[static_cast<int64_t>(m0 + i) * n + gc0 + t] = v[t];
-          part += floor_mod(v[t], kMod);
-        } else if (gc0 + t == n) {
+          if constexpr (PROT) part += floor_mod(v[t], kMod);
+        } else if (PROT && gc0 + t == n) {
           check[m0 + i] = floor_mod(v[t], kMod);
         }
       }
-      if (part) atomicAdd(&rowpart[i], part);
+      if (PROT && part) atomicAdd(&rowpart[i], part);
     }
   }
   cluster.sync();                       // peers leave after all reads
+  if constexpr (!PROT) return;
 
   if (tid < mrows && rowpart[tid])
     atomicAdd(&rowsum[m0 + tid], rowpart[tid] % kMod);
@@ -506,21 +520,24 @@ bool make_map(CUtensorMap* map, const void* base, uint64_t cols,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename TA, int MFRAG, bool ALIGNED, bool COLCHK>
+template <typename TA, int MFRAG, bool ALIGNED, bool COLCHK, bool PROT = true>
 cudaError_t launch(const Args& p, cudaStream_t s) {
-  auto kernel = abft_qgemm_kernel<TA, MFRAG, ALIGNED, COLCHK>;
+  auto kernel = abft_qgemm_kernel<TA, MFRAG, ALIGNED, COLCHK, PROT>;
+  const int ncols = PROT ? p.n + 1 : p.n;
   constexpr int kSmem = smem_bytes<MFRAG>();
   // the ring is above the 48 KB default: allow it once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap amap{}, bmap{};           // unused on the ragged path
-  // B' is mapped 16 columns past n: the checksum lane's 16-byte chunk
+  // the protected kernel maps B' 16 columns past n: the checksum lane's
+  // 16-byte chunk; the unprotected one its first n columns
   if (ALIGNED && !(make_map(&amap, p.a, p.k, p.m, p.k, 16 * MFRAG) &&
-                   make_map(&bmap, p.b, p.n + 16, p.k, p.ldb, BK)))
+                   make_map(&bmap, p.b, PROT ? p.n + 16 : p.n, p.k, p.ldb,
+                            BK)))
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.n + 1 + BN - 1) / BN * p.splits,
+  cfg.gridDim = dim3((ncols + BN - 1) / BN * p.splits,
                      (p.m + 16 * MFRAG - 1) / (16 * MFRAG), 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = kSmem;
@@ -562,6 +579,22 @@ cudaError_t dispatch_rows(int bm, bool aligned, const Args& p,
   }
 }
 
+// the plan fits the shape: splits of whole stages covering k with none
+// empty, and 16-byte copies only where both operands and rows allow them
+bool plan_ok(const void* a, const void* b, int m, int n, int k, int ldb,
+             int splits, int k_per_split, int aligned) {
+  const bool split_ok = splits >= 1 && splits <= kMaxSplits &&
+                        k_per_split > 0 && k_per_split % BK == 0 &&
+                        static_cast<int64_t>(splits) * k_per_split >= k &&
+                        static_cast<int64_t>(splits - 1) * k_per_split < k;
+  const bool align_ok =
+      !aligned || ((reinterpret_cast<uintptr_t>(a) |
+                    reinterpret_cast<uintptr_t>(b)) % 16 == 0 &&
+                   k % 16 == 0 && ldb % 16 == 0);
+  return split_ok && align_ok && m >= 1 && n >= 1 && k >= 1 &&
+         ldb == n + kLane;
+}
+
 }  // namespace
 
 // a int8/uint8 [m, k] row-major (a_unsigned selects uint8), b int8 [k, ldb]
@@ -580,15 +613,7 @@ REPRO_API int abft_qgemm_launch(const void* a, int a_unsigned, const void* b,
                                 void* ticket, void* col, int m, int n, int k,
                                 int ldb, int bm, int splits, int k_per_split,
                                 int aligned, int pdl, void* stream) {
-  const bool split_ok = splits >= 1 && splits <= kMaxSplits &&
-                        k_per_split > 0 && k_per_split % BK == 0 &&
-                        static_cast<int64_t>(splits) * k_per_split >= k &&
-                        static_cast<int64_t>(splits - 1) * k_per_split < k;
-  const bool align_ok =
-      !aligned || ((reinterpret_cast<uintptr_t>(a) |
-                    reinterpret_cast<uintptr_t>(b)) % 16 == 0 &&
-                   k % 16 == 0 && ldb % 16 == 0);
-  if (!split_ok || !align_ok || m < 1 || n < 1 || k < 1 || ldb != n + kLane)
+  if (!plan_ok(a, b, m, n, k, ldb, splits, k_per_split, aligned))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args p = {a, b, static_cast<int32_t*>(c), static_cast<int32_t*>(err),
                   static_cast<int32_t*>(rowsum), static_cast<int32_t*>(check),
@@ -598,6 +623,40 @@ REPRO_API int abft_qgemm_launch(const void* a, int a_unsigned, const void* b,
   const cudaError_t e = a_unsigned
                             ? dispatch_rows<uint8_t>(bm, aligned, p, s)
                             : dispatch_rows<int8_t>(bm, aligned, p, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The unprotected instance: a uint8 [m, k], b the same packed int8
+// [k, ldb = n + 128] -> c int32 [m, n] = a @ b[:, :n]; the plan as above,
+// made for the n columns alone (kernels/abft_qgemm.launch_plan with
+// protect=False).  Launched as a programmatic dependent, as K1 is.
+REPRO_API int qgemm_unprotected_launch(const void* a, const void* b, void* c,
+                                       int m, int n, int k, int ldb, int bm,
+                                       int splits, int k_per_split,
+                                       int aligned, void* stream) {
+  if (!plan_ok(a, b, m, n, k, ldb, splits, k_per_split, aligned))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args p = {a, b, static_cast<int32_t*>(c), nullptr, nullptr, nullptr,
+                  nullptr, nullptr, m, n, k, ldb, splits, k_per_split, true};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (bm) {
+    case 16:
+      e = aligned ? launch<uint8_t, 1, true, false, false>(p, s)
+                  : launch<uint8_t, 1, false, false, false>(p, s);
+      break;
+    case 32:
+      e = aligned ? launch<uint8_t, 2, true, false, false>(p, s)
+                  : launch<uint8_t, 2, false, false, false>(p, s);
+      break;
+    case 64:
+      e = aligned ? launch<uint8_t, 4, true, false, false>(p, s)
+                  : launch<uint8_t, 4, false, false, false>(p, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

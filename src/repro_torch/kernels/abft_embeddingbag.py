@@ -35,6 +35,13 @@ lets the next kernel launch at once.
 :func:`eb_plan` makes the launch plan on the host, so the CPU tests check
 it; the C entry checks it again.  A shape the kernel does not take
 raises.
+
+:func:`eb_unprotected_cuda` is the kernel's unprotected instance, the
+overhead benchmarks' baseline (``repro_torch.benchmarks.eb_overhead``): R
+alone, through the same plan and loops, without the C_T gather, rsum,
+the compare or the count; R is bit-exact with the protected kernel's.
+Its plain version is :func:`repro_torch.core.embedding_bag`.  It is not
+a TPU kernel's port and nothing on the serving path calls it.
 """
 from __future__ import annotations
 
@@ -158,6 +165,35 @@ def _launch():
     return _build.entry(_NAME, "abft_eb_launch", ARGTYPES)
 
 
+def _check_inputs(name, table_q, alphas, betas, indices, rowsums, weights):
+    """Device, contiguity, type and shape checks of both instances.
+    -> (tables, rows, d, bags, pool)."""
+    ts = [t for t in (table_q, alphas, betas, indices, rowsums, weights)
+          if t is not None]
+    dev = table_q.device
+    if not all(t.is_cuda and t.device == dev for t in ts):
+        raise ValueError(f"{name} needs every input on one CUDA device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} needs contiguous inputs")
+    if table_q.dtype != torch.int8 or table_q.dim() != 3:
+        raise TypeError(f"table_q must be int8 [tables, rows, d], got "
+                        f"{table_q.dtype} {tuple(table_q.shape)}")
+    tables, rows, d = table_q.shape
+    for what, t, dtype in (("alphas", alphas, torch.float32),
+                           ("betas", betas, torch.float32),
+                           ("rowsums", rowsums, torch.int32)):
+        if t is not None and (t.dtype != dtype or t.shape != (tables, rows)):
+            raise TypeError(f"{what} must be {dtype} [tables, rows]")
+    if indices.dtype != torch.int32 or indices.dim() != 3 or \
+            indices.shape[0] != tables:
+        raise TypeError("indices must be int32 [tables, bags, pool]")
+    _, bags, pool = indices.shape
+    if weights is not None and (weights.dtype != torch.float32
+                                or weights.shape != indices.shape):
+        raise TypeError("weights must be float32 shaped like indices")
+    return tables, rows, d, bags, pool
+
+
 def abft_eb_cuda(table_q: torch.Tensor, alphas: torch.Tensor,
                  betas: torch.Tensor, indices: torch.Tensor,
                  rowsums: Optional[torch.Tensor] = None,
@@ -173,31 +209,11 @@ def abft_eb_cuda(table_q: torch.Tensor, alphas: torch.Tensor,
     CUDA device.  Returns ``(R f32 [tables, bags, d], rsum f32 [tables,
     bags], err_bags bool [tables, bags], err_count int32 [tables])``.
     """
-    ts = [t for t in (table_q, alphas, betas, indices, rowsums, weights)
-          if t is not None]
-    dev = table_q.device
-    if not all(t.is_cuda and t.device == dev for t in ts):
-        raise ValueError("abft_eb_cuda needs every input on one CUDA device")
+    tables, rows, d, bags, pool = _check_inputs(
+        "abft_eb_cuda", table_q, alphas, betas, indices, rowsums, weights)
     if rowsums is None:
         raise ValueError("abft_eb_cuda needs the tables' row sums C_T")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("abft_eb_cuda needs contiguous inputs")
-    if table_q.dtype != torch.int8 or table_q.dim() != 3:
-        raise TypeError(f"table_q must be int8 [tables, rows, d], got "
-                        f"{table_q.dtype} {tuple(table_q.shape)}")
-    tables, rows, d = table_q.shape
-    for name, t, dtype in (("alphas", alphas, torch.float32),
-                           ("betas", betas, torch.float32),
-                           ("rowsums", rowsums, torch.int32)):
-        if t.dtype != dtype or t.shape != (tables, rows):
-            raise TypeError(f"{name} must be {dtype} [tables, rows]")
-    if indices.dtype != torch.int32 or indices.dim() != 3 or \
-            indices.shape[0] != tables:
-        raise TypeError("indices must be int32 [tables, bags, pool]")
-    _, bags, pool = indices.shape
-    if weights is not None and (weights.dtype != torch.float32
-                                or weights.shape != indices.shape):
-        raise TypeError("weights must be float32 shaped like indices")
+    dev = table_q.device
     r = torch.empty((tables, bags, d), dtype=torch.float32, device=dev)
     rsum = torch.empty((tables, bags), dtype=torch.float32, device=dev)
     err_bags = torch.empty((tables, bags), dtype=torch.bool, device=dev)
@@ -225,3 +241,43 @@ def abft_eb_cuda(table_q: torch.Tensor, alphas: torch.Tensor,
 
 
 abft_eb_cuda.launches = 0
+
+
+@functools.cache
+def _launch_unprotected():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.entry(_NAME, "eb_unprotected_launch",
+                        [p] * 6 + [i, ctypes.c_longlong] + [i] * 9 + [p])
+
+
+def eb_unprotected_cuda(table_q: torch.Tensor, alphas: torch.Tensor,
+                        betas: torch.Tensor, indices: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K2's unprotected instance on the card: R f32 ``[tables, bags, d]``
+    alone, bit-exact with :func:`abft_eb_cuda`'s R (the inputs as there,
+    without the row sums)."""
+    tables, rows, d, bags, pool = _check_inputs(
+        "eb_unprotected_cuda", table_q, alphas, betas, indices, None,
+        weights)
+    dev = table_q.device
+    r = torch.empty((tables, bags, d), dtype=torch.float32, device=dev)
+    if tables == 0 or bags == 0:
+        return r
+    plan = eb_plan(tables, bags, pool, d, rows,
+                   table_addr=table_q.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _launch_unprotected()(
+            table_q.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
+            indices.data_ptr(),
+            None if weights is None else weights.data_ptr(), r.data_ptr(),
+            tables, rows, d, bags, pool, int(plan.vec), plan.lanes,
+            plan.groups, plan.warps_per_bag, plan.bags_per_block,
+            plan.blocks_per_table, stream)
+    _build.check(_NAME, rc)
+    eb_unprotected_cuda.launches += 1
+    return r
+
+
+eb_unprotected_cuda.launches = 0

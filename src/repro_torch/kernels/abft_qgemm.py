@@ -44,6 +44,13 @@ A refused launch raises; nothing falls back to a plain launch.
 :func:`launch_plan` makes the launch plan (row tile, split count, the
 aligned or ragged path) on the host, so the CPU tests check it; the C
 entry checks it again.  A shape the kernel does not take raises.
+
+:func:`qgemm_unprotected_cuda` is the kernel's unprotected instance, the
+overhead benchmarks' baseline (``repro_torch.benchmarks.gemm_overhead``):
+``C = A @ B'[:, :n]`` from the same packed operand through the same
+mainloop, without the checksum column, the mod-127 epilogue or the
+scratch.  Its plain version is :func:`repro_torch.kernels.ref.qgemm_ref`.
+It is not a TPU kernel's port and nothing on the serving path calls it.
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ class QgemmPlan(NamedTuple):
     bm: int             # rows per tile: 16, 32 or 64
     tiles_m: int
     tiles_n: int        # over the n + 1 columns C and the checksum need
+                        # (n for the unprotected instance)
     splits: int         # K splits = the thread-block cluster size
     k_per_split: int    # a multiple of BK
     aligned: bool       # 16-byte cp.async copies (else masked byte loads)
@@ -97,15 +105,21 @@ class QgemmPlan(NamedTuple):
 
 
 def launch_plan(m: int, k: int, n: int, *, a_addr: int = 0,
-                b_addr: int = 0) -> QgemmPlan:
+                b_addr: int = 0, protect: bool = True) -> QgemmPlan:
     """The launch of ``A [m, k] @ B' [k, n + 128]`` with A and B' at
     device addresses ``a_addr`` and ``b_addr`` (only their alignment is
-    read).  Raises ``ValueError`` for a shape the kernel does not take."""
-    return _plan(m, k, n, a_addr % 16 == 0 and b_addr % 16 == 0)
+    read).  ``protect=False`` plans the unprotected instance: the same row
+    tile and split of K, over the n columns of C alone, so that the two
+    programs differ by the check's work only (the checksum column's tile,
+    the epilogue, the scratch) and not by a split the rule picks for a
+    narrower grid.  Raises ``ValueError`` for a shape the kernel does not
+    take."""
+    return _plan(m, k, n, a_addr % 16 == 0 and b_addr % 16 == 0, protect)
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(m: int, k: int, n: int, ptrs_aligned: bool) -> QgemmPlan:
+def _plan(m: int, k: int, n: int, ptrs_aligned: bool,
+          protect: bool = True) -> QgemmPlan:
     if m < 1 or k < 1 or n < 1:
         raise ValueError(f"empty GEMM m={m} k={k} n={n}")
     bm = 16 if m <= 16 else 32 if m <= 32 else 64
@@ -125,6 +139,8 @@ def _plan(m: int, k: int, n: int, ptrs_aligned: bool) -> QgemmPlan:
         steps_per = math.ceil(ksteps / splits)
         if math.ceil(ksteps / steps_per) == splits:     # no split empty
             break
+    if not protect:
+        tiles_n = math.ceil(n / BN)
     return QgemmPlan(bm, tiles_m, tiles_n, splits, steps_per * BK, aligned)
 
 
@@ -216,3 +232,53 @@ def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
 
 
 abft_qgemm_cuda.launches = 0
+
+
+@functools.cache
+def _launch_unprotected():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.entry(_NAME, "qgemm_unprotected_launch",
+                        [p, p, p, i, i, i, i, i, i, i, i, p])
+
+
+def qgemm_unprotected_cuda(a_q: torch.Tensor,
+                           b_packed: torch.Tensor) -> torch.Tensor:
+    """K1's unprotected instance on the card: ``C = A @ B'[:, :n]``, int32
+    ``[m, n]``, bit-exact with the protected kernel's C.
+
+    ``a_q``: uint8 [m, k] (the benchmark's A; no int8 instance is built);
+    ``b_packed``: int8 [k, n + 128]; both contiguous CUDA tensors on one
+    device.  The plan is :func:`launch_plan`'s (``protect=False``)."""
+    if not (a_q.is_cuda and b_packed.is_cuda) or a_q.device != b_packed.device:
+        raise ValueError("qgemm_unprotected_cuda needs both operands on one "
+                         "CUDA device")
+    if a_q.dtype != torch.uint8 or b_packed.dtype != torch.int8:
+        raise TypeError(f"qgemm_unprotected_cuda takes uint8 A and int8 B', "
+                        f"got {a_q.dtype} and {b_packed.dtype}")
+    if a_q.dim() != 2 or b_packed.dim() != 2 or \
+            not (a_q.is_contiguous() and b_packed.is_contiguous()):
+        raise ValueError("operands must be contiguous 2-D tensors")
+    m, k = a_q.shape
+    k2, ldb = b_packed.shape
+    n = ldb - LANE
+    if k != k2 or n < 1 or k < 1:
+        raise ValueError(f"shape mismatch: A {tuple(a_q.shape)}, "
+                         f"B' {tuple(b_packed.shape)}")
+    dev = a_q.device
+    c = torch.empty((m, n), dtype=torch.int32, device=dev)
+    if m == 0:
+        return c
+    plan = launch_plan(m, k, n, a_addr=a_q.data_ptr(),
+                       b_addr=b_packed.data_ptr(), protect=False)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _launch_unprotected()(a_q.data_ptr(), b_packed.data_ptr(),
+                                   c.data_ptr(), m, n, k, ldb, plan.bm,
+                                   plan.splits, plan.k_per_split,
+                                   int(plan.aligned), stream)
+    _build.check(_NAME, rc)
+    qgemm_unprotected_cuda.launches += 1
+    return c
+
+
+qgemm_unprotected_cuda.launches = 0

@@ -1,4 +1,5 @@
-"""The operator surface over the four kernels, with one dispatch rule.
+"""The operator surface over the four kernels (and the two unprotected
+instances the overhead benchmarks time), with one dispatch rule.
 
 A CUDA tensor takes the hand-written kernel; a CPU tensor takes the plain
 PyTorch version.  An explicit ``use_kernel`` always wins: ``False`` takes
@@ -7,7 +8,8 @@ the plain version on any device (the JAX package's precedence rule for
 has no interpret mode, and nothing falls back silently.
 
 The :mod:`repro_torch.protect` adapters dispatch here; layer code should
-not call these directly.
+not call these directly.  :func:`qgemm_unprotected` and
+:func:`embedding_bag_unprotected` serve the overhead benchmarks alone.
 """
 from __future__ import annotations
 
@@ -39,6 +41,31 @@ def abft_qgemm(a_q: torch.Tensor, b_packed: torch.Tensor, *,
         return abft_qgemm_cuda(a_q.contiguous(), b_packed.contiguous(),
                                with_colcheck=with_colcheck)
     return _ref.abft_qgemm_ref(a_q, b_packed, with_colcheck=with_colcheck)
+
+
+def qgemm_unprotected(a_q: torch.Tensor, b_packed: torch.Tensor, *,
+                      use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """The overhead benchmarks' baseline: ``C = A @ B'[:, :n]`` (int32),
+    the protected GEMM's C without its check (uint8 A on the card)."""
+    if _use_kernel(use_kernel, a_q):
+        from repro_torch.kernels.abft_qgemm import qgemm_unprotected_cuda
+        return qgemm_unprotected_cuda(a_q.contiguous(),
+                                      b_packed.contiguous())
+    return _ref.qgemm_ref(a_q, b_packed)
+
+
+def embedding_bag_unprotected(table_q, alphas, betas, indices, weights=None,
+                              *, use_kernel: Optional[bool] = None
+                              ) -> torch.Tensor:
+    """The overhead benchmarks' baseline: a stack's R alone, the protected
+    EmbeddingBag's R without its check (``[tables, rows, d]``,
+    ``indices [tables, bags, pool]``)."""
+    if _use_kernel(use_kernel, table_q):
+        from repro_torch.kernels.abft_embeddingbag import eb_unprotected_cuda
+        return eb_unprotected_cuda(
+            table_q, alphas, betas, indices.to(torch.int32).contiguous(),
+            None if weights is None else weights.contiguous())
+    return _ref.eb_ref(table_q, alphas, betas, indices, weights)
 
 
 def abft_embedding_bag(table_q, alphas, betas, indices, rowsums,

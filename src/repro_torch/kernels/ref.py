@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the four CUDA kernels.
+"""Plain PyTorch versions of the four CUDA kernels and of the two
+unprotected instances the overhead benchmarks time (:func:`qgemm_ref`,
+:func:`eb_ref`), and ``int8_dot``.
 
 Each takes the same inputs as its kernel and returns the same outputs.
 The CPU path runs them; on the card they are the reference the kernels
@@ -27,6 +29,27 @@ def abft_qgemm_ref(a_q: torch.Tensor, b_packed: torch.Tensor,
     if not with_colcheck:
         return c, err
     return c, err, column_check(a_q, b_packed[:, :n])
+
+
+def qgemm_ref(a_q: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+    """Plain unprotected K1: ``C = A @ B'[:, :n]`` int32 [m, n], the
+    protected kernel's C without its check."""
+    return int_matmul(a_q, b_packed[:, :b_packed.shape[1] - LANE])
+
+
+def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Reference int8 x int8 -> int32 matmul (the JAX ``ref.int8_dot``):
+    the operands widened to int32, exact."""
+    return int_matmul(a, b)
+
+
+def eb_ref(table_q: torch.Tensor, alphas: torch.Tensor, betas: torch.Tensor,
+           indices: torch.Tensor, weights: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """Plain unprotected K2: R f32 [..., bags, d] alone
+    (:func:`repro_torch.core.embedding_bag`, the JAX benchmark's
+    baseline)."""
+    return embedding_bag(table_q, alphas, betas, indices, weights)
 
 
 def abft_eb_ref(table_q: torch.Tensor, alphas: torch.Tensor,

@@ -1,23 +1,77 @@
-"""int8 + ABFT linear layer (the paper's serving path).
+"""Linear layers: float (bf16/f32) and int8+ABFT (the paper's serving
+path).
 
 The quantized linear runs Fig. 1 end to end:
   dynamic per-row activation quant (signed int8)  ->  int8 GEMM against the
   packed, checksum-encoded weight  ->  Eq. (3b) verify on the int32 C_temp
   (BEFORE requantization, §IV-B)  ->  rank-1 dequant + bias -> compute dtype.
 
-Weights are packed once at init/conversion (amortized encoding, §IV-A1).
+Weights are packed once at init/conversion (amortized encoding, §IV-A1);
+:func:`quantize_linear` converts a trained float linear into that form.
 All verification goes through :func:`repro_torch.protect.protected_call`.
-The bf16 ``linear`` and ``quantize_linear`` of the JAX package belong to
-the training slice (ROADMAP A10).
+The float linear runs float-GEMM ABFT (beyond the paper) where the plan
+enables ``float_gemm`` at its call site.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core import policy
 from repro_torch.kernels import ops as kops
 from repro_torch.layers.common import Ctx
 from repro_torch.protect import ops as pops
 from repro_torch.protect.runtime import protected_call, rule_for
+
+
+# ----------------------------- float linear --------------------------------
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                dtype=torch.float32, bias: bool = True,
+                scale: Optional[float] = None, *, device):
+    """W ~ N(0, 1) * scale (default ``d_in ** -0.5``) in ``dtype`` and a
+    zero bias — the JAX ``init_linear``'s distributions (not its values:
+    the generators differ)."""
+    scale = (d_in ** -0.5) if scale is None else scale
+    w = torch.randn((d_in, d_out), generator=gen, device=device,
+                    dtype=torch.float32)
+    p = {"w": (w * scale).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def encode_linear(p):
+    """``p`` with its weight's f32 row sums (``checksum``), encoded once
+    like the packed int8 weight's: the ``float_gemm`` check then also sees
+    a fault in W itself, not only one in the product.  A float linear
+    without them (the JAX package's) has its row sums taken from W at
+    each call."""
+    return {**p, "checksum": pops.FLOAT_GEMM.encode(p["w"])[1]}
+
+
+def linear(p, x: torch.Tensor, ctx: Ctx, name: str = ""):
+    """Float linear: x [..., d_in] -> (y [..., d_out] compute dtype,
+    report), with float-GEMM ABFT on the 2-D product where the plan
+    enables ``float_gemm`` at ``name`` (the JAX ``linear``'s rule)."""
+    w = p["w"].to(ctx.compute_dtype)
+    rule = rule_for(ctx, "float_gemm", name)
+    if rule.enabled:
+        m_shape = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        c, report = protected_call("float_gemm", (w, p.get("checksum")),
+                                   x2, ctx=ctx, rule=rule, name=name)
+        y = c.to(ctx.compute_dtype).reshape(*m_shape, w.shape[-1])
+    else:
+        y = x.to(ctx.compute_dtype) @ w
+        report = policy.empty_report()
+    if "b" in p:
+        y = y + p["b"].to(ctx.compute_dtype)
+    return y, report
+
+
+# --------------------------- int8 ABFT linear ------------------------------
 
 
 def init_qlinear(gen: torch.Generator, d_in: int, d_out: int,
@@ -37,6 +91,23 @@ def init_qlinear(gen: torch.Generator, d_in: int, d_out: int,
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
     return p
+
+
+@torch.no_grad()
+def quantize_linear(p_f32):
+    """Convert a trained float linear into the packed ABFT form: symmetric
+    per-output-channel int8 (``quant.quantize_channels``), packed with its
+    checksum, and its bias kept in float32."""
+    from repro_torch.quant import quantize_channels
+    q = quantize_channels(p_f32["w"].to(torch.float32))
+    out = {
+        "w_packed": pops.QGEMM.encode(q.values),
+        "alpha": q.alpha,
+        "colsum": pops.QGEMM.dequant_colsum(q.values),
+    }
+    if "b" in p_f32:
+        out["b"] = p_f32["b"].to(torch.float32)
+    return out
 
 
 def qlinear(p, x: torch.Tensor, ctx: Ctx, name: str = ""):
@@ -71,9 +142,17 @@ def qlinear(p, x: torch.Tensor, ctx: Ctx, name: str = ""):
     return y, report
 
 
+def maybe_qlinear_init(gen: torch.Generator, d_in: int, d_out: int,
+                       quant: bool, dtype=torch.float32, bias: bool = True,
+                       *, device):
+    if quant:
+        return init_qlinear(gen, d_in, d_out, bias=bias, device=device)
+    return init_linear(gen, d_in, d_out, dtype=dtype, bias=bias,
+                       device=device)
+
+
 def apply_linear(p, x, ctx: Ctx, name: str = ""):
-    """Dispatch on parameter form; only the packed int8 form is ported."""
-    if "w_packed" not in p:
-        raise NotImplementedError("the float linear is not ported yet "
-                                  "(ROADMAP A10)")
-    return qlinear(p, x, ctx, name)
+    """Dispatch on parameter form (packed int8 vs float)."""
+    if "w_packed" in p:
+        return qlinear(p, x, ctx, name)
+    return linear(p, x, ctx, name)

@@ -2,11 +2,14 @@
 
 The caller strips the JAX tree to plain arrays first (``LogicalParam``
 values, then ``np.asarray``), so this module imports nothing of JAX.  The
-packed layouts are shared, so the arrays move unchanged:
+packed layouts are shared, so the arrays move unchanged; a bfloat16 array
+(numpy holds it as the ``ml_dtypes`` type JAX hands over) moves by its
+bits into ``torch.bfloat16``:
 
 * DLRM: ``bottom`` / ``top`` lists of ``{w_packed, alpha, colsum, b}``
-  and ``tables`` ``{table, alphas, betas, rowsums}`` with a leading table
-  axis (the JAX model vmaps its table init);
+  (int8) or ``{w, b}`` (``init_dlrm(..., quant=False)``: the float
+  linears), and ``tables`` ``{table, alphas, betas, rowsums}`` with a
+  leading table axis (the JAX model vmaps its table init);
 * RWKV6 (``init_rwkv(..., quant=True)``): ``embed`` ``{table, alphas,
   betas, rowsums}``, ``ln0``/``ln_out`` ``{scale, bias}``, ``head``
   ``{w_packed, alpha, colsum}`` and ``layers`` with every leaf stacked on
@@ -35,7 +38,11 @@ def from_jax(tree: Any, device="cuda") -> Any:
             return type(node)(rec(v) for v in node)
         if isinstance(node, np.ndarray) or np.isscalar(node):
             # a copy: the tensor never aliases the caller's array
-            return torch.from_numpy(np.array(node)).to(dev)
+            arr = np.array(node)
+            if arr.dtype.name == "bfloat16":
+                return torch.from_numpy(arr.view(np.int16)).view(
+                    torch.bfloat16).to(dev)
+            return torch.from_numpy(arr).to(dev)
         raise TypeError(f"from_jax expects numpy arrays, got "
                         f"{type(node).__name__}")
 

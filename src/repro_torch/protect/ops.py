@@ -11,8 +11,9 @@ Every ABFT-protected operator family exposes one uniform surface:
   rule runs.
 
 Adapters registered here: ``qgemm`` and ``embedding_bag``, dispatching
-through :mod:`repro_torch.kernels.ops`.  The float-GEMM and KV-cache
-adapters of the JAX package wait for later slices (ROADMAP A8, A10); their
+through :mod:`repro_torch.kernels.ops`, and ``float_gemm`` (a plain
+float32 product, as the JAX package leaves it to XLA).  The KV-cache
+adapters of the JAX package wait for a later slice (ROADMAP A4); their
 op kinds are already report keys (:mod:`repro_torch.core.policy`).
 
 Scheme names carry over from JAX plans: ``pallas`` ("force the kernel")
@@ -26,9 +27,10 @@ from typing import Any, Dict, NamedTuple, Optional, Protocol, Tuple, \
 
 import torch
 
-from repro_torch.core import (EB_REL_BOUND, LANE, column_check,
-                              correct_single_error, correct_weight_flip,
-                              embedding_bag, int_matmul, pack_encoded_b,
+from repro_torch.core import (EB_REL_BOUND, LANE, abft_gemm_f32,
+                              column_check, correct_single_error,
+                              correct_weight_flip, embedding_bag,
+                              encode_weight_f32, int_matmul, pack_encoded_b,
                               table_rowsums, verify_rows)
 from repro_torch.core.policy import register_op_kind
 from repro_torch.kernels import ops as kops
@@ -164,6 +166,34 @@ class QGemmOp:
 
 
 # ---------------------------------------------------------------------------
+# float GEMM (beyond-paper: training-time bf16/f32 matmuls)
+# ---------------------------------------------------------------------------
+
+class FloatGemmOp:
+    """Float ABFT GEMM: encoded = (W, f32 row sums | None), input = A.
+    With no row sums they are taken from W at the call (the JAX
+    ``linear``'s way), so only a fault in the product shows; row sums
+    encoded ahead also show a fault in W itself."""
+    name = "float_gemm"
+    schemes = ("default",)
+    supports_correct = False
+
+    def encode(self, w: torch.Tensor):
+        return (w, encode_weight_f32(w))
+
+    def __call__(self, encoded, a, *, rule: ResolvedRule = _DEFAULT_RULE):
+        w, checksum = encoded if isinstance(encoded, tuple) else (encoded,
+                                                                  None)
+        rel = 1e-3 if rule.rel_bound is None else rule.rel_bound
+        out = abft_gemm_f32(a, w, checksum=checksum, rel_bound=rel)
+        return out.c, Check(out.err_count, out.err_rows)
+
+    def unprotected(self, encoded, a):
+        w = encoded[0] if isinstance(encoded, tuple) else encoded
+        return a.to(torch.float32) @ w.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # EmbeddingBag (paper Algorithm 2)
 # ---------------------------------------------------------------------------
 
@@ -231,7 +261,9 @@ def get_op(name: str) -> ProtectedOp:
 
 
 QGEMM = register_op(QGemmOp())
+FLOAT_GEMM = register_op(FloatGemmOp())
 EMBEDDING_BAG = register_op(EmbeddingBagOp())
 
 __all__ = ["Check", "ProtectedOp", "OPS", "register_op", "get_op",
-           "QGemmOp", "EmbeddingBagOp", "QGEMM", "EMBEDDING_BAG", "LANE"]
+           "QGemmOp", "FloatGemmOp", "EmbeddingBagOp", "QGEMM",
+           "FLOAT_GEMM", "EMBEDDING_BAG", "LANE"]

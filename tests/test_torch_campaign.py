@@ -246,7 +246,7 @@ def test_importing_the_cli_runs_nothing(capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--grid", "thresholds"], "A2"), (["--grid", "training"], "A6"),
+    (["--grid", "paging"], "A4"), (["--grid", "training"], "A6"),
     (["--grid", "serving_soak"], "A4"), (["--quick", "--monitor"], "A5"),
     (["--quick", "--device-count", "4"], "A8")])
 def test_cli_refuses_unported_grids_and_flags(capsys, argv, item):

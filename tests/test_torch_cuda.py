@@ -586,3 +586,68 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# the unprotected instances the overhead benchmarks time: every plan the
+# paper's 28 GEMM shapes select (row tiles 16/32/64, aligned and ragged,
+# 1-8 splits), A off 16-byte alignment, and n on and off a multiple of 128
+@pytest.mark.parametrize("m,n,k", [
+    (1, 512, 13), (20, 256, 512), (100, 128, 256), (256, 1024, 479),
+    (1, 1024, 1024), (100, 1024, 1024), (256, 1024, 1024), (64, 800, 3200),
+    (10, 300, 70), (65, 129, 1024)])
+def test_qgemm_unprotected_equals_the_protected_c(rng, dev, m, n, k):
+    from repro_torch.kernels.abft_qgemm import (abft_qgemm_cuda,
+                                                 launch_plan,
+                                                 qgemm_unprotected_cuda)
+    a = torch.from_numpy(rng.integers(0, 256, size=(m, k))
+                         .astype(np.uint8)).to(dev)
+    bp = _packed(rng, k, n, dev)
+    before = qgemm_unprotected_cuda.launches
+    c = qgemm_unprotected_cuda(a, bp)
+    assert qgemm_unprotected_cuda.launches == before + 1
+    c_prot, err = abft_qgemm_cuda(a, bp)
+    assert torch.equal(c, c_prot) and not bool(err.any())
+    assert torch.equal(c, ref.qgemm_ref(a, bp))
+    assert torch.equal(qgemm_unprotected_cuda(_misaligned(a), bp), c)
+    plan = launch_plan(m, k, n, a_addr=a.data_ptr(), b_addr=bp.data_ptr(),
+                       protect=False)
+    assert plan.tiles_n == -(-n // 128)
+
+
+def test_qgemm_unprotected_refuses_int8_a_and_a_bad_plan(rng, dev):
+    import repro_torch.kernels.abft_qgemm as k1
+    bp = _packed(rng, 256, 128, dev)
+    with pytest.raises(TypeError):
+        k1.qgemm_unprotected_cuda(torch.zeros((4, 256), dtype=torch.int8,
+                                              device=dev), bp)
+    # the C entry checks the plan it is handed
+    a = torch.zeros((4, 256), dtype=torch.uint8, device=dev)
+    c = torch.empty((4, 128), dtype=torch.int32, device=dev)
+    bad = k1.launch_plan(4, 256, 128, protect=False)._replace(k_per_split=64)
+    rc = k1._launch_unprotected()(
+        a.data_ptr(), bp.data_ptr(), c.data_ptr(), 4, 128, 256, bp.shape[1],
+        bad.bm, bad.splits, bad.k_per_split, int(bad.aligned),
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k1._build.check(k1._NAME, rc)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tables,rows,d,bags,pool", [
+    (1, 4000, 32, 10, 100), (1, 4000, 64, 10, 100), (1, 4000, 128, 10, 100),
+    (1, 4000, 256, 10, 100), (3, 1000, 128, 10, 16), (2, 300, 48, 9, 20),
+    (1, 50, 4096, 3, 5)])
+def test_eb_unprotected_equals_the_protected_r(rng, dev, tables, rows, d,
+                                               bags, pool, weighted):
+    from repro_torch.kernels.abft_embeddingbag import (abft_eb_cuda,
+                                                       eb_unprotected_cuda)
+    t, al, be, idx, rs, w = _eb_case(rng, dev, tables, rows, d, bags, pool,
+                                     weighted)
+    before = eb_unprotected_cuda.launches
+    r = eb_unprotected_cuda(t, al, be, idx, w)
+    assert eb_unprotected_cuda.launches == before + 1
+    assert torch.equal(r, abft_eb_cuda(t, al, be, idx, rs, w)[0])
+    assert torch.equal(r, ref.abft_eb_slot_order_ref(t, al, be, idx, w))
+    scale = max(1.0, float(r.abs().max()))
+    assert float((r - ref.eb_ref(t, al, be, idx, w)).abs().max()) \
+        <= 1e-5 * pool * scale
