@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Six paths run, each with every launch counter set to 0 just before it
-and read just after: the paper's int8 DLRM serving (kernels K1-K3), int8
-RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign (K1,
-K2), the ``thresholds`` grid (K2), the paper's overhead benchmarks (K1,
-K2 and their unprotected instances) and the float DLRM converted to int8
-(K1-K3).  Phases (any failure exits non-zero; nothing is caught and
+Seven paths run, each with every launch counter set to 0 just before
+it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
+int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
+(K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
+(K1, K2 and their unprotected instances), the float DLRM converted to
+int8 (K1-K3) and int8 Llama-3.2-1B chat serving (K1-K3).  Phases (any failure exits non-zero; nothing is caught and
 passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
@@ -95,8 +95,11 @@ passed over):
    grids on the card through K1 and K2 at the JAX grids' sample counts,
    seed 0 (artifacts beside ``--out``); every main-path cell of the
    committed ``BENCH_campaign_pallas_quick.json`` (7) and
-   ``BENCH_campaign_quick.json`` (10) baselines must overlap its baseline
-   by 95% Wilson interval in detection and in false positives; the
+   ``BENCH_campaign_quick.json`` (13, the two ``kv_cache`` cells and the
+   reduced-Llama ``decode_step`` cell among them: K1-K3 on the card)
+   baselines must overlap its baseline by 95% Wilson interval in
+   detection and in false positives, and no baseline cell may be left
+   out (the differ's coverage regressions: 0); the
    port's differ record against both is printed, with the cells where its
    ``det_tol`` 0.02 verdict disagrees with the Wilson gate; each cell's
    rates, overhead and phase times (CUDA events) are printed; K1 and K2
@@ -128,15 +131,34 @@ passed over):
    exponent bit of a ``top.0`` weight flagged at ``top.0`` and nowhere
    else, and 0 errors once restored; converted by ``quantize_dlrm`` and
    served on the same batches through K1-K3 with 0 errors; the float vs
-   int8 CTR gap printed.
+   int8 CTR gap printed;
+13. make the full-width int8 Llama-3.2-1B (16 layers, d 2048, 32 query
+   and 8 KV heads of 64, d_ff 8192, vocab 128256; random weights from a
+   seed) on the card with two tenants, the default plan (bf16 KV cache)
+   and ``*:policy=recompute,kv_cache:on`` (the rowsum-checksummed int8
+   cache, verified on every decode read); hold K1 (bit-exact, with and
+   without the column check) and K3 (bf16 and f32) at its GEMM shapes,
+   the 2048 x 128256 head included (K1's widest n), K1 under PDL in the
+   four positions of phase 3, and K2 on its 128256 x 2048 token table at
+   64 and 4 tokens as in phase 6; serve 8 ``chat_stream`` requests
+   (prompt 64, up to 32 new tokens, 4 slots, 100 rps) over both tenants:
+   every request completes with 0 errors, the checks and launches are
+   the path's own; ``FaultInjection`` flips of an ``attn.wq`` payload bit
+   (flagged at its step only, the leaf restored bit for bit) and of an
+   int8 KV payload bit of the ``kv_cache:on`` tenant's resident request
+   (flagged at the next decode step and at each later one, one error a
+   read), and clean requests after; the smoke-size Llama on the card and
+   on the CPU, free and in lockstep, as phase 7 holds the smoke RWKV;
+   time K1 cold at each shape beside ``torch._int_mm`` and the byte
+   bound, K3, and the step medians, with a profile of a few requests.
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
 (DLRM for K1-K3, RWKV for K4, the overhead benchmarks for the unprotected
 instances), and ``launches_by_path`` holds every kernel's count on each
-of the six paths (DLRM serve, RWKV serve, campaign, thresholds, overhead,
-float DLRM), all six counts set to 0 just before each path and read just
-after.  The last line is
+of the seven paths (DLRM serve, RWKV serve, campaign, thresholds,
+overhead, float DLRM, Llama serve), all six counts set to 0 just before
+each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the repository's ``src/`` beside this
 file, it exits non-zero and prints no result.
@@ -742,6 +764,162 @@ def pair_times(timer, calls, reps: int, rounds: int = 3) -> dict:
     return out
 
 
+def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
+                      f32_after_split: float = 1e-4) -> dict:
+    """A smoke-size model's prefill and 3 greedy decodes on the card
+    against the plain run on the CPU, on the same weights ``p_cpu``, at
+    each prompt length of ``seqs``, in float32 and bfloat16, free and in
+    lockstep; returns each case's record.
+
+    The same port code runs on both sides; the card sums some float terms
+    in another order (the WKV, the EmbeddingBag, the attention and norm
+    reductions).  Every activation quantization (K3 on the card, its
+    plain version on the CPU) is watched, and where the two runs' int8
+    codes first differ the split must be a rounding one
+    (:func:`code_split_is_rounding`); it is printed with its element and
+    pre-quantization values.  Each case runs twice:
+
+    * free: the logits are held to 1e-4 of their scale at every step
+      before that split, and from it an f32 run to ``f32_after_split``
+      and a bf16 run to 2**-4, the bf16 allowance the CPU tests hold the
+      port to against the JAX package (tests/test_torch_rwkv.py);
+    * lockstep: the card runs each step first, and the CPU run takes the
+      card's codes (q, alpha, beta) at every quantization where the two
+      split by a rounding, and fails at any other split.  Given the same
+      codes, every step's logits are held to 1e-4.
+
+    Both hold the counters equal, and the greedy tokens wherever the
+    CPU's top-two margin leaves room for the bound."""
+    import numpy as np
+
+    from repro_torch.core.policy import metrics_to_ints
+    from repro_torch.kernels import ops as kops
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.convert import to_device
+
+    what = f"smoke {small.name}"
+    p_dev = to_device(p_cpu, dev)
+    after_split = {torch.float32: f32_after_split, torch.bfloat16: 2.0**-4}
+    watch = {"side": "card", "lockstep": False, "step": 0, "at": 0,
+             "card": [], "cpu": [], "taken": []}
+    real_quant = kops.quantize_rows
+
+    def quantize(x, **kw):
+        out = real_quant(x, **kw)
+        got = [t.detach().to("cpu", copy=True) for t in (x, *out)]
+        watch[watch["side"]].append(got)
+        if watch["side"] == "card" or not watch["lockstep"]:
+            return out
+        i = len(watch["cpu"]) - 1
+        if i >= len(watch["card"]):
+            fail("the CPU run quantized more activations than the card's")
+        card = watch["card"][i]
+        if torch.equal(out[0], card[1]):
+            return out
+        split = code_split(torch, [got], [card])
+        split.update(step=watch["step"], call=i)
+        if not code_split_is_rounding(split):
+            fail(f"{what} in lockstep: the int8 codes part by more "
+                 f"than a rounding: {split}")
+        watch["taken"].append(split)
+        return tuple(t.to(x.device) for t in card[1:])
+
+    def both(step, on_card, on_cpu):
+        watch.update(step=step)
+        watch["card"].clear()
+        watch["cpu"].clear()
+        watch["side"] = "card"
+        dev_out = on_card()
+        watch["side"] = "cpu"
+        cpu_out = on_cpu()
+        if len(watch["cpu"]) != len(watch["card"]):
+            fail(f"the CPU and the card quantized {len(watch['cpu'])} and "
+                 f"{len(watch['card'])} activations at step {step}")
+        return cpu_out, dev_out
+
+    def run_case(tokens, ctx, lockstep):
+        watch.update(lockstep=lockstep, taken=[])
+        label = f"{ctx.compute_dtype}, prompt {tokens.shape[1]}, " + (
+            "lockstep" if lockstep else "free")
+        cache_len = tokens.shape[1] + 8
+        (lc, cc, rc), (ld, cd, rd) = both(
+            0, lambda: model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx,
+                                     cache_len),
+            lambda: model.prefill(p_cpu, {"tokens": tokens}, ctx,
+                                  cache_len))
+        split, errs = None, []
+        for step in range(4):
+            if split is None and not lockstep:
+                split = code_split(torch, watch["cpu"], watch["card"])
+                if split is not None:
+                    split["step"] = step
+                    if not code_split_is_rounding(split):
+                        fail(f"{what} ({label}): the int8 codes part at "
+                             f"step {step} by more than a rounding: {split}")
+            mc = metrics_to_ints(rc.as_metrics())
+            md = metrics_to_ints(rd.as_metrics())
+            if mc != md:
+                fail(f"{what} counters differ at step {step} ({label}): "
+                     f"card {md} vs CPU {mc}")
+            lcf, ldf = lc.float(), ld.float().cpu()
+            scale = max(float(lcf.abs().max()), 1e-6)
+            err = float((ldf - lcf).abs().max()) / scale
+            lcf, ldf = lcf[:, :small.vocab], ldf[:, :small.vocab]
+            bound = 1e-4 if split is None else after_split[ctx.compute_dtype]
+            errs.append(err)
+            if err > bound or not bool(torch.isfinite(ld).all()):
+                fail(f"{what} logits ({label}) differ by {err:.3g} of "
+                     f"the scale at step {step} (bound {bound:g}; first code "
+                     f"split {split})")
+            # two logits each within bound * scale move their gap by at
+            # most twice that
+            top2 = torch.topk(lcf, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * bound * scale
+            if not torch.equal(ldf.argmax(-1)[clear], lcf.argmax(-1)[clear]):
+                fail(f"{what} ({label}): the card's greedy token differs "
+                     f"at step {step}")
+            if step == 3:
+                break
+            nxt = torch.argmax(lcf, -1).to(torch.int32)
+            pos = torch.full_like(nxt, tokens.shape[1] + step)
+            (lc, cc, rc), (ld, cd, rd) = both(
+                step + 1,
+                lambda: model.decode(p_dev, cd, nxt.to(dev), pos.to(dev),
+                                     ctx),
+                lambda: model.decode(p_cpu, cc, nxt, pos, ctx))
+        if lockstep:
+            return {"err_of_scale_by_step": errs,
+                    "codes_taken_from_the_card": len(watch["taken"]),
+                    "first_taken": (watch["taken"] or [None])[0]}
+        return {"err_of_scale_by_step": errs, "first_code_split": split}
+
+    out = {}
+    kops.quantize_rows = quantize
+    try:
+        for seq in seqs:
+            tokens = torch.from_numpy(np.random.default_rng(13).integers(
+                0, small.vocab, (2, seq)).astype(np.int32))
+            for dtype in (torch.float32, torch.bfloat16):
+                ctx = Ctx(quant=True, plan=plan, compute_dtype=dtype,
+                          wkv_chunk=small.wkv_chunk)
+                for lockstep in (False, True):
+                    out[f"prompt {seq} {str(dtype)[6:]} "
+                        + ("lockstep" if lockstep else "free")] = \
+                        run_case(tokens, ctx, lockstep)
+    finally:
+        kops.quantize_rows = real_quant
+    log(f"{what} prefill + 3 decodes, card vs CPU: counters equal; "
+        "|dlogit| / scale by step, and the first int8 code split (free) or "
+        "the codes the CPU took from the card at rounding splits "
+        "(lockstep): " + "; ".join(
+            f"{k}: {[f'{e:.3g}' for e in v['err_of_scale_by_step']]}, "
+            + (f"split {v['first_code_split']}" if "first_code_split" in v
+               else f"{v['codes_taken_from_the_card']} taken, the first "
+                    f"{v['first_taken']}")
+            for k, v in out.items()))
+    return out
+
+
 def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     """Phases 6-8 on RWKV6 config ``cfg`` (the full-width RWKV6-1.6B from
     :func:`main`), with K4 also held and timed at ``big_batch_seq`` =
@@ -752,7 +930,6 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
                                                INT8_OPS_PER_S, bound_ms)
     from repro_torch.configs import reduce_cfg
     from repro_torch.core import LANE
-    from repro_torch.core.policy import metrics_to_ints
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
     from repro_torch.kernels.abft_qgemm import BK as K1_BK, \
@@ -760,8 +937,8 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     from repro_torch.kernels.quantize_rows import quantize_rows_cuda
     from repro_torch.kernels.wkv6_chunked import wkv6_chunked_cuda, wkv_plan
     from repro_torch.layers import rwkv6 as rk
-    from repro_torch.layers.common import Ctx
     from repro_torch.models.base import build_model
+    from repro_torch.models.convert import to_device
     from repro_torch.protect import default_plan
     from repro_torch.serving import (Request, ServingEngine, TenantSpec,
                                      chat_stream)
@@ -1074,144 +1251,8 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     small = reduce_cfg(cfg)
     model = build_model(small)
     p_cpu = model.init(0, device="cpu")
-
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        return tree.to(device)
-
-    p_dev = to(p_cpu, dev)
-    # the same port code on both sides; the card sums the WKV and the
-    # EmbeddingBag in another order.  A 24-token prompt is off the 16-token
-    # WKV chunk grid: K4 runs its first 16 tokens and the per-token
-    # recurrence the other 8.  Every activation quantization (K3 on the
-    # card, its plain version on the CPU) is watched, and where the two
-    # runs' int8 codes first differ the split must be a rounding one
-    # (code_split_is_rounding); it is printed with its element and
-    # pre-quantization values.  Each case runs twice:
-    # * free: the logits are held to 1e-4 of their scale at every step
-    #   before that split, and from it an f32 run stays at 1e-4 and a bf16
-    #   run is held to 2**-4, the bf16 allowance the CPU tests hold the
-    #   port to against the JAX package (tests/test_torch_rwkv.py);
-    # * lockstep: the card runs each step first, and the CPU run takes the
-    #   card's codes (q, alpha, beta) at every quantization where the two
-    #   split by a rounding, and fails at any other split.  Given the same
-    #   codes, every step's logits are held to 1e-4.
-    # Both hold the counters equal, and the greedy tokens wherever the
-    # CPU's top-two margin leaves room for the bound
-    after_split = {torch.float32: 1e-4, torch.bfloat16: 2.0**-4}
-    watch = {"side": "card", "lockstep": False, "step": 0, "at": 0,
-             "card": [], "cpu": [], "taken": []}
-    real_quant = kops.quantize_rows
-
-    def quantize(x, **kw):
-        out = real_quant(x, **kw)
-        got = [t.detach().to("cpu", copy=True) for t in (x, *out)]
-        watch[watch["side"]].append(got)
-        if watch["side"] == "card" or not watch["lockstep"]:
-            return out
-        i = len(watch["cpu"]) - 1
-        if i >= len(watch["card"]):
-            fail("the CPU run quantized more activations than the card's")
-        card = watch["card"][i]
-        if torch.equal(out[0], card[1]):
-            return out
-        split = code_split(torch, [got], [card])
-        split.update(step=watch["step"], call=i)
-        if not code_split_is_rounding(split):
-            fail(f"smoke RWKV in lockstep: the int8 codes part by more "
-                 f"than a rounding: {split}")
-        watch["taken"].append(split)
-        return tuple(t.to(x.device) for t in card[1:])
-
-    def both(step, on_card, on_cpu):
-        watch.update(step=step)
-        watch["card"].clear()
-        watch["cpu"].clear()
-        watch["side"] = "card"
-        dev_out = on_card()
-        watch["side"] = "cpu"
-        cpu_out = on_cpu()
-        if len(watch["cpu"]) != len(watch["card"]):
-            fail(f"the CPU and the card quantized {len(watch['cpu'])} and "
-                 f"{len(watch['card'])} activations at step {step}")
-        return cpu_out, dev_out
-
-    def run_case(tokens, ctx, lockstep):
-        watch.update(lockstep=lockstep, taken=[])
-        label = f"{ctx.compute_dtype}, prompt {tokens.shape[1]}, " + (
-            "lockstep" if lockstep else "free")
-        (lc, cc, rc), (ld, cd, rd) = both(
-            0, lambda: model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx),
-            lambda: model.prefill(p_cpu, {"tokens": tokens}, ctx))
-        split, errs = None, []
-        for step in range(4):
-            if split is None and not lockstep:
-                split = code_split(torch, watch["cpu"], watch["card"])
-                if split is not None:
-                    split["step"] = step
-                    if not code_split_is_rounding(split):
-                        fail(f"smoke RWKV ({label}): the int8 codes part at "
-                             f"step {step} by more than a rounding: {split}")
-            mc = metrics_to_ints(rc.as_metrics())
-            md = metrics_to_ints(rd.as_metrics())
-            if mc != md:
-                fail(f"smoke RWKV counters differ at step {step} ({label}): "
-                     f"card {md} vs CPU {mc}")
-            lcf, ldf = lc.float(), ld.float().cpu()
-            scale = max(float(lcf.abs().max()), 1e-6)
-            err = float((ldf - lcf).abs().max()) / scale
-            lcf, ldf = lcf[:, :small.vocab], ldf[:, :small.vocab]
-            bound = 1e-4 if split is None else after_split[ctx.compute_dtype]
-            errs.append(err)
-            if err > bound or not bool(torch.isfinite(ld).all()):
-                fail(f"smoke RWKV logits ({label}) differ by {err:.3g} of "
-                     f"the scale at step {step} (bound {bound:g}; first code "
-                     f"split {split})")
-            # two logits each within bound * scale move their gap by at
-            # most twice that
-            top2 = torch.topk(lcf, 2, dim=-1).values
-            clear = (top2[:, 0] - top2[:, 1]) > 2 * bound * scale
-            if not torch.equal(ldf.argmax(-1)[clear], lcf.argmax(-1)[clear]):
-                fail(f"smoke RWKV ({label}): the card's greedy token differs "
-                     f"at step {step}")
-            if step == 3:
-                break
-            nxt = torch.argmax(lcf, -1).to(torch.int32)
-            (lc, cc, rc), (ld, cd, rd) = both(
-                step + 1,
-                lambda: model.decode(p_dev, cd, nxt.to(dev), None, ctx),
-                lambda: model.decode(p_cpu, cc, nxt, None, ctx))
-        if lockstep:
-            return {"err_of_scale_by_step": errs,
-                    "codes_taken_from_the_card": len(watch["taken"]),
-                    "first_taken": (watch["taken"] or [None])[0]}
-        return {"err_of_scale_by_step": errs, "first_code_split": split}
-
-    small_out = {}
-    kops.quantize_rows = quantize
-    try:
-        for seq in (64, 24):
-            tokens = torch.from_numpy(np.random.default_rng(13).integers(
-                0, small.vocab, (2, seq)).astype(np.int32))
-            for dtype in (torch.float32, torch.bfloat16):
-                ctx = Ctx(quant=True, plan=default_plan(),
-                          compute_dtype=dtype, wkv_chunk=small.wkv_chunk)
-                for lockstep in (False, True):
-                    small_out[f"prompt {seq} {str(dtype)[6:]} "
-                              + ("lockstep" if lockstep else "free")] = \
-                        run_case(tokens, ctx, lockstep)
-    finally:
-        kops.quantize_rows = real_quant
-    log("smoke RWKV prefill + 3 decodes, card vs CPU: counters equal; "
-        "|dlogit| / scale by step, and the first int8 code split (free) or "
-        "the codes the CPU took from the card at rounding splits "
-        "(lockstep): " + "; ".join(
-            f"{k}: {[f'{e:.3g}' for e in v['err_of_scale_by_step']]}, "
-            + (f"split {v['first_code_split']}" if "first_code_split" in v
-               else f"{v['codes_taken_from_the_card']} taken, the first "
-                    f"{v['first_taken']}")
-            for k, v in small_out.items()))
+    small_out = small_card_vs_cpu(torch, dev, small, model, p_cpu,
+                                  default_plan(), (64, 24))
 
     # the smoke-size engines at a 24-token bucket, on the card and on the
     # CPU with the same weights and requests: every request served, the
@@ -1226,7 +1267,7 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
                 for i in range(4)]
 
     eng_cpu, eng_dev = small_engine("cpu"), small_engine(dev)
-    eng_dev.params = to(eng_cpu.params, dev)
+    eng_dev.params = to_device(eng_cpu.params, dev)
     eng_dev.warmup()
     wkv6_chunked_cuda.launches = 0
     bucket = {}
@@ -1719,7 +1760,7 @@ def campaign_phase(torch, dev, out_dir) -> dict:
 
     gates = {}
     base_dir = ROOT / "benchmarks" / "baselines"
-    for name, n_cells in (("pallas_quick", 7), ("quick", 10)):
+    for name, n_cells in (("pallas_quick", 7), ("quick", 13)):
         base = load_artifact(str(base_dir / f"BENCH_campaign_{name}.json"))
         gate = wilson_gate(base, runs[name])
         diff = diff_artifacts(base, runs[name])
@@ -1741,10 +1782,11 @@ def campaign_phase(torch, dev, out_dir) -> dict:
                        "differ_regressions": diff["regressions"],
                        "differ_disagrees_with_wilson": disagree,
                        "cells": gate["cells"]}
-        if len(gate["cells"]) != n_cells or gate["failed"]:
+        if len(gate["cells"]) != n_cells or gate["failed"] or \
+                gate["uncovered"] or diff["removed"]:
             fail(f"campaign vs the {name} baseline: {len(gate['cells'])} of "
                  f"{n_cells} cells gated, failing Wilson overlap: "
-                 f"{gate['failed']}")
+                 f"{gate['failed']}, left out: {gate['uncovered']}")
     t1 = time.perf_counter()
     plans = campaign_plans()
     shapes = kernels_at_campaign_shapes(torch, dev, plans)
@@ -2133,6 +2175,332 @@ def float_dlrm_phase(torch, dev, ex, tables) -> dict:
         "weight": f"top.0.w[{k0}, 3]", "bit": bit,
         "flagged_rows_at_top0": at_top0["abft/float_gemm_errors"]},
         "int8": served, "gap": gap, "launches": launches}
+
+
+#: the kv_cache:on plan phase 13's second tenant serves under
+KV_PLAN = "*:policy=recompute,kv_cache:on"
+
+
+def llama_phase(torch, dev, timer) -> dict:
+    """Phase 13: the full-width int8 Llama-3.2-1B (16 layers, d 2048, 32
+    query and 8 KV heads of 64, d_ff 8192, vocab 128256; random weights
+    from a seed) served on the card through K1-K3, with a bf16-cache
+    tenant and a ``kv_cache:on`` tenant.  Returns the path's launch
+    counts, its K1/K2 times and the record."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.benchmarks.common import (F32_OPS_PER_S,
+                                               INT8_OPS_PER_S, bound_ms)
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.core import LANE
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda, launch_plan
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+    from repro_torch.models.base import build_model
+    from repro_torch.protect import ProtectionPlan, default_plan
+    from repro_torch.serving import (FaultInjection, Request, ServingEngine,
+                                     TenantSpec, chat_stream)
+
+    cfg = get_arch("llama3.2-1b")
+    kv_plan = dataclasses.replace(default_plan().with_rules(
+        *ProtectionPlan.from_any(KV_PLAN).rules), name="kv")
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, [TenantSpec("default", default_plan()),
+                                 TenantSpec("kv", kv_plan)],
+                           n_slots=4, max_prompt=64, max_new_tokens=32,
+                           seed=0, device=dev)
+    torch.cuda.synchronize()
+    params = engine.params
+    layers = params["layers"]
+    int8 = [params["embed"]["table"], params["lm_head"]["w_packed"]] + [
+        layers[blk][w]["w_packed"] for blk, ws in
+        (("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("gate", "up", "down")))
+        for w in ws]
+    log(f"{cfg.name} (d {cfg.d_model}, {cfg.n_layers} layers, vocab "
+        f"{cfg.vocab}) on the card in {time.perf_counter() - t0:.1f}s: "
+        f"{sum(t.numel() for t in int8) / 1e9:.2f} GB of int8 (packed) "
+        f"weights and table; cache_len {engine.cache_len}")
+    lanes = {lane.key: lane for lane in engine.lanes}
+    if sorted(lanes) != ["lane0[default]", "lane1[kv]"]:
+        fail(f"unexpected Llama lanes {sorted(lanes)}")
+
+    # --------------- 13a. the kernels at the Llama path's shapes -----------
+    gen = torch.Generator(device=dev).manual_seed(3)
+    head = params["lm_head"]["w_packed"]
+    # each GEMM shape with its weights of every layer, [layers, k, n + 128]
+    gemms = [("attn.wq", layers["attn"]["wq"]["w_packed"], (64, 4)),
+             ("attn.wk", layers["attn"]["wk"]["w_packed"], (64, 4)),
+             ("mlp.gate", layers["mlp"]["gate"]["w_packed"], (64, 4)),
+             ("mlp.down", layers["mlp"]["down"]["w_packed"], (64, 4)),
+             ("lm_head", head[None], (1, 4))]
+    checked = []
+    for name, stack, ms_ in gemms:
+        bp = stack[0]
+        k, n = bp.shape[0], bp.shape[1] - LANE
+        plan = launch_plan(ms_[0], k, n, a_addr=0, b_addr=bp.data_ptr())
+        checked.append(f"{name} (k, n) = ({k}, {n}) at m = {ms_} (bm "
+                       f"{plan.bm}, splits {plan.splits}, blocks "
+                       f"{plan.blocks})")
+        for m in ms_:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            q = quantize_rows_cuda(x)
+            for g, w, g32, what in zip(q, ref.quantize_rows_ref(x),
+                                       quantize_rows_cuda(x.float()),
+                                       ("q", "alpha", "beta")):
+                if not (torch.equal(g, w) and torch.equal(g32, w)):
+                    fail(f"quantize_rows: {what} differs at {m}x{k} (bf16 "
+                         f"or its f32 cast)")
+            for col in (False, True):
+                got = abft_qgemm_cuda(q[0], bp, with_colcheck=col)
+                want = ref.abft_qgemm_ref(q[0], bp, with_colcheck=col)
+                for g, w, what in zip(got, want,
+                                      ("C", "err_rows", "col_check")):
+                    if not torch.equal(g, w):
+                        fail(f"abft_qgemm: {what} differs at {name} m={m} "
+                             f"(k={k}, n={n})")
+                if int(got[1].sum()):
+                    fail(f"abft_qgemm flagged clean operands at {name}")
+    log("Llama: K1 (C, err_rows, column check) and K3 (bf16 and f32) "
+        "bit-exact at " + "; ".join(checked))
+    hazards = pdl_hazards(torch, dev, gen, [
+        ("lm_head m = 1", 1, head),
+        ("attn.wq m = 4", 4, layers["attn"]["wq"]["w_packed"][-1]),
+        ("mlp.down m = 64", 64, layers["mlp"]["down"]["w_packed"][1])])
+    log("Llama: K1 under PDL bit-exact after K3, after an in-place flip of "
+        "B', after K1 on the same scratch and after the correct repair at "
+        + "; ".join(hazards))
+    emb = params["embed"]
+    enc4 = (emb["table"][None], emb["alphas"][None], emb["betas"][None],
+            emb["rowsums"][None])
+    req0 = Request(rid=0, tenant="default", arrival_s=0.0, prompt_len=64,
+                   max_new_tokens=2, seed=5)
+    prompt = torch.from_numpy(
+        engine._chat_tokens(req0, 64).astype(np.int32)).to(dev)
+    k2 = {"checks": {}, "times": {}}
+    for n_bags in (64, 4):
+        idx = prompt[:n_bags].reshape(1, -1, 1)
+        label = f"{n_bags} tokens"
+        k2["checks"][label] = eb_checks(torch, enc4, idx, label)
+        # cold rows: each launch looks up fresh random tokens
+        sets = [torch.randint(0, cfg.vocab, idx.shape, generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(16)]
+        it = itertools.cycle(sets)
+        (b_ms, b_by), (s_ms, _) = eb_bounds(idx, cfg.d_model)
+        k2["times"][label] = {
+            "ms": timer.ms(lambda: abft_eb_cuda(*enc4[:3], next(it),
+                                                enc4[3]), 32),
+            "plain_ms": timer.ms(lambda: kops.abft_embedding_bag(
+                *enc4[:3], next(it), enc4[3], use_kernel=False), 8),
+            "bound_ms": b_ms, "bound_by": b_by, "sector_bound_ms": s_ms}
+    eb_pdl_hazards(torch, enc4, prompt.reshape(1, -1, 1))
+    log(f"Llama: K2 on the {tuple(emb['table'].shape)} token table at pool "
+        f"1 (64 and 4 bags): R bit-exact with the slot-order sum, flags "
+        f"equal to the plain branch at rel_bound 1e-3 and 1e-5 and to its "
+        f"formula at all three, under PDL after a table flip, an alpha "
+        f"change and another K2; ms (cold) / plain / bound / sector bound: "
+        + "; ".join(f"{k}: {v['ms']:.5f} / {v['plain_ms']:.4f} / "
+                    f"{v['bound_ms']:.6f} / {v['sector_bound_ms']:.6f}"
+                    for k, v in k2["times"].items()))
+
+    # ------------------- 13b. serve both tenants, then flips ---------------
+    def stream(n, seed):
+        return chat_stream(n, tenants={"default": 1.0, "kv": 1.0},
+                           rate_rps=100.0, seed=seed, mean_prompt=32,
+                           max_prompt=64, mean_output=16, max_output=32)
+
+    wrappers = zero_launches()
+    tel = engine.run(stream(8, 0))            # the warm-up runs inside
+    launches = read_launches(wrappers)
+    s = tel.summary()
+    counters = s["faults"]["counters"]
+    per = s["per_tenant"]
+    steps = {(kind, key): [ev.duration_s * 1e3 for ev in tel.steps
+                           if ev.kind == kind and ev.lane == key]
+             for kind in ("prefill", "decode") for key in lanes}
+    log(f"Llama: served {sum(p['requests'] for p in per.values())} chat "
+        f"requests over two tenants: "
+        + "; ".join(f"{t}: {p['completed']} completed, {p['tokens_out']} "
+                    f"tokens" for t, p in per.items())
+        + f"; steps {[(k, len(v)) for k, v in steps.items()]}; launches "
+        f"{launches}; counters { {k: v for k, v in counters.items() if v} }")
+    if sum(p["completed"] for p in per.values()) != 8 or \
+            any(p["aborted"] for p in per.values()):
+        fail(f"not every Llama request completed: {per}")
+    nonzero = {k: v for k, v in counters.items()
+               if v and not k.endswith("_checks")}
+    if nonzero:
+        fail(f"fault counters on a clean Llama run: {nonzero}")
+    n_steps = len(tel.steps)
+    per_step_gemms = cfg.n_layers * 7 + 1
+    kv_reads = cfg.n_layers * len(steps[("decode", "lane1[kv]")])
+    if counters["qgemm_checks"] != per_step_gemms * n_steps or \
+            counters["embedding_bag_checks"] != n_steps or \
+            counters["kv_cache_checks"] != kv_reads:
+        fail(f"unexpected check counts {counters} for {n_steps} steps")
+    # the warm-up ran one prefill and one decode step a lane in the window
+    want_l = {"abft_qgemm": per_step_gemms * (n_steps + 4),
+              "quantize_rows": per_step_gemms * (n_steps + 4),
+              "abft_embeddingbag": n_steps + 4, "wkv6_chunked": 0,
+              "qgemm_unprotected": 0, "eb_unprotected": 0}
+    if launches != want_l:
+        fail(f"launches {launches} differ from the path's {want_l}")
+    toks = [t for r in tel.requests for t in (r.tokens or [])]
+    if len(toks) != sum(p["tokens_out"] for p in per.values()) or \
+            not all(0 <= t < cfg.vocab for t in toks):
+        fail("served Llama tokens outside the vocabulary or missing")
+    serve = {"tenants": per, "launches": launches, "counters": counters,
+             "steps_ms": {f"{k} {key}": v for (k, key), v in steps.items()},
+             "step_ms_median": {f"{k} {key}": float(np.median(v))
+                                for (k, key), v in steps.items()},
+             "decode_occupancy_mean": s["decode_occupancy_mean"]}
+
+    def request(rid, tenant, seed, new):
+        return Request(rid=rid, tenant=tenant, arrival_s=0.0, prompt_len=64,
+                       max_new_tokens=new, seed=seed)
+
+    # a transient flip of an attn.wq payload bit at the first decode-only
+    # step of a default-tenant request: flagged at that step only, the
+    # leaf bit-identical afterwards
+    wq = layers["attn"]["wq"]["w_packed"]
+    engine.reset_state()
+    fp0 = leaf_fingerprint(torch, wq)
+    tel = engine.run([request(0, "default", 3, 3)], inject=[FaultInjection(
+        step=1, victim="attn.wq", seed=0)], warmup=False)
+    flips = {"weight": check_injection(tel, 1, [1], fp0,
+                                       leaf_fingerprint(torch, wq),
+                                       "Llama attn.wq flip")}
+    # a flip of an int8 KV payload bit in a prompt row of the kv tenant's
+    # resident request: flagged at the next decode step and at every later
+    # one while the request holds its slot, once a read (recompute reads
+    # the same row again and counts a retry)
+    engine.reset_state()
+    tel = engine.run([request(1, "kv", 3, 4)], inject=[FaultInjection(
+        step=1, target="kv", seed=0)], warmup=False)
+    (inj,) = tel.injections
+    flagged = [ev for ev in tel.steps if ev.errors]
+    if not inj.detected or inj.detect_step != 1 or \
+            not inj.victim.startswith("kv_row/") or \
+            [ev.step for ev in flagged] != [1, 2] or \
+            any(ev.kind != "decode" or ev.counters["kv_cache_errors"] != 1
+                or ev.counters["qgemm_errors"] for ev in flagged):
+        fail(f"Llama KV flip {inj}: flagged steps "
+             f"{[(ev.step, ev.kind, ev.counters) for ev in flagged]}")
+    flips["kv"] = {"victim": inj.victim, "step": inj.step,
+                   "detect_step": inj.detect_step,
+                   "flagged_steps": [ev.step for ev in flagged],
+                   "counters": tel.summary()["faults"]["counters"]}
+    engine.reset_state()
+    tel = engine.run([request(2, "kv", 3, 4), request(3, "default", 4, 4)],
+                     warmup=False)
+    c_clean = tel.summary()["faults"]["counters"]
+    if c_clean["qgemm_errors"] or c_clean["kv_cache_errors"] or \
+            c_clean["embedding_bag_errors"]:
+        fail(f"errors after the Llama flips: {c_clean}")
+    flips["clean_after"] = c_clean
+    log(f"Llama FaultInjection: {flips['weight']['victim']} flagged at step "
+        f"{flips['weight']['detect_step']} only and restored bit for bit; "
+        f"{flips['kv']['victim']} flagged at steps "
+        f"{flips['kv']['flagged_steps']}, one kv_cache error a read "
+        f"({flips['kv']['counters']['retries']} retries); clean requests "
+        f"after the reset: no errors")
+
+    # -------------- 13c. the smoke-size LM, card against CPU ---------------
+    # a code split moves the attention's softmax further than RWKV's
+    # recurrence: after one, a free float32 run is held to the CPU tests'
+    # 2**-5 for such runs (tests/test_torch_lm.py, _SPLIT_TOL); lockstep
+    # stays at 1e-4
+    small = reduce_cfg(cfg)
+    model = build_model(small)
+    small_out = small_card_vs_cpu(torch, dev, small, model,
+                                  model.init(0, device="cpu"),
+                                  default_plan(), (64, 24),
+                                  f32_after_split=2.0**-5)
+
+    # ------------------------------ 13d. times ------------------------------
+    # K1 at each GEMM shape of a Llama step, cold (each call takes the next
+    # layer's slice; the head's 263 MB is cold by size), beside
+    # torch._int_mm on the same cold weights padded to n + 1 -> a multiple
+    # of 8 columns and to m = 32 rows, and the byte bound; K3 at each shape
+    per_shape = {}
+    for name, stack, ms_ in gemms:
+        k, n = stack.shape[1], stack.shape[2] - LANE
+        n8 = -(-(n + 1) // 8) * 8
+        padded = [w[:, :n8].contiguous() for w in stack]
+        for m in ms_:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            q = quantize_rows_cuda(x)[0]
+            a_pad = torch.zeros((max(m, 32), k), dtype=torch.int8,
+                                device=dev)
+            a_pad[:m] = q
+            cold = itertools.cycle(list(stack))
+            cold_pad = itertools.cycle(padded)
+            reps = 2 * len(stack) if len(stack) > 1 else 10
+            kb = m * k + k * (n + 1) + 4 * m * n + 4 * m
+            b_ms, b_by = bound_ms(kb, 2 * m * k * (n + 1), INT8_OPS_PER_S)
+            row = {
+                "abft_qgemm_cold_ms": timer.ms(
+                    lambda: abft_qgemm_cuda(q, next(cold)), reps),
+                "plain_ms": timer.ms(
+                    lambda: ref.abft_qgemm_ref(q, next(cold)), 4),
+                "library_cold_ms": timer.ms(
+                    lambda: torch._int_mm(a_pad, next(cold_pad)), reps),
+                "abft_qgemm_bound_ms": b_ms, "bound_by": b_by,
+                "quantize_rows_bf16_ms": timer.ms(
+                    lambda: quantize_rows_cuda(x)),
+                "quantize_rows_bound_ms": bound_ms(
+                    2 * m * k + m * k + 8 * m, 6 * m * k, F32_OPS_PER_S)[0]}
+            row["bound_share"] = b_ms / row["abft_qgemm_cold_ms"]
+            per_shape[f"{name} m={m} k={k} n={n}"] = row
+        del padded
+    log("Llama K1 per shape, ms cold / torch._int_mm cold / plain / bound "
+        "(share); K3 bf16 ms / bound: " + "; ".join(
+            f"{k_}: {v['abft_qgemm_cold_ms']:.4f} / "
+            f"{v['library_cold_ms']:.4f} / {v['plain_ms']:.4f} / "
+            f"{v['abft_qgemm_bound_ms']:.5f} ({v['bound_share']:.2f}); "
+            f"{v['quantize_rows_bf16_ms']:.4f} / "
+            f"{v['quantize_rows_bound_ms']:.6f}"
+            for k_, v in per_shape.items()))
+    # the kv_cache:on lane under the log policy, on the same weights (one
+    # seed) and the kv tenant's requests: what recompute's host read of
+    # every protected call's count costs a step
+    log_plan = dataclasses.replace(default_plan().with_rules(
+        *ProtectionPlan.from_any("kv_cache:on").rules), name="kv")
+    eng_log = ServingEngine(cfg, [TenantSpec("kv", log_plan)], n_slots=4,
+                            max_prompt=64, max_new_tokens=32, seed=0,
+                            device=dev)
+    reqs = [r for r in stream(8, 0) if r.tenant == "kv"]
+    tel_log = eng_log.run(reqs)
+    serve["kv_log_policy_step_ms_median"] = {
+        kind: float(np.median([ev.duration_s * 1e3 for ev in tel_log.steps
+                               if ev.kind == kind]))
+        for kind in ("prefill", "decode")}
+    if tel_log.summary()["faults"]["counters"]["kv_cache_errors"]:
+        fail("kv_cache errors on a clean log-policy run")
+    del eng_log
+    prof_reqs = [request(i, "default", 40 + i, 4) for i in range(4)]
+    engine.reset_state()
+    serve["profile"] = profile_requests(torch, engine, prof_reqs)
+    med = serve["step_ms_median"]
+    log("Llama serve: step medians ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in med.items())
+        + "; the kv_cache:on lane under log, on the kv tenant's requests: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in
+                    serve["kv_log_policy_step_ms_median"].items())
+        + f"; TTFT p50 " + ", ".join(
+            f"{t} {p['ttft_ms']['p50']:.2f}" for t, p in per.items())
+        + " ms; per token p50 " + ", ".join(
+            f"{t} {p['per_token_ms']['p50']:.2f}" for t, p in per.items())
+        + " ms")
+    record = {"serve": serve, "k2": k2, "flips": flips,
+              "gemm_shapes": per_shape, "small_card_vs_cpu": small_out}
+    return {"launches": launches, "record": record,
+            "k1_times": per_shape, "k2_times": k2["times"]}
 
 
 def smi_line() -> str:
@@ -2574,6 +2942,11 @@ def main() -> int:
     # ------------------------- 12. the float DLRM --------------------------
     details["float_dlrm"] = float_dlrm = float_dlrm_phase(torch, dev, ex,
                                                           tables)
+    # --------------------- 13. Llama-3.2-1B chat serving -------------------
+    llama = llama_phase(torch, dev, timer)
+    details["llama"] = llama["record"]
+    kernels[0]["llama_shapes"] = llama["k1_times"]
+    kernels[1]["llama_token_table"] = llama["k2_times"]
     kernels[1]["rwkv_token_table"] = rwkv["k2_times"]
     kernels.append(rwkv["k4_row"])
     for r in overhead["rows"]:
@@ -2594,7 +2967,8 @@ def main() -> int:
                "campaign": campaign["launches"],
                "thresholds": thresholds["launches"],
                "overhead": overhead["launches"],
-               "float_dlrm": float_dlrm["launches"]}
+               "float_dlrm": float_dlrm["launches"],
+               "llama": llama["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

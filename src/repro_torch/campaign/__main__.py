@@ -7,6 +7,7 @@ Examples::
     python -m repro_torch.campaign --grid pallas --quick --device cpu
     python -m repro_torch.campaign --grid paper --seed 7 --out bench/
     python -m repro_torch.campaign --grid thresholds --device cpu --out t/
+    python -m repro_torch.campaign --grid victims --samples 4
     python -m repro_torch.campaign --diff OLD.json NEW.json # exit 1 on
                                                             # regression
 
@@ -47,11 +48,12 @@ def main(argv=None) -> int:
                     help="shorthand for --grid quick; with --grid pallas "
                          "or paper, their quick variants")
     ap.add_argument("--grid", default=None,
-                    help="quick, pallas, paper or thresholds")
+                    help="quick, pallas, paper, thresholds, soak or "
+                         "victims")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=0,
                     help="override the per-cell sample count (quick / "
-                         "pallas / thresholds grids)")
+                         "pallas / thresholds / victims grids)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the cells run (default: the card; no "
                          "fallback)")
@@ -85,7 +87,8 @@ def main(argv=None) -> int:
     grid = args.grid or ("quick" if args.quick else None)
     if grid is None:
         ap.error("pick a grid (--quick / --grid "
-                 "{quick,pallas,paper,thresholds}) or --diff OLD NEW")
+                 "{quick,pallas,paper,thresholds,soak,victims}) or --diff "
+                 "OLD NEW")
     if grid in NOT_PORTED:
         ap.error(f"--grid {grid} is not ported yet (ROADMAP "
                  f"{NOT_PORTED[grid]})")
@@ -103,6 +106,10 @@ def main(argv=None) -> int:
         specs = GRIDS[grid](seed=args.seed, quick=args.quick)
     elif grid == "thresholds":
         specs = GRIDS[grid](seed=args.seed, samples=args.samples or 400)
+    elif grid == "victims":
+        specs = GRIDS[grid](seed=args.seed, samples=args.samples or 12)
+    elif grid == "soak":
+        specs = GRIDS[grid](seed=args.seed)
     else:
         specs = GRIDS[grid](seed=args.seed, quick=args.quick,
                             samples=args.samples)

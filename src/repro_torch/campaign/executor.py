@@ -8,9 +8,12 @@ a synchronisation per trial.  Faults and bags are drawn on CPU generators
 (:func:`_generators`), so one seed gives the same trials on the CPU and on
 the card.
 
+A target with a soak protocol (the decode soak) runs its faulty trials
+through it: the cell then also records the per-step first-detection
+latency histogram and the token divergence from the clean twin run.
+
 On the card the protected calls run the CUDA kernels; a kernel that fails
-to build or launch fails the cell (nothing falls back).  Cells of targets
-that are not ported yet are skipped, naming the ROADMAP item.
+to build or launch fails the cell (nothing falls back).
 """
 from __future__ import annotations
 
@@ -65,6 +68,37 @@ def _run_trials(trial: Callable[[Trial], tuple], trials: Sequence[Trial],
     return torch.cat(out) if out else torch.zeros((0, 2), dtype=torch.bool)
 
 
+def _run_soaks(soak: Callable[[Trial], dict], trials: Sequence[Trial],
+               chunk: int = CHUNK) -> dict:
+    """``soak(t)`` over ``trials``, read on the host once per chunk:
+    ``detected_steps`` bool ``[n, steps]``, ``corrupted`` bool ``[n]``
+    and ``divergence`` float ``[n]``."""
+    out = {"detected_steps": [], "corrupted": [], "divergence": []}
+    for i in range(0, len(trials), chunk):
+        runs = [soak(t) for t in trials[i:i + chunk]]
+        for k in out:
+            out[k].append(torch.stack([r[k] for r in runs]).cpu())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def _soak_counts(soaks: dict, steps: int):
+    """(per-trial [detected, corrupted] flags, the soak columns): the
+    first-detection latency histogram over detected trials, and the
+    divergence mean and max."""
+    det_steps = soaks["detected_steps"]
+    detected = det_steps.any(dim=1)
+    first = det_steps.to(torch.int32).argmax(dim=1)
+    hist = [int(((first == t) & detected).sum()) for t in range(steps)]
+    div = soaks["divergence"]
+    n = max(len(div), 1)
+    extras = {"steps": steps, "detection_latency_hist": hist,
+              "divergence_mean": float(div.sum()) / n,
+              "divergence_max": float(div.max()) if len(div) else 0.0,
+              "loss_divergence_mean": 0.0, "shards": 1,
+              "collective_verified": False, "shard_detections": None}
+    return torch.stack([detected, soaks["corrupted"]], dim=1), extras
+
+
 def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
              chunk: int = CHUNK) -> CellResult:
     """Run one cell on ``device``.  The protected calls run the kernels
@@ -72,9 +106,6 @@ def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
     ``plain`` asks for the plain versions on any device."""
     dev = resolve_device(device)
     target = get_target(plan.target)
-    if target.missing is not None:
-        raise NotImplementedError(f"target {plan.target} is not ported yet "
-                                  f"(ROADMAP {target.missing})")
     t0 = time.perf_counter()
     g_build, g_trial, g_clean = _generators(plan.seed)
     state = target.build(plan, g_build, device=dev, plain=plain)
@@ -82,8 +113,14 @@ def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
     def trial(t):
         return target.trial(state, plan, t)
 
-    flags = _run_trials(trial, target.draw(state, plan, g_trial,
-                                           plan.samples, True), dev, chunk)
+    faulty = target.draw(state, plan, g_trial, plan.samples, True)
+    soak_extras: dict = {}
+    if target.soak is not None:
+        flags, soak_extras = _soak_counts(_run_soaks(
+            lambda t: target.soak(state, plan, t), faulty, chunk),
+            plan.steps)
+    else:
+        flags = _run_trials(trial, faulty, dev, chunk)
     detected, corrupted = (int(c) for c in flags.sum(0))
     det_and_cor = int((flags[:, 0] & flags[:, 1]).sum())
 
@@ -95,10 +132,12 @@ def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
 
     protected_s = unprotected_s = None
     overhead_breakdown = None
-    if plan.measure_overhead and target.overhead is not None:
-        prot, unprot = target.overhead(state, plan)
-        protected_s = median_time(prot, device=dev)
-        unprotected_s = median_time(unprot, device=dev)
+    pair = (target.overhead(state, plan)
+            if plan.measure_overhead and target.overhead is not None
+            else None)
+    if pair is not None:
+        protected_s = median_time(pair[0], device=dev)
+        unprotected_s = median_time(pair[1], device=dev)
     if plan.measure_overhead and target.overhead_phases is not None:
         overhead_breakdown = phase_breakdown(
             target.overhead_phases(state, plan), device=dev)
@@ -110,7 +149,7 @@ def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
         false_positives=int(clean.sum()),
         analytic_bound=target.analytic_bound(plan),
         protected_s=protected_s, unprotected_s=unprotected_s,
-        overhead_breakdown=overhead_breakdown)
+        overhead_breakdown=overhead_breakdown, **soak_extras)
     return CellResult(plan=plan, metrics=metrics,
                       seconds=time.perf_counter() - t0, trials=flags,
                       clean=clean)
@@ -127,12 +166,6 @@ def run_specs(specs: Sequence[CampaignSpec], *, device="cuda",
         plans, skips = expand(spec)
         skipped.extend(skips)
         for plan in plans:
-            missing = get_target(plan.target).missing
-            if missing is not None:
-                skipped.append({"cell_id": plan.cell_id,
-                                "reason": f"target {plan.target} is not "
-                                          f"ported yet (ROADMAP {missing})"})
-                continue
             r = run_cell(plan, device=device, chunk=chunk)
             results.append(r)
             if verbose:

@@ -3,14 +3,15 @@
 
 ``quick``  — the smoke grid: every main-path target class, sample counts
              sized so the GEMM bit-flip cell is statistically comparable
-             (±2%) to the §IV-C analytic bound.  Its ``kv_cache`` and
-             ``decode_step`` specs stay in the grid; their cells are
-             skipped until ROADMAP A4 ports the targets.
+             (±2%) to the §IV-C analytic bound, plus the int8 KV cache
+             and one reduced-Llama decode cell.
 ``paper``  — the paper's Tables II + III campaigns at full shape coverage.
 ``thresholds`` — EB rel_bound sweep: detection-vs-FP tradeoff per bit band.
 ``pallas`` — kernel parity: the identical bit-flip grid through the kernel
              targets and the reference schemes, gated on overlapping
              detection intervals, with the overhead columns.
+``soak``   — the full-model decode sweep plus a multi-step decode soak.
+``victims`` — which weight leaf of the reduced LM the decode soak flips.
 """
 from __future__ import annotations
 
@@ -118,11 +119,53 @@ def pallas_specs(seed: int = 0, quick: bool = False,
     return [gemm, eb]
 
 
+#: leaf-path patterns the victims grid sweeps (the protect-plan
+#: vocabulary)
+VICTIM_PATTERNS = ("attn.wq", "attn.wk", "attn.wo", "mlp.up", "mlp.down",
+                   "embed.table", "lm_head")
+
+
+def victims_specs(seed: int = 0, samples: int = 12) -> List[CampaignSpec]:
+    """Per-layer victim selection in the decode soak: sweep which leaf of
+    the reduced LM gets flipped and compare end-to-end detection/escape
+    per victim — attention projections vs MLP vs the embedding table (an
+    untouched-row table flip is invisible by construction)."""
+    return [CampaignSpec(
+        name="decode-victims",
+        targets=("decode_step",),
+        fault_models=("bitflip",),
+        bit_bands=("significant",),
+        victims=VICTIM_PATTERNS,
+        samples=samples, clean_samples=4, seed=seed)]
+
+
+def soak_specs(seed: int = 0) -> List[CampaignSpec]:
+    """Full-model decode sweep plus a multi-step decode soak: one upset
+    held across ``steps`` consecutive decode steps — transient (strike
+    once) vs persistent (the flipped weight left in place) — with the
+    per-step detection-latency histogram in the soak columns.  The
+    single-step spec keeps ``steps=1`` and so the quick grid's cell ids
+    and seeds."""
+    single = CampaignSpec(
+        name="soak",
+        targets=("decode_step",),
+        fault_models=("bitflip", "random_value"),
+        bit_bands=("all", "significant", "low"),
+        samples=16, clean_samples=8, seed=seed,
+        measure_overhead=True)
+    multi = CampaignSpec(
+        name="decode-soak",
+        targets=("decode_step",),
+        fault_models=("bitflip",),
+        bit_bands=("significant",),
+        samples=8, clean_samples=2, seed=seed,
+        steps=4, persistent=(False, True))
+    return [single, multi]
+
+
 #: the JAX package's other grids and the ROADMAP items that port them
 NOT_PORTED = {
-    "soak": "A4 (LM decode and serving)",
-    "victims": "A4 (LM decode and serving)",
-    "serving_soak": "A4 (LM decode and serving)",
+    "serving_soak": "A4 (the serving soak)",
     "paging": "A4 (the paged KV cache)",
     "adaptive": "A5 (adaptive thresholds)",
     "training": "A6 (training under faults)",
@@ -133,7 +176,9 @@ NOT_PORTED = {
 
 #: the grids the port runs, by CLI name
 GRIDS = {"quick": quick_specs, "paper": paper_specs,
-         "thresholds": thresholds_specs, "pallas": pallas_specs}
+         "thresholds": thresholds_specs, "pallas": pallas_specs,
+         "soak": soak_specs, "victims": victims_specs}
 
 __all__ = ["quick_specs", "paper_specs", "thresholds_specs", "pallas_specs",
-           "GRIDS", "NOT_PORTED"]
+           "soak_specs", "victims_specs", "VICTIM_PATTERNS", "GRIDS",
+           "NOT_PORTED"]

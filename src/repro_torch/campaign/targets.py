@@ -28,9 +28,12 @@ default scheme is the kernel wherever the operands are CUDA tensors), so
 they differ by their cell seeds and phase columns only.  On the CPU all
 run the plain versions, because their tensors lie on the CPU.
 
-The JAX package's ``kv_cache`` and ``decode_step`` targets are registered
-with their grid metadata only, so grids expand to the JAX cell ids; the
-executor skips their cells, naming the ROADMAP item that ports them.
+``kv_cache`` flips a bit of the quantized KV cache's payload (int8) or of
+its dequant scales (float32, outside the rowsum: the deliberate coverage
+gap) and runs the cache's verify.  ``decode_step`` runs the reduced
+Llama-3.2-1B's protected decode with a flip in one weight leaf, over
+``plan.steps`` steps (the soak protocol, ``soak``): per step whether any
+check fired, and whether the greedy tokens left the clean twin run's.
 """
 from __future__ import annotations
 
@@ -42,9 +45,10 @@ import torch
 
 from repro_torch.campaign.spec import CellPlan
 from repro_torch.core import abft_gemm as ag
-from repro_torch.core.inject import (bit_band, bit_mask, draw_bitflip,
+from repro_torch.core.abft_kvcache import verify_kv
+from repro_torch.core.inject import (bit_band, bit_mask, draw_bitflip_live,
                                      draw_bitflips, draw_value, signed_view)
-from repro_torch.protect.ops import EMBEDDING_BAG, LANE, QGEMM
+from repro_torch.protect.ops import EMBEDDING_BAG, KV_CACHE, LANE, QGEMM
 from repro_torch.protect.plan import ResolvedRule
 
 
@@ -65,13 +69,16 @@ class Trial(NamedTuple):
 
 
 def draw_faults(gen: torch.Generator, victim: torch.Tensor,
-                plan: CellPlan) -> Tuple[Fault, ...]:
+                plan: CellPlan, path: str = "") -> Tuple[Fault, ...]:
     """The spec'd fault model's coordinates on ``victim`` (any tensor of
-    the victim's shape and dtype, a ``meta`` one included)."""
+    the victim's shape and dtype, a ``meta`` one included).  ``path``,
+    the victim leaf's dotted path, keeps a single flip off the dead
+    alignment lanes of a packed weight (``draw_bitflip_live``); with no
+    path the draw is a plain ``draw_bitflip``."""
     if plan.fault_model == "bitflip":
         rng = bit_band(victim.dtype, plan.bit_band)
         if plan.flips == 1:
-            return (Fault(*draw_bitflip(gen, victim, rng)),)
+            return (Fault(*draw_bitflip_live(gen, victim, path, rng)),)
         return tuple(Fault(i, b) for i, b in
                      draw_bitflips(gen, victim, plan.flips, rng))
     if plan.fault_model == "random_value":
@@ -122,6 +129,11 @@ class InjectableTarget:
     build: Optional[Callable[..., Any]] = None
     draw: Optional[Callable[..., List[Trial]]] = None
     trial: Optional[Callable[[Any, CellPlan, Trial], tuple]] = None
+    #: the soak protocol (multi-step targets): ``soak(state, plan, t) ->
+    #: {"detected_steps": bool [steps], "corrupted": bool, "divergence":
+    #: f32}``, on the device; the executor runs it for the faulty trials
+    #: (``trial`` still runs the clean ones)
+    soak: Optional[Callable[[Any, CellPlan, Trial], dict]] = None
     default_shapes: Tuple[Tuple[int, ...], ...] = ()
     shape_arity: int = 0
     dtypes: Tuple[str, ...] = ("int8",)
@@ -140,17 +152,17 @@ class InjectableTarget:
     #: the JAX target's grid metadata: a victim addressable by leaf-path
     #: pattern, a multi-step soak, a data-shard mesh
     victim_selectable: bool = False
-    soakable: bool = False
     shardable: bool = False
-    #: for a target known to the grids but not ported yet: the ROADMAP
-    #: item that ports it (the executor skips its cells)
-    missing: Optional[str] = None
 
     def __post_init__(self):
-        ported = (self.build, self.draw, self.trial)
-        if self.missing is None and not all(ported):
+        if not all((self.build, self.draw, self.trial)):
             raise ValueError(f"target {self.name!r}: build, draw and trial "
                              f"are required")
+
+    @property
+    def soakable(self) -> bool:
+        """A multi-step soak (``steps``, ``persistent`` sweeps) applies."""
+        return self.soak is not None
 
 
 TARGETS: dict = {}
@@ -490,22 +502,228 @@ register_target(InjectableTarget(
 
 
 # ---------------------------------------------------------------------------
-# Targets of the JAX grids that later slices port: metadata only
+# KV-cache target (beyond-paper: core.abft_kvcache).  dtype selects the
+# victim: int8 = the quantized cache payload (exact integer checksum),
+# float32 = the α dequant scales, which the rowsum does NOT cover — a
+# deliberate coverage-gap cell whose escape rate quantifies what a fault
+# in the scales gets away with.
 # ---------------------------------------------------------------------------
 
+def _kv_build(plan: CellPlan, gen: torch.Generator, *, device,
+              plain: bool = False):
+    b, heads, s, dh = plan.shape
+    x = torch.randn((b, heads, s, dh), generator=gen).to(device)
+    return {"kv": KV_CACHE.encode(x), "x": x}
+
+
+def _kv_victim(state, plan: CellPlan) -> torch.Tensor:
+    kv = state["kv"]
+    return kv.alpha if plan.dtype == "float32" else kv.q
+
+
+def _kv_draw(state, plan: CellPlan, gen, n: int, faulty: bool):
+    if not faulty:
+        return [Trial()] * n
+    v = _kv_victim(state, plan)
+    victim = _meta(tuple(v.shape), v.dtype)
+    return [Trial(draw_faults(gen, victim, plan)) for _ in range(n)]
+
+
+def _kv_trial(state, plan: CellPlan, t: Trial):
+    v = _kv_victim(state, plan)
+    nbits = v.element_size() * 8
+    undo, corrupted = inject_(signed_view(v), t.faults, nbits)
+    _, err = verify_kv(state["kv"])
+    detected = err > 0
+    restore_(undo, nbits)
+    return detected, corrupted
+
+
+def _kv_bound(plan: CellPlan):
+    if plan.dtype == "int8" and plan.fault_model == "bitflip":
+        return 1.0          # exact integer rowsum: any payload flip caught
+    if plan.dtype == "float32":
+        return 0.0          # scales are outside the checksum: by design
+    return None
+
+
+def _kv_overhead(state, plan: CellPlan):
+    q = state["kv"]
+
+    def protected():
+        _, err = verify_kv(q)
+        return KV_CACHE.dequantize(q), err
+
+    def unprotected():
+        return KV_CACHE.dequantize(q)
+
+    return protected, unprotected
+
+
+def _kv_phases(state, plan: CellPlan) -> dict:
+    q = state["kv"]
+    return {
+        "quantize": lambda: KV_CACHE.encode(state["x"]),
+        "verify": lambda: verify_kv(q),
+        "dequantize": lambda: KV_CACHE.dequantize(q),
+    }
+
+
 register_target(InjectableTarget(
-    name="kv_cache", default_shapes=((2, 2, 128, 64),), shape_arity=4,
+    name="kv_cache",
+    build=_kv_build, draw=_kv_draw, trial=_kv_trial,
+    default_shapes=((2, 2, 128, 64),), shape_arity=4,
     dtypes=("int8", "float32"),
     bands=("all", "low", "significant", "sign", "exponent", "mantissa",
            "high_mantissa"),
-    missing="A4 (the int8 KV cache)"))
+    analytic_bound=_kv_bound, overhead=_kv_overhead,
+    overhead_phases=_kv_phases))
+
+
+# ---------------------------------------------------------------------------
+# Full-model decode soak (launch.steps + the reduced Llama-3.2-1B).  One
+# faulty trial = flip bits in a weight leaf, run ``plan.steps`` consecutive
+# decode steps (the fault struck at step 0; left in place every step when
+# ``plan.persistent``), read each step's ABFT counters.  ``corrupted`` is
+# the OBSERVABLE output change (a greedy token differs from the clean twin
+# sequence), so the cell separates detected / masked / SDC escape.
+# ---------------------------------------------------------------------------
+
+DECODE_ARCH = "llama3.2-1b"
+
+
+def _decode_build(plan: CellPlan, gen: torch.Generator, *, device,
+                  plain: bool = False):
+    """The reduced LM, prefilled on a seeded prompt batch.  The weights
+    are made on the CPU from a seed drawn from ``gen`` (so one cell seed
+    gives the same model on the CPU and the card) and moved to the device.
+    The model has no switch to its ops' plain versions: they run where
+    the operands lie on the CPU, so the cell's plain run is its CPU run,
+    and ``plain`` on a CUDA device raises."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.models.convert import to_device
+    from repro_torch.core.inject import leaf_paths, victim_leaf_index
+    from repro_torch.protect import default_plan, unprotected_plan
+
+    dev = torch.device(device)
+    if plain and dev.type != "cpu":
+        raise ValueError(f"{plan.target}: the plain run is the CPU run; "
+                         f"run the cell with device='cpu'")
+    batch, prompt_len = plan.shape
+    cfg = reduce_cfg(get_arch(DECODE_ARCH))
+    cache_len = prompt_len + cfg.meta_tokens + 8
+    model = build_model(cfg)
+    ctx = Ctx(quant=True, plan=default_plan(), compute_dtype=torch.bfloat16)
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+    params = to_device(model.init(seed, device="cpu"), dev)
+
+    rng = np.random.default_rng(plan.seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)
+    tok, cache, _ = make_prefill_step(model, ctx, cache_len)(
+        params, {"tokens": tokens})
+    pos = torch.full((batch,), prompt_len + cfg.meta_tokens,
+                     dtype=torch.int32, device=dev)
+    decode = make_decode_step(model, ctx)
+
+    # the clean twin: plan.steps greedy decode steps from the prefill
+    # state — the soak's per-step SDC ground truth (deterministic decode)
+    clean, c_cache, c_tok, c_pos = [], cache, tok, pos
+    for _ in range(plan.steps):
+        c_tok, c_cache, _ = decode(params, c_cache, c_tok, c_pos)
+        c_pos = c_pos + 1
+        clean.append(c_tok)
+
+    # victim: addressed by the plan's leaf-path pattern (``attn.wq``,
+    # ``mlp.down``, ``embed.table``, ...); None = the largest int8 leaf
+    idx, path = victim_leaf_index(params, plan.victim)
+    state = {"params": params, "victim": leaf_paths(params)[idx][1],
+             "victim_path": path, "cache": cache, "tok": tok, "pos": pos,
+             "decode": decode, "clean_toks": torch.stack(clean)}
+    if plan.measure_overhead:
+        state["decode_off"] = make_decode_step(model, Ctx(
+            quant=True, plan=unprotected_plan(),
+            compute_dtype=torch.bfloat16))
+    return state
+
+
+def _decode_draw(state, plan: CellPlan, gen, n: int, faulty: bool):
+    if not faulty:
+        return [Trial()] * n
+    v = state["victim"]
+    victim = _meta(tuple(v.shape), v.dtype)
+    return [Trial(draw_faults(gen, victim, plan, state["victim_path"]))
+            for _ in range(n)]
+
+
+def _step_errors(metrics) -> torch.Tensor:
+    return (metrics["abft/qgemm_errors"]
+            + metrics["abft/embedding_bag_errors"]
+            + metrics["abft/kv_cache_errors"])
+
+
+def _decode_soak(state, plan: CellPlan, t: Trial) -> dict:
+    """One faulty trial: the flip in place for step 0 (every step when
+    ``plan.persistent``), the leaf restored bit for bit after it."""
+    v = state["victim"]
+    nbits = v.element_size() * 8
+    cache, tok, pos = state["cache"], state["tok"], state["pos"]
+    undo, _ = inject_(signed_view(v), t.faults, nbits)
+    det, toks = [], []
+    try:
+        for step in range(plan.steps):
+            if step == 1 and not plan.persistent:
+                restore_(undo, nbits)
+                undo = []
+            tok, cache, metrics = state["decode"](state["params"], cache,
+                                                  tok, pos)
+            pos = pos + 1
+            det.append(_step_errors(metrics) > 0)
+            toks.append(tok)
+    finally:
+        restore_(undo, nbits)
+    mismatch = torch.stack(toks) != state["clean_toks"]
+    return {"detected_steps": torch.stack(det),
+            "corrupted": mismatch.any(),
+            "divergence": mismatch.to(torch.float32).mean()}
+
+
+def _decode_trial(state, plan: CellPlan, t: Trial):
+    """A clean trial: one decode step, flagged or not.  The executor
+    sends the faulty trials to :func:`_decode_soak`."""
+    assert not t.faults, "decode_step runs its faulty trials as soaks"
+    _, _, metrics = state["decode"](state["params"], state["cache"],
+                                    state["tok"], state["pos"])
+    return _step_errors(metrics) > 0, False
+
+
+def _decode_overhead(state, plan: CellPlan):
+    if "decode_off" not in state:
+        return None
+    args = (state["params"], state["cache"], state["tok"], state["pos"])
+
+    def protected():
+        return state["decode"](*args)[0]
+
+    def unprotected():
+        return state["decode_off"](*args)[0]
+
+    return protected, unprotected
+
 
 register_target(InjectableTarget(
-    name="decode_step", default_shapes=((2, 16),), shape_arity=2,
-    victim_selectable=True, soakable=True,
-    missing="A4 (LM decode and serving)"))
+    name="decode_step",
+    build=_decode_build, draw=_decode_draw, trial=_decode_trial,
+    soak=_decode_soak, default_shapes=((2, 16),), shape_arity=2,
+    overhead=_decode_overhead, victim_selectable=True))
 
 
 __all__ = ["Fault", "Trial", "InjectableTarget", "TARGETS",
            "register_target", "get_target", "draw_faults", "inject_",
-           "restore_", "EB_ROUND_OFF", "eb_sums64", "eb_margins"]
+           "restore_", "EB_ROUND_OFF", "eb_sums64", "eb_margins",
+           "DECODE_ARCH"]

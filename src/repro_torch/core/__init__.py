@@ -7,9 +7,10 @@
   (beyond the paper)
 - :mod:`repro_torch.core.inject`         — the fault models (bit flips,
   random values, bit bands) and the victim choice over parameter trees
-
-The KV-cache and checksum modules of ``repro.core`` wait for a later
-slice (ROADMAP A4).
+- :mod:`repro_torch.core.abft_kvcache`   — the quantized, rowsum-
+  checksummed KV cache (beyond the paper)
+- :mod:`repro_torch.core.checksum`       — mod-checksums over tensors and
+  parameter trees
 """
 from repro_torch.core.abft_gemm import (
     LANE,
@@ -41,6 +42,14 @@ from repro_torch.core.abft_embedding import (
     table_rowsums,
     verify_bags,
 )
+from repro_torch.core.abft_kvcache import (
+    QuantKV,
+    attend_quantized,
+    dequantize_kv,
+    quantize_kv_rows,
+    update_kv_row,
+    verify_kv,
+)
 from repro_torch.core.abft_float import (
     FloatAbftOut,
     abft_gemm_f32,
@@ -65,6 +74,8 @@ __all__ = [
     "EB_REL_BOUND", "AbftEbOut", "table_rowsums", "embedding_bag",
     "abft_embedding_bag", "verify_bags", "eb_overhead_model",
     "FloatAbftOut", "abft_gemm_f32", "encode_weight_f32",
+    "QuantKV", "quantize_kv_rows", "dequantize_kv", "verify_kv",
+    "update_kv_row", "attend_quantized",
     "FaultAbort", "FaultReport", "op_report", "merge_reports",
     "empty_report",
 ]

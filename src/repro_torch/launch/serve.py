@@ -2,24 +2,30 @@
 :class:`repro_torch.serving.ServingEngine`.
 
 ``python -m repro_torch.launch.serve --arch dlrm`` serves the full-width
-DLRM (26 tables x 4M rows x 128) on the card, and ``--arch rwkv6-1.6b``
-the full-width int8 RWKV6-1.6B (chat requests: prefill, then continuous
-batched decode over ``--slots``); ``--device cpu --smoke`` serves a
-small model on the CPU through the plain PyTorch versions.  A seeded
+DLRM (26 tables x 4M rows x 128) on the card; ``--arch llama3.2-1b`` (or
+another registered dense LM) and ``--arch rwkv6-1.6b`` serve the
+full-width int8 model (chat requests: prefill, then continuous batched
+decode over ``--slots``; up to ``--decode-tokens`` new tokens each);
+``--device cpu --smoke`` serves a small model on the CPU through the
+plain PyTorch versions.  A seeded
 request stream (Poisson / bursty / trace arrivals) flows through the
 admission queue into per-tenant plan lanes; telemetry reports
 per-tenant latency percentiles next to the ABFT fault counters::
 
     --plan "*:policy=recompute"                  # retry on detection
+    --plan "*:policy=recompute,kv_cache:on"      # + the checksummed int8
+                                                 #   KV cache
     --tenant "premium:2=*:policy=recompute" \
     --tenant "batch=*:policy=log,embedding_bag:off"
-    --inject-step 7 --inject-victim cm.wv        # transient flip at step 7
+    --inject-step 7 --inject-victim attn.wq      # transient flip at step 7
     --inject-step 7 --inject-persistent          # ... left in place
 
 ``--inject-step`` restores the clean weight right after the faulty step
 (unless ``--inject-persistent``), and the log says whether and when the
-flip was flagged.  The JAX serve CLI's flags for parts not ported yet
-are rejected with the ROADMAP item that ports them.
+flip was flagged.  As in the JAX CLI, a KV-cache flip is reached through
+the engine's API (``FaultInjection(target="kv")``) only.  The JAX serve
+CLI's flags for parts not ported yet are rejected with the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -32,15 +38,15 @@ import sys
 
 #: flags of the JAX driver whose subsystems wait for later slices
 _NOT_PORTED = {
-    "--paged-kv": "A8 (paged KV cache)",
-    "--kv-pages": "A8 (paged KV cache)",
-    "--obs-dir": "A9 (observability)",
-    "--obs-flush-every": "A9 (observability)",
-    "--monitor": "A9 (health monitor)",
-    "--adaptive": "A9 (adaptive thresholds)",
-    "--fp-budget": "A9 (adaptive thresholds)",
-    "--calibrate-from": "A9 (adaptive thresholds)",
-    "--device-count": "A12 (sharding and launch)",
+    "--paged-kv": "A4 (paged KV cache)",
+    "--kv-pages": "A4 (paged KV cache)",
+    "--obs-dir": "A5 (observability)",
+    "--obs-flush-every": "A5 (observability)",
+    "--monitor": "A5 (health monitor)",
+    "--adaptive": "A5 (adaptive thresholds)",
+    "--fp-budget": "A5 (adaptive thresholds)",
+    "--calibrate-from": "A5 (adaptive thresholds)",
+    "--device-count": "A8 (sharding and launch)",
 }
 
 
@@ -69,7 +75,7 @@ def parse_tenant(arg: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Protected DLRM or RWKV6 serving over a synthetic "
+        description="Protected DLRM or LM serving over a synthetic "
                     "request stream, on the card (or the CPU).")
     ap.add_argument("--arch", default="dlrm")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -106,8 +112,8 @@ def main(argv=None) -> int:
                     help="flip a weight bit before this engine step "
                          "(repeatable — a burst of transient faults)")
     ap.add_argument("--inject-victim", default=None,
-                    help="victim leaf-path pattern (e.g. 'cm.wv', "
-                         "'top.0'); default: largest int8 leaf")
+                    help="victim leaf-path pattern (e.g. 'attn.wq', "
+                         "'cm.wv', 'top.0'); default: largest int8 leaf")
     ap.add_argument("--inject-persistent", action="store_true",
                     help="leave the flipped bit in place (default: "
                          "restore the clean weight after the step)")
@@ -179,6 +185,7 @@ def main(argv=None) -> int:
     try:
         engine = ServingEngine(cfg, tenants, n_slots=args.slots,
                                max_prompt=args.prompt_len,
+                               max_new_tokens=args.decode_tokens,
                                queue_depth=args.queue_depth, seed=args.seed,
                                dlrm_extras=dlrm_extras, device=args.device)
     except ValueError as e:             # e.g. duplicate tenant names

@@ -1,6 +1,6 @@
 """Serving steps over the model facade: greedy next token plus the
 step's fault metrics (the JAX ``launch/steps.py`` serving half; the
-training steps wait for ROADMAP A10)."""
+training steps wait for ROADMAP A6)."""
 from __future__ import annotations
 
 import torch
@@ -15,11 +15,12 @@ def _greedy(model: Model, logits: torch.Tensor) -> torch.Tensor:
                         dim=-1).to(torch.int32)
 
 
-def make_prefill_step(model: Model, ctx: Ctx):
-    """(params, batch) -> (next_token [B] int32, cache, metrics)."""
+def make_prefill_step(model: Model, ctx: Ctx, cache_len: int):
+    """(params, batch) -> (next_token [B] int32, cache, metrics); the KV
+    cache is padded to ``cache_len`` positions."""
 
     def prefill_step(params, batch):
-        logits, cache, rep = model.prefill(params, batch, ctx)
+        logits, cache, rep = model.prefill(params, batch, ctx, cache_len)
         return _greedy(model, logits), cache, rep.as_metrics()
 
     return prefill_step

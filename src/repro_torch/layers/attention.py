@@ -1,0 +1,265 @@
+"""GQA attention: chunked online-softmax attention (prefill and the
+training forward) and one-token decode over a KV cache — the JAX
+package's ``layers/attention.py``.
+
+Layouts, as in JAX:
+  * prefill: q, k, v in **H-layout** ``[B, H, S, dh]`` with the KV heads
+    repeated to H;
+  * decode: the cache in **grouped KV layout** ``[B, Kv, S, dh]``, either
+    a plain tensor in the compute dtype or, where the plan enables
+    ``kv_cache`` on the int8 serving path, a
+    :class:`~repro_torch.core.QuantKV` (int8 rows with their rowsum
+    checksums, verified on every decode read).
+
+The attention arithmetic is plain PyTorch: the JAX package runs it as
+XLA code outside any Pallas kernel.  Products take bf16 operands with
+float32 sums, as its ``preferred_element_type=float32`` einsums do (a
+product of two bf16 values is exact in float32, so the operands are
+widened and multiplied by ``torch.matmul`` in float32).  Masking
+supports causal, a sliding window and an always-visible global prefix.
+
+Not ported from the JAX module: the sequence-parallel ``constrain``
+calls (sharding, ROADMAP A8), cross-attention (whisper, A7) and the
+paged cache (the paging slice of A4; a paged cache raises).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import policy
+from repro_torch.core.abft_kvcache import QuantKV, set_rows
+from repro_torch.layers.common import Ctx
+from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
+from repro_torch.layers.norms import headnorm, init_headnorm
+from repro_torch.layers.rope import apply_rope
+from repro_torch.protect.ops import KV_CACHE
+from repro_torch.protect.runtime import kv_rule, protected_call
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv: int, head_dim: int, *, qk_norm: bool = False,
+                   quant: bool = False, dtype=torch.float32,
+                   bias: bool = False, device):
+    p = {
+        "wq": maybe_qlinear_init(gen, d_model, n_heads * head_dim, quant,
+                                 dtype, bias, device=device),
+        "wk": maybe_qlinear_init(gen, d_model, n_kv * head_dim, quant,
+                                 dtype, bias, device=device),
+        "wv": maybe_qlinear_init(gen, d_model, n_kv * head_dim, quant,
+                                 dtype, bias, device=device),
+        "wo": maybe_qlinear_init(gen, n_heads * head_dim, d_model, quant,
+                                 dtype, bias, device=device),
+    }
+    if qk_norm:
+        p["q_norm"] = init_headnorm(head_dim, dtype=dtype, device=device)
+        p["k_norm"] = init_headnorm(head_dim, dtype=dtype, device=device)
+    return p
+
+
+def _split_heads(x: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, head_dim)
+
+
+def _project(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim, positions,
+             use_rope, rope_theta):
+    """Project + norm + rope: q [B,S,H,dh], k and v [B,S,Kv,dh] and the
+    three reports."""
+    q, r1 = apply_linear(p["wq"], x, ctx, name="attn.wq")
+    k, r2 = apply_linear(p["wk"], x, ctx, name="attn.wk")
+    v, r3 = apply_linear(p["wv"], x, ctx, name="attn.wv")
+    q = _split_heads(q, n_heads, head_dim)
+    k = _split_heads(k, n_kv, head_dim)
+    v = _split_heads(v, n_kv, head_dim)
+    if "q_norm" in p:
+        q = headnorm(p["q_norm"], q)
+        k = headnorm(p["k_norm"], k)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v, (r1, r2, r3)
+
+
+def _h_layout(q, k, v, n_heads: int, n_kv: int):
+    """Repeat the KV heads to H and move heads before the sequence."""
+    g = n_heads // n_kv
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+
+def _qkv(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim, positions, use_rope,
+         rope_theta):
+    """Project + norm + rope + repeat-to-H.  Returns q, k, v in H-layout
+    ``[B, H, S, dh]`` and the three reports."""
+    q, k, v, reps = _project(p, x, ctx, n_heads=n_heads, n_kv=n_kv,
+                             head_dim=head_dim, positions=positions,
+                             use_rope=use_rope, rope_theta=rope_theta)
+    return (*_h_layout(q, k, v, n_heads, n_kv), reps)
+
+
+def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16-rounded operands, summed in float32."""
+    return torch.matmul(a.to(torch.bfloat16).to(torch.float32),
+                        b.to(torch.bfloat16).to(torch.float32))
+
+
+def _window_mask(mask, qp, kp, window, prefix_global: int):
+    if window is None:
+        return mask
+    in_win = (qp - kp) < window
+    if prefix_global > 0:
+        in_win = in_win | (kp < prefix_global)
+    return mask & in_win
+
+
+def flash_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
+                    window=None, prefix_global: int = 0, chunk: int = 1024):
+    """Online-softmax attention over KV chunks.
+
+    q [B,H,Sq,dh]; k, v [B,H,Skv,dh]; q_positions [B,Sq]; kv_positions
+    [B,Skv] (-1 marks padding).  Returns [B,H,Sq,dh] (f32)."""
+    b, h, sq, dh = q.shape
+    skv = k.shape[2]
+    chunk = min(chunk, skv)
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                               value=-1)
+    scale = dh ** -0.5
+    qp = q_positions[:, None, :, None]                     # [B,1,Sq,1]
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        s = _bf16_matmul(q, k[:, :, sl].transpose(-1, -2)) * scale
+        kp = kv_positions[:, sl][:, None, None, :]          # [B,1,1,C]
+        mask = kp >= 0
+        if causal:
+            mask = mask & (qp >= kp)
+        mask = _window_mask(mask, qp, kp, window, prefix_global)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + _bf16_matmul(p, v[:, :, sl])
+        m = m_new
+    return acc / torch.clamp(l, min=1e-37)[..., None]
+
+
+def attention(p, x, ctx: Ctx, *, n_heads: int, n_kv: int, head_dim: int,
+              positions, rope_theta: float = 10000.0, use_rope: bool = True,
+              causal: bool = True, window=None, prefix_global: int = 0,
+              chunk: int = 1024) -> Tuple[torch.Tensor, policy.FaultReport]:
+    """Full-sequence self-attention (the training forward).
+    x [B,S,d] -> [B,S,d]."""
+    b, s, _ = x.shape
+    q, k, v, reps = _qkv(p, x, ctx, n_heads=n_heads, n_kv=n_kv,
+                         head_dim=head_dim, positions=positions,
+                         use_rope=use_rope, rope_theta=rope_theta)
+    out = flash_attention(q, k, v, q_positions=positions,
+                          kv_positions=positions, causal=causal,
+                          window=window, prefix_global=prefix_global,
+                          chunk=chunk)
+    out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+    y, r4 = apply_linear(p["wo"], out.to(ctx.compute_dtype), ctx,
+                         name="attn.wo")
+    return y, policy.merge_reports(*reps, r4)
+
+
+def attention_prefill(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim,
+                      positions, cache_len: int, rope_theta=10000.0,
+                      use_rope=True, window=None, prefix_global: int = 0,
+                      chunk: int = 1024):
+    """Prefill: :func:`attention` plus the populated grouped-layout KV
+    cache, padded with zero rows to ``cache_len``.  Returns (y, cache,
+    report); the cache is ``{"k", "v"}`` in the compute dtype, or two
+    :class:`QuantKV` where :func:`kv_rule` enables ``kv_cache`` (the
+    zero pad rows then quantize to code -128, rowsum -128 * dh)."""
+    b, s, _ = x.shape
+    q, kh, vh, reps = _project(p, x, ctx, n_heads=n_heads, n_kv=n_kv,
+                               head_dim=head_dim, positions=positions,
+                               use_rope=use_rope, rope_theta=rope_theta)
+    qh, k_full, v_full = _h_layout(q, kh, vh, n_heads, n_kv)
+    out = flash_attention(qh, k_full, v_full, q_positions=positions,
+                          kv_positions=positions, causal=True, window=window,
+                          prefix_global=prefix_global, chunk=chunk)
+    out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+    y, r4 = apply_linear(p["wo"], out.to(ctx.compute_dtype), ctx,
+                         name="attn.wo")
+    pad = (0, 0, 0, cache_len - s)           # along S of [B,Kv,S,dh]
+    kt = kh.transpose(1, 2)                  # grouped layout [B,Kv,S,dh]
+    vt = vh.transpose(1, 2)
+    if kv_rule(ctx).enabled:
+        # plan-selected quantized + checksummed cache (op kind kv_cache):
+        # decode verifies every read (core.abft_kvcache)
+        cache = {"k": KV_CACHE.encode(torch.nn.functional.pad(
+                     kt.to(torch.float32), pad)),
+                 "v": KV_CACHE.encode(torch.nn.functional.pad(
+                     vt.to(torch.float32), pad))}
+    else:
+        cache = {"k": torch.nn.functional.pad(kt, pad),
+                 "v": torch.nn.functional.pad(vt, pad)}
+    return y, cache, policy.merge_reports(*reps, r4)
+
+
+def attention_decode(p, x, cache, pos, ctx: Ctx, *, n_heads: int, n_kv: int,
+                     head_dim: int, rope_theta: float = 10000.0,
+                     use_rope: bool = True, window=None,
+                     prefix_global: int = 0):
+    """One-token decode.  x [B,d]; cache {k, v [B,Kv,S,dh]} — tensors in
+    the compute dtype, or :class:`QuantKV` when the plan enables
+    kv_cache protection; pos [B].  The new row is written at ``pos``
+    (a new cache; a position past it is dropped, as in JAX).  Returns
+    (y [B,d], new_cache, report)."""
+    b, _ = x.shape
+    if not isinstance(cache["k"], (torch.Tensor, QuantKV)):
+        raise NotImplementedError(
+            f"a {type(cache['k']).__name__} KV cache is not ported yet "
+            f"(ROADMAP A4: the paged KV cache)")
+    quant_kv = isinstance(cache["k"], QuantKV)
+    q, k_new, v_new, reports = _project(
+        p, x[:, None, :], ctx, n_heads=n_heads, n_kv=n_kv,
+        head_dim=head_dim, positions=pos[:, None], use_rope=use_rope,
+        rope_theta=rope_theta)
+    bidx = torch.arange(b, device=x.device)
+    if quant_kv:
+        # append: quantize + checksum the new rows (Alg. 2 style)
+        cache = {"k": KV_CACHE.update(cache["k"], bidx, pos, k_new[:, 0]),
+                 "v": KV_CACHE.update(cache["v"], bidx, pos, v_new[:, 0])}
+        # verified read + affine-expanded attention off the int8 cache;
+        # policy (log/recompute/abort) comes from the plan rule
+        out, r_kv = protected_call(
+            "kv_cache", (cache["k"], cache["v"]), q[:, 0], pos, ctx=ctx,
+            name="attn", n_heads=n_heads, n_kv=n_kv, window=window,
+            prefix_global=prefix_global)
+        out = out.reshape(b, n_heads * head_dim).to(ctx.compute_dtype)
+        y, r4 = apply_linear(p["wo"], out, ctx, name="attn.wo")
+        return y, cache, policy.merge_reports(*reports, r_kv, r4)
+
+    cache = {"k": set_rows(cache["k"], bidx, pos, k_new[:, 0]),
+             "v": set_rows(cache["v"], bidx, pos, v_new[:, 0])}
+    s_max = cache["k"].shape[2]
+    g = n_heads // n_kv
+    qg = q.reshape(b, n_kv, g, head_dim)
+    s = _bf16_matmul(qg, cache["k"].transpose(-1, -2)) * head_dim ** -0.5
+    kp = torch.arange(s_max, device=x.device)[None, None, None, :]
+    qp = pos[:, None, None, None]
+    valid = _window_mask(kp <= qp, qp, kp, window, prefix_global)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1)
+    out = _bf16_matmul(probs, cache["v"])
+    out = out.reshape(b, n_heads * head_dim).to(ctx.compute_dtype)
+    y, r4 = apply_linear(p["wo"], out, ctx, name="attn.wo")
+    return y, cache, policy.merge_reports(*reports, r4)

@@ -1,4 +1,4 @@
-"""Shared layer context."""
+"""Shared layer context, and the helpers over stacked-layer trees."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,3 +30,24 @@ class Ctx:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+def stack_layers(trees):
+    """Per-layer trees -> one tree with a leading layer axis ``[L, ...]``
+    (dicts and named tuples rebuilt, tensors stacked), the layout the JAX
+    package's layer scan gives."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(stack_layers(list(f)) for f in zip(*trees)))
+    return torch.stack(trees)
+
+
+def layer_at(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_at(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(layer_at(v, i) for v in tree))
+    return tree[i]

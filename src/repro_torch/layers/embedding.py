@@ -6,16 +6,32 @@ as a DLRM table.  Verification routes through
 :func:`repro_torch.protect.protected_call` (op kind ``embedding_bag``) so
 the plan controls on/off, policy and the Eq. (5) ``rel_bound``.  A DLRM's
 tables are one stacked parameter (``[tables, rows, d]``), served by one
-kernel launch with one check per table.  The bf16 token embedding of the
-JAX package belongs to the training slice (ROADMAP A10).
+kernel launch with one check per table.  The float token embedding
+(:func:`init_embed`, :func:`embed`) is a plain gather, unprotected, as in
+the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import table_rowsums
+from repro_torch.core import policy, table_rowsums
 from repro_torch.layers.common import Ctx
 from repro_torch.protect.runtime import protected_call
+
+
+def init_embed(gen: torch.Generator, vocab: int, d: int, *,
+               dtype=torch.float32, device):
+    """Float table ~ N(0, 1) * 0.02 — the JAX ``param()`` default
+    (its distribution, not its values: the generators differ)."""
+    w = torch.randn((vocab, d), generator=gen, device=device,
+                    dtype=torch.float32)
+    return {"table": (w * 0.02).to(dtype)}
+
+
+def embed(p, tokens: torch.Tensor, ctx: Ctx):
+    """tokens [...] -> ([..., d] in the compute dtype, empty report)."""
+    return p["table"][tokens.long()].to(ctx.compute_dtype), \
+        policy.empty_report()
 
 
 def init_qembed(gen: torch.Generator, vocab: int, d: int, *, device):
@@ -63,11 +79,10 @@ def qembed(p, tokens: torch.Tensor, ctx: Ctx, name: str = "embed"):
 
 
 def apply_embed(p, tokens: torch.Tensor, ctx: Ctx):
-    """Dispatch on parameter form; only the quantized table is ported."""
-    if "alphas" not in p:
-        raise NotImplementedError("the bf16 token embedding is not ported "
-                                  "yet (ROADMAP A10)")
-    return qembed(p, tokens, ctx)
+    """Dispatch on parameter form: the quantized table or the float one."""
+    if "alphas" in p:
+        return qembed(p, tokens, ctx)
+    return embed(p, tokens, ctx)
 
 
 def embedding_bag_fwd(p, indices: torch.Tensor, ctx: Ctx, weights=None,

@@ -1,10 +1,19 @@
-"""LayerNorm (f32 statistics, cast back to the input dtype).
-
-RMSNorm and the qk head norm of the JAX package belong to the LM slice
-(ROADMAP A8)."""
+"""RMSNorm, the qk head norm and LayerNorm (f32 statistics, cast back to
+the input dtype), the JAX package's ``layers/norms.py``."""
 from __future__ import annotations
 
 import torch
+
+
+def init_rmsnorm(d: int, *, device, dtype=torch.float32):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
 
 
 def init_layernorm(d: int, *, device, dtype=torch.float32):
@@ -19,4 +28,16 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.var(xf, dim=-1, keepdim=True, correction=0)
     y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def init_headnorm(head_dim: int, *, device, dtype=torch.float32):
+    """qk-norm (qwen3): RMS over head_dim with a learned scale."""
+    return {"scale": torch.ones((head_dim,), dtype=dtype, device=device)}
+
+
+def headnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)

@@ -15,7 +15,7 @@ Prefill runs the recurrence in its chunked matmul form over the whole
 chunks of ``ctx.wkv_chunk`` (kernel K4 on the card) and the per-token
 recurrence over the tail, carrying the state; decode (S = 1) runs the
 per-token recurrence.  Only the int8 serving form of the
-layers is ported; the float (training) form waits for ROADMAP A10.
+layers is ported; the float (training) form waits for ROADMAP A7.
 """
 from __future__ import annotations
 

@@ -10,6 +10,10 @@ bits into ``torch.bfloat16``:
   (int8) or ``{w, b}`` (``init_dlrm(..., quant=False)``: the float
   linears), and ``tables`` ``{table, alphas, betas, rowsums}`` with a
   leading table axis (the JAX model vmaps its table init);
+* the dense LM (``init_lm``): ``embed``, ``final_norm`` ``{scale}``,
+  ``lm_head`` and ``layers`` (``ln1``, ``ln2``, ``attn``, ``mlp``) with
+  every leaf stacked on a leading ``[L, ...]`` axis, which
+  :mod:`repro_torch.models.lm` indexes as it is;
 * RWKV6 (``init_rwkv(..., quant=True)``): ``embed`` ``{table, alphas,
   betas, rowsums}``, ``ln0``/``ln_out`` ``{scale, bias}``, ``head``
   ``{w_packed, alpha, colsum}`` and ``layers`` with every leaf stacked on
@@ -28,12 +32,15 @@ from repro_torch.device import resolve_device
 
 def from_jax(tree: Any, device="cuda") -> Any:
     """A tree of numpy arrays -> the same tree of torch tensors on
-    ``device`` (dicts, lists and tuples are rebuilt, dtypes kept)."""
+    ``device`` (dicts, lists, tuples and named tuples such as a QuantKV
+    cache are rebuilt, dtypes kept)."""
     dev = resolve_device(device)
 
     def rec(node):
         if isinstance(node, dict):
             return {k: rec(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(rec(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(rec(v) for v in node)
         if isinstance(node, np.ndarray) or np.isscalar(node):
@@ -47,3 +54,15 @@ def from_jax(tree: Any, device="cuda") -> Any:
                         f"{type(node).__name__}")
 
     return rec(tree)
+
+
+def to_device(tree: Any, device) -> Any:
+    """A tree of torch tensors (dicts, lists, tuples, named tuples) with
+    every tensor copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device)

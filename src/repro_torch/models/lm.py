@@ -1,0 +1,202 @@
+"""Decoder-only LM, the dense family (Llama-3.2, Qwen3) — the JAX
+package's ``models/lm.py``.
+
+The parameter and cache trees keep the JAX layout, so
+:func:`repro_torch.models.convert.from_jax` carries its weights over
+unchanged and :func:`repro_torch.core.inject.victim_leaf_index` picks the
+same victim leaf: every per-layer leaf is stacked on a leading ``[L,
+...]`` axis (the JAX model vmaps its layer init and scans over layers;
+here the layer loop is written out and indexes the stack), and the cache
+is ``{"attn": {"k", "v"}}`` with leaves ``[L, B, Kv, S, dh]`` (or
+:class:`~repro_torch.core.QuantKV` of them).  Every forward threads a
+FaultReport.
+
+The JAX module's MoE, hybrid (hymba) and VLM (llava) families wait for
+later slices (ROADMAP A4 for MoE, A7 for the other two); they raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import policy
+from repro_torch.device import resolve_device
+from repro_torch.layers import attention as attn
+from repro_torch.layers.common import Ctx, layer_at, stack_layers
+from repro_torch.layers.embedding import apply_embed, init_embed, init_qembed
+from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
+from repro_torch.layers.mlp import init_mlp, mlp
+from repro_torch.layers.norms import init_rmsnorm, rmsnorm
+
+HUGE_WINDOW = 1 << 30
+
+#: the LM families the port does not serve yet, and their ROADMAP items
+_NOT_PORTED = {"moe": "A4 (MoE)", "hybrid": "A7 (mamba / hymba)",
+               "vlm": "A7 (llava)"}
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        item = _NOT_PORTED.get(cfg.family, "none: not a decoder LM")
+        raise NotImplementedError(
+            f"LM family {cfg.family!r} is not ported yet (ROADMAP {item}); "
+            f"models.lm serves 'dense'")
+
+
+# ------------------------------- init ---------------------------------------
+
+def init_layer(gen: torch.Generator, cfg: ArchConfig, quant: bool, dtype, *,
+               device):
+    _check_family(cfg)
+    d = cfg.d_model
+    return {
+        "ln1": init_rmsnorm(d, dtype=dtype, device=device),
+        "ln2": init_rmsnorm(d, dtype=dtype, device=device),
+        "attn": attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim_, qk_norm=cfg.qk_norm,
+                                    quant=quant, dtype=dtype, device=device),
+        "mlp": init_mlp(gen, d, cfg.d_ff, gated=cfg.gated_mlp, quant=quant,
+                        dtype=dtype, device=device),
+    }
+
+
+@torch.no_grad()
+def init_lm(seed: int, cfg: ArchConfig, quant: bool = False,
+            dtype=torch.float32, *, device="cuda"):
+    """Random LM parameters from ``seed``, made on ``device``: the JAX
+    ``init_lm`` distributions (not its values: the generators differ).
+    ``quant`` gives the int8 serving form: the token table as
+    :func:`init_qembed` and every linear as ``init_qlinear`` without
+    bias, over the padded vocabulary."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vp = cfg.vocab_padded
+    return {
+        "embed": (init_qembed(gen, vp, cfg.d_model, device=dev) if quant
+                  else init_embed(gen, vp, cfg.d_model, dtype=dtype,
+                                  device=dev)),
+        "final_norm": init_rmsnorm(cfg.d_model, dtype=dtype, device=dev),
+        "lm_head": maybe_qlinear_init(gen, cfg.d_model, vp, quant, dtype,
+                                      bias=False, device=dev),
+        "layers": stack_layers([init_layer(gen, cfg, quant, dtype,
+                                           device=dev)
+                                for _ in range(cfg.n_layers)]),
+    }
+
+
+def window_schedule(cfg: ArchConfig) -> torch.Tensor:
+    """Per-layer attention window ([L] int32 on the CPU; HUGE = full
+    attention)."""
+    return torch.tensor(
+        [HUGE_WINDOW if cfg.sliding_window == 0 or cfg.is_global_layer(i)
+         else cfg.sliding_window for i in range(cfg.n_layers)],
+        dtype=torch.int32)
+
+
+def _windows(cfg: ArchConfig) -> list:
+    """The schedule as Python ints, None where a layer attends in full
+    (the mask of a HUGE window is all true, so it is not built)."""
+    return [None if w >= HUGE_WINDOW else w
+            for w in window_schedule(cfg).tolist()]
+
+
+# ------------------------------ full-seq forward ----------------------------
+
+@torch.no_grad()
+def lm_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, *,
+              with_cache: bool = False, cache_len: int = 0):
+    """Embed + all layers.  Returns (x [B,S,d], cache | None, report,
+    aux); the cache is stacked ``[L, ...]`` as the JAX layer scan
+    stacks it."""
+    _check_family(cfg)
+    x, rep = apply_embed(params["embed"], tokens, ctx)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+              head_dim=cfg.head_dim_, positions=positions,
+              rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
+              prefix_global=cfg.meta_tokens, chunk=cfg.attn_chunk)
+    caches = []
+    for i, window in enumerate(_windows(cfg)):
+        layer_p = layer_at(params["layers"], i)
+        h = rmsnorm(layer_p["ln1"], x)
+        if with_cache:
+            a_out, cache_l, r_a = attn.attention_prefill(
+                layer_p["attn"], h, ctx, cache_len=cache_len, window=window,
+                **kw)
+            caches.append({"attn": cache_l})
+        else:
+            a_out, r_a = attn.attention(layer_p["attn"], h, ctx, causal=True,
+                                        window=window, **kw)
+        x = x + a_out
+        h2 = rmsnorm(layer_p["ln2"], x)
+        f_out, r_f = mlp(layer_p["mlp"], h2, ctx)
+        x = x + f_out
+        rep = policy.merge_reports(rep, r_a, r_f)
+    x = rmsnorm(params["final_norm"], x)
+    cache = stack_layers(caches) if with_cache else None
+    return x, cache, rep, torch.zeros((), dtype=torch.float32,
+                                      device=x.device)
+
+
+@torch.no_grad()
+def lm_logits(params, tokens, ctx: Ctx, cfg: ArchConfig):
+    """Training forward: full logits [B, S, vocab_padded]."""
+    x, _, rep, aux = lm_hidden(params, tokens, ctx, cfg)
+    logits, r_h = apply_linear(params["lm_head"], x, ctx, name="lm_head")
+    return logits, policy.merge_reports(rep, r_h), aux
+
+
+@torch.no_grad()
+def lm_prefill(params, tokens, ctx: Ctx, cfg: ArchConfig, *,
+               cache_len: int):
+    """Prefill: last-position logits + the populated KV cache."""
+    x, cache, rep, _ = lm_hidden(params, tokens, ctx, cfg, with_cache=True,
+                                 cache_len=cache_len)
+    logits, r_h = apply_linear(params["lm_head"], x[:, -1, :], ctx,
+                               name="lm_head")
+    return logits, cache, policy.merge_reports(rep, r_h)
+
+
+# ------------------------------ decode --------------------------------------
+
+@torch.no_grad()
+def lm_decode(params, cache, tokens, pos, ctx: Ctx, cfg: ArchConfig):
+    """One decode step.  tokens [B] int32, pos [B] int32 (absolute).
+    Returns (logits [B, vp], new_cache, report)."""
+    _check_family(cfg)
+    x, rep = apply_embed(params["embed"], tokens, ctx)     # [B, d]
+    new = []
+    for i, window in enumerate(_windows(cfg)):
+        layer_p = layer_at(params["layers"], i)
+        h = rmsnorm(layer_p["ln1"], x)
+        a_out, new_attn, r_a = attn.attention_decode(
+            layer_p["attn"], h, layer_at(cache["attn"], i), pos, ctx,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+            use_rope=cfg.use_rope, window=window,
+            prefix_global=cfg.meta_tokens)
+        new.append({"attn": new_attn})
+        x = x + a_out
+        h2 = rmsnorm(layer_p["ln2"], x)
+        f_out, r_f = mlp(layer_p["mlp"], h2, ctx)
+        x = x + f_out
+        rep = policy.merge_reports(rep, r_a, r_f)
+    x = rmsnorm(params["final_norm"], x)
+    logits, r_h = apply_linear(params["lm_head"], x, ctx, name="lm_head")
+    return logits, stack_layers(new), policy.merge_reports(rep, r_h)
+
+
+# ------------------------------ cache init ----------------------------------
+
+def init_lm_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device):
+    """The zero bf16 cache, stacked ``[L, ...]``."""
+    _check_family(cfg)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads,
+             cache_len + cfg.meta_tokens, cfg.head_dim_)
+    return {"attn": {"k": torch.zeros(shape, dtype=torch.bfloat16,
+                                      device=device),
+                     "v": torch.zeros(shape, dtype=torch.bfloat16,
+                                      device=device)}}

@@ -13,7 +13,7 @@ there:
   ``x_tm [L, B, d]`` and ``x_cm [L, B, d]``, all float32.
 
 Decode state is O(1) per layer: the "KV cache" never grows.  The training
-forward (``rwkv_logits``) waits for ROADMAP A10.
+forward (``rwkv_logits``) waits for ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -23,24 +23,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import policy
 from repro_torch.device import resolve_device
 from repro_torch.layers import rwkv6 as rk
-from repro_torch.layers.common import Ctx
+from repro_torch.layers.common import Ctx, layer_at, stack_layers
 from repro_torch.layers.embedding import apply_embed, init_qembed
 from repro_torch.layers.linear import apply_linear, init_qlinear
 from repro_torch.layers.norms import init_layernorm, layernorm
-
-
-def _stack(trees):
-    """Per-layer trees -> one tree with a leading layer axis."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
-def _index(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def _init_layer(gen, cfg: ArchConfig, device):
@@ -68,7 +54,7 @@ def init_rwkv(seed: int, cfg: ArchConfig, *, device="cuda"):
     return {
         "embed": init_qembed(gen, vp, cfg.d_model, device=dev),
         "ln0": init_layernorm(cfg.d_model, device=dev),
-        "layers": _stack([_init_layer(gen, cfg, dev)
+        "layers": stack_layers([_init_layer(gen, cfg, dev)
                           for _ in range(cfg.n_layers)]),
         "ln_out": init_layernorm(cfg.d_model, device=dev),
         "head": init_qlinear(gen, cfg.d_model, vp, bias=False, device=dev),
@@ -96,11 +82,11 @@ def _layers(params, x, states, ctx: Ctx, cfg: ArchConfig, rep):
     stacked states."""
     new = []
     for i in range(cfg.n_layers):
-        x, st, r = _block(_index(params["layers"], i), x,
-                          _index(states, i), ctx, cfg)
+        x, st, r = _block(layer_at(params["layers"], i), x,
+                          layer_at(states, i), ctx, cfg)
         rep = policy.merge_reports(rep, r)
         new.append(st)
-    return x, _stack(new), rep
+    return x, stack_layers(new), rep
 
 
 @torch.no_grad()

@@ -11,10 +11,12 @@ Every ABFT-protected operator family exposes one uniform surface:
   rule runs.
 
 Adapters registered here: ``qgemm`` and ``embedding_bag``, dispatching
-through :mod:`repro_torch.kernels.ops`, and ``float_gemm`` (a plain
-float32 product, as the JAX package leaves it to XLA).  The KV-cache
-adapters of the JAX package wait for a later slice (ROADMAP A4); their
-op kinds are already report keys (:mod:`repro_torch.core.policy`).
+through :mod:`repro_torch.kernels.ops`, ``float_gemm`` (a plain float32
+product, as the JAX package leaves it to XLA) and ``kv_cache`` (the
+checksummed int8 KV cache, plain PyTorch: the JAX package has no kernel
+for it).  The paged ``kv_cache_paged`` adapter waits for the paging
+slice (ROADMAP A4); its op kind is already a report key
+(:mod:`repro_torch.core.policy`).
 
 Scheme names carry over from JAX plans: ``pallas`` ("force the kernel")
 is a synonym of the port's ``cuda`` scheme, and the EmbeddingBag's
@@ -27,11 +29,13 @@ from typing import Any, Dict, NamedTuple, Optional, Protocol, Tuple, \
 
 import torch
 
-from repro_torch.core import (EB_REL_BOUND, LANE, abft_gemm_f32,
-                              column_check, correct_single_error,
-                              correct_weight_flip, embedding_bag,
+from repro_torch.core import (EB_REL_BOUND, LANE, QuantKV, abft_gemm_f32,
+                              attend_quantized, column_check,
+                              correct_single_error, correct_weight_flip,
+                              dequantize_kv, embedding_bag,
                               encode_weight_f32, int_matmul, pack_encoded_b,
-                              table_rowsums, verify_rows)
+                              quantize_kv_rows, table_rowsums,
+                              update_kv_row, verify_rows)
 from repro_torch.core.policy import register_op_kind
 from repro_torch.kernels import ops as kops
 from repro_torch.protect.plan import ResolvedRule
@@ -239,6 +243,48 @@ class EmbeddingBagOp:
 
 
 # ---------------------------------------------------------------------------
+# Quantized KV cache (beyond-paper)
+# ---------------------------------------------------------------------------
+
+class KvCacheOp:
+    """Checksummed int8 KV cache: encoded = (kv_k, kv_v) QuantKV pair;
+    inputs = (q_heads [B, H, dh], pos [B]); static n_heads/n_kv plus the
+    window/prefix masking of ``layers.attention.attention_decode``."""
+    name = "kv_cache"
+    schemes = ("default",)
+    supports_correct = False
+
+    def encode(self, kv: torch.Tensor) -> QuantKV:
+        """Float K/V rows ([..., S, dh]) -> QuantKV (quantize + checksum)."""
+        return quantize_kv_rows(kv)
+
+    def update(self, kv: QuantKV, batch_idx, pos, new_row) -> QuantKV:
+        return update_kv_row(kv, batch_idx, pos, new_row)
+
+    def __call__(self, encoded, q_heads, pos, *,
+                 rule: ResolvedRule = _DEFAULT_RULE, n_heads: int,
+                 n_kv: int, window=None, prefix_global: int = 0):
+        kv_k, kv_v = encoded
+        out, errs = attend_quantized(q_heads, kv_k, kv_v, pos,
+                                     n_heads=n_heads, n_kv=n_kv,
+                                     verify=True, window=window,
+                                     prefix_global=prefix_global)
+        return out, Check(errs)
+
+    def unprotected(self, encoded, q_heads, pos, *, n_heads: int,
+                    n_kv: int, window=None, prefix_global: int = 0):
+        kv_k, kv_v = encoded
+        out, _ = attend_quantized(q_heads, kv_k, kv_v, pos,
+                                  n_heads=n_heads, n_kv=n_kv,
+                                  verify=False, window=window,
+                                  prefix_global=prefix_global)
+        return out
+
+    def dequantize(self, kv: QuantKV, dtype=torch.bfloat16):
+        return dequantize_kv(kv, dtype)
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -263,7 +309,8 @@ def get_op(name: str) -> ProtectedOp:
 QGEMM = register_op(QGemmOp())
 FLOAT_GEMM = register_op(FloatGemmOp())
 EMBEDDING_BAG = register_op(EmbeddingBagOp())
+KV_CACHE = register_op(KvCacheOp())
 
 __all__ = ["Check", "ProtectedOp", "OPS", "register_op", "get_op",
-           "QGemmOp", "FloatGemmOp", "EmbeddingBagOp", "QGEMM",
-           "FLOAT_GEMM", "EMBEDDING_BAG", "LANE"]
+           "QGemmOp", "FloatGemmOp", "EmbeddingBagOp", "KvCacheOp", "QGEMM",
+           "FLOAT_GEMM", "EMBEDDING_BAG", "KV_CACHE", "QuantKV", "LANE"]

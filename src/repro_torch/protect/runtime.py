@@ -18,6 +18,7 @@ retries only the entries that still report errors — the sums a JAX
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -99,3 +100,13 @@ def protected_call(op: str, encoded, *inputs, ctx=None,
         abort_if_errors(check.err_count)
     return out, op_report(op, _total(check.err_count),
                           checks=check.err_count.numel())
+
+
+def kv_rule(ctx, name: str = "attn") -> ResolvedRule:
+    """The kv_cache rule for attention layers, additionally gated on the
+    int8 serving path (``ctx.quant``): a bf16 training cache has nothing
+    to checksum."""
+    r = rule_for(ctx, "kv_cache", name)
+    if r.enabled and not bool(getattr(ctx, "quant", False)):
+        return dataclasses.replace(r, enabled=False)
+    return r

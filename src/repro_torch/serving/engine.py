@@ -1,8 +1,9 @@
 """The protected serving engine of the port: plan lanes over DLRM lookups
-and RWKV6 chat requests.
+and LM chat requests.
 
-:class:`ServingEngine` serves one-shot DLRM requests or, for the ``ssm``
-family (RWKV6), chat requests by continuous batching.  Tenants (traffic
+:class:`ServingEngine` serves one-shot DLRM requests or, for the
+``dense`` (decoder LMs with a KV cache) and ``ssm`` (RWKV6) families,
+chat requests by continuous batching.  Tenants (traffic
 classes) carry their own :class:`~repro_torch.protect.ProtectionPlan`,
 and tenants sharing a plan share a **lane**: one plan-bound set of steps
 and one fixed-slot batcher.  Per engine iteration:
@@ -10,8 +11,9 @@ and one fixed-slot batcher.  Per engine iteration:
 1. arrivals whose (virtual) time has come enter the admission queue;
 2. each lane fills its free slots FIFO from the queue: a DLRM request
    runs one protected forward; a chat request runs a batch-1 prefill
-   (first token = TTFT) and its recurrent state is inserted into its
-   slot of the lane's batched state (in place);
+   (first token = TTFT) and its KV cache or recurrent state is inserted
+   into its slot of the lane's batched cache (in place, every position
+   of every leaf, so no row of an earlier request survives);
 3. each LM lane with active slots runs ONE batched decode step over all
    its slots; detect->act policies run inside (an ``abort`` fails the
    lane's in-flight requests, never the server);
@@ -34,12 +36,13 @@ alone.  Decode (one token) runs the recurrence either way.
 Fault injection is first-class: a :class:`FaultInjection` flips one bit
 of a plan-path-addressed weight leaf in place before a global step (on
 the engine's stream, ahead of the kernels that read it) and flips it back
-after the step unless the fault is persistent; telemetry records each
+after the step unless the fault is persistent, or (``target="kv"``) one
+int8 payload bit of a resident request's quantized KV cache, which stays
+until the slot is refilled or the lane dropped; telemetry records each
 injection and the step that flagged it.
 
-The JAX engine's attention families, paged KV cache and KV-cache
-injection, observability, health monitor and adaptive thresholds wait
-for later slices (ROADMAP A4, A5); asking for one raises.
+The JAX engine's paged KV cache waits for the paging slice (ROADMAP A4),
+and its observability, health monitor and adaptive thresholds for A5.
 """
 from __future__ import annotations
 
@@ -78,8 +81,12 @@ class FaultInjection:
     None = the largest int8 leaf); the element and bit are drawn from
     ``seed`` over the leaf's live region.  The flip is restored after the
     step unless ``persistent`` (then :meth:`ServingEngine.reset_state`
-    restores it).  ``target="kv"`` (a KV-cache payload flip) waits for
-    ROADMAP A4."""
+    restores it).  ``target="kv"`` flips one int8 payload byte of a
+    resident request's quantized KV cache instead — a memory-resident
+    fault, persistent until the slot is refilled or the cache dropped
+    (:meth:`ServingEngine.reset_state`); ``victim`` is ignored, the
+    location is drawn from ``seed``, and a lane with a bf16 cache (nothing
+    checksummed) takes no flip."""
     step: int
     victim: Optional[str] = None
     persistent: bool = False
@@ -138,7 +145,7 @@ class _Lane:
 class ServingEngine:
     def __init__(self, cfg, tenants: Sequence[TenantSpec], *,
                  n_slots: int = 4, max_prompt: int = 64,
-                 queue_depth: int = 0,
+                 max_new_tokens: int = 32, queue_depth: int = 0,
                  seed: int = 0, compute_dtype=None, dlrm_extras=None,
                  device="cuda"):
         from repro_torch.device import resolve_device
@@ -163,6 +170,7 @@ class ServingEngine:
         self.tenants = {t.name: t for t in tenants}
         self.n_slots = n_slots
         self.max_prompt = max_prompt
+        self.max_new_tokens = max_new_tokens
         self.queue = AdmissionQueue(max_depth=queue_depth)
         self.clock_s = 0.0
         self.global_step = 0
@@ -178,9 +186,14 @@ class ServingEngine:
             self.dlrm_extras = dlrm_extras if dlrm_extras is not None \
                 else EXTRAS
             self.model = None
+            self.cache_len = 0
             self.params = init_dlrm(seed, self.dlrm_extras,
                                     device=self.device)
         else:
+            # the KV cache holds the prompt bucket, the new tokens and a
+            # margin of 8, as in the JAX engine
+            self.cache_len = (max_prompt + max_new_tokens + cfg.meta_tokens
+                              + 8)
             self.params = self.model.init(seed, device=self.device)
 
         # ------------------------- plan lanes --------------------------------
@@ -225,7 +238,8 @@ class ServingEngine:
         ctx = Ctx(quant=True, plan=lane.plan,
                   compute_dtype=self._compute_dtype,
                   wkv_chunk=self.cfg.wkv_chunk)
-        prefill_step = make_prefill_step(self.model, ctx)
+        prefill_step = make_prefill_step(self.model, ctx,
+                                         cache_len=self.cache_len)
         decode_step = make_decode_step(self.model, ctx)
 
         def prefill(params, batch):
@@ -239,13 +253,33 @@ class ServingEngine:
         lane.prefill_fn = prefill
         lane.decode_fn = decode
 
-    @staticmethod
-    def _insert(full, one, slot: int):
-        """Write a batch-1 state tree into row ``slot`` of the lane's
-        batched state (axis 1, after the layer axis), in place."""
-        for k, f in full.items():
-            f[:, slot] = one[k][:, 0].to(f.dtype)
+    @classmethod
+    def _insert(cls, full, one, slot: int):
+        """Write a batch-1 cache tree (dicts of tensors or of QuantKV)
+        into row ``slot`` of the lane's batched cache (axis 1, after the
+        layer axis), in place, every leaf of the row."""
+        if isinstance(full, dict):
+            for k, f in full.items():
+                cls._insert(f, one[k], slot)
+        elif isinstance(full, tuple):
+            for f, o in zip(full, one):
+                cls._insert(f, o, slot)
+        else:
+            full[:, slot] = one[:, 0].to(full.dtype)
         return full
+
+    @classmethod
+    def _widened_cache(cls, cache1, n_slots: int):
+        """A zero cache like the batch-1 ``cache1``, ``n_slots`` wide (a
+        zero QuantKV row checksums to its zero rowsum)."""
+        if isinstance(cache1, dict):
+            return {k: cls._widened_cache(v, n_slots)
+                    for k, v in cache1.items()}
+        if isinstance(cache1, tuple):
+            return type(cache1)(*(cls._widened_cache(v, n_slots)
+                                  for v in cache1))
+        return torch.zeros((cache1.shape[0], n_slots) + cache1.shape[2:],
+                           dtype=cache1.dtype, device=cache1.device)
 
     # ------------------------------ request payloads -------------------------
 
@@ -307,8 +341,7 @@ class ServingEngine:
                 _, cache1, _ = lane.prefill_fn(self.params,
                                                self._chat_batch(dummy))
                 full = self._insert(
-                    self.model.init_cache(lane.n_slots, device=self.device),
-                    cache1, 0)
+                    self._widened_cache(cache1, lane.n_slots), cache1, 0)
                 toks = torch.zeros((lane.n_slots,), dtype=torch.int32,
                                    device=self.device)
                 pos = torch.full((lane.n_slots,), self._prefill_pos(),
@@ -339,6 +372,10 @@ class ServingEngine:
         from repro_torch.core.inject import (draw_bitflip_live, flip_bit_,
                                              leaf_paths, victim_leaf_index)
 
+        if inj.target == "kv":
+            self._apply_kv_injection(inj, telemetry)
+            return
+
         idx, path = victim_leaf_index(self.params, inj.victim)
         leaf = leaf_paths(self.params)[idx][1]
         gen = torch.Generator().manual_seed(inj.seed)
@@ -349,6 +386,42 @@ class ServingEngine:
         telemetry.add_injection(InjectionRecord(
             step=self.global_step, victim=path, clock_s=self.clock_s,
             persistent=inj.persistent))
+
+    def _apply_kv_injection(self, inj: FaultInjection,
+                            telemetry: Telemetry) -> None:
+        """Flip one int8 KV payload bit in the prompt rows of a resident
+        request's slot, in place, with the JAX engine's draws from
+        ``inj.seed`` (lane, slot, pool, bit, then layer, head, row and
+        column).  The flip is memory-resident (no restore entry): it
+        persists until the slot is refilled or the cache dropped.
+        Nothing is flipped or recorded when no lane holds a quantized
+        cache with a resident request."""
+        from repro_torch.core import QuantKV
+
+        rng = np.random.default_rng(inj.seed)
+        lanes = [ln for ln in self.lanes
+                 if ln.cache is not None and ln.batcher.occupancy()
+                 and not self.is_dlrm]
+        if not lanes:
+            return
+        lane = lanes[int(rng.integers(len(lanes)))]
+        slots = lane.batcher.active_slots()
+        slot = slots[int(rng.integers(len(slots)))]
+        pool_name = "k" if int(rng.integers(2)) == 0 else "v"
+        leaf = lane.cache["attn"][pool_name]
+        bit = int(rng.integers(8))
+        if not isinstance(leaf, QuantKV):
+            return                        # bf16 cache: nothing checksummed
+        ell, _, kvh, _, dh = leaf.q.shape
+        row = int(rng.integers(min(slot.pos, self.max_prompt)))
+        idx = (int(rng.integers(ell)), slot.index, int(rng.integers(kvh)),
+               row, int(rng.integers(dh)))
+        victim = (f"kv_row/{pool_name}/slot{slot.index}"
+                  f"/l{idx[0]}h{idx[2]}r{row}d{idx[4]}b{bit}")
+        leaf.q[idx].bitwise_xor_((1 << bit) if bit < 7 else -128)
+        telemetry.add_injection(InjectionRecord(
+            step=self.global_step, victim=victim, clock_s=self.clock_s,
+            persistent=True))
 
     def _restore_injection(self, *, include_persistent: bool = False):
         """Undo applied injections in reverse application order: transient
@@ -471,8 +544,7 @@ class ServingEngine:
             self._record_slot(slot, telemetry, aborted=True)
             return
         if lane.cache is None:
-            lane.cache = self.model.init_cache(lane.n_slots,
-                                               device=self.device)
+            lane.cache = self._widened_cache(cache1, lane.n_slots)
             lane.tokens = torch.zeros((lane.n_slots,), dtype=torch.int32,
                                       device=self.device)
             lane.pos = torch.zeros((lane.n_slots,), dtype=torch.int32,
@@ -531,11 +603,7 @@ class ServingEngine:
         telemetry = telemetry if telemetry is not None else Telemetry()
         injections = sorted(inject or [], key=lambda j: j.step)
         for inj in injections:
-            if inj.target == "kv":
-                raise NotImplementedError(
-                    "KV-cache injection is not ported yet (ROADMAP A4: the "
-                    "port serves no KV cache)")
-            if inj.target != "weights":
+            if inj.target not in ("weights", "kv"):
                 raise ValueError(f"unknown injection target "
                                  f"{inj.target!r}; have ('weights', 'kv')")
         pending = sorted(requests, key=lambda r: (r.arrival_s, r.rid))

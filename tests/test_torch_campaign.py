@@ -42,6 +42,8 @@ _GRIDS = [
     ("pallas", lambda g: g.pallas_specs(seed=3)),
     ("paper-quick", lambda g: g.paper_specs(seed=0, quick=True)),
     ("paper", lambda g: g.paper_specs(seed=0)),
+    ("soak", lambda g: g.soak_specs(seed=0)),
+    ("victims", lambda g: g.victims_specs(seed=0, samples=4)),
 ]
 
 

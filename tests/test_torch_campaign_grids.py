@@ -44,10 +44,14 @@ def test_pallas_grid_overlaps_the_jax_baseline():
 
 
 def test_quick_grid_overlaps_the_jax_baseline():
-    not_ported = ["decode_step/bitflip/significant/2x16/int8",
-                  "kv_cache/bitflip/all/2x2x128x64/float32",
-                  "kv_cache/bitflip/all/2x2x128x64/int8"]
-    result = _gate("quick", grids.quick_specs(seed=0), 10, not_ported)
-    skipped = {s["cell_id"]: s["reason"] for s in result["skipped"]}
-    for cid in not_ported:
-        assert "not ported yet (ROADMAP A4" in skipped[cid]
+    kv_and_decode = ["decode_step/bitflip/significant/2x16/int8",
+                     "kv_cache/bitflip/all/2x2x128x64/float32",
+                     "kv_cache/bitflip/all/2x2x128x64/int8"]
+    result = _gate("quick", grids.quick_specs(seed=0), 13)
+    ran = {c["cell_id"]: c["metrics"] for c in result["cells"]}
+    skipped = {s["cell_id"] for s in result["skipped"]}
+    for cid in kv_and_decode:
+        assert cid in ran and cid not in skipped
+    assert ran[kv_and_decode[2]]["detection_rate"] == 1.0
+    assert ran[kv_and_decode[1]]["raw_detection_rate"] == 0.0
+    assert ran[kv_and_decode[0]]["steps"] == 1

@@ -47,6 +47,9 @@ def _misaligned(a):
     # the RWKV serving shapes: split K across a cluster, the head unsplit
     (64, 2048, 2048, "random"), (4, 7168, 2048, "random"),
     (1, 2048, 65536, "random"),
+    # the Llama-3.2-1B decode shapes at 4 slots and a prefill MLP shape
+    (4, 2048, 512, "random"), (4, 8192, 2048, "random"),
+    (64, 2048, 8192, "random"),
     # the extremes of the int32 sums and of the column check's wraparound
     (64, 7168, 2048, "extreme"),
     # A off 16-byte alignment at an otherwise aligned shape
@@ -90,6 +93,47 @@ def test_qgemm_kernel_bit_exact(rng, dev, m, k, n, fill, flip, dtype):
     g_err = ops.abft_qgemm(a, bp)[1]
     assert torch.equal(g_err, ref.abft_qgemm_ref(a, bp)[1])
     assert int(g_err.sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def lm_head():
+    """The Llama-3.2-1B head's packed weight, 2048 x (128256 + 128), made
+    on the card (263 MB: K1's widest n on any path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    b = torch.randint(-127, 128, (2048, 128256), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    return pack_encoded_b(b)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8"])
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_qgemm_kernel_at_the_llama_head(lm_head, m, dtype):
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda, launch_plan
+    k, n = 2048, 128256
+    plan = launch_plan(m, k, n, a_addr=0, b_addr=lm_head.data_ptr())
+    assert plan.tiles_n == 1003 and plan.splits == 1 and plan.aligned
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    lo, hi = (-128, 128) if dtype == "int8" else (0, 256)
+    a = torch.randint(lo, hi, (m, k), generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+    got = abft_qgemm_cuda(a, lm_head, with_colcheck=True)
+    want = ref.abft_qgemm_ref(a, lm_head, with_colcheck=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) == 0
+    # a payload bit in the last column tile, and the checksum lane
+    live = (a.cpu().to(torch.int64) % 127 != 0).any(dim=0).nonzero()
+    row = int(live[live >= k // 2].min())
+    for lane in (n - 1, n):
+        lm_head[row, lane] ^= 0x04
+        try:
+            g_err = abft_qgemm_cuda(a, lm_head)[1]
+            assert torch.equal(g_err, ref.abft_qgemm_ref(a, lm_head)[1])
+            assert int(g_err.sum()) > 0
+        finally:
+            lm_head[row, lane] ^= 0x04
 
 
 @pytest.mark.parametrize("m,n", [(10, 13), (10, 479), (7, 12288), (300, 64)])
@@ -287,12 +331,13 @@ def _eb_held(t, al, be, idx, rs, w, rel, *, exact_flags=True):
 
 
 # (tables, rows, d, bags, pool): a DLRM request and the Table I pooling at
-# d 128, the RWKV token table's d 2048 at pool 1 (64 and 4 bags), the
-# narrow vector widths, and ragged d (byte loads)
+# d 128, the RWKV and Llama token tables' d 2048 at pool 1 (64 and 4 bags),
+# the narrow vector widths, and ragged d (byte loads)
 EB_CARD_SHAPES = [(3, 1000, 128, 10, 16), (2, 64, 40, 5, 100),
                   (1, 8, 300, 3, 2), (26, 4096, 128, 10, 16),
                   (4, 5000, 128, 300, 100), (1, 65536, 2048, 64, 1),
-                  (1, 65536, 2048, 4, 1), (2, 300, 16, 9, 33),
+                  (1, 65536, 2048, 4, 1), (1, 128256, 2048, 64, 1),
+                  (1, 128256, 2048, 4, 1), (2, 300, 16, 9, 33),
                   (2, 300, 32, 9, 20), (2, 300, 64, 9, 20),
                   (2, 300, 256, 9, 40), (2, 300, 48, 9, 20),
                   (1, 50, 4096, 3, 5)]
@@ -564,8 +609,8 @@ def test_rwkv_prefill_state_feeds_decode_on_card(dev, dtype):
     tol = 1e-4
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 64)).astype(np.int32))
-    lc, cc, rc = model.prefill(p_cpu, {"tokens": tokens}, ctx)
-    ld, cd, rd = model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx)
+    lc, cc, rc = model.prefill(p_cpu, {"tokens": tokens}, ctx, 0)
+    ld, cd, rd = model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx, 0)
     for step in range(4):
         assert metrics_to_ints(rc.as_metrics()) == \
             metrics_to_ints(rd.as_metrics())

@@ -1,5 +1,5 @@
 """K1's launch plan (``kernels/abft_qgemm.launch_plan``) at every GEMM shape
-of the port's two serving paths.
+of the port's three serving paths (DLRM, RWKV6-1.6B, Llama-3.2-1B).
 
 The plan is made on the host, so it is checked here on the CPU: the
 splits cover k in whole pipeline stages with no overlap, the split is
@@ -41,7 +41,15 @@ DLRM_CASES = [(EXTRAS.batch, k, n) for k, n in DLRM_SHAPES] + [
 # the head at m = 1 in a prefill and m = 4 in decode
 RWKV_CASES = [(m, k, n) for k, n in ((_D, _D), (_D, _FF), (_FF, _D))
               for m in (64, 4)] + [(1, _D, _V), (4, _D, _V)]
-ALL_CASES = DLRM_CASES + RWKV_CASES
+_LLAMA = get_arch("llama3.2-1b")
+_LD, _LKV = _LLAMA.d_model, _LLAMA.n_kv_heads * _LLAMA.head_dim_
+_LFF, _LV = _LLAMA.d_ff, _LLAMA.vocab_padded
+# the Llama projections at prefill m = 64 and decode m = 4, the head at
+# m = 1 (a prefill's last position) and m = 4 (decode)
+LLAMA_CASES = [(m, k, n) for k, n in ((_LD, _LD), (_LD, _LKV), (_LD, _LFF),
+                                      (_LFF, _LD))
+               for m in (64, 4)] + [(1, _LD, _LV), (4, _LD, _LV)]
+ALL_CASES = DLRM_CASES + RWKV_CASES + LLAMA_CASES
 
 
 def _id(case):
@@ -52,6 +60,23 @@ def test_the_paths_have_the_expected_shapes():
     assert DLRM_SHAPES == [(13, 512), (512, 256), (256, 128), (479, 1024),
                            (1024, 1024), (1024, 512), (512, 256), (256, 1)]
     assert (_D, _FF, _V) == (2048, 7168, 65536)
+    assert (_LD, _LKV, _LFF, _LV) == (2048, 512, 8192, 128256)
+
+
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_the_llama_head_runs_unsplit_over_its_1003_column_tiles(m):
+    """K1's widest n on any path: 2048 x 128256, B' 263 MB.  Its column
+    tiles alone are 7.6 waves of the card, so K is not split; the row
+    verify adds 1003 tiles' partials into each row's sum, and the last
+    of the 1003 blocks sets the flags."""
+    plan = qg.launch_plan(m, _LD, _LV)
+    assert plan.splits == 1 and plan.k_per_split == _LD
+    assert plan.tiles_n == 1003 and plan.blocks == 1003 and plan.aligned
+    assert plan.tiles_m == 1
+    # byte offsets into B' and C stay inside int32
+    assert _LD * (_LV + LANE) < 2**31 and 64 * _LV < 2**31
+    # the mod-127 row partials: 1003 tiles of at most 128 x 126 each
+    assert plan.tiles_n * qg.BN * 126 < 2**31
 
 
 @pytest.mark.parametrize("case", ALL_CASES, ids=_id)

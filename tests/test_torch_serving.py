@@ -96,7 +96,7 @@ def test_engine_rejects_bad_payload_and_unported_family():
     with pytest.raises(ValueError, match="bag index"):
         eng.run([req])
     with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(dataclasses.replace(T_CFG, family="dense"),
+        ServingEngine(dataclasses.replace(T_CFG, family="moe"),
                       [TenantSpec("default")], device="cpu")
 
 
@@ -110,9 +110,11 @@ def test_serve_cli_smoke_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--obs-dir", "obs"], "A9"), (["--paged-kv", "8"], "A8"),
-    (["--monitor"], "A9"), (["--device-count", "2"], "A12"),
-    (["--arch", "llama3.2-1b"], "A8")])
+    (["--obs-dir", "obs"], "A5"), (["--paged-kv", "8"], "A4"),
+    (["--monitor"], "A5"), (["--device-count", "2"], "A8"),
+    (["--arch", "granite-moe-3b-a800m"], "A4"),
+    (["--arch", "internlm2-20b"], "A7"),
+    (["--arch", "mistral-large-123b"], "A8")])
 def test_serve_cli_rejects_unported_parts(capsys, flag, item):
     with pytest.raises(SystemExit) as ei:
         serve.main(["--device", "cpu", "--smoke"] + flag)
