@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Seven paths run, each with every launch counter set to 0 just before
+Eight paths run, each with every launch counter set to 0 just before
 it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
 int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
 (K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
 (K1, K2 and their unprotected instances), the float DLRM converted to
-int8 (K1-K3) and int8 Llama-3.2-1B chat serving (K1-K3).  Phases (any failure exits non-zero; nothing is caught and
-passed over):
+int8 (K1-K3), int8 Llama-3.2-1B chat serving (K1-K3) and the same model
+served from the paged KV cache (K1-K3).  Phases (any failure exits
+non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one
@@ -150,15 +151,42 @@ passed over):
    read), and clean requests after; the smoke-size Llama on the card and
    on the CPU, free and in lockstep, as phase 7 holds the smoke RWKV;
    time K1 cold at each shape beside ``torch._int_mm`` and the byte
-   bound, K3, and the step medians, with a profile of a few requests.
+   bound, K3, and the step medians, with a profile of a few requests;
+14. the same full-width Llama-3.2-1B (seed 0) served from the paged,
+   prefix-shared, page-checksummed KV cache (``PagingConfig(page_size=16,
+   n_pages=26)``; a slot maps (64 + 32 - 1) // 16 + 1 = 6 pages) with two
+   tenants, each its own lane and pool, ``*:policy=log,kv_cache_paged:on``
+   and ``*:policy=recompute,kv_cache_paged:on``: 8 ``chat_stream``
+   requests with a shared 32-token system prompt (2 pages; prompts up to
+   64, up to 32 new tokens, 4 slots, 100 rps) complete with 0 errors,
+   prefix pages shared, K1-K3 launched at the path's counts, fewer pages
+   verified per decode token than a contiguous lane verifies rows; the
+   pool sizing from ``pool_page_bytes`` (295,936 B a page of both pools,
+   7.69 MB for 26, against 8.09 MB for the contiguous ``kv_cache:on``
+   cache) and no pool copied by a decode step; four 64-token requests
+   through the paged lane and a contiguous ``*:policy=log,kv_cache:on``
+   engine, logits within 2**-5 of the scale and greedy tokens equal where
+   the top-two margin exceeds twice that; a ``FaultInjection`` page flip
+   on the log lane flagged at the next decode step and each later read;
+   one on the recompute lane flagged, scrubbed, evicted and rebuilt (0
+   aborts; a low bit, so the read before the repair moves no token, and
+   the rebuilt request's logits held to its clean pass's as above); clean
+   requests after; the paged step medians beside phase 13's, the four
+   64-token requests' decode medians through the paged log lane and the
+   contiguous engine in turns, one ``scrub_cache`` and one rebuild in
+   ms; and the ``paging`` quick grid
+   (seed 0) on the card: all four booleans true, detection and FP inside
+   the JAX baseline's Wilson intervals in both cells, 0 regressions from
+   the port's differ, its pages verified per token and KV bytes printed
+   beside the baseline's.
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
 (DLRM for K1-K3, RWKV for K4, the overhead benchmarks for the unprotected
 instances), and ``launches_by_path`` holds every kernel's count on each
-of the seven paths (DLRM serve, RWKV serve, campaign, thresholds,
-overhead, float DLRM, Llama serve), all six counts set to 0 just before
-each path and read just after.  The last line is
+of the eight paths (DLRM serve, RWKV serve, campaign, thresholds,
+overhead, float DLRM, Llama serve, Llama paged serve), all six counts
+set to 0 just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the repository's ``src/`` beside this
 file, it exits non-zero and prints no result.
@@ -2503,6 +2531,459 @@ def llama_phase(torch, dev, timer) -> dict:
             "k1_times": per_shape, "k2_times": k2["times"]}
 
 
+#: phase 14's two paged tenants (each its own lane and pool) and the
+#: contiguous plan its tokens are held against
+PAGED_PLANS = {"log": "*:policy=log,kv_cache_paged:on",
+               "rec": "*:policy=recompute,kv_cache_paged:on"}
+CONTIG_PLAN = "*:policy=log,kv_cache:on"
+#: the paged and the contiguous int8 cache hold the same codes, but their
+#: attention sums run over other lengths and orders, and a last-bit
+#: difference can land across a bf16 or int8 rounding split: their
+#: logits (and a rebuilt request's against its clean pass) are held to
+#: the LM tests' allowance for a split, 2**-5 of the logit scale
+#: (tests/test_torch_lm.py, _SPLIT_TOL), and their greedy tokens equal
+#: wherever the top-two margin exceeds twice that
+PAGED_LOGIT_TOL = 2.0**-5
+#: the baseline's figures phase 14 prints beside the card's
+#: (benchmarks/baselines/BENCH_campaign_paging_quick.json)
+PAGING_BASELINE = "benchmarks/baselines/BENCH_campaign_paging_quick.json"
+
+
+class LogitTap:
+    """Records the logits of a model's prefill and decode calls, which the
+    engine's steps reduce to greedy tokens: ``calls`` holds (kind, plan
+    name, logits on the host) per call, while the tap is entered."""
+
+    def __init__(self, model):
+        self.model = model
+        self.calls = []
+
+    def __enter__(self):
+        prefill, decode = self.model.prefill, self.model.decode
+
+        def tapped_prefill(params, batch, ctx, cache_len):
+            out = prefill(params, batch, ctx, cache_len)
+            self.calls.append(("prefill", ctx.plan.name,
+                               out[0].float().cpu()))
+            return out
+
+        def tapped_decode(params, cache, tokens, pos, ctx):
+            out = decode(params, cache, tokens, pos, ctx)
+            self.calls.append(("decode", ctx.plan.name,
+                               out[0].float().cpu()))
+            return out
+
+        self.model.prefill, self.model.decode = tapped_prefill, tapped_decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.prefill, self.model.decode
+
+    def per_request(self, plan_name: str, tokens: dict,
+                    vocab: int) -> dict:
+        """Each request's logits, step by step, on one lane whose requests
+        arrived together: the prefills run in request-id order; a
+        request's decode rows are the slot whose greedy tokens are its
+        own."""
+        calls = [c for c in self.calls if c[1] == plan_name]
+        pre = [c[2][0] for c in calls if c[0] == "prefill"]
+        dec = [c[2] for c in calls if c[0] == "decode"]
+        out = {}
+        for i, rid in enumerate(sorted(tokens)):
+            toks = tokens[rid]
+            rows = dec[:len(toks) - 1]
+            greedy = [[int(d[s, :vocab].argmax()) for d in rows]
+                      for s in range(dec[0].shape[0])]
+            slot = greedy.index(list(toks[1:]))
+            out[rid] = [pre[i]] + [d[slot] for d in rows]
+        return out
+
+
+def compare_logits(torch, want_steps, got_steps, want_tokens, got_tokens,
+                   vocab: int, what: str) -> dict:
+    """Two runs of one request held step by step: logits within
+    :data:`PAGED_LOGIT_TOL` of the reference's scale and greedy tokens
+    equal wherever the reference's top-two margin exceeds twice that.  A
+    token that differs where the margin does not (a rounding split) ends
+    the comparison: the histories part there."""
+    worst, compared, split = 0.0, 0, None
+    for i, (w, g) in enumerate(zip(want_steps, got_steps)):
+        w, g = w[:vocab], g[:vocab]
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max()) / scale
+        top2 = torch.topk(w, 2).values
+        margin = float(top2[0] - top2[1]) / scale
+        worst = max(worst, err)
+        compared += 1
+        if err > PAGED_LOGIT_TOL:
+            fail(f"{what}: logits at step {i} differ by {err:.3g} of the "
+                 f"scale (> {PAGED_LOGIT_TOL})")
+        if i < len(want_tokens) and want_tokens[i] != got_tokens[i]:
+            if margin > 2 * PAGED_LOGIT_TOL:
+                fail(f"{what}: token {i} differs ({got_tokens[i]} vs "
+                     f"{want_tokens[i]}) at a top-two margin of "
+                     f"{margin:.3g} of the scale")
+            split = {"step": i, "margin": margin}
+            break
+    return {"steps_compared": compared, "max_err": worst, "split": split}
+
+
+def low_bit_kv_seed(max_bit: int = 2) -> int:
+    """The first ``FaultInjection(target="kv")`` seed whose flip, on an
+    engine with one occupied lane and one resident request, lands on a
+    bit at most ``max_bit``: the engine draws lane, slot, pool, then the
+    bit from the seed (``ServingEngine._apply_kv_injection``)."""
+    import numpy as np
+    for seed in itertools.count():
+        rng = np.random.default_rng(seed)
+        rng.integers(1)
+        rng.integers(1)
+        rng.integers(2)
+        if int(rng.integers(8)) <= max_bit:
+            return seed
+
+
+def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
+                      out_dir) -> dict:
+    """Phase 14: full-width int8 Llama-3.2-1B served from paged,
+    prefix-shared, page-checksummed KV pools (``PagingConfig(page_size=16,
+    n_pages=26)``), a log and a recompute tenant, then the ``paging``
+    quick grid gated against its JAX baseline.  Returns the path's launch
+    counts and the record."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.campaign.diff import diff_artifacts, wilson_gate
+    from repro_torch.configs import get_arch
+    from repro_torch.paging import PagingConfig, pool_page_bytes, scrub_cache
+    from repro_torch.protect import ProtectionPlan, default_plan
+    from repro_torch.serving import (FaultInjection, Request, ServingEngine,
+                                     TenantSpec, chat_stream)
+    from repro_torch.serving.paging_soak import (_tree_nbytes,
+                                                 run_paging_campaign)
+
+    cfg = get_arch("llama3.2-1b")
+    vocab, n_layers = cfg.vocab, cfg.n_layers
+
+    def plan(name, text):
+        return dataclasses.replace(default_plan().with_rules(
+            *ProtectionPlan.from_any(text).rules), name=name)
+
+    t0 = time.perf_counter()
+    paging = PagingConfig(page_size=16, n_pages=26)
+    engine = ServingEngine(cfg, [TenantSpec(k, plan(k, v))
+                                 for k, v in PAGED_PLANS.items()],
+                           n_slots=4, max_prompt=64, max_new_tokens=32,
+                           seed=0, paging=paging, device=dev)
+    contig = ServingEngine(cfg, [TenantSpec("log", plan("log",
+                                                        CONTIG_PLAN))],
+                           n_slots=4, max_prompt=64, max_new_tokens=32,
+                           seed=0, device=dev)
+    torch.cuda.synchronize()
+    lanes = {lane.key: lane for lane in engine.lanes}
+    if sorted(lanes) != ["lane0[log]", "lane1[rec]"]:
+        fail(f"unexpected paged Llama lanes {sorted(lanes)}")
+    max_pages = {lane.pager.max_pages for lane in engine.lanes}
+    if max_pages != {(64 + 32 - 1) // 16 + 1} or engine.cache_len != 104:
+        fail(f"paged slots map {max_pages} pages, cache_len "
+             f"{engine.cache_len}")
+    log(f"paged Llama engines (two lanes, and a contiguous kv_cache:on "
+        f"one) on the card in {time.perf_counter() - t0:.1f}s")
+
+    # ---------------- 14a. serve both tenants from the pools ---------------
+    prefix_seed = 0x5EED
+
+    def stream(n, seed):
+        return chat_stream(n, tenants={"log": 1.0, "rec": 1.0},
+                           rate_rps=100.0, seed=seed, mean_prompt=32,
+                           max_prompt=64, mean_output=16, max_output=32,
+                           prefix_len=32, prefix_seed=prefix_seed)
+
+    wrappers = zero_launches()
+    tel = engine.run(stream(8, 0))            # the warm-up runs inside
+    launches = read_launches(wrappers)
+    s = tel.summary()
+    counters = s["faults"]["counters"]
+    per = s["per_tenant"]
+    stats = engine.paging_stats()
+    log(f"paged Llama: served {sum(p['requests'] for p in per.values())} "
+        f"chat requests: "
+        + "; ".join(f"{t}: {p['completed']} completed, {p['tokens_out']} "
+                    f"tokens, {p['shared_prefix_tokens']} prefix tokens "
+                    f"shared" for t, p in per.items())
+        + f"; launches {launches}; counters "
+        f"{ {k: v for k, v in counters.items() if v} }; paging "
+        + "; ".join(f"{k}: resident {v['pages_resident']}, high-water "
+                    f"{v['pages_high_water']}, prefix hit "
+                    f"{v['prefix_hit_rate']:.2f}, evictions "
+                    f"{v['page_evictions']}" for k, v in stats.items()))
+    if sum(p["completed"] for p in per.values()) != 8 or \
+            any(p["aborted"] for p in per.values()):
+        fail(f"not every paged Llama request completed: {per}")
+    nonzero = {k: v for k, v in counters.items()
+               if v and not k.endswith("_checks")}
+    if nonzero:
+        fail(f"fault counters on a clean paged Llama run: {nonzero}")
+    n_steps = len(tel.steps)
+    per_step_gemms = n_layers * 7 + 1
+    if counters["qgemm_checks"] != per_step_gemms * n_steps or \
+            counters["embedding_bag_checks"] != n_steps or \
+            counters["kv_cache_paged_checks"] <= 0 or \
+            counters["kv_cache_checks"]:
+        fail(f"unexpected check counts {counters} for {n_steps} steps")
+    # the warm-up ran one prefill and one decode step a lane in the window
+    want_l = {"abft_qgemm": per_step_gemms * (n_steps + 4),
+              "quantize_rows": per_step_gemms * (n_steps + 4),
+              "abft_embeddingbag": n_steps + 4, "wkv6_chunked": 0,
+              "qgemm_unprotected": 0, "eb_unprotected": 0}
+    if launches != want_l:
+        fail(f"launches {launches} differ from the path's {want_l}")
+    hits = sum(v["prefix_hits"] for v in stats.values())
+    shared = sum(p["shared_prefix_tokens"] for p in per.values())
+    if hits <= 0 or shared <= 0:
+        fail(f"no prefix page was shared: {stats}")
+    # verify work per decode token: pages the reads touched (both pools,
+    # every layer) against the rows a contiguous kv_cache:on lane verifies
+    # at the same tokens (both pools, every layer, its 64-token bucket
+    # and the tokens so far)
+    dtoks = sum(ev.occupancy for ev in tel.steps if ev.kind == "decode")
+    pages_per_token = counters["kv_cache_paged_checks"] / dtoks
+    rows = [n_layers * 2 * (64 + g) for r in tel.requests
+            for g in range(1, r.tokens_out)]
+    rows_per_token = sum(rows) / len(rows)
+    if not 0 < pages_per_token < rows_per_token:
+        fail(f"pages verified per decode token {pages_per_token:.2f} not "
+             f"below the contiguous rows {rows_per_token:.2f}")
+    # pool sizing, from the code: one page of both pools, the whole pool,
+    # and the contiguous kv_cache:on layout at cache_len 104
+    attn = engine.lanes[0].cache["attn"]
+    page_bytes = pool_page_bytes(attn["k"]) + pool_page_bytes(attn["v"])
+    want_page = 2 * (16 * 8 * 16 * 64 + 2 * 16 * 8 * 16 * 4 + 16 * 8 * 4)
+    contig.run([Request(rid=0, tenant="log", arrival_s=0.0, prompt_len=64,
+                        max_new_tokens=2, seed=1)])
+    contig_bytes = _tree_nbytes(contig.lanes[0].cache)
+    want_contig = 2 * 16 * 4 * 8 * 104 * (64 + 3 * 4)
+    if page_bytes != want_page or contig_bytes != want_contig or \
+            not 26 * page_bytes < contig_bytes:
+        fail(f"pool sizing: a page {page_bytes} B (want {want_page}), the "
+             f"contiguous cache {contig_bytes} B (want {want_contig})")
+    # the pools are written in place: no decode step copies them
+    ptrs = {k: v.q.data_ptr() for k, v in attn.items()}
+    engine.run([Request(rid=50, tenant="log", arrival_s=0.0, prompt_len=64,
+                        max_new_tokens=3, seed=50, prefix_len=32,
+                        prefix_seed=prefix_seed)], warmup=False)
+    if {k: v.q.data_ptr() for k, v in
+            engine.lanes[0].cache["attn"].items()} != ptrs:
+        fail("a paged decode step reallocated its pools")
+    steps = {(kind, key): [ev.duration_s * 1e3 for ev in tel.steps
+                           if ev.kind == kind and ev.lane == key]
+             for kind in ("prefill", "decode") for key in lanes}
+    serve = {"tenants": per, "launches": launches, "counters": counters,
+             "paging_stats": stats, "steps_ms": {
+                 f"{k} {key}": v for (k, key), v in steps.items()},
+             "step_ms_median": {f"{k} {key}": float(np.median(v))
+                                for (k, key), v in steps.items() if v},
+             "pages_verified_per_decode_token": pages_per_token,
+             "contig_rows_verified_per_decode_token": rows_per_token,
+             "page_bytes_both_pools": page_bytes,
+             "pool_bytes": 26 * page_bytes,
+             "contig_cache_bytes": contig_bytes,
+             # a contiguous decode step clones every layer's cache leaves
+             # (set_rows) and stacks them anew (stack_layers); a paged one
+             # writes its new rows into the pools and pushes the table
+             "contig_bytes_copied_per_decode_step": 2 * contig_bytes,
+             "paged_pool_bytes_copied_per_decode_step": 0,
+             "paged_bytes_written_per_decode_step": {
+                 "rows": n_layers * 2 * 4 * 8 * (64 + 3 * 4),
+                 "table": 4 * 6 * 4}}
+    log(f"paged Llama: {pages_per_token:.2f} pages verified per decode token "
+        f"(both pools, all layers) against the contiguous lane's "
+        f"{rows_per_token:.1f} rows; a page of both pools {page_bytes} B by "
+        f"pool_page_bytes ({want_page} B by the arithmetic), the pool of 26 "
+        f"{26 * page_bytes} B, the contiguous kv_cache:on cache at cache_len "
+        f"104 {contig_bytes} B ({want_contig} B by the arithmetic); a decode "
+        f"step copies no pool (the contiguous lane copies "
+        f"{2 * contig_bytes} B a step)")
+
+    # ---------- 14b. the same requests through the contiguous cache --------
+    # four 64-token requests (the bucket of both layouts) admitted at once
+    # into slots 0-3 of each engine's log lane, retired together
+    def cmp_reqs(base):
+        return [Request(rid=base + i, tenant="log", arrival_s=0.0,
+                        prompt_len=64, max_new_tokens=16, seed=base + i,
+                        prefix_len=32, prefix_seed=prefix_seed)
+                for i in range(4)]
+
+    engine.reset_state()
+    contig.reset_state()
+    with LogitTap(engine.model) as tap_p:
+        tel_p = engine.run(cmp_reqs(100), warmup=False)
+    with LogitTap(contig.model) as tap_c:
+        tel_c = contig.run(cmp_reqs(100), warmup=False)
+    tok_p = {r.rid: r.tokens for r in tel_p.requests}
+    tok_c = {r.rid: r.tokens for r in tel_c.requests}
+    want = tap_c.per_request("log", tok_c, vocab)
+    got = tap_p.per_request("log", tok_p, vocab)
+    versus = {rid: compare_logits(torch, want[rid], got[rid], tok_c[rid],
+                                  tok_p[rid], vocab,
+                                  f"paged vs contiguous request {rid}")
+              for rid in sorted(want)}
+    if any(e.errors for e in tel_p.steps + tel_c.steps):
+        fail("errors on the paged-vs-contiguous requests")
+    log("paged vs contiguous kv_cache:on, 4 requests x 16 tokens: "
+        + "; ".join(f"rid {k}: {v['steps_compared']} steps, logits within "
+                    f"{v['max_err']:.2g} of the scale, split "
+                    f"{v['split']}" for k, v in versus.items())
+        + f" (tolerance {PAGED_LOGIT_TOL}, tokens held where the margin "
+          f"exceeds twice it)")
+
+    # ------------- 14c. a page flip on the log lane: flagged -------------
+    def alone(rid, tenant, new):
+        return [Request(rid=rid, tenant=tenant, arrival_s=0.0,
+                        prompt_len=64, max_new_tokens=new, seed=rid,
+                        prefix_len=32, prefix_seed=prefix_seed)]
+
+    engine.reset_state()
+    tel = engine.run(alone(200, "log", 5), inject=[FaultInjection(
+        step=1, target="kv", persistent=True, seed=0)], warmup=False)
+    (inj,) = tel.injections
+    flagged = [ev for ev in tel.steps if ev.errors]
+    if not inj.detected or inj.detect_step != 1 or \
+            not inj.victim.startswith("kv_page/") or \
+            [ev.step for ev in flagged] != [1, 2, 3] or \
+            any(ev.kind != "decode"
+                or ev.counters["kv_cache_paged_errors"] != 1
+                or ev.counters["qgemm_errors"] for ev in flagged):
+        fail(f"paged log-lane flip {inj}: flagged steps "
+             f"{[(ev.step, ev.kind, ev.counters) for ev in flagged]}")
+    flips = {"log": {"victim": inj.victim, "detect_step": inj.detect_step,
+                     "flagged_steps": [ev.step for ev in flagged]}}
+
+    # ----- 14d. a page flip on the recompute lane: evicted and rebuilt -----
+    seed = low_bit_kv_seed()
+    engine.reset_state()
+    with LogitTap(engine.model) as tap_clean:
+        clean = engine.run(alone(300, "rec", 8), warmup=False)
+    engine.reset_state()
+    with LogitTap(engine.model) as tap_bad:
+        tel = engine.run(alone(300, "rec", 8), inject=[FaultInjection(
+            step=1, target="kv", persistent=True, seed=seed)], warmup=False)
+    (inj,) = tel.injections
+    st = engine.paging_stats()["lane1[rec]"]
+    summ = tel.summary()["per_tenant"]["rec"]
+    rebuilt = [ev for ev in tel.steps if ev.kind == "rebuild"]
+    flagged = [ev.step for ev in tel.steps if ev.errors]
+    if not inj.detected or inj.detect_step != 1 or flagged != [1] or \
+            st["page_rebuilds"] < 1 or not rebuilt or \
+            summ["aborted"] or summ["completed"] != 1:
+        fail(f"paged recompute-lane flip {inj}: flagged {flagged}, stats "
+             f"{st}, tenant {summ}")
+    tok_clean = {r.rid: r.tokens for r in clean.requests}
+    tok_bad = {r.rid: r.tokens for r in tel.requests}
+    rb_cmp = compare_logits(
+        torch, tap_clean.per_request("rec", tok_clean, vocab)[300],
+        # the rebuild's prefill comes after the request's own
+        tap_bad.per_request("rec", tok_bad, vocab)[300],
+        tok_clean[300], tok_bad[300], vocab,
+        "the rebuilt request against its clean pass")
+    flips["rec"] = {"victim": inj.victim, "seed": seed,
+                    "detect_step": inj.detect_step,
+                    "page_rebuilds": st["page_rebuilds"],
+                    "rebuild_ms": [ev.duration_s * 1e3 for ev in rebuilt],
+                    "tokens_vs_clean": rb_cmp}
+    # clean requests afterwards, both tenants
+    engine.reset_state()
+    tel = engine.run(alone(400, "log", 4) + alone(401, "rec", 4),
+                     warmup=False)
+    c_clean = tel.summary()["faults"]["counters"]
+    if any(v for k, v in c_clean.items() if k.endswith("_errors")):
+        fail(f"errors after the paged flips: {c_clean}")
+    flips["clean_after"] = c_clean
+    log(f"paged Llama flips: {flips['log']['victim']} (log lane) flagged at "
+        f"steps {flips['log']['flagged_steps']}, one error a read; "
+        f"{flips['rec']['victim']} (recompute lane, seed {seed}) flagged at "
+        f"step 1, {st['page_rebuilds']} page rebuild(s) in "
+        f"{flips['rec']['rebuild_ms']} ms, 0 aborts, the rebuilt request's "
+        f"logits within {rb_cmp['max_err']:.2g} of its clean pass's over "
+        f"{rb_cmp['steps_compared']} steps (split {rb_cmp['split']}); "
+        f"clean requests after: no errors")
+
+    # ------------------------------ 14e. times ------------------------------
+    # one scrub_cache over the log lane's pools (all 16 layers, both
+    # pools), device time; the medians beside phase 13's contiguous lanes
+    engine.reset_state()
+    engine.run(alone(500, "log", 4), warmup=False)
+    lane = engine.lanes[0]
+    scrub_ms = timer.ms(lambda: scrub_cache(lane.cache, lane.pos), 20)
+    serve["scrub_cache_ms"] = scrub_ms
+    serve["contig_step_ms_median_phase13"] = contig_step_ms
+    # the four 64-token requests of 14b again, through the paged log lane
+    # and the contiguous kv_cache:on engine in turns (paged, contiguous,
+    # contiguous, paged): both decode steps on one workload in one call
+    turns = {"paged": [], "contiguous": []}
+    for side in ("paged", "contiguous", "contiguous", "paged"):
+        eng = engine if side == "paged" else contig
+        eng.reset_state()
+        tel = eng.run(cmp_reqs(700), warmup=False)
+        turns[side] += [ev.duration_s * 1e3 for ev in tel.steps
+                        if ev.kind == "decode"]
+    serve["turns_decode_ms"] = turns
+    serve["turns_decode_ms_median"] = {k: float(np.median(v))
+                                       for k, v in turns.items()}
+    engine.reset_state()
+    serve["profile"] = profile_requests(torch, engine, [
+        Request(rid=600 + i, tenant="log", arrival_s=0.0, prompt_len=64,
+                max_new_tokens=8, seed=600 + i, prefix_len=32,
+                prefix_seed=prefix_seed) for i in range(4)])
+    med = serve["step_ms_median"]
+    serve["card"] = smi_line()
+    log(f"paged Llama times on {serve['card']}: step medians ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in med.items())
+        + "; phase 13's contiguous lanes " + ", ".join(
+            f"{k} {v:.2f}" for k, v in contig_step_ms.items())
+        + f"; one scrub_cache {scrub_ms:.4f} ms (device); one rebuild "
+        f"{flips['rec']['rebuild_ms'][0]:.2f} ms (step wall); four "
+        f"64-token requests in turns, decode medians ms (log policy): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in
+                    serve["turns_decode_ms_median"].items()))
+    del engine, contig
+
+    # ------------------ 14f. the paging quick grid, gated ------------------
+    t0 = time.perf_counter()
+    res = run_paging_campaign(quick=True, seed=0, out_dir=out_dir,
+                              device=dev, verbose=log)
+    with open(ROOT / PAGING_BASELINE) as f:
+        base = json.load(f)
+    gate = wilson_gate(base, res)
+    diff = diff_artifacts(base, res)
+    parity, rebuild = (c["metrics"] for c in res["cells"])
+    bools = {k: parity[k] for k in ("parity_ok", "verify_ok", "bytes_ok")}
+    bools["rebuild_ok"] = rebuild["rebuild_ok"]
+    if gate["failed"] or gate["uncovered"] or not all(bools.values()) or \
+            diff["regressions"]:
+        fail(f"paging grid: Wilson gate {gate['failed']} failed, "
+             f"{gate['uncovered']} uncovered; {bools}; differ "
+             f"{diff['regressions']}")
+    bp = base["cells"][0]["metrics"]
+    grid = {"seconds": time.perf_counter() - t0, "booleans": bools,
+            "wilson": gate["cells"], "regressions": diff["regressions"],
+            "cells": {c["cell_id"]: c["metrics"] for c in res["cells"]}}
+    log(f"paging grid (quick, seed 0) in {grid['seconds']:.1f}s: "
+        f"{bools}; detection and FP inside the baseline's Wilson intervals "
+        f"in both cells; 0 regressions; pages verified per token "
+        f"{parity['pages_verified_per_token']:.2f} (baseline "
+        f"{bp['pages_verified_per_token']:.2f}), peak resident KV "
+        f"{parity['peak_resident_kv_bytes']} B (baseline "
+        f"{bp['peak_resident_kv_bytes']}), fixed-slot KV "
+        f"{parity['fixed_slot_kv_bytes']} B (baseline "
+        f"{bp['fixed_slot_kv_bytes']}); rebuilds "
+        f"{rebuild['page_rebuilds']}, aborted {rebuild['aborted']}")
+    record = {"serve": serve, "versus_contiguous": versus, "flips": flips,
+              "grid": grid}
+    return {"launches": launches, "record": record}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2945,6 +3426,11 @@ def main() -> int:
     # --------------------- 13. Llama-3.2-1B chat serving -------------------
     llama = llama_phase(torch, dev, timer)
     details["llama"] = llama["record"]
+    # --------------- 14. Llama-3.2-1B paged chat serving -------------------
+    paged = llama_paged_phase(torch, dev, timer,
+                              llama["record"]["serve"]["step_ms_median"],
+                              camp_dir)
+    details["llama_paged"] = paged["record"]
     kernels[0]["llama_shapes"] = llama["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
     kernels[1]["rwkv_token_table"] = rwkv["k2_times"]
@@ -2968,7 +3454,8 @@ def main() -> int:
                "thresholds": thresholds["launches"],
                "overhead": overhead["launches"],
                "float_dlrm": float_dlrm["launches"],
-               "llama": llama["launches"]}
+               "llama": llama["launches"],
+               "llama_paged": paged["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

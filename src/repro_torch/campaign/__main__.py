@@ -8,6 +8,7 @@ Examples::
     python -m repro_torch.campaign --grid paper --seed 7 --out bench/
     python -m repro_torch.campaign --grid thresholds --device cpu --out t/
     python -m repro_torch.campaign --grid victims --samples 4
+    python -m repro_torch.campaign --grid paging --quick    # paged KV
     python -m repro_torch.campaign --diff OLD.json NEW.json # exit 1 on
                                                             # regression
 
@@ -48,8 +49,8 @@ def main(argv=None) -> int:
                     help="shorthand for --grid quick; with --grid pallas "
                          "or paper, their quick variants")
     ap.add_argument("--grid", default=None,
-                    help="quick, pallas, paper, thresholds, soak or "
-                         "victims")
+                    help="quick, pallas, paper, thresholds, soak, "
+                         "victims or paging")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=0,
                     help="override the per-cell sample count (quick / "
@@ -87,16 +88,29 @@ def main(argv=None) -> int:
     grid = args.grid or ("quick" if args.quick else None)
     if grid is None:
         ap.error("pick a grid (--quick / --grid "
-                 "{quick,pallas,paper,thresholds,soak,victims}) or --diff "
-                 "OLD NEW")
+                 "{quick,pallas,paper,thresholds,soak,victims,paging}) or "
+                 "--diff OLD NEW")
     if grid in NOT_PORTED:
         ap.error(f"--grid {grid} is not ported yet (ROADMAP "
                  f"{NOT_PORTED[grid]})")
-    if grid not in GRIDS:
-        ap.error(f"unknown grid {grid!r} ({', '.join(GRIDS)})")
+    if grid != "paging" and grid not in GRIDS:
+        ap.error(f"unknown grid {grid!r} ({', '.join(GRIDS)}, paging)")
+
+    from repro_torch.campaign.artifacts import markdown_table
+    if grid == "paging":
+        # paged-KV parity + repair cells (repro_torch.serving.paging_soak)
+        from repro_torch.serving.paging_soak import run_paging_campaign
+        result = run_paging_campaign(quick=args.quick, seed=args.seed,
+                                     out_dir=args.out, device=args.device,
+                                     verbose=lambda s: print(s, flush=True))
+        print()
+        print(markdown_table(result))
+        name = "paging_quick" if args.quick else "paging"
+        print(f"artifact: "
+              f"{os.path.join(args.out, 'BENCH_campaign_' + name)}.json")
+        return 0
 
     from repro_torch.campaign.artifacts import (breakdown_markdown,
-                                                markdown_table,
                                                 threshold_curve_markdown)
     from repro_torch.campaign.executor import CHUNK, run_campaign
 

@@ -113,18 +113,22 @@ def _overlap(old: tuple, new: tuple) -> bool:
 def wilson_gate(old: dict, new: dict, *, z: float = 1.96) -> dict:
     """Hold every cell of ``new`` that ``old`` also has to ``old`` by
     overlapping Wilson intervals: the effective detection rate (detected
-    or masked over faulty trials) and the false-positive rate (flags over
-    clean trials).  Returns ``{"cells": [...], "failed": [cell_id, ...],
-    "uncovered": [cell_id, ...]}``; each cell entry carries both
-    intervals of both metrics and whether they overlap."""
+    or masked over faulty trials; a cell that counts no masked trials,
+    as the ``paging`` grid's, its detected ones) and the false-positive
+    rate (flags over clean trials).  Returns ``{"cells": [...], "failed":
+    [cell_id, ...], "uncovered": [cell_id, ...]}``; each cell entry
+    carries both intervals of both metrics and whether they overlap."""
+    def count(m, k):
+        return m[k] if k in m else m["detected"]
+
     oc, nc = _cells_by_id(old), _cells_by_id(new)
     cells, failed = [], []
     for cid in sorted(set(oc) & set(nc)):
         entry = {"cell_id": cid}
         for metric, k, n in (("detection", "effective_detected", "samples"),
                              ("fp", "false_positives", "clean_samples")):
-            a = wilson_interval(oc[cid][k], oc[cid][n], z)
-            b = wilson_interval(nc[cid][k], nc[cid][n], z)
+            a = wilson_interval(count(oc[cid], k), oc[cid][n], z)
+            b = wilson_interval(count(nc[cid], k), nc[cid][n], z)
             entry[metric] = {"old": list(a), "new": list(b),
                              "overlap": _overlap(a, b)}
         cells.append(entry)

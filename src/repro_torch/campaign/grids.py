@@ -166,7 +166,6 @@ def soak_specs(seed: int = 0) -> List[CampaignSpec]:
 #: the JAX package's other grids and the ROADMAP items that port them
 NOT_PORTED = {
     "serving_soak": "A4 (the serving soak)",
-    "paging": "A4 (the paged KV cache)",
     "adaptive": "A5 (adaptive thresholds)",
     "training": "A6 (training under faults)",
     "multidevice": "A6 (training under faults)",

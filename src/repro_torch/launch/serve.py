@@ -15,6 +15,9 @@ per-tenant latency percentiles next to the ABFT fault counters::
     --plan "*:policy=recompute"                  # retry on detection
     --plan "*:policy=recompute,kv_cache:on"      # + the checksummed int8
                                                  #   KV cache
+    --paged-kv 16 --kv-pages 256 \
+    --plan "*:policy=recompute,kv_cache_paged:on"  # the paged, prefix-shared,
+                                                   # page-checksummed cache
     --tenant "premium:2=*:policy=recompute" \
     --tenant "batch=*:policy=log,embedding_bag:off"
     --inject-step 7 --inject-victim attn.wq      # transient flip at step 7
@@ -38,8 +41,6 @@ import sys
 
 #: flags of the JAX driver whose subsystems wait for later slices
 _NOT_PORTED = {
-    "--paged-kv": "A4 (paged KV cache)",
-    "--kv-pages": "A4 (paged KV cache)",
     "--obs-dir": "A5 (observability)",
     "--obs-flush-every": "A5 (observability)",
     "--monitor": "A5 (health monitor)",
@@ -105,6 +106,12 @@ def main(argv=None) -> int:
                     metavar="NAME[:WEIGHT]=PLAN",
                     help="add a traffic class with its own plan "
                          "(repeatable; replaces --plan)")
+    ap.add_argument("--paged-kv", type=int, default=0, metavar="PAGE_SIZE",
+                    help="serve from the paged, prefix-shared, "
+                         "per-page-checksummed KV cache with this page "
+                         "size (pair with a kv_cache_paged:on plan)")
+    ap.add_argument("--kv-pages", type=int, default=256,
+                    help="page-pool size per lane (--paged-kv)")
     ap.add_argument("--no-abft", action="store_true",
                     help="unprotected baseline (= --plan '*:off')")
     ap.add_argument("--inject-step", type=int, action="append",
@@ -182,12 +189,20 @@ def main(argv=None) -> int:
                 EXTRAS, table_rows=512, n_tables=4, emb_dim=32,
                 bottom_mlp=(64, 32), top_mlp=(64, 32, 1))
 
+    if args.paged_kv < 0:
+        ap.error("--paged-kv takes a positive page size (0: no paging)")
+    paging = None
+    if args.paged_kv:
+        from repro_torch.paging import PagingConfig
+        paging = PagingConfig(page_size=args.paged_kv,
+                              n_pages=args.kv_pages)
     try:
         engine = ServingEngine(cfg, tenants, n_slots=args.slots,
                                max_prompt=args.prompt_len,
                                max_new_tokens=args.decode_tokens,
                                queue_depth=args.queue_depth, seed=args.seed,
-                               dlrm_extras=dlrm_extras, device=args.device)
+                               dlrm_extras=dlrm_extras, paging=paging,
+                               device=args.device)
     except ValueError as e:             # e.g. duplicate tenant names
         ap.error(str(e))
     trace = None
@@ -255,6 +270,13 @@ def main(argv=None) -> int:
                      ts["ttft_ms"]["p99"], ts["per_token_ms"]["p99"])
     nz = {k: v for k, v in s["faults"]["counters"].items() if v}
     log.info("fault counters: %s", nz or "all zero")
+    for lane_key, st in engine.paging_stats().items():
+        log.info("paging %s: resident=%d/%d high-water=%d "
+                 "prefix-hit=%.2f evictions=%d rebuilds=%d", lane_key,
+                 st["pages_resident"],
+                 st["pages_resident"] + st["pages_free"],
+                 st["pages_high_water"], st["prefix_hit_rate"],
+                 st["page_evictions"], st["page_rebuilds"])
     for inj in telemetry.injections:
         if inj.detected:
             log.info(">>> injected %s at step %d: DETECTED after %d "

@@ -17,7 +17,9 @@ def _greedy(model: Model, logits: torch.Tensor) -> torch.Tensor:
 
 def make_prefill_step(model: Model, ctx: Ctx, cache_len: int):
     """(params, batch) -> (next_token [B] int32, cache, metrics); the KV
-    cache is padded to ``cache_len`` positions."""
+    cache is padded to ``cache_len`` positions (a paged lane passes its
+    prompt bucket, so nothing is padded: the engine packs the rows into
+    pool pages)."""
 
     def prefill_step(params, batch):
         logits, cache, rep = model.prefill(params, batch, ctx, cache_len)
@@ -27,7 +29,8 @@ def make_prefill_step(model: Model, ctx: Ctx, cache_len: int):
 
 
 def make_decode_step(model: Model, ctx: Ctx):
-    """(params, cache, tokens [B], pos [B]) -> (next [B], cache, metrics)."""
+    """(params, cache, tokens [B], pos [B]) -> (next [B], cache, metrics);
+    a paged cache comes back as the same pools, written in place."""
 
     def decode_step(params, cache, tokens, pos):
         logits, new_cache, rep = model.decode(params, cache, tokens, pos,

@@ -9,7 +9,9 @@ Layouts, as in JAX:
     a plain tensor in the compute dtype or, where the plan enables
     ``kv_cache`` on the int8 serving path, a
     :class:`~repro_torch.core.QuantKV` (int8 rows with their rowsum
-    checksums, verified on every decode read).
+    checksums, verified on every decode read); or the paged pools of
+    :mod:`repro_torch.paging` (a :class:`~repro_torch.paging.PagedKV`
+    pair, page-checksummed, verified on touch).
 
 The attention arithmetic is plain PyTorch: the JAX package runs it as
 XLA code outside any Pallas kernel.  Products take bf16 operands with
@@ -19,8 +21,7 @@ widened and multiplied by ``torch.matmul`` in float32).  Masking
 supports causal, a sliding window and an always-visible global prefix.
 
 Not ported from the JAX module: the sequence-parallel ``constrain``
-calls (sharding, ROADMAP A8), cross-attention (whisper, A7) and the
-paged cache (the paging slice of A4; a paged cache raises).
+calls (sharding, ROADMAP A8) and cross-attention (whisper, A7).
 """
 from __future__ import annotations
 
@@ -34,8 +35,10 @@ from repro_torch.layers.common import Ctx
 from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
 from repro_torch.layers.norms import headnorm, init_headnorm
 from repro_torch.layers.rope import apply_rope
-from repro_torch.protect.ops import KV_CACHE
-from repro_torch.protect.runtime import kv_rule, protected_call
+from repro_torch.paging.cache import PagedKV
+from repro_torch.protect.ops import KV_CACHE, KV_CACHE_PAGED
+from repro_torch.protect.runtime import (kv_rule, paged_kv_rule,
+                                         protected_call)
 
 NEG_INF = -1e30
 
@@ -220,28 +223,44 @@ def attention_decode(p, x, cache, pos, ctx: Ctx, *, n_heads: int, n_kv: int,
                      prefix_global: int = 0):
     """One-token decode.  x [B,d]; cache {k, v [B,Kv,S,dh]} — tensors in
     the compute dtype, or :class:`QuantKV` when the plan enables
-    kv_cache protection; pos [B].  The new row is written at ``pos``
-    (a new cache; a position past it is dropped, as in JAX).  Returns
-    (y [B,d], new_cache, report)."""
+    kv_cache protection — or {k, v: PagedKV} (per-layer pools); pos [B].
+    The new row is written at ``pos``: into a new cache (a position past
+    it is dropped, as in JAX), or into the mapped pool page in place.
+    Returns (y [B,d], new_cache, report)."""
     b, _ = x.shape
-    if not isinstance(cache["k"], (torch.Tensor, QuantKV)):
+    if not isinstance(cache["k"], (torch.Tensor, QuantKV, PagedKV)):
         raise NotImplementedError(
-            f"a {type(cache['k']).__name__} KV cache is not ported yet "
-            f"(ROADMAP A4: the paged KV cache)")
+            f"a {type(cache['k']).__name__} KV cache is not a tensor, "
+            f"QuantKV or PagedKV")
     quant_kv = isinstance(cache["k"], QuantKV)
+    paged_kv = isinstance(cache["k"], PagedKV)
     q, k_new, v_new, reports = _project(
         p, x[:, None, :], ctx, n_heads=n_heads, n_kv=n_kv,
         head_dim=head_dim, positions=pos[:, None], use_rope=use_rope,
         rope_theta=rope_theta)
     bidx = torch.arange(b, device=x.device)
-    if quant_kv:
-        # append: quantize + checksum the new rows (Alg. 2 style)
-        cache = {"k": KV_CACHE.update(cache["k"], bidx, pos, k_new[:, 0]),
-                 "v": KV_CACHE.update(cache["v"], bidx, pos, v_new[:, 0])}
-        # verified read + affine-expanded attention off the int8 cache;
-        # policy (log/recompute/abort) comes from the plan rule
+    if paged_kv or quant_kv:
+        if paged_kv:
+            # scatter into the mapped page (page checksum maintained
+            # incrementally); an unmapped slot's write is masked out.
+            # The verify-on-touch read counts under a log rule: the
+            # engine applies the plan's policy to the pages host-side.
+            cache = {"k": KV_CACHE_PAGED.append(cache["k"], pos,
+                                                k_new[:, 0]),
+                     "v": KV_CACHE_PAGED.append(cache["v"], pos,
+                                                v_new[:, 0])}
+            op, rule = "kv_cache_paged", paged_kv_rule(ctx)
+        else:
+            # append: quantize + checksum the new rows (Alg. 2 style);
+            # the read's policy (log/recompute/abort) is the plan rule's
+            cache = {"k": KV_CACHE.update(cache["k"], bidx, pos,
+                                          k_new[:, 0]),
+                     "v": KV_CACHE.update(cache["v"], bidx, pos,
+                                          v_new[:, 0])}
+            op, rule = "kv_cache", None
+        # verified read + affine-expanded attention off the int8 cache
         out, r_kv = protected_call(
-            "kv_cache", (cache["k"], cache["v"]), q[:, 0], pos, ctx=ctx,
+            op, (cache["k"], cache["v"]), q[:, 0], pos, ctx=ctx, rule=rule,
             name="attn", n_heads=n_heads, n_kv=n_kv, window=window,
             prefix_global=prefix_global)
         out = out.reshape(b, n_heads * head_dim).to(ctx.compute_dtype)

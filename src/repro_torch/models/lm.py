@@ -8,8 +8,9 @@ same victim leaf: every per-layer leaf is stacked on a leading ``[L,
 ...]`` axis (the JAX model vmaps its layer init and scans over layers;
 here the layer loop is written out and indexes the stack), and the cache
 is ``{"attn": {"k", "v"}}`` with leaves ``[L, B, Kv, S, dh]`` (or
-:class:`~repro_torch.core.QuantKV` of them).  Every forward threads a
-FaultReport.
+:class:`~repro_torch.core.QuantKV` of them), or, in the engine's paged
+lanes, two :class:`~repro_torch.paging.PagedKV` pools with leading-L
+leaves.  Every forward threads a FaultReport.
 
 The JAX module's MoE, hybrid (hymba) and VLM (llava) families wait for
 later slices (ROADMAP A4 for MoE, A7 for the other two); they raise.
@@ -27,6 +28,7 @@ from repro_torch.layers.embedding import apply_embed, init_embed, init_qembed
 from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
 from repro_torch.layers.mlp import init_mlp, mlp
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
+from repro_torch.paging.cache import PagedKV
 
 HUGE_WINDOW = 1 << 30
 
@@ -165,7 +167,10 @@ def lm_prefill(params, tokens, ctx: Ctx, cfg: ArchConfig, *,
 @torch.no_grad()
 def lm_decode(params, cache, tokens, pos, ctx: Ctx, cfg: ArchConfig):
     """One decode step.  tokens [B] int32, pos [B] int32 (absolute).
-    Returns (logits [B, vp], new_cache, report)."""
+    Returns (logits [B, vp], new_cache, report).  A paged cache is
+    written in place through each layer's view of the stacked pools and
+    comes back as it went in, with no copy; the other caches are stacked
+    anew from the layers' new ones, as the JAX layer scan stacks them."""
     _check_family(cfg)
     x, rep = apply_embed(params["embed"], tokens, ctx)     # [B, d]
     new = []
@@ -186,7 +191,11 @@ def lm_decode(params, cache, tokens, pos, ctx: Ctx, cfg: ArchConfig):
         rep = policy.merge_reports(rep, r_a, r_f)
     x = rmsnorm(params["final_norm"], x)
     logits, r_h = apply_linear(params["lm_head"], x, ctx, name="lm_head")
-    return logits, stack_layers(new), policy.merge_reports(rep, r_h)
+    if isinstance(cache["attn"]["k"], PagedKV):
+        new_cache = cache
+    else:
+        new_cache = stack_layers(new)
+    return logits, new_cache, policy.merge_reports(rep, r_h)
 
 
 # ------------------------------ cache init ----------------------------------

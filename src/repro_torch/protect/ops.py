@@ -14,9 +14,8 @@ Adapters registered here: ``qgemm`` and ``embedding_bag``, dispatching
 through :mod:`repro_torch.kernels.ops`, ``float_gemm`` (a plain float32
 product, as the JAX package leaves it to XLA) and ``kv_cache`` (the
 checksummed int8 KV cache, plain PyTorch: the JAX package has no kernel
-for it).  The paged ``kv_cache_paged`` adapter waits for the paging
-slice (ROADMAP A4); its op kind is already a report key
-(:mod:`repro_torch.core.policy`).
+for it) and ``kv_cache_paged`` (the paged, page-checksummed cache of
+:mod:`repro_torch.paging`, plain PyTorch too).
 
 Scheme names carry over from JAX plans: ``pallas`` ("force the kernel")
 is a synonym of the port's ``cuda`` scheme, and the EmbeddingBag's
@@ -38,6 +37,7 @@ from repro_torch.core import (EB_REL_BOUND, LANE, QuantKV, abft_gemm_f32,
                               update_kv_row, verify_rows)
 from repro_torch.core.policy import register_op_kind
 from repro_torch.kernels import ops as kops
+from repro_torch.paging.cache import attend_paged, paged_append
 from repro_torch.protect.plan import ResolvedRule
 
 _DEFAULT_RULE = ResolvedRule()
@@ -285,6 +285,54 @@ class KvCacheOp:
 
 
 # ---------------------------------------------------------------------------
+# Paged quantized KV cache (repro_torch.paging)
+# ---------------------------------------------------------------------------
+
+class KvCachePagedOp:
+    """Page-table int8 KV cache with per-page folded checksums.
+
+    encoded = (pk, pv) :class:`repro_torch.paging.PagedKV` pair
+    (per-layer layout); inputs = (q_heads [B, H, dh], pos [B]).
+    Verify-on-touch: the check covers exactly the pages the attention mask
+    reads, one int32 compare per (page, kv head), and the touched-page
+    count rides the report's ``checks`` counter (``Check.aux["n_checks"]``)
+    so telemetry can price verification per decode token.  Page repair
+    (evict/rebuild/abort-owner) is a host-side allocator action — the
+    serving engine interprets the plan policy; the op only counts, so
+    call sites pass a log-policy rule (:func:`~repro_torch.protect.runtime.
+    paged_kv_rule`)."""
+    name = "kv_cache_paged"
+    schemes = ("default",)
+    supports_correct = False
+
+    def encode(self, kv):
+        """Pool encoding lives in :mod:`repro_torch.paging.cache`
+        (pack_prompt_pages / paged_append); pass pools through."""
+        return kv
+
+    def append(self, pk, pos, new_rows):
+        return paged_append(pk, pos, new_rows)
+
+    def __call__(self, encoded, q_heads, pos, *,
+                 rule: ResolvedRule = _DEFAULT_RULE, n_heads: int,
+                 n_kv: int, window=None, prefix_global: int = 0):
+        pk, pv = encoded
+        out, errs, pages = attend_paged(q_heads, pk, pv, pos,
+                                        n_heads=n_heads, n_kv=n_kv,
+                                        verify=True, window=window,
+                                        prefix_global=prefix_global)
+        return out, Check(errs, aux={"n_checks": pages})
+
+    def unprotected(self, encoded, q_heads, pos, *, n_heads: int,
+                    n_kv: int, window=None, prefix_global: int = 0):
+        pk, pv = encoded
+        out, _, _ = attend_paged(q_heads, pk, pv, pos, n_heads=n_heads,
+                                 n_kv=n_kv, verify=False, window=window,
+                                 prefix_global=prefix_global)
+        return out
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -310,7 +358,9 @@ QGEMM = register_op(QGemmOp())
 FLOAT_GEMM = register_op(FloatGemmOp())
 EMBEDDING_BAG = register_op(EmbeddingBagOp())
 KV_CACHE = register_op(KvCacheOp())
+KV_CACHE_PAGED = register_op(KvCachePagedOp())
 
 __all__ = ["Check", "ProtectedOp", "OPS", "register_op", "get_op",
-           "QGemmOp", "FloatGemmOp", "EmbeddingBagOp", "KvCacheOp", "QGEMM",
-           "FLOAT_GEMM", "EMBEDDING_BAG", "KV_CACHE", "QuantKV", "LANE"]
+           "QGemmOp", "FloatGemmOp", "EmbeddingBagOp", "KvCacheOp",
+           "KvCachePagedOp", "QGEMM", "FLOAT_GEMM", "EMBEDDING_BAG",
+           "KV_CACHE", "KV_CACHE_PAGED", "QuantKV", "LANE"]

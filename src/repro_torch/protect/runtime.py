@@ -15,6 +15,9 @@ A call whose adapter reports one count per independent check (a stack of
 EmbeddingBag tables) counts one check per entry, and the recompute policy
 retries only the entries that still report errors — the sums a JAX
 ``vmap`` over per-table calls gives.
+
+The JAX module's ``observe_metrics`` (a step's counters landed in the
+observability bus) waits for ``obs``, ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -98,8 +101,13 @@ def protected_call(op: str, encoded, *inputs, ctx=None,
     out, check = adapter(encoded, *inputs, rule=rule, **call_kwargs)
     if policy_name == "abort":
         abort_if_errors(check.err_count)
-    return out, op_report(op, _total(check.err_count),
-                          checks=check.err_count.numel())
+    # an adapter whose one call covers a variable amount of verified state
+    # (the pages a paged KV read touches) reports it in Check.aux, so the
+    # checks counter prices verification work, not calls
+    n_checks = check.err_count.numel()
+    if isinstance(check.aux, dict) and "n_checks" in check.aux:
+        n_checks = check.aux["n_checks"]
+    return out, op_report(op, _total(check.err_count), checks=n_checks)
 
 
 def kv_rule(ctx, name: str = "attn") -> ResolvedRule:
@@ -110,3 +118,15 @@ def kv_rule(ctx, name: str = "attn") -> ResolvedRule:
     if r.enabled and not bool(getattr(ctx, "quant", False)):
         return dataclasses.replace(r, enabled=False)
     return r
+
+
+def paged_kv_rule(ctx, name: str = "attn") -> ResolvedRule:
+    """The kv_cache_paged rule with its policy forced to ``log``.
+
+    Page repair under recompute/abort is a host-side allocator action
+    (evict the flagged page, rebuild prompt pages via re-prefill, or
+    abort the owning request) — the serving engine applies it between
+    steps.  The protected read itself only counts; the plan's policy
+    still decides what the engine does with the flag."""
+    return dataclasses.replace(rule_for(ctx, "kv_cache_paged", name),
+                               policy="log")

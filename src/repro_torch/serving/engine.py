@@ -38,11 +38,22 @@ of a plan-path-addressed weight leaf in place before a global step (on
 the engine's stream, ahead of the kernels that read it) and flips it back
 after the step unless the fault is persistent, or (``target="kv"``) one
 int8 payload bit of a resident request's quantized KV cache, which stays
-until the slot is refilled or the lane dropped; telemetry records each
-injection and the step that flagged it.
+until the slot is refilled, the page evicted or the lane dropped;
+telemetry records each injection and the step that flagged it.
 
-The JAX engine's paged KV cache waits for the paging slice (ROADMAP A4),
-and its observability, health monitor and adaptive thresholds for A5.
+With ``paging=`` (a :class:`~repro_torch.paging.PagingConfig`) the LM
+lanes serve from the paged, prefix-shared, page-checksummed KV cache of
+:mod:`repro_torch.paging`, as the JAX engine's paged lanes do: prompts
+round up to page-multiple buckets, each lane's slots hold page tables
+into one pool per lane, admission looks the prompt up in the prefix tree
+and packs only the pages it does not share, decode verifies the pages
+its read touches, and a flagged page is scrubbed, evicted and rebuilt by
+re-prefill (``recompute``/``correct``) or its owner aborted (``abort``,
+or a decode-tail page) between steps.  The pools are written in place.
+
+The JAX engine's observability (``obs``: spans, gauges and paging
+events), health monitor and adaptive thresholds wait for ROADMAP A5;
+the paging stats they publish are :meth:`ServingEngine.paging_stats`.
 """
 from __future__ import annotations
 
@@ -82,8 +93,9 @@ class FaultInjection:
     ``seed`` over the leaf's live region.  The flip is restored after the
     step unless ``persistent`` (then :meth:`ServingEngine.reset_state`
     restores it).  ``target="kv"`` flips one int8 payload byte of a
-    resident request's quantized KV cache instead — a memory-resident
-    fault, persistent until the slot is refilled or the cache dropped
+    resident request's quantized KV cache instead (a paged lane: a byte
+    of a mapped prompt page) — a memory-resident fault, persistent until
+    the slot is refilled, the page evicted or the cache dropped
     (:meth:`ServingEngine.reset_state`); ``victim`` is ignored, the
     location is drawn from ``seed``, and a lane with a bf16 cache (nothing
     checksummed) takes no flip."""
@@ -130,6 +142,9 @@ class _Lane:
         self.cache = None
         self.tokens = None
         self.pos = None
+        # paged-KV lanes (the engine fills these when paging is configured)
+        self.pager = None              # PagedKVManager
+        self.table = None              # [n_slots, max_pages] int32, device
 
     def accepts(self, req: Request) -> bool:
         return req.tenant in self.tenants
@@ -139,6 +154,9 @@ class _Lane:
         self.cache = None
         self.tokens = None
         self.pos = None
+        self.table = None
+        if self.pager is not None:
+            self.pager.reset()
         return self.batcher.drain()
 
 
@@ -147,7 +165,7 @@ class ServingEngine:
                  n_slots: int = 4, max_prompt: int = 64,
                  max_new_tokens: int = 32, queue_depth: int = 0,
                  seed: int = 0, compute_dtype=None, dlrm_extras=None,
-                 device="cuda"):
+                 paging=None, device="cuda"):
         from repro_torch.device import resolve_device
 
         self.is_dlrm = cfg.family == "dlrm"
@@ -180,6 +198,25 @@ class ServingEngine:
         #: applied injections: [(leaf, flat_index, bit, persistent)]
         self._injection_state: list = []
 
+        #: PagingConfig | None — paged, prefix-shared, per-page-checksummed
+        #: KV mode (module docstring)
+        self.paging = paging
+        if paging is not None:
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    f"paged KV serves attention-only decode caches; "
+                    f"family {cfg.family!r} is not supported")
+            if cfg.meta_tokens:
+                raise ValueError("paged KV assumes positions start at 0 "
+                                 "(meta_tokens must be 0)")
+            p = paging.page_size
+            self._max_bucket = -(-max_prompt // p) * p
+            mp_per_slot = (self._max_bucket + max_new_tokens - 1) // p + 1
+            if mp_per_slot > paging.n_pages:
+                raise ValueError(
+                    f"pool of {paging.n_pages} pages cannot hold even one "
+                    f"slot's {mp_per_slot} pages")
+
         if self.is_dlrm:
             from repro_torch.configs.dlrm import EXTRAS
             from repro_torch.models.dlrm import init_dlrm
@@ -192,7 +229,8 @@ class ServingEngine:
         else:
             # the KV cache holds the prompt bucket, the new tokens and a
             # margin of 8, as in the JAX engine
-            self.cache_len = (max_prompt + max_new_tokens + cfg.meta_tokens
+            bucket = max_prompt if paging is None else self._max_bucket
+            self.cache_len = (bucket + max_new_tokens + cfg.meta_tokens
                               + 8)
             self.params = self.model.init(seed, device=self.device)
 
@@ -205,6 +243,12 @@ class ServingEngine:
             plan = specs[0].resolved_plan()
             lane = _Lane(key=f"lane{i}[{plan.name or pkey}]", plan=plan,
                          tenants=[t.name for t in specs], n_slots=n_slots)
+            if paging is not None:
+                from repro_torch.paging import PagedKVManager
+                p = paging.page_size
+                lane.pager = PagedKVManager(
+                    paging, n_slots,
+                    (self._max_bucket + max_new_tokens - 1) // p + 1)
             self._build_lane_fns(lane)
             self.lanes.append(lane)
         self._lane_of = {name: lane for lane in self.lanes
@@ -246,11 +290,17 @@ class ServingEngine:
             tok, cache, metrics = prefill_step(params, batch)
             return tok, cache, metrics_to_ints(metrics)
 
+        def prefill_paged(params, batch, bucket):
+            # a paged prefill runs at its prompt bucket, unpadded
+            tok, cache, metrics = make_prefill_step(
+                self.model, ctx, cache_len=bucket)(params, batch)
+            return tok, cache, metrics_to_ints(metrics)
+
         def decode(params, cache, tokens, pos):
             tok, cache, metrics = decode_step(params, cache, tokens, pos)
             return tok, cache, metrics_to_ints(metrics)
 
-        lane.prefill_fn = prefill
+        lane.prefill_fn = prefill if lane.pager is None else prefill_paged
         lane.decode_fn = decode
 
     @classmethod
@@ -297,9 +347,11 @@ class ServingEngine:
                 [head, rng.integers(0, cfg.vocab, bucket - pfx)])
         return rng.integers(0, cfg.vocab, bucket)
 
-    def _chat_batch(self, req: Request) -> dict:
-        """One prompt, padded to the single fixed bucket ``max_prompt``."""
-        tokens = self._chat_tokens(req, self.max_prompt)
+    def _chat_batch(self, req: Request, bucket: Optional[int] = None
+                    ) -> dict:
+        """One prompt, padded to ``bucket``: a paged lane's page-multiple
+        bucket, else the single fixed bucket ``max_prompt``."""
+        tokens = self._chat_tokens(req, bucket or self.max_prompt)
         return {"tokens": torch.from_numpy(
             tokens[None, :].astype(np.int32)).to(self.device)}
 
@@ -338,6 +390,9 @@ class ServingEngine:
                             prompt_len=self.max_prompt, max_new_tokens=1,
                             seed=0)
             for lane in self.lanes:
+                if lane.pager is not None:
+                    self._warmup_paged(lane, dummy)
+                    continue
                 _, cache1, _ = lane.prefill_fn(self.params,
                                                self._chat_batch(dummy))
                 full = self._insert(
@@ -362,6 +417,119 @@ class ServingEngine:
                             torch.zeros_like(bags))
         self._sync()
         self._warm = True
+
+    def _warmup_paged(self, lane: _Lane, dummy: Request) -> None:
+        """Run the paged lane's steps once against throwaway pools (the
+        allocator and tree are untouched: slot 0's warm-up pages live in a
+        synthetic table that is discarded afterwards): a prefill at the
+        ``max_prompt`` bucket, the page pack and reset, a decode step and
+        a scrub.  The lane's own pools, if new, start zero."""
+        from repro_torch.paging import scrub_cache
+
+        p = self.paging.page_size
+        bucket = self._max_bucket
+        nc = bucket // p
+        _, cache1, _ = lane.prefill_fn(self.params,
+                                       self._chat_batch(dummy, bucket),
+                                       bucket)
+        if lane.cache is None:
+            self._init_paged_cache(lane, cache1)
+        cache, table = self._paged_pools(lane, cache1)
+        tb = np.full(table.shape, -1, np.int32)
+        tb[0, :nc + 1] = np.arange(nc + 1)
+        table.copy_(torch.from_numpy(tb))
+        self._pack_pages(cache, cache1, np.arange(nc))
+        self._reset_pages(cache, [nc])
+        toks = torch.zeros((lane.n_slots,), dtype=torch.int32,
+                           device=self.device)
+        pos = torch.full((lane.n_slots,), bucket, dtype=torch.int32,
+                         device=self.device)
+        lane.decode_fn(self.params, cache, toks, pos)
+        scrub_cache(cache, pos)
+
+    # ------------------------------ paged-KV state ---------------------------
+
+    def _paged_pools(self, lane: _Lane, cache1):
+        """Fresh zero K and V pools sized from a prefill's cache, and the
+        page table both share: one ``[n_slots, max_pages]`` device tensor,
+        seen by every layer through a stride-0 view (one page id names the
+        same pool row in every layer)."""
+        from repro_torch.core import QuantKV
+        from repro_torch.paging import paged_pool
+
+        if set(cache1) != {"attn"}:
+            raise ValueError(f"paged KV expects an attention-only cache; "
+                             f"got entries {sorted(cache1)}")
+        leaf = cache1["attn"]["k"]
+        arr = leaf.q if isinstance(leaf, QuantKV) else leaf
+        ell, _, kvh, _, dh = arr.shape
+        pg = self.paging
+        table = torch.full((lane.n_slots, lane.pager.max_pages), -1,
+                           dtype=torch.int32, device=self.device)
+
+        def pool():
+            return paged_pool(pg.n_pages, kvh, pg.page_size, dh,
+                              lane.n_slots, lane.pager.max_pages,
+                              n_layers=ell, device=self.device)._replace(
+                table=table.expand((ell,) + table.shape))
+
+        return {"attn": {"k": pool(), "v": pool()}}, table
+
+    def _init_paged_cache(self, lane: _Lane, cache1) -> None:
+        """Size the lane's page pools from the first prefill's cache
+        shapes and zero the decode-side state."""
+        lane.cache, lane.table = self._paged_pools(lane, cache1)
+        lane.tokens = torch.zeros((lane.n_slots,), dtype=torch.int32,
+                                  device=self.device)
+        lane.pos = torch.zeros((lane.n_slots,), dtype=torch.int32,
+                               device=self.device)
+
+    def _push_table(self, lane: _Lane) -> None:
+        """Copy the manager's host table into the lane's device table."""
+        lane.table.copy_(torch.from_numpy(lane.pager.table))
+
+    @staticmethod
+    def _pack_pages(cache, cache1, page_ids) -> None:
+        from repro_torch.paging import pack_prompt_pages
+        for name in ("k", "v"):
+            pack_prompt_pages(cache["attn"][name], cache1["attn"][name],
+                              page_ids)
+
+    @staticmethod
+    def _reset_pages(cache, page_ids) -> None:
+        from repro_torch.paging import reset_pages
+        for name in ("k", "v"):
+            reset_pages(cache["attn"][name], page_ids)
+
+    def _bucket_of(self, req: Request) -> int:
+        p = self.paging.page_size
+        return min(self._max_bucket,
+                   -(-max(int(req.prompt_len), 1) // p) * p)
+
+    def _abort_slot(self, lane: _Lane, slot: Slot, telemetry: Telemetry):
+        """Fail ONE request (pool exhausted / unrebuildable page) and free
+        its slot + pages; the lane keeps serving."""
+        lane.pager.retire(slot.index)
+        lane.batcher.retire(slot.index)
+        self._record_slot(slot, telemetry, aborted=True)
+
+    def paging_stats(self) -> Dict[str, dict]:
+        """Per-lane paging stats + byte accounting (campaign metrics)."""
+        from repro_torch.paging import pool_page_bytes
+        out = {}
+        for lane in self.lanes:
+            if lane.pager is None:
+                continue
+            st = lane.pager.stats()
+            if lane.cache is not None:
+                attn = lane.cache["attn"]
+                per_page = (pool_page_bytes(attn["k"])
+                            + pool_page_bytes(attn["v"]))
+                st["page_bytes"] = per_page
+                st["peak_resident_bytes"] = \
+                    st["pages_high_water"] * per_page
+            out[lane.key] = st
+        return out
 
     # ------------------------------ fault injection --------------------------
 
@@ -389,11 +557,13 @@ class ServingEngine:
 
     def _apply_kv_injection(self, inj: FaultInjection,
                             telemetry: Telemetry) -> None:
-        """Flip one int8 KV payload bit in the prompt rows of a resident
-        request's slot, in place, with the JAX engine's draws from
-        ``inj.seed`` (lane, slot, pool, bit, then layer, head, row and
-        column).  The flip is memory-resident (no restore entry): it
-        persists until the slot is refilled or the cache dropped.
+        """Flip one int8 KV payload bit of a resident request's prompt
+        region, in place, with the JAX engine's draws from ``inj.seed``
+        (lane, slot, pool, bit; then on a paged lane the prompt chunk and
+        layer, kv head, row in the page and column; on a contiguous
+        quantized lane layer, head, row and column).  The flip is
+        memory-resident (no restore entry): it persists until the page is
+        evicted or rebuilt, the slot refilled or the cache dropped.
         Nothing is flipped or recorded when no lane holds a quantized
         cache with a resident request."""
         from repro_torch.core import QuantKV
@@ -410,14 +580,28 @@ class ServingEngine:
         pool_name = "k" if int(rng.integers(2)) == 0 else "v"
         leaf = lane.cache["attn"][pool_name]
         bit = int(rng.integers(8))
-        if not isinstance(leaf, QuantKV):
+        if lane.pager is not None:
+            chunks = [c for c in
+                      range(lane.pager.prompt_chunks[slot.index])
+                      if lane.pager.table[slot.index, c] >= 0]
+            if not chunks:
+                return
+            chunk = chunks[int(rng.integers(len(chunks)))]
+            pid = int(lane.pager.table[slot.index, chunk])
+            ell, _, kvh, pgs, dh = leaf.q.shape
+            idx = (int(rng.integers(ell)), pid, int(rng.integers(kvh)),
+                   int(rng.integers(pgs)), int(rng.integers(dh)))
+            victim = (f"kv_page/{pool_name}/page{pid}"
+                      f"/l{idx[0]}h{idx[2]}r{idx[3]}d{idx[4]}b{bit}")
+        elif isinstance(leaf, QuantKV):
+            ell, _, kvh, _, dh = leaf.q.shape
+            row = int(rng.integers(min(slot.pos, self.max_prompt)))
+            idx = (int(rng.integers(ell)), slot.index,
+                   int(rng.integers(kvh)), row, int(rng.integers(dh)))
+            victim = (f"kv_row/{pool_name}/slot{slot.index}"
+                      f"/l{idx[0]}h{idx[2]}r{row}d{idx[4]}b{bit}")
+        else:
             return                        # bf16 cache: nothing checksummed
-        ell, _, kvh, _, dh = leaf.q.shape
-        row = int(rng.integers(min(slot.pos, self.max_prompt)))
-        idx = (int(rng.integers(ell)), slot.index, int(rng.integers(kvh)),
-               row, int(rng.integers(dh)))
-        victim = (f"kv_row/{pool_name}/slot{slot.index}"
-                  f"/l{idx[0]}h{idx[2]}r{row}d{idx[4]}b{bit}")
         leaf.q[idx].bitwise_xor_((1 << bit) if bit < 7 else -128)
         telemetry.add_injection(InjectionRecord(
             step=self.global_step, victim=victim, clock_s=self.clock_s,
@@ -529,6 +713,9 @@ class ServingEngine:
                     injected: bool = False):
         from repro_torch.core.policy import is_fault_abort
 
+        if lane.pager is not None:
+            self._do_prefill_paged(lane, slot, telemetry, injected)
+            return
         req = slot.request
         batch = self._chat_batch(req)
         t0 = time.perf_counter()
@@ -560,10 +747,61 @@ class ServingEngine:
         self._step_event("prefill", lane, dt, metrics, telemetry, injected,
                          slot_rids=(req.rid,))
 
+    def _do_prefill_paged(self, lane: _Lane, slot: Slot,
+                          telemetry: Telemetry, injected: bool):
+        """Paged admission: prefix-tree lookup, page-bucketed prefill,
+        pack the non-shared pages, allocate the first decode-tail page."""
+        from repro_torch.core.policy import is_fault_abort
+
+        req = slot.request
+        pager = lane.pager
+        p = self.paging.page_size
+        bucket = self._bucket_of(req)
+        plan = pager.admit(slot.index, self._chat_tokens(req, bucket))
+        if not plan.ok:                      # pool exhausted: shed it
+            lane.batcher.retire(slot.index)
+            self._record_slot(slot, telemetry, aborted=True)
+            return
+        batch = self._chat_batch(req, bucket)
+        t0 = time.perf_counter()
+        try:
+            (tok, cache1, metrics), dt = self._timed(
+                lane.prefill_fn, self.params, batch, bucket)
+        except Exception as e:          # noqa: BLE001 - abort policy only
+            if not is_fault_abort(e):
+                raise
+            self._abort_step("prefill", lane, t0, telemetry, injected,
+                             (req.rid,))
+            self._abort_slot(lane, slot, telemetry)
+            return
+        if lane.cache is None:
+            self._init_paged_cache(lane, cache1)
+        tail = pager.decode_page(slot.index, bucket // p)
+        if tail is None:
+            self._abort_slot(lane, slot, telemetry)
+            return
+        self._pack_pages(lane.cache, cache1, plan.page_ids)
+        self._push_table(lane)
+        self._reset_pages(lane.cache, [tail])
+        lane.tokens[slot.index] = tok[0]
+        lane.pos[slot.index] = bucket
+        slot.pos = bucket
+        slot.generated = 1
+        slot.first_token_s = self.clock_s
+        slot.token_ids = [int(tok[0])]
+        slot.bucket = bucket
+        slot.prefill_tokens, slot.shared_prefix_tokens = plan.tokens(p)
+        self._step_event("prefill", lane, dt, metrics, telemetry, injected,
+                         slot_rids=(req.rid,))
+
     def _do_decode(self, lane: _Lane, telemetry: Telemetry,
                    injected: bool = False):
         from repro_torch.core.policy import is_fault_abort
 
+        if lane.pager is not None:
+            self._paged_pre_decode(lane, telemetry)
+            if not lane.batcher.occupancy():
+                return
         resident = tuple(s.request.rid
                          for s in lane.batcher.active_slots())
         t0 = time.perf_counter()
@@ -587,10 +825,98 @@ class ServingEngine:
             slot.generated += 1
             slot.pos += 1
             slot.token_ids.append(int(tok_host[slot.index]))
-        self._step_event("decode", lane, dt, metrics, telemetry, injected,
-                         slot_rids=resident)
+        errors = self._step_event("decode", lane, dt, metrics, telemetry,
+                                  injected, slot_rids=resident)
+        if lane.pager is not None and errors > 0:
+            policy = lane.plan.resolve("kv_cache_paged", "attn").policy
+            if metrics.get("abft/kv_cache_paged_errors", 0) > 0 \
+                    and policy != "log":
+                self._paged_repair(lane, telemetry, policy)
         for slot in lane.batcher.retire_finished():
+            if lane.pager is not None:
+                lane.pager.retire(slot.index)
             self._record_slot(slot, telemetry)
+
+    def _paged_pre_decode(self, lane: _Lane, telemetry: Telemetry):
+        """Before a paged decode step: allocate decode-tail pages for
+        slots crossing a page boundary (aborting the owner if the pool is
+        truly full), zero them, and push the current page table."""
+        pager = lane.pager
+        p = self.paging.page_size
+        fresh = []
+        for slot in list(lane.batcher.active_slots()):
+            chunk = slot.pos // p
+            if slot.pos % p == 0 and pager.table[slot.index, chunk] < 0:
+                pid = pager.decode_page(slot.index, chunk)
+                if pid is None:
+                    self._abort_slot(lane, slot, telemetry)
+                    continue
+                fresh.append(pid)
+        if not lane.batcher.occupancy():
+            return
+        if fresh:
+            self._reset_pages(lane.cache, fresh)
+        self._push_table(lane)
+
+    def _paged_repair(self, lane: _Lane, telemetry: Telemetry,
+                      policy: str):
+        """Detect→act for paged KV, host-side: scrub the pool, map the
+        flagged (slot, chunk) pairs to pages, then per the plan policy
+        evict + rebuild shared/prompt pages via re-prefill
+        (``recompute``/``correct``) or abort the owning request
+        (``abort`` — and always for an unrebuildable decode-tail page).
+        Only the touched requests pay; the lane keeps serving."""
+        from repro_torch.paging import scrub_cache
+
+        pager = lane.pager
+        flags = scrub_cache(lane.cache, lane.pos)
+        bad = (flags["k"] + flags["v"]).cpu().numpy()
+        for slot in list(lane.batcher.active_slots()):
+            chunks = [int(c) for c in np.nonzero(bad[slot.index])[0]]
+            if not chunks:
+                continue
+            rebuild = policy != "abort"
+            if rebuild:
+                for c in chunks:
+                    if not pager.evict_corrupt(slot.index, c):
+                        rebuild = False      # corrupt decode-tail page
+            if not (rebuild and self._rebuild_prompt(lane, slot,
+                                                     telemetry)):
+                self._abort_slot(lane, slot, telemetry)
+        if lane.batcher.occupancy():
+            self._push_table(lane)
+
+    def _rebuild_prompt(self, lane: _Lane, slot: Slot,
+                        telemetry: Telemetry) -> bool:
+        """Re-prefill a slot's prompt onto fresh pages after a corrupt
+        prompt page was evicted; decode-tail pages (the generated KV)
+        survive untouched.  Returns False when the pool cannot hold the
+        rebuilt pages or the re-prefill itself aborts."""
+        from repro_torch.core.policy import is_fault_abort
+
+        pager = lane.pager
+        req = slot.request
+        bucket = slot.bucket
+        pager.release_prompt(slot.index)
+        plan = pager.readmit(slot.index, self._chat_tokens(req, bucket))
+        if not plan.ok:
+            return False
+        t0 = time.perf_counter()
+        try:
+            (_, cache1, metrics), dt = self._timed(
+                lane.prefill_fn, self.params,
+                self._chat_batch(req, bucket), bucket)
+        except Exception as e:          # noqa: BLE001 - abort policy only
+            if not is_fault_abort(e):
+                raise
+            self._sync()
+            self.clock_s += time.perf_counter() - t0
+            return False
+        self._pack_pages(lane.cache, cache1, plan.page_ids)
+        self._push_table(lane)
+        self._step_event("rebuild", lane, dt, metrics, telemetry,
+                         slot_rids=(req.rid,))
+        return True
 
     # ------------------------------ main loop --------------------------------
 
@@ -672,6 +998,8 @@ class ServingEngine:
                         self._do_prefill(lane, slot, telemetry,
                                          injected_now)
                 for slot in lane.batcher.retire_finished():
+                    if lane.pager is not None:
+                        lane.pager.retire(slot.index)
                     self._record_slot(slot, telemetry)
 
             # 3. one decode step per lane with active slots

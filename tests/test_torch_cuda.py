@@ -696,3 +696,70 @@ def test_eb_unprotected_equals_the_protected_r(rng, dev, tables, rows, d,
     scale = max(1.0, float(r.abs().max()))
     assert float((r - ref.eb_ref(t, al, be, idx, w)).abs().max()) \
         <= 1e-5 * pool * scale
+
+
+# ------------------------- the paged KV cache -------------------------------
+
+@pytest.mark.parametrize("kv,p,dh,n_pages,n_slots,max_pages,layers", [
+    (2, 4, 16, 10, 3, 5, 2),
+    # full-width Llama-3.2-1B at page 16 (phase 14 of chip_smoke.py)
+    (8, 16, 64, 26, 4, 6, 16)])
+def test_paged_cache_on_card_matches_the_cpu_run(rng, dev, kv, p, dh,
+                                                 n_pages, n_slots,
+                                                 max_pages, layers):
+    """The paged cache functions on the card against the same calls on
+    the CPU: codes, affine parameters, pagesums, mismatch counts and
+    pages verified bit-exact; the attention within 1e-5 of its scale."""
+    from repro_torch import paging as tp
+
+    def run(device):
+        g = np.random.default_rng(7)
+        pools = {name: tp.paged_pool(n_pages, kv, p, dh, n_slots,
+                                     max_pages, n_layers=layers,
+                                     device=device) for name in "kv"}
+        table = np.full((n_slots, max_pages), -1, np.int32)
+        table[0, :3] = [3, 1, 4]                    # slot 0: 2 prompt pages
+        table[1, :3] = [3, 5, 6]                    # + tail; shares page 3
+        for name, pool in pools.items():
+            for ids in ([3, 1], [n_pages, 5]):      # page 3 packed once
+                src = torch.from_numpy(g.standard_normal(
+                    (layers, 1, kv, 2 * p, dh)).astype(np.float32))
+                tp.pack_prompt_pages(pool, src.to(device),
+                                     np.asarray(ids, np.int32))
+            tp.reset_pages(pool, np.asarray([4, 6, n_pages], np.int32))
+            pools[name] = pool._replace(table=torch.from_numpy(
+                table).to(device).expand((layers,) + table.shape))
+        pos = torch.tensor([2 * p, 2 * p] + [0] * (n_slots - 2),
+                           dtype=torch.int32, device=device)
+        outs = []
+        for step in range(3):
+            layer = {k: tp.PagedKV(*(x[step % layers] for x in v))
+                     for k, v in pools.items()}
+            new = torch.from_numpy(g.standard_normal(
+                (n_slots, kv, dh)).astype(np.float32)).to(device)
+            for name in "kv":
+                tp.paged_append(layer[name], pos, new * (2 if name == "v"
+                                                         else 1))
+            q = torch.from_numpy(g.standard_normal(
+                (n_slots, 4 * kv, dh)).astype(np.float32)).to(device)
+            outs.append(tp.attend_paged(q, layer["k"], layer["v"], pos,
+                                        n_heads=4 * kv, n_kv=kv))
+            pos = pos + 1
+        pools["k"].q[1, 3, 0, 2, 5] ^= 16            # a shared prompt page
+        flags = tp.scrub_cache({"attn": pools}, pos)
+        return pools, outs, flags
+
+    cpu, card = run("cpu"), run(dev)
+    for name in "kv":
+        for f in tp.PagedKV._fields:
+            assert torch.equal(getattr(card[0][name], f).cpu(),
+                               getattr(cpu[0][name], f)), (name, f)
+    for (o_card, e_card, n_card), (o_cpu, e_cpu, n_cpu) in zip(card[1],
+                                                                cpu[1]):
+        assert int(e_card) == int(e_cpu) == 0
+        assert int(n_card) == int(n_cpu) > 0
+        scale = float(o_cpu.abs().max())
+        assert float((o_card.cpu() - o_cpu).abs().max()) <= 1e-5 * scale
+    for name in "kv":
+        assert torch.equal(card[2][name].cpu(), cpu[2][name])
+    assert int(cpu[2]["k"].sum()) == 2                # both sharing slots

@@ -439,7 +439,8 @@ def test_lm_and_facade_refuse_what_is_not_ported(monkeypatch):
             t_base.build_model(cfg)
         with pytest.raises(NotImplementedError, match=item):
             t_lm.init_lm(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged KV"):
+    with pytest.raises(NotImplementedError,
+                       match="not a tensor, QuantKV or PagedKV"):
         t_att.attention_decode(
             {}, torch.zeros((1, 4)), {"k": object(), "v": object()},
             torch.zeros((1,), dtype=torch.int32), TCtx(quant=True),

@@ -110,7 +110,7 @@ def test_serve_cli_smoke_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--obs-dir", "obs"], "A5"), (["--paged-kv", "8"], "A4"),
+    (["--obs-dir", "obs"], "A5"), (["--fp-budget", "0.01"], "A5"),
     (["--monitor"], "A5"), (["--device-count", "2"], "A8"),
     (["--arch", "granite-moe-3b-a800m"], "A4"),
     (["--arch", "internlm2-20b"], "A7"),
