@@ -159,7 +159,9 @@ non-zero; nothing is caught and passed over):
    and ``*:policy=recompute,kv_cache_paged:on``: 8 ``chat_stream``
    requests with a shared 32-token system prompt (2 pages; prompts up to
    64, up to 32 new tokens, 4 slots, 100 rps) complete with 0 errors,
-   prefix pages shared, K1-K3 launched at the path's counts, fewer pages
+   prefix pages shared, K1-K3 launched at the path's counts, K1 and K3
+   bit-exact at every Llama projection at the path's prefill buckets (32,
+   48 and 64), fewer pages
    verified per decode token than a contiguous lane verifies rows; the
    pool sizing from ``pool_page_bytes`` (295,936 B a page of both pools,
    7.69 MB for 26, against 8.09 MB for the contiguous ``kv_cache:on``
@@ -168,9 +170,14 @@ non-zero; nothing is caught and passed over):
    engine, logits within 2**-5 of the scale and greedy tokens equal where
    the top-two margin exceeds twice that; a ``FaultInjection`` page flip
    on the log lane flagged at the next decode step and each later read;
-   one on the recompute lane flagged, scrubbed, evicted and rebuilt (0
-   aborts; a low bit, so the read before the repair moves no token, and
-   the rebuilt request's logits held to its clean pass's as above); clean
+   two on the recompute lane flagged, scrubbed, evicted and rebuilt (0
+   aborts, the victim's bit read back from its record).  The detecting
+   step reads the corrupt page under a forced log rule and keeps its
+   token (the repair follows the step, as in JAX): after a flip of bit
+   <= 2, which moves no token there, the rebuilt request's logits are
+   held to its clean pass's at every step; after a sign-bit flip, from
+   the first step after the repair wherever the detecting step's token
+   left the history the clean pass's; clean
    requests after; the paged step medians beside phase 13's, the four
    64-token requests' decode medians through the paged log lane and the
    contiguous engine in turns, one ``scrub_cache`` and one rebuild in
@@ -360,6 +367,49 @@ def check_outputs(torch, dev, params, ex, requests) -> dict:
         fail(f"small model logits differ by {err:.3g} (scale {scale:.3g})")
     return {"full_width_logits": [float(v) for v in logit.float().cpu()],
             "small_max_abs_err": err, "small_scale": scale}
+
+
+def check_gemms(torch, dev, gen, gemms) -> list:
+    """K3 (bf16 and its f32 cast) and K1 (with and without the column
+    check) bit-exact against their plain versions on random rows at each
+    ``(name, stacked weights [layers, k, n + 128], ms)`` entry, clean
+    operands unflagged; returns one line a shape naming its launch plans."""
+    from repro_torch.core import LANE
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda, launch_plan
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+
+    checked = []
+    for name, stack, ms_ in gemms:
+        bp = stack[0]
+        k, n = bp.shape[0], bp.shape[1] - LANE
+        plans = [launch_plan(m, k, n, a_addr=0, b_addr=bp.data_ptr())
+                 for m in ms_]
+        checked.append(f"{name} (k, n) = ({k}, {n}) at m = {ms_} (bm "
+                       f"{[p.bm for p in plans]}, splits "
+                       f"{[p.splits for p in plans]}, blocks "
+                       f"{[p.blocks for p in plans]})")
+        for m in ms_:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            q = quantize_rows_cuda(x)
+            for g, w, g32, what in zip(q, ref.quantize_rows_ref(x),
+                                       quantize_rows_cuda(x.float()),
+                                       ("q", "alpha", "beta")):
+                if not (torch.equal(g, w) and torch.equal(g32, w)):
+                    fail(f"quantize_rows: {what} differs at {m}x{k} (bf16 "
+                         f"or its f32 cast)")
+            for col in (False, True):
+                got = abft_qgemm_cuda(q[0], bp, with_colcheck=col)
+                want = ref.abft_qgemm_ref(q[0], bp, with_colcheck=col)
+                for g, w, what in zip(got, want,
+                                      ("C", "err_rows", "col_check")):
+                    if not torch.equal(g, w):
+                        fail(f"abft_qgemm: {what} differs at {name} m={m} "
+                             f"(k={k}, n={n})")
+                if int(got[1].sum()):
+                    fail(f"abft_qgemm flagged clean operands at {name}")
+    return checked
 
 
 def wkv_err(got, want, atol: float, rtol: float = 2e-4):
@@ -999,31 +1049,7 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
              ("cm.wk", layers["cm"]["wk"]["w_packed"], (64, 4)),
              ("cm.wv", layers["cm"]["wv"]["w_packed"], (64, 4)),
              ("lm_head", params["head"]["w_packed"][None], (1, 4))]
-    checked = []
-    for name, stack, ms_ in gemms:
-        bp = stack[0]
-        k, n = bp.shape[0], bp.shape[1] - LANE
-        checked.append(f"{name} (k, n) = ({k}, {n}) at m = {ms_}")
-        for m in ms_:
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            q = quantize_rows_cuda(x)
-            for g, w, g32, what in zip(q, ref.quantize_rows_ref(x),
-                                       quantize_rows_cuda(x.float()),
-                                       ("q", "alpha", "beta")):
-                if not (torch.equal(g, w) and torch.equal(g32, w)):
-                    fail(f"quantize_rows: {what} differs at {m}x{k} (bf16 "
-                         f"or its f32 cast)")
-            for col in (False, True):
-                got = abft_qgemm_cuda(q[0], bp, with_colcheck=col)
-                want = ref.abft_qgemm_ref(q[0], bp, with_colcheck=col)
-                for g, w, what in zip(got, want,
-                                      ("C", "err_rows", "col_check")):
-                    if not torch.equal(g, w):
-                        fail(f"abft_qgemm: {what} differs at {name} m={m} "
-                             f"(k={k}, n={n})")
-                if int(got[1].sum()):
-                    fail(f"abft_qgemm flagged clean operands at {name}")
+    checked = check_gemms(torch, dev, gen, gemms)
     log("K1 (C, err_rows, column check) and K3 (bf16 and f32) bit-exact "
         "at " + "; ".join(checked))
     hazards = pdl_hazards(torch, dev, gen, [
@@ -2225,7 +2251,7 @@ def llama_phase(torch, dev, timer) -> dict:
     from repro_torch.core import LANE
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda
-    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda, launch_plan
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
     from repro_torch.kernels.quantize_rows import quantize_rows_cuda
     from repro_torch.models.base import build_model
     from repro_torch.protect import ProtectionPlan, default_plan
@@ -2264,34 +2290,7 @@ def llama_phase(torch, dev, timer) -> dict:
              ("mlp.gate", layers["mlp"]["gate"]["w_packed"], (64, 4)),
              ("mlp.down", layers["mlp"]["down"]["w_packed"], (64, 4)),
              ("lm_head", head[None], (1, 4))]
-    checked = []
-    for name, stack, ms_ in gemms:
-        bp = stack[0]
-        k, n = bp.shape[0], bp.shape[1] - LANE
-        plan = launch_plan(ms_[0], k, n, a_addr=0, b_addr=bp.data_ptr())
-        checked.append(f"{name} (k, n) = ({k}, {n}) at m = {ms_} (bm "
-                       f"{plan.bm}, splits {plan.splits}, blocks "
-                       f"{plan.blocks})")
-        for m in ms_:
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            q = quantize_rows_cuda(x)
-            for g, w, g32, what in zip(q, ref.quantize_rows_ref(x),
-                                       quantize_rows_cuda(x.float()),
-                                       ("q", "alpha", "beta")):
-                if not (torch.equal(g, w) and torch.equal(g32, w)):
-                    fail(f"quantize_rows: {what} differs at {m}x{k} (bf16 "
-                         f"or its f32 cast)")
-            for col in (False, True):
-                got = abft_qgemm_cuda(q[0], bp, with_colcheck=col)
-                want = ref.abft_qgemm_ref(q[0], bp, with_colcheck=col)
-                for g, w, what in zip(got, want,
-                                      ("C", "err_rows", "col_check")):
-                    if not torch.equal(g, w):
-                        fail(f"abft_qgemm: {what} differs at {name} m={m} "
-                             f"(k={k}, n={n})")
-                if int(got[1].sum()):
-                    fail(f"abft_qgemm flagged clean operands at {name}")
+    checked = check_gemms(torch, dev, gen, gemms)
     log("Llama: K1 (C, err_rows, column check) and K3 (bf16 and f32) "
         "bit-exact at " + "; ".join(checked))
     hazards = pdl_hazards(torch, dev, gen, [
@@ -2628,19 +2627,27 @@ def compare_logits(torch, want_steps, got_steps, want_tokens, got_tokens,
     return {"steps_compared": compared, "max_err": worst, "split": split}
 
 
-def low_bit_kv_seed(max_bit: int = 2) -> int:
+def kv_seed_for_bit(bits) -> int:
     """The first ``FaultInjection(target="kv")`` seed whose flip, on an
     engine with one occupied lane and one resident request, lands on a
-    bit at most ``max_bit``: the engine draws lane, slot, pool, then the
-    bit from the seed (``ServingEngine._apply_kv_injection``)."""
+    bit in ``bits``, by the draw order the engine documents (lane, slot,
+    pool, then the bit: ``ServingEngine._apply_kv_injection``).  The
+    caller reads the bit back from the recorded victim
+    (:func:`victim_bit`), so a change to that order fails the phase
+    rather than moving its flip."""
     import numpy as np
     for seed in itertools.count():
         rng = np.random.default_rng(seed)
         rng.integers(1)
         rng.integers(1)
         rng.integers(2)
-        if int(rng.integers(8)) <= max_bit:
+        if int(rng.integers(8)) in bits:
             return seed
+
+
+def victim_bit(victim: str) -> int:
+    """The flipped bit of a KV victim string (``...d<col>b<bit>``)."""
+    return int(victim.rsplit("b", 1)[1])
 
 
 def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
@@ -2701,7 +2708,8 @@ def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
                            prefix_len=32, prefix_seed=prefix_seed)
 
     wrappers = zero_launches()
-    tel = engine.run(stream(8, 0))            # the warm-up runs inside
+    reqs = stream(8, 0)
+    tel = engine.run(reqs)                    # the warm-up runs inside
     launches = read_launches(wrappers)
     s = tel.summary()
     counters = s["faults"]["counters"]
@@ -2739,6 +2747,21 @@ def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
               "qgemm_unprotected": 0, "eb_unprotected": 0}
     if launches != want_l:
         fail(f"launches {launches} differ from the path's {want_l}")
+    # K1 and K3 at the shapes this path hands them: a paged lane prefills
+    # at the request's page-multiple bucket (and rebuilds at it), not at
+    # phase 13's 64, so every bucket of the stream, and 32 and 48 whatever
+    # the draw, at each Llama projection; decode (m = 4) and the head (m
+    # = 1 and 4) are phase 13's shapes
+    buckets = sorted({engine._bucket_of(r) for r in reqs})
+    ms_ = tuple(sorted(set(buckets) | {32, 48}, reverse=True))
+    layers = engine.params["layers"]
+    checked = check_gemms(
+        torch, dev, torch.Generator(device=dev).manual_seed(14),
+        [(f"{blk}.{w}", layers[blk][w]["w_packed"], ms_)
+         for blk, w in (("attn", "wq"), ("attn", "wk"), ("mlp", "gate"),
+                        ("mlp", "down"))])
+    log(f"paged Llama: prefill buckets {buckets}; K1 (C, err_rows, column "
+        f"check) and K3 (bf16 and f32) bit-exact at " + "; ".join(checked))
     hits = sum(v["prefix_hits"] for v in stats.values())
     shared = sum(p["shared_prefix_tokens"] for p in per.values())
     if hits <= 0 or shared <= 0:
@@ -2780,7 +2803,8 @@ def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
                            if ev.kind == kind and ev.lane == key]
              for kind in ("prefill", "decode") for key in lanes}
     serve = {"tenants": per, "launches": launches, "counters": counters,
-             "paging_stats": stats, "steps_ms": {
+             "paging_stats": stats, "prefill_buckets": buckets,
+             "k1_k3_checked": checked, "steps_ms": {
                  f"{k} {key}": v for (k, key), v in steps.items()},
              "step_ms_median": {f"{k} {key}": float(np.median(v))
                                 for (k, key), v in steps.items() if v},
@@ -2861,37 +2885,69 @@ def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
                      "flagged_steps": [ev.step for ev in flagged]}}
 
     # ----- 14d. a page flip on the recompute lane: evicted and rebuilt -----
-    seed = low_bit_kv_seed()
+    # the paged read runs under a forced log rule and the repair comes
+    # after the step (JAX semantics): the detecting step's token, and the
+    # K/V rows it appends to the decode-tail page in the layers past the
+    # flip, come from the corrupt read and are kept.  A flip of bit <= 2
+    # moves no token there, and the rebuilt request is held to its clean
+    # pass at every step; a sign-bit flip (bit 7) is held from the first
+    # step after the repair (the kept tail rows within the tolerance),
+    # where the detecting step's token left the history the clean pass's,
+    # and otherwise the parting is recorded
     engine.reset_state()
     with LogitTap(engine.model) as tap_clean:
         clean = engine.run(alone(300, "rec", 8), warmup=False)
-    engine.reset_state()
-    with LogitTap(engine.model) as tap_bad:
-        tel = engine.run(alone(300, "rec", 8), inject=[FaultInjection(
-            step=1, target="kv", persistent=True, seed=seed)], warmup=False)
-    (inj,) = tel.injections
-    st = engine.paging_stats()["lane1[rec]"]
-    summ = tel.summary()["per_tenant"]["rec"]
-    rebuilt = [ev for ev in tel.steps if ev.kind == "rebuild"]
-    flagged = [ev.step for ev in tel.steps if ev.errors]
-    if not inj.detected or inj.detect_step != 1 or flagged != [1] or \
-            st["page_rebuilds"] < 1 or not rebuilt or \
-            summ["aborted"] or summ["completed"] != 1:
-        fail(f"paged recompute-lane flip {inj}: flagged {flagged}, stats "
-             f"{st}, tenant {summ}")
     tok_clean = {r.rid: r.tokens for r in clean.requests}
-    tok_bad = {r.rid: r.tokens for r in tel.requests}
-    rb_cmp = compare_logits(
-        torch, tap_clean.per_request("rec", tok_clean, vocab)[300],
+    want = tap_clean.per_request("rec", tok_clean, vocab)[300]
+    want_t = tok_clean[300]
+    for key, bits in (("rec", range(3)), ("rec_bit7", (7,))):
+        seed = kv_seed_for_bit(bits)
+        engine.reset_state()
+        with LogitTap(engine.model) as tap_bad:
+            tel = engine.run(alone(300, "rec", 8), inject=[FaultInjection(
+                step=1, target="kv", persistent=True, seed=seed)],
+                warmup=False)
+        (inj,) = tel.injections
+        st = engine.paging_stats()["lane1[rec]"]
+        summ = tel.summary()["per_tenant"]["rec"]
+        rebuilt = [ev for ev in tel.steps if ev.kind == "rebuild"]
+        flagged = [ev.step for ev in tel.steps if ev.errors]
+        if victim_bit(inj.victim) not in bits:
+            fail(f"KV flip seed {seed} drew {inj.victim}, not a bit in "
+                 f"{list(bits)}: the engine's draw order changed")
+        if not inj.detected or inj.detect_step != 1 or flagged != [1] or \
+                st["page_rebuilds"] < 1 or not rebuilt or \
+                summ["aborted"] or summ["completed"] != 1:
+            fail(f"paged recompute-lane flip {inj}: flagged {flagged}, "
+                 f"stats {st}, tenant {summ}")
         # the rebuild's prefill comes after the request's own
-        tap_bad.per_request("rec", tok_bad, vocab)[300],
-        tok_clean[300], tok_bad[300], vocab,
-        "the rebuilt request against its clean pass")
-    flips["rec"] = {"victim": inj.victim, "seed": seed,
-                    "detect_step": inj.detect_step,
-                    "page_rebuilds": st["page_rebuilds"],
-                    "rebuild_ms": [ev.duration_s * 1e3 for ev in rebuilt],
-                    "tokens_vs_clean": rb_cmp}
+        got = tap_bad.per_request("rec", {300: tel.requests[0].tokens},
+                                  vocab)[300]
+        got_t = tel.requests[0].tokens
+        # the detecting step's logits: the request's prefill, then one
+        # row a decode step
+        d = 1 + [ev.errors > 0 for ev in tel.steps
+                 if ev.kind == "decode"].index(True)
+        wd, gd = want[d][:vocab], got[d][:vocab]
+        rec = {"victim": inj.victim, "seed": seed,
+               "detect_step": inj.detect_step,
+               "page_rebuilds": st["page_rebuilds"],
+               "rebuild_ms": [ev.duration_s * 1e3 for ev in rebuilt],
+               "detect_step_token_equal": got_t[d] == want_t[d],
+               "detect_step_logit_err":
+                   float((gd - wd).abs().max() / wd.abs().max())}
+        what = f"the rebuilt request ({inj.victim}) against its clean pass"
+        if key == "rec":
+            rec["tokens_vs_clean"] = compare_logits(
+                torch, want, got, want_t, got_t, vocab, what)
+        elif got_t[:d + 1] == want_t[:d + 1]:
+            rec["tokens_vs_clean_after_repair"] = compare_logits(
+                torch, want[d + 1:], got[d + 1:], want_t[d + 1:],
+                got_t[d + 1:], vocab, what + " after the repair")
+        else:
+            rec["tokens_vs_clean_after_repair"] = \
+                "parted at the detecting step"
+        flips[key] = rec
     # clean requests afterwards, both tenants
     engine.reset_state()
     tel = engine.run(alone(400, "log", 4) + alone(401, "rec", 4),
@@ -2900,14 +2956,21 @@ def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
     if any(v for k, v in c_clean.items() if k.endswith("_errors")):
         fail(f"errors after the paged flips: {c_clean}")
     flips["clean_after"] = c_clean
+    r7 = flips["rec_bit7"]
     log(f"paged Llama flips: {flips['log']['victim']} (log lane) flagged at "
-        f"steps {flips['log']['flagged_steps']}, one error a read; "
-        f"{flips['rec']['victim']} (recompute lane, seed {seed}) flagged at "
-        f"step 1, {st['page_rebuilds']} page rebuild(s) in "
-        f"{flips['rec']['rebuild_ms']} ms, 0 aborts, the rebuilt request's "
-        f"logits within {rb_cmp['max_err']:.2g} of its clean pass's over "
-        f"{rb_cmp['steps_compared']} steps (split {rb_cmp['split']}); "
-        f"clean requests after: no errors")
+        f"steps {flips['log']['flagged_steps']}, one error a read; on the "
+        f"recompute lane "
+        + "; ".join(f"{f['victim']} (seed {f['seed']}) flagged at step 1, "
+                    f"{f['page_rebuilds']} page rebuild(s) in "
+                    f"{f['rebuild_ms']} ms, 0 aborts, the detecting step's "
+                    f"logits {f['detect_step_logit_err']:.2g} of the scale "
+                    f"off the clean pass's (token equal: "
+                    f"{f['detect_step_token_equal']})"
+                    for f in (flips["rec"], flips["rec_bit7"]))
+        + f"; the bit <= 2 rebuild against its clean pass at every step: "
+        f"{flips['rec']['tokens_vs_clean']}; the bit-7 one from the step "
+        f"after the repair: {r7['tokens_vs_clean_after_repair']}; clean "
+        f"requests after: no errors")
 
     # ------------------------------ 14e. times ------------------------------
     # one scrub_cache over the log lane's pools (all 16 layers, both

@@ -419,11 +419,12 @@ class ServingEngine:
         self._warm = True
 
     def _warmup_paged(self, lane: _Lane, dummy: Request) -> None:
-        """Run the paged lane's steps once against throwaway pools (the
-        allocator and tree are untouched: slot 0's warm-up pages live in a
-        synthetic table that is discarded afterwards): a prefill at the
-        ``max_prompt`` bucket, the page pack and reset, a decode step and
-        a scrub.  The lane's own pools, if new, start zero."""
+        """Run the paged lane's steps once (the allocator and tree are
+        untouched: slot 0's warm-up pages live in a synthetic table): a
+        prefill at the ``max_prompt`` bucket, the page pack and reset, a
+        decode step and a scrub.  A lane without pools warms up on its own
+        new pools and zeroes the pages it wrote afterwards; one that
+        already holds pages warms up on throwaway pools."""
         from repro_torch.paging import scrub_cache
 
         p = self.paging.page_size
@@ -432,9 +433,12 @@ class ServingEngine:
         _, cache1, _ = lane.prefill_fn(self.params,
                                        self._chat_batch(dummy, bucket),
                                        bucket)
-        if lane.cache is None:
+        own = lane.cache is None
+        if own:
             self._init_paged_cache(lane, cache1)
-        cache, table = self._paged_pools(lane, cache1)
+            cache, table = lane.cache, lane.table
+        else:
+            cache, table = self._paged_pools(lane, cache1)
         tb = np.full(table.shape, -1, np.int32)
         tb[0, :nc + 1] = np.arange(nc + 1)
         table.copy_(torch.from_numpy(tb))
@@ -446,6 +450,9 @@ class ServingEngine:
                          device=self.device)
         lane.decode_fn(self.params, cache, toks, pos)
         scrub_cache(cache, pos)
+        if own:
+            self._reset_pages(cache, np.arange(nc + 1))
+            table.fill_(-1)
 
     # ------------------------------ paged-KV state ---------------------------
 

@@ -50,6 +50,9 @@ def _misaligned(a):
     # the Llama-3.2-1B decode shapes at 4 slots and a prefill MLP shape
     (4, 2048, 512, "random"), (4, 8192, 2048, "random"),
     (64, 2048, 8192, "random"),
+    # paged Llama prefills at its page-multiple buckets: bm 32 at m = 32,
+    # a part-filled 64-row tile at m = 48
+    (32, 2048, 2048, "random"), (48, 8192, 2048, "random"),
     # the extremes of the int32 sums and of the column check's wraparound
     (64, 7168, 2048, "extreme"),
     # A off 16-byte alignment at an otherwise aligned shape
@@ -144,11 +147,13 @@ def test_quantize_rows_kernel_bit_exact(rng, dev, m, n):
         assert torch.equal(g, w)
 
 
-# the rows K3 sees on the two serving paths: every DLRM layer's input
+# the rows K3 sees on the serving paths: every DLRM layer's input
 # width at the lookup batch, the RWKV projections' at prefill (64),
-# decode (4) and the head in a prefill (1); and a ragged odd width
+# decode (4) and the head in a prefill (1), the paged Llama's prefill
+# buckets (48, 32) at its widths; and a ragged odd width
 K3_SHAPES = ([(10, k) for k in (13, 512, 256, 479, 1024)]
              + [(m, k) for m in (64, 4, 1) for k in (2048, 7168)]
+             + [(m, k) for m in (48, 32) for k in (2048, 8192)]
              + [(3, 1001)])
 
 

@@ -300,6 +300,37 @@ def test_paged_engine_matches_the_jax_engine(plan_text, step, seed):
         assert not any(e.errors for e in clean.steps)
 
 
+def test_paged_warmup_leaves_the_lane_pools_as_it_found_them():
+    """The warm-up writes a synthetic prompt and a decode row into a new
+    lane's own pools and zeroes them after; a lane that already holds
+    pages warms up on throwaway pools and keeps its own bit for bit."""
+    te = ServingEngine(T_CFG, [TenantSpec("a", ProtectionPlan.parse(
+                           _PAGED, name="p"))], n_slots=2, max_prompt=24,
+                       max_new_tokens=6, device="cpu",
+                       paging=tp.PagingConfig(page_size=8, n_pages=12))
+    te.warmup()
+    (lane,) = te.lanes
+    for leaf in lane.cache["attn"].values():
+        assert all(int(t.count_nonzero()) == 0 for t in leaf[:4])
+    assert bool((lane.table == -1).all())
+    tt = te.run(_engine_stream(chat_stream), warmup=False)
+    assert len(tt.requests) == 4 and not any(e.errors for e in tt.steps)
+
+    te2 = ServingEngine(T_CFG, [TenantSpec("a", ProtectionPlan.parse(
+                            _PAGED, name="p"))], n_slots=2, max_prompt=24,
+                        max_new_tokens=6, device="cpu",
+                        paging=tp.PagingConfig(page_size=8, n_pages=12))
+    te2.run(_engine_stream(chat_stream)[:1], warmup=False)
+    (lane2,) = te2.lanes
+    before = [t.clone() for leaf in lane2.cache["attn"].values()
+              for t in leaf[:4]] + [lane2.table.clone()]
+    assert int(before[0].count_nonzero()) > 0
+    te2.warmup()
+    after = [t for leaf in lane2.cache["attn"].values()
+             for t in leaf[:4]] + [lane2.table]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+
+
 def test_paged_engine_refuses_what_jax_refuses():
     import dataclasses
     with pytest.raises(ValueError, match="cannot hold even one"):
