@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Eight paths run, each with every launch counter set to 0 just before
+Twelve paths run, each with every launch counter set to 0 just before
 it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
 int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
 (K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
 (K1, K2 and their unprotected instances), the float DLRM converted to
-int8 (K1-K3), int8 Llama-3.2-1B chat serving (K1-K3) and the same model
-served from the paged KV cache (K1-K3).  Phases (any failure exits
-non-zero; nothing is caught and passed over):
+int8 (K1-K3), int8 Llama-3.2-1B chat serving (K1-K3), the same model
+served from the paged KV cache (K1-K3), int8 granite-moe-3b-a800m (MoE)
+chat serving (K1-K3), the serving soak (K1-K3) and the protection SLO
+ladder for Llama-3.2-1B and for granite (K1-K3 and the unprotected
+instances of K1 and K2).  Each phase's seconds are printed.  Phases (any
+failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one
@@ -141,7 +144,11 @@ non-zero; nothing is caught and passed over):
    without the column check) and K3 (bf16 and f32) at its GEMM shapes,
    the 2048 x 128256 head included (K1's widest n), K1 under PDL in the
    four positions of phase 3, and K2 on its 128256 x 2048 token table at
-   64 and 4 tokens as in phase 6; serve 8 ``chat_stream`` requests
+   64 and 4 tokens as in phase 6, then over every row of the table at
+   ``rel_bound`` 1e-5, one pool-1 bag a token: R, rsum and flags
+   bit-exact with the plain terms summed in K2's order, and each token K2
+   flags (ROADMAP C6) a clean row whose flag float32 round-off in that
+   order reaches (its float64 witnesses); serve 8 ``chat_stream`` requests
    (prompt 64, up to 32 new tokens, 4 slots, 100 rps) over both tenants:
    every request completes with 0 errors, the checks and launches are
    the path's own; ``FaultInjection`` flips of an ``attn.wq`` payload bit
@@ -185,15 +192,59 @@ non-zero; nothing is caught and passed over):
    (seed 0) on the card: all four booleans true, detection and FP inside
    the JAX baseline's Wilson intervals in both cells, 0 regressions from
    the port's differ, its pages verified per token and KV bytes printed
-   beside the baseline's.
+   beside the baseline's;
+15. make the full-width int8 granite-moe-3b-a800m (32 layers, d 1536, 24
+   query and 8 KV heads of 64, 40 experts of width 512, top-8, vocab
+   49155; random weights from seed 0; its int8 bytes held to the
+   config's reckoning, 3.99 GB) with the default plan's bf16-cache
+   tenant and a ``*:policy=recompute,kv_cache:on`` tenant; hold K3 over
+   all 40 experts' rows and K1 (the expert stack of one launch an
+   expert, single experts with and without the column check, a flipped
+   weight) bit-exact, and K1's s8 unprotected instance equal to the
+   exact product, at the expert shapes m 4 and 16, (k, n) (1536, 512)
+   and (512, 1536), K1 and K3 at the attention projections (m 64 and 4)
+   and the head (m 1 and 4), and K2 on the 49408 x 1536 token table at
+   64 and 4 tokens and over every row, as phase 13 holds Llama's; serve
+   8 ``chat_stream`` requests (64-token bucket,
+   up to 32 new tokens, 4 slots, 100 rps) with 0 errors and K1 launched
+   32 x (4 + 3 x 40) + 1 = 3,969 times a step; a ``moe.gate`` expert-
+   weight flip flagged at its step only (the flipped expert printed, and
+   whether a token chose it there) and a KV payload flip on the
+   ``kv_cache:on`` lane flagged at the next decode; the smoke-size
+   granite on the card and on the CPU, free and in lockstep, as phase 13
+   holds the Llama, except that a free run is held to 1e-4 only up to
+   its first int8 code split (a moved code can move a token's experts)
+   and to equal counters and finite logits after it; K1 cold per expert shape beside its s8 unprotected
+   instance, padded ``torch._int_mm`` and the byte bound; the step
+   medians per lane and a profile's kernels a step and busy share;
+16. run the ``serving_soak`` quick grid on the card (reduced Llama, two
+   tenants, 200 requests a cell at 200 rps, clean and faulty passes):
+   detection 1/1 and 0 escapes in both cells, detection, escape and FP
+   inside the committed JAX baseline's Wilson intervals
+   (``src/repro_torch/campaign/baselines/``) and 0 regressions from the
+   port's differ; then the protection SLO ladder
+   (``repro_torch.benchmarks.serving_slo``: ``*:off``, ``*:policy=log``,
+   ``*:policy=recompute,kv_cache:on`` over one stream of 16 requests at
+   300 rps, Poisson, 4 slots, 16 new tokens) at full width for
+   Llama-3.2-1B and granite: every request completes with 0 errors but
+   the EmbeddingBag flags of clean token rows, each a token the table
+   scan of phase 13 or 15 flagged and witnessed again alone; each rung's
+   counts are set to 0 before it and read right after its run (the
+   ladder's are their sum); the
+   unprotected rung launches K1's and K2's unprotected instances and no
+   protected kernel, and its device operations (by the profiler, one
+   request) hold no float64 GEMM; p50/p95/p99 TTFT, per-token latency
+   and throughput of each rung and each protected rung's p99 over the
+   unprotected rung's are printed with the card's name and power limit.
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
 (DLRM for K1-K3, RWKV for K4, the overhead benchmarks for the unprotected
 instances), and ``launches_by_path`` holds every kernel's count on each
-of the eight paths (DLRM serve, RWKV serve, campaign, thresholds,
-overhead, float DLRM, Llama serve, Llama paged serve), all six counts
-set to 0 just before each path and read just after.  The last line is
+of the twelve paths (DLRM serve, RWKV serve, campaign, thresholds,
+overhead, float DLRM, Llama serve, Llama paged serve, granite serve,
+serving soak, the SLO ladder of each model), all six counts set to 0
+just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the repository's ``src/`` beside this
 file, it exits non-zero and prints no result.
@@ -201,6 +252,7 @@ file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
@@ -273,6 +325,7 @@ def profile_requests(torch, engine, requests) -> dict:
             tel = engine.run(requests, warmup=False)
             torch.cuda.synchronize()
         wall_ms = sum(ev.duration_s for ev in tel.steps) * 1e3
+        n_steps = len(tel.steps)
         by_name = {}
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
@@ -298,6 +351,9 @@ def profile_requests(torch, engine, requests) -> dict:
            "k1_share": k1_ms / device_ms if device_ms else None,
            "kernels_per_request": sum(c for _, c in by_name.values())
            / len(requests),
+           "steps": n_steps,
+           "kernels_per_step": sum(c for _, c in by_name.values())
+           / max(n_steps, 1),
            "ours_ms_and_count": ours,
            "top": [{"name": k, "ms": t, "count": c} for k, (t, c) in top]}
     log(f"profile of {len(requests)} requests: device {device_ms:.3f} ms of "
@@ -843,7 +899,8 @@ def pair_times(timer, calls, reps: int, rounds: int = 3) -> dict:
 
 
 def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
-                      f32_after_split: float = 1e-4) -> dict:
+                      f32_after_split: float = 1e-4,
+                      hold_after_split: bool = True) -> dict:
     """A smoke-size model's prefill and 3 greedy decodes on the card
     against the plain run on the CPU, on the same weights ``p_cpu``, at
     each prompt length of ``seqs``, in float32 and bfloat16, free and in
@@ -867,7 +924,12 @@ def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
       codes, every step's logits are held to 1e-4.
 
     Both hold the counters equal, and the greedy tokens wherever the
-    CPU's top-two margin leaves room for the bound."""
+    CPU's top-two margin leaves room for the bound.  With
+    ``hold_after_split=False`` (a MoE, where a moved int8 code can move a
+    token's choice of experts and with it the whole row) a free run is
+    held to the bound up to its first code split and to finite logits
+    and equal counters after it; the lockstep run is held at every
+    step."""
     import numpy as np
 
     from repro_torch.core.policy import metrics_to_ints
@@ -944,6 +1006,8 @@ def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
             err = float((ldf - lcf).abs().max()) / scale
             lcf, ldf = lcf[:, :small.vocab], ldf[:, :small.vocab]
             bound = 1e-4 if split is None else after_split[ctx.compute_dtype]
+            if split is not None and not hold_after_split:
+                bound = float("inf")
             errs.append(err)
             if err > bound or not bool(torch.isfinite(ld).all()):
                 fail(f"{what} logits ({label}) differ by {err:.3g} of "
@@ -958,6 +1022,7 @@ def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
                      f"at step {step}")
             if step == 3:
                 break
+            # both sides decode the CPU's token
             nxt = torch.argmax(lcf, -1).to(torch.int32)
             pos = torch.full_like(nxt, tokens.shape[1] + step)
             (lc, cc, rc), (ld, cd, rd) = both(
@@ -2334,6 +2399,8 @@ def llama_phase(torch, dev, timer) -> dict:
                     f"{v['bound_ms']:.6f} / {v['sector_bound_ms']:.6f}"
                     for k, v in k2["times"].items()))
 
+    scan = scan_token_table(torch, "Llama", emb)
+
     # ------------------- 13b. serve both tenants, then flips ---------------
     def stream(n, seed):
         return chat_stream(n, tenants={"default": 1.0, "kv": 1.0},
@@ -2525,7 +2592,8 @@ def llama_phase(torch, dev, timer) -> dict:
             f"{t} {p['per_token_ms']['p50']:.2f}" for t, p in per.items())
         + " ms")
     record = {"serve": serve, "k2": k2, "flips": flips,
-              "gemm_shapes": per_shape, "small_card_vs_cpu": small_out}
+              "gemm_shapes": per_shape, "small_card_vs_cpu": small_out,
+              "eb_table_scan": scan}
     return {"launches": launches, "record": record,
             "k1_times": per_shape, "k2_times": k2["times"]}
 
@@ -3047,6 +3115,684 @@ def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
     return {"launches": launches, "record": record}
 
 
+GRANITE = "granite-moe-3b-a800m"
+#: the int8 (packed) bytes of full-width granite by the config's widths
+#: (vocab_padded 49,408 keeps the head aligned)
+GRANITE_BYTES = {"experts": 32 * 40 * (2 * 1536 * 640 + 512 * 1664),
+                 "attention": 226_492_416, "table": 75_890_688,
+                 "head": 76_087_296}
+#: K1 and K3 launches a granite prefill or decode step: one K1 an expert
+#: for each of the 3 expert projections, one K3 a projection over every
+#: expert's rows, and the 4 attention projections of each of the 32
+#: layers, and the head
+GRANITE_K1_PER_STEP = 32 * (4 + 3 * 40) + 1
+GRANITE_K3_PER_STEP = 32 * (4 + 3) + 1
+
+
+@contextlib.contextmanager
+def routing_tap(engine):
+    """Records each MoE layer's expert choices (``gate_idx``, every row
+    of the step's batch) while ``engine`` runs inside the block: yields
+    the list of (engine step, choices on the host)."""
+    from repro_torch.layers import moe
+
+    calls = []
+    real = moe.slot_assignment
+
+    def recorded(gate_idx, n_experts, capacity):
+        calls.append((engine.global_step, gate_idx.cpu()))
+        return real(gate_idx, n_experts, capacity)
+    moe.slot_assignment = recorded
+    try:
+        yield calls
+    finally:
+        moe.slot_assignment = real
+
+
+def granite_phase(torch, dev, timer) -> dict:
+    """Phase 15: full-width int8 granite-moe-3b-a800m (32 layers, d 1536,
+    24 query and 8 KV heads of 64, 40 experts of width 512, top-8, vocab
+    49155; random weights from seed 0) served on the card through K1-K3,
+    with a bf16-cache tenant and a ``kv_cache:on`` tenant.  Returns the
+    path's launch counts, K1's times at the expert shapes and the
+    record."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.benchmarks.common import (F32_OPS_PER_S,
+                                               INT8_OPS_PER_S, bound_ms)
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.core import LANE
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.abft_qgemm import (abft_qgemm_cuda,
+                                                 launch_plan,
+                                                 qgemm_unprotected_cuda)
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+    from repro_torch.models.base import build_model
+    from repro_torch.protect import ProtectionPlan, default_plan
+    from repro_torch.serving import (FaultInjection, Request, ServingEngine,
+                                     TenantSpec, chat_stream)
+
+    cfg = get_arch(GRANITE)
+    n_exp, n_layers = cfg.n_experts, cfg.n_layers
+    kv_plan = dataclasses.replace(default_plan().with_rules(
+        *ProtectionPlan.from_any(KV_PLAN).rules), name="kv")
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, [TenantSpec("default", default_plan()),
+                                 TenantSpec("kv", kv_plan)],
+                           n_slots=4, max_prompt=64, max_new_tokens=32,
+                           seed=0, device=dev)
+    torch.cuda.synchronize()
+    params = engine.params
+    layers = params["layers"]
+    moe = layers["moe"]
+    got_bytes = {
+        "experts": sum(moe[w]["w_packed"].numel()
+                       for w in ("gate", "up", "down")),
+        "attention": sum(layers["attn"][w]["w_packed"].numel()
+                         for w in ("wq", "wk", "wv", "wo")),
+        "table": params["embed"]["table"].numel(),
+        "head": params["lm_head"]["w_packed"].numel()}
+    if got_bytes != GRANITE_BYTES:
+        fail(f"granite int8 bytes {got_bytes}, reckoned {GRANITE_BYTES}")
+    log(f"{cfg.name} (d {cfg.d_model}, {n_layers} layers, {n_exp} experts "
+        f"of {cfg.d_ff}, top-{cfg.top_k}) on the card in "
+        f"{time.perf_counter() - t0:.1f}s: "
+        f"{sum(got_bytes.values()) / 1e9:.3f} GB of int8 (packed) weights "
+        f"and table ({got_bytes}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    lanes = {lane.key: lane for lane in engine.lanes}
+    if sorted(lanes) != ["lane0[default]", "lane1[kv]"]:
+        fail(f"unexpected granite lanes {sorted(lanes)}")
+
+    # ------------- 15a. K1 and K3 at the expert shapes -----------------
+    # decode: 4 tokens, capacity 4; a 64-token prefill: capacity 16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stacks = {"moe.gate": moe["gate"]["w_packed"],
+              "moe.down": moe["down"]["w_packed"]}
+    kernel_checks = []
+    per_shape = {}
+    for name, stack in stacks.items():
+        k, n = stack.shape[-2], stack.shape[-1] - LANE
+        for m in (4, 16):
+            x = torch.randn((n_exp * m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            q = quantize_rows_cuda(x)
+            for g, w, g32, what in zip(q, ref.quantize_rows_ref(x),
+                                       quantize_rows_cuda(x.float()),
+                                       ("q", "alpha", "beta")):
+                if not (torch.equal(g, w) and torch.equal(g32, w)):
+                    fail(f"quantize_rows: {what} differs at the {name} "
+                         f"rows {n_exp} x {m} x {k}")
+            a = q[0].reshape(n_exp, m, k)
+            w3 = stack[1]                              # layer 1's experts
+            c, err = kops.abft_qgemm(a, w3)
+            want_c, want_err = ref.abft_qgemm_ref(a, w3)
+            if not (torch.equal(c, want_c) and torch.equal(err, want_err)):
+                fail(f"abft_qgemm over the {name} experts at m = {m} "
+                     f"differs from the plain version")
+            if int(err.sum()):
+                fail(f"abft_qgemm flagged clean {name} experts")
+            for e in (0, n_exp - 1):
+                for col in (False, True):
+                    got = abft_qgemm_cuda(a[e], w3[e], with_colcheck=col)
+                    want = ref.abft_qgemm_ref(a[e], w3[e],
+                                              with_colcheck=col)
+                    if not all(torch.equal(g, w_)
+                               for g, w_ in zip(got, want)):
+                        fail(f"abft_qgemm at {name} expert {e} m = {m} "
+                             f"(col_check={col}) differs")
+            cu = kops.qgemm_unprotected(a, w3)
+            if not torch.equal(cu, want_c) or not torch.equal(
+                    qgemm_unprotected_cuda(a[0], w3[0]), want_c[0]):
+                fail(f"the s8 unprotected K1 at {name} m = {m} differs "
+                     f"from the exact product")
+            bad = w3[7].clone()
+            bad[k // 2, n // 3] ^= 0x10
+            flipped = abft_qgemm_cuda(a[7], bad)[1]
+            if not torch.equal(flipped, ref.abft_qgemm_ref(a[7], bad)[1]) \
+                    or not int(flipped.sum()):
+                fail(f"abft_qgemm missed a flipped {name} weight bit")
+            plan = launch_plan(m, k, n, a_addr=a[1].data_ptr(),
+                               b_addr=w3[1].data_ptr())
+            if not plan.aligned:
+                fail(f"an expert slice of {name} took the ragged path")
+            kernel_checks.append(f"{name} (k, n) = ({k}, {n}) m = {m} (bm "
+                                 f"{plan.bm}, splits {plan.splits}, "
+                                 f"aligned {plan.aligned})")
+            # times, cold: each call takes the next expert of the next
+            # layer (983,040 or 851,968 B of B' each)
+            cold = itertools.cycle([stack[li, e] for li in range(n_layers)
+                                    for e in range(0, n_exp, 7)])
+            n8 = -(-(n + 1) // 8) * 8
+            padded = [stack[li, e, :, :n8].contiguous()
+                      for li in range(0, n_layers, 4)
+                      for e in range(0, n_exp, 9)]
+            cold_pad = itertools.cycle(padded)
+            a_pad = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            a_pad[:m] = a[0]
+            kb = m * k + k * (n + 1) + 4 * m * n + 4 * m
+            b_ms, b_by = bound_ms(kb, 2 * m * k * (n + 1), INT8_OPS_PER_S)
+            row = {
+                "abft_qgemm_cold_ms": timer.ms(
+                    lambda: abft_qgemm_cuda(a[0], next(cold)), 64),
+                "qgemm_unprotected_s8_cold_ms": timer.ms(
+                    lambda: qgemm_unprotected_cuda(a[0], next(cold)), 64),
+                "library_cold_ms": timer.ms(
+                    lambda: torch._int_mm(a_pad, next(cold_pad)), 64),
+                "plain_ms": timer.ms(
+                    lambda: ref.abft_qgemm_ref(a[0], next(cold)), 8),
+                "abft_qgemm_bound_ms": b_ms, "bound_by": b_by,
+                "expert_stack_ms": timer.ms(
+                    lambda: kops.abft_qgemm(a, stack[3]), 8),
+                "quantize_rows_all_experts_ms": timer.ms(
+                    lambda: quantize_rows_cuda(x)),
+                "quantize_rows_bound_ms": bound_ms(
+                    3 * n_exp * m * k + 8 * n_exp * m, 6 * n_exp * m * k,
+                    F32_OPS_PER_S)[0]}
+            row["bound_share"] = b_ms / row["abft_qgemm_cold_ms"]
+            per_shape[f"{name} m={m} k={k} n={n}"] = row
+            del padded
+    log("granite: K3 over all 40 experts' rows (bf16 and f32) and K1 "
+        "(the expert stack, single experts with and without the column "
+        "check, a flipped weight) bit-exact, and the s8 unprotected K1 "
+        "equal to the exact product, at " + "; ".join(kernel_checks))
+    log("granite K1 per expert shape, ms cold / s8 unprotected cold / "
+        "torch._int_mm cold (padded) / plain / bound (share); the 40-expert "
+        "stack; K3 over all experts' rows / bound: " + "; ".join(
+            f"{k_}: {v['abft_qgemm_cold_ms']:.4f} / "
+            f"{v['qgemm_unprotected_s8_cold_ms']:.4f} / "
+            f"{v['library_cold_ms']:.4f} / {v['plain_ms']:.4f} / "
+            f"{v['abft_qgemm_bound_ms']:.5f} ({v['bound_share']:.3f}); "
+            f"{v['expert_stack_ms']:.4f}; "
+            f"{v['quantize_rows_all_experts_ms']:.4f} / "
+            f"{v['quantize_rows_bound_ms']:.6f}"
+            for k_, v in per_shape.items()))
+
+    # the attention projections at the prefill bucket (64) and a decode
+    # step (4), the head at the prefill's last token and a decode step,
+    # and K2 on the token table at one request's 64 and 4 tokens, as
+    # phase 13 holds Llama's
+    attn = layers["attn"]
+    checked = check_gemms(torch, dev, gen, [
+        ("attn.wq", attn["wq"]["w_packed"], (64, 4)),
+        ("attn.wk", attn["wk"]["w_packed"], (64, 4)),
+        ("attn.wo", attn["wo"]["w_packed"], (64, 4)),
+        ("lm_head", params["lm_head"]["w_packed"][None], (1, 4))])
+    emb = params["embed"]
+    enc4 = (emb["table"][None], emb["alphas"][None], emb["betas"][None],
+            emb["rowsums"][None])
+    req0 = Request(rid=0, tenant="default", arrival_s=0.0, prompt_len=64,
+                   max_new_tokens=2, seed=5)
+    prompt = torch.from_numpy(
+        engine._chat_tokens(req0, 64).astype(np.int32)).to(dev)
+    k2_checks = {f"{n} tokens": eb_checks(torch, enc4,
+                                          prompt[:n].reshape(1, -1, 1),
+                                          f"granite {n} tokens")
+                 for n in (64, 4)}
+    log("granite: K1 (C, err_rows, column check) and K3 (bf16 and f32) "
+        "bit-exact at " + "; ".join(checked) + f"; K2 on the "
+        f"{tuple(emb['table'].shape)} token table at pool 1 (64 and 4 "
+        f"bags): R bit-exact with the slot-order sum, flags equal to the "
+        f"plain branch at rel_bound 1e-3 and 1e-5 and to its formula at "
+        f"all three")
+    scan = scan_token_table(torch, "granite", emb)
+
+    # -------------------- 15b. serve both tenants ----------------------
+    def stream(n, seed):
+        return chat_stream(n, tenants={"default": 1.0, "kv": 1.0},
+                           rate_rps=100.0, seed=seed, mean_prompt=32,
+                           max_prompt=64, mean_output=16, max_output=32)
+
+    wrappers = zero_launches()
+    tel = engine.run(stream(8, 0))            # the warm-up runs inside
+    launches = read_launches(wrappers)
+    s = tel.summary()
+    counters = s["faults"]["counters"]
+    per = s["per_tenant"]
+    steps = {(kind, key): [ev.duration_s * 1e3 for ev in tel.steps
+                           if ev.kind == kind and ev.lane == key]
+             for kind in ("prefill", "decode") for key in lanes}
+    log(f"granite: served {sum(p['requests'] for p in per.values())} chat "
+        f"requests over two tenants: "
+        + "; ".join(f"{t}: {p['completed']} completed, {p['tokens_out']} "
+                    f"tokens" for t, p in per.items())
+        + f"; steps {[(k, len(v)) for k, v in steps.items()]}; launches "
+        f"{launches}; counters { {k: v for k, v in counters.items() if v} }")
+    if sum(p["completed"] for p in per.values()) != 8 or \
+            any(p["aborted"] for p in per.values()):
+        fail(f"not every granite request completed: {per}")
+    nonzero = {k: v for k, v in counters.items()
+               if v and not k.endswith("_checks")}
+    if nonzero:
+        fail(f"fault counters on a clean granite run: {nonzero}")
+    n_steps = len(tel.steps)
+    # a check an expert: 4 attention projections and 3 x 40 experts a
+    # layer, and the head
+    kv_reads = n_layers * len(steps[("decode", "lane1[kv]")])
+    if counters["qgemm_checks"] != GRANITE_K1_PER_STEP * n_steps or \
+            counters["embedding_bag_checks"] != n_steps or \
+            counters["kv_cache_checks"] != kv_reads:
+        fail(f"unexpected granite check counts {counters} for {n_steps} "
+             f"steps")
+    # the warm-up ran one prefill and one decode step a lane in the window
+    want_l = {"abft_qgemm": GRANITE_K1_PER_STEP * (n_steps + 4),
+              "quantize_rows": GRANITE_K3_PER_STEP * (n_steps + 4),
+              "abft_embeddingbag": n_steps + 4, "wkv6_chunked": 0,
+              "qgemm_unprotected": 0, "eb_unprotected": 0}
+    if launches != want_l:
+        fail(f"granite launches {launches} differ from the path's {want_l}")
+    toks = [t for r in tel.requests for t in (r.tokens or [])]
+    if len(toks) != sum(p["tokens_out"] for p in per.values()) or \
+            not all(0 <= t < cfg.vocab for t in toks):
+        fail("served granite tokens outside the vocabulary or missing")
+    serve = {"tenants": per, "launches": launches, "counters": counters,
+             "k1_per_step": launches["abft_qgemm"] / (n_steps + 4),
+             "k3_per_step": launches["quantize_rows"] / (n_steps + 4),
+             "steps_ms": {f"{k} {key}": v for (k, key), v in steps.items()},
+             "step_ms_median": {f"{k} {key}": float(np.median(v))
+                                for (k, key), v in steps.items()},
+             "decode_occupancy_mean": s["decode_occupancy_mean"]}
+    log(f"granite: K1 {serve['k1_per_step']:.0f} and K3 "
+        f"{serve['k3_per_step']:.0f} launches a step (reckoned "
+        f"{GRANITE_K1_PER_STEP} and {GRANITE_K3_PER_STEP}); an expert-axis "
+        f"K1 (ROADMAP B10) would launch {GRANITE_K3_PER_STEP}")
+
+    def request(rid, tenant, seed, new):
+        return Request(rid=rid, tenant=tenant, arrival_s=0.0, prompt_len=64,
+                       max_new_tokens=new, seed=seed)
+
+    # ---------------------------- 15c. flips ---------------------------
+    # an expert-weight flip (moe.gate) at the first decode-only step of a
+    # default-tenant request: flagged at that step only, the leaf restored
+    # bit for bit; the flipped expert and whether a token chose it there
+    gate = moe["gate"]["w_packed"]
+    engine.reset_state()
+    fp0 = leaf_fingerprint(torch, gate)
+    with routing_tap(engine) as calls:
+        tel = engine.run([request(0, "default", 3, 3)],
+                         inject=[FaultInjection(step=1, victim="moe.gate",
+                                                seed=0)], warmup=False)
+    flips = {"expert": check_injection(tel, 1, [1], fp0,
+                                       leaf_fingerprint(torch, gate),
+                                       "granite moe.gate flip")}
+    # the engine's own draw for the recorded victim (a CPU generator)
+    from repro_torch.core.inject import draw_bitflip_live
+    flat, bit = draw_bitflip_live(torch.Generator().manual_seed(0), gate,
+                                  flips["expert"]["victim"])
+    per_layer = n_exp * gate.shape[-2] * gate.shape[-1]
+    layer, expert = flat // per_layer, (flat % per_layer) // (
+        gate.shape[-2] * gate.shape[-1])
+    chosen = [idx for step, idx in calls if step == 1]
+    if len(chosen) != n_layers:
+        fail(f"routing tap saw {len(chosen)} MoE layers at step 1")
+    routed = bool((chosen[layer] == expert).any())
+    flips["expert"].update(layer=int(layer), expert=int(expert),
+                           bit=int(bit), routed=routed,
+                           errors=flips["expert"]["counters"]["qgemm_errors"])
+    # a flip of an int8 KV payload bit of the kv tenant's resident request:
+    # flagged at the next decode step and at every later one
+    engine.reset_state()
+    tel = engine.run([request(1, "kv", 3, 4)], inject=[FaultInjection(
+        step=1, target="kv", seed=0)], warmup=False)
+    (inj,) = tel.injections
+    flagged = [ev for ev in tel.steps if ev.errors]
+    if not inj.detected or inj.detect_step != 1 or \
+            not inj.victim.startswith("kv_row/") or \
+            [ev.step for ev in flagged] != [1, 2] or \
+            any(ev.kind != "decode" or ev.counters["kv_cache_errors"] != 1
+                or ev.counters["qgemm_errors"] for ev in flagged):
+        fail(f"granite KV flip {inj}: flagged steps "
+             f"{[(ev.step, ev.kind, ev.counters) for ev in flagged]}")
+    flips["kv"] = {"victim": inj.victim, "step": inj.step,
+                   "detect_step": inj.detect_step,
+                   "flagged_steps": [ev.step for ev in flagged]}
+    engine.reset_state()
+    tel = engine.run([request(2, "kv", 3, 4), request(3, "default", 4, 4)],
+                     warmup=False)
+    c_clean = tel.summary()["faults"]["counters"]
+    if c_clean["qgemm_errors"] or c_clean["kv_cache_errors"] or \
+            c_clean["embedding_bag_errors"]:
+        fail(f"errors after the granite flips: {c_clean}")
+    flips["clean_after"] = c_clean
+    log(f"granite FaultInjection: {flips['expert']['victim']} (layer "
+        f"{layer}, expert {expert}, bit {bit}; a token routed to it at the "
+        f"step: {routed}) flagged at step "
+        f"{flips['expert']['detect_step']} only "
+        f"({flips['expert']['errors']} qgemm errors) and restored bit for "
+        f"bit; {flips['kv']['victim']} flagged at steps "
+        f"{flips['kv']['flagged_steps']}; clean requests after: no errors")
+
+    # ------------- 15d. the smoke-size granite, card against CPU -------
+    small = reduce_cfg(cfg)
+    model = build_model(small)
+    # a moved int8 code can move a token's experts: after a free run's
+    # first code split only its counters and finite logits are held
+    small_out = small_card_vs_cpu(torch, dev, small, model,
+                                  model.init(0, device="cpu"),
+                                  default_plan(), (64, 24),
+                                  hold_after_split=False)
+
+    # ------------------- 15e. step times and a profile -----------------
+    prof_reqs = [request(i, "default", 40 + i, 4) for i in range(4)]
+    engine.reset_state()
+    serve["profile"] = profile_requests(torch, engine, prof_reqs)
+    med = serve["step_ms_median"]
+    serve["card"] = smi_line()
+    log(f"granite serve on {serve['card']}: step medians ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in med.items())
+        + f"; profile: {serve['profile'].get('kernels_per_step')} kernels "
+          f"a step, busy {serve['profile'].get('busy_share')}"
+        + "; TTFT p50 " + ", ".join(
+            f"{t} {p['ttft_ms']['p50']:.2f}" for t, p in per.items())
+        + " ms; per token p50 " + ", ".join(
+            f"{t} {p['per_token_ms']['p50']:.2f}" for t, p in per.items())
+        + " ms")
+    del engine
+    record = {"bytes": got_bytes, "serve": serve, "flips": flips,
+              "kernel_checks": kernel_checks + checked,
+              "k2_checks": k2_checks, "gemm_shapes": per_shape,
+              "small_card_vs_cpu": small_out, "eb_table_scan": scan}
+    return {"launches": launches, "record": record, "k1_times": per_shape}
+
+
+def eb_token_scan(torch, emb, rel_bound: float, tokens=None,
+                  chunk: int = 8192) -> dict:
+    """The Eq. (5) check of clean pool-1 lookups of a token table on the
+    card: K2 over ``tokens`` (default: every row), one bag a token, held
+    to plain arithmetic that does not run K2.  R must equal the plain
+    slot-order terms, rsum the plain R summed in K2's order
+    (``ref.eb_rsum_team_order``) and the flags that sum's compare
+    (``ref.eb_check_slot_order``), bit for bit.  The bound scales with
+    |alpha x rowsum| + d |beta| (``core.verify_bags``), while the float32
+    round-off of a d-term row sum scales with the sum of its terms'
+    magnitudes: a row whose int8 values nearly cancel, with a small beta,
+    can be flagged clean, and the summation order decides which.  Each
+    token K2 flags is then held to three witnesses, in float64 on the
+    plain terms: its int8 values sum to its stored C_T (the row is
+    intact); ``exact``, |sum R - csum| over the bound for the exact sum
+    of the float32 terms; ``reach``, the most a float32 sum in K2's order
+    can depart from that sum (gamma_h x sum|R|, h the adds a term passes
+    through) over the bound.  A flag with exact + reach < 1 lies further
+    inside the bound than round-off reaches, and fails.  Returns the
+    tokens K2 and the plain branch (``verify_bags``, another order) flag
+    and K2's flagged tokens' witnesses."""
+    from repro_torch.core import table_rowsums
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.abft_embeddingbag import abft_eb_cuda, eb_plan
+
+    table, alphas, betas, rowsums = (emb[k][None] for k in (
+        "table", "alphas", "betas", "rowsums"))
+    rows, d = table.shape[1], table.shape[-1]
+    if tokens is None:
+        tokens = torch.arange(rows, dtype=torch.int32, device=table.device)
+    k2, plain, witness = [], [], []
+    for i in range(0, tokens.numel(), chunk):
+        idx = tokens[i:i + chunk].to(torch.int32).reshape(1, -1, 1)
+        plan = eb_plan(1, idx.shape[1], 1, d, rows,
+                       table_addr=table.data_ptr())
+        if not (plan.vec and plan.groups == 1):
+            fail(f"the token table {tuple(table.shape)} is not on K2's "
+                 f"team path ({plan})")
+        r, rsum, err, _ = abft_eb_cuda(table, alphas, betas, idx, rowsums,
+                                       rel_bound=rel_bound)
+        want_r = ref.abft_eb_slot_order_ref(table, alphas, betas, idx)
+        want_rsum = ref.eb_rsum_team_order(want_r, plan.warps_per_bag)
+        want_err = ref.eb_check_slot_order(want_rsum, alphas, betas, idx,
+                                           rowsums, d, rel_bound=rel_bound)
+        if not (torch.equal(r, want_r) and torch.equal(rsum, want_rsum)
+                and torch.equal(err, want_err)):
+            fail(f"K2 on token rows {i}..: R, rsum or flags differ from the "
+                 f"plain terms summed in its order "
+                 f"({int((rsum != want_rsum).sum())} rsums, "
+                 f"{int((err != want_err).sum())} flags)")
+        out = kops.abft_embedding_bag(table, alphas, betas, idx, rowsums,
+                                      rel_bound=rel_bound, use_kernel=False)
+        t = idx.reshape(-1).long()
+        plain.append(t[out.err_bags[0]])
+        hit = err[0]
+        if not bool(hit.any()):
+            continue
+        th = t[hit]
+        k2.append(th)
+        r64 = want_r[0, hit].double()
+        a, b = alphas[0, th].double(), betas[0, th].double()
+        ct = rowsums[0, th].double()
+        tol = rel_bound * torch.clamp(a.abs() * ct.abs() + d * b.abs(),
+                                      min=1.0)
+        csum = a * ct + d * b
+        h = 16 * -(-plan.lanes // (32 * plan.warps_per_bag)) + 5 \
+            + plan.warps_per_bag
+        gamma = h * 2.0**-24 / (1 - h * 2.0**-24)
+        exact = (r64.sum(-1) - csum).abs() / tol
+        reach = gamma * r64.abs().sum(-1) / tol
+        k2_ratio = (rsum[0, hit].double() - csum).abs() / tol
+        intact = table_rowsums(table[0, th]) == rowsums[0, th]
+        for j, tok in enumerate(th.tolist()):
+            witness.append({"token": tok, "intact": bool(intact[j]),
+                            "k2": round(float(k2_ratio[j]), 4),
+                            "exact": round(float(exact[j]), 4),
+                            "reach": round(float(reach[j]), 4)})
+    bad = [w for w in witness if not w["intact"]
+           or w["exact"] + w["reach"] < 1]
+    if bad:
+        fail(f"K2 flagged clean token rows that no float32 round-off in its "
+             f"order explains, or rows not intact: {bad}")
+    k2, plain = (torch.cat(x).cpu().tolist() if x else [] for x in (k2, plain))
+    return {"tokens": int(tokens.numel()), "k2_flagged": k2,
+            "plain_flagged": plain, "witness": witness}
+
+
+def scan_token_table(torch, name: str, emb) -> dict:
+    """:func:`eb_token_scan` over every row of a served model's token
+    table at the default rel_bound (ROADMAP C6), logged."""
+    from repro_torch.core import EB_REL_BOUND
+    t0 = time.perf_counter()
+    sc = eb_token_scan(torch, emb, EB_REL_BOUND)
+    both = set(sc["k2_flagged"]) & set(sc["plain_flagged"])
+    log(f"{name}: K2 over every clean token row ({sc['tokens']}), one "
+        f"pool-1 bag each, at rel_bound {EB_REL_BOUND:g}: R, rsum and flags "
+        f"bit-exact with the plain terms summed in its order; it flags "
+        f"{len(sc['k2_flagged'])}, the plain branch "
+        f"{len(sc['plain_flagged'])} ({len(both)} in both); each K2 "
+        f"flag's row intact, |rsum - csum| / bound "
+        f"under K2 / exact / reach: "
+        + ", ".join(f"{w['token']} {w['k2']}/{w['exact']}/{w['reach']}"
+                    for w in sc["witness"])
+        + f" ({time.perf_counter() - t0:.1f}s)")
+    return sc
+
+
+@contextlib.contextmanager
+def eb_flag_tap():
+    """Records the token lookups the protected EmbeddingBag flags while
+    the block runs (``kops.abft_embedding_bag``'s one-table calls, the
+    LM's; kept on the device, no host sync): yields a list the caller
+    drains with :func:`flagged_tokens`."""
+    from repro_torch.kernels import ops as kops
+
+    seen = []
+    real = kops.abft_embedding_bag
+
+    def recording(table_q, alphas, betas, indices, *args, **kw):
+        out = real(table_q, alphas, betas, indices, *args, **kw)
+        if indices.dim() == 2:
+            seen.append((indices, out.err_bags))
+        return out
+    kops.abft_embedding_bag = recording
+    try:
+        yield seen
+    finally:
+        kops.abft_embedding_bag = real
+
+
+def flagged_tokens(torch, seen) -> list:
+    """The flagged tokens of :func:`eb_flag_tap`'s records (one entry a
+    flagged bag), and the records cleared."""
+    got = [idx[err.reshape(idx.shape[0])][:, 0] for idx, err in seen]
+    seen.clear()
+    return torch.cat(got).tolist() if got else []
+
+
+#: the committed JAX baseline of the serving soak (made by the unchanged
+#: JAX CLI: python -m repro.campaign --grid serving_soak --quick --seed 0)
+SOAK_BASELINE = ("src/repro_torch/campaign/baselines/"
+                 "BENCH_campaign_serving_soak_quick.json")
+
+
+def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
+    """Phase 16: the serving soak's quick grid on the card, gated against
+    the JAX baseline, then the protection SLO ladder at full width for
+    Llama-3.2-1B and granite-moe-3b-a800m.  ``scans`` holds each model's
+    token-table scan (:func:`eb_token_scan`, phases 13 and 15: the same
+    seed-0 tables).  Returns each path's launch counts, the ladder's the
+    sum of its rungs', and the record."""
+    from repro_torch.benchmarks.serving_slo import run_ladder
+    from repro_torch.campaign.diff import diff_artifacts, wilson_gate
+    from repro_torch.serving.soak import run_soak_campaign
+
+    t0 = time.perf_counter()
+    wrappers = zero_launches()
+    res = run_soak_campaign(quick=True, seed=0, out_dir=out_dir, device=dev,
+                            verbose=log)
+    soak_launches = read_launches(wrappers)
+    with open(ROOT / SOAK_BASELINE) as f:
+        base = json.load(f)
+    gate = wilson_gate(base, res)
+    diff = diff_artifacts(base, res)
+    cells = {c["cell_id"]: c["metrics"] for c in res["cells"]}
+    for cid, m in cells.items():
+        if (m["samples"], m["detected"], m["escapes"]) != (1, 1, 0):
+            fail(f"serving soak {cid}: {m['detected']}/{m['samples']} "
+                 f"detected, {m['escapes']} escapes")
+    if gate["failed"] or gate["uncovered"] or diff["regressions"]:
+        fail(f"serving soak: Wilson gate {gate['failed']} failed, "
+             f"{gate['uncovered']} uncovered; differ {diff['regressions']}")
+    if min(soak_launches[k] for k in ("abft_qgemm", "abft_embeddingbag",
+                                      "quantize_rows")) <= 0:
+        fail(f"a kernel of the soak never launched: {soak_launches}")
+    soak = {"seconds": time.perf_counter() - t0, "wilson": gate["cells"],
+            "regressions": diff["regressions"], "cells": {
+                cid: {k: m[k] for k in (
+                    "samples", "detected", "escapes", "corrupted",
+                    "clean_samples", "false_positives", "fp_rate",
+                    "detection_latency_steps", "throughput_tok_s")}
+                for cid, m in cells.items()},
+            "baseline_cells": {c["cell_id"]: {
+                k: c["metrics"][k] for k in ("clean_samples",
+                                             "false_positives")}
+                for c in base["cells"]}}
+    log(f"serving soak (quick, seed 0) in {soak['seconds']:.1f}s: "
+        + "; ".join(f"{cid}: detect {m['detected']}/{m['samples']}, "
+                    f"escapes {m['escapes']}, FP {m['false_positives']}/"
+                    f"{m['clean_samples']} steps (baseline "
+                    f"{soak['baseline_cells'][cid]['false_positives']}/"
+                    f"{soak['baseline_cells'][cid]['clean_samples']})"
+                    for cid, m in soak["cells"].items())
+        + "; inside the JAX baseline's Wilson intervals (detection, escape, "
+          "FP); 0 regressions")
+
+    # the SLO ladder: the same stream under *:off, log and recompute+kv;
+    # the unprotected rung runs K1's and K2's unprotected instances and
+    # no float64 product (counted by the profiler on one request).  Each
+    # rung's counts are set to 0 before its engine is built and read
+    # right after its run, before the probe's own launches
+    from repro_torch.core import EB_REL_BOUND
+
+    ladders, ladder_launches = {}, {}
+    for arch in ("llama3.2-1b", GRANITE):
+        t1 = time.perf_counter()
+        rungs = {}
+        wrappers = zero_launches()
+
+        def probe(name, engine):
+            rungs[name] = read_launches(wrappers)
+            flags = flagged_tokens(torch, seen_eb)
+            if flags:
+                # each flag of a clean rung: a token K2 also flags in the
+                # table's scan, held there to plain arithmetic and to its
+                # float64 witnesses (the row intact, round-off reaching the
+                # bound)
+                again = eb_token_scan(
+                    torch, engine.params["embed"], EB_REL_BOUND,
+                    torch.tensor(sorted(set(flags)), device=dev))
+                if sorted(again["k2_flagged"]) != sorted(set(flags)) or \
+                        not set(flags) <= set(scans[arch]["k2_flagged"]):
+                    fail(f"{arch} rung {name}: the EmbeddingBag flagged "
+                         f"tokens {flags} in the serve, {again['k2_flagged']}"
+                         f" of them alone, the table scan "
+                         f"{scans[arch]['k2_flagged']}")
+                rungs[name]["eb_flags"] = {"flagged": flags, **again}
+            if name == "unprotected":
+                from repro_torch.serving import Request
+                req = [Request(rid=0, tenant="t", arrival_s=0.0,
+                               prompt_len=24, max_new_tokens=3, seed=1)]
+                seen = device_ops(torch, lambda: engine.run(
+                    req, warmup=False))
+                f64 = [n for n, _ in seen if "dgemm" in n.lower() or (
+                    "gemm" in n.lower() and any(
+                        s in n.lower() for s in ("f64", "double")))]
+                if f64:
+                    fail(f"the unprotected {arch} rung ran a float64 GEMM: "
+                         f"{f64}")
+                rungs[name]["device_op_kinds"] = len(seen)
+            flagged_tokens(torch, seen_eb)      # the probe's own lookups
+            zero_launches()                     # the next rung's window
+        with eb_flag_tap() as seen_eb:
+            ladder = run_ladder(arch, requests=16, rate=300.0,
+                                arrival="poisson", slots=4, max_new=16,
+                                seed=0, smoke=False, device=dev, emit=log,
+                                probe=probe)
+        ladder_launches[arch] = {k: sum(r[k] for r in rungs.values())
+                                 for k in wrappers}
+        off = rungs["unprotected"]
+        if off["abft_qgemm"] or off["abft_embeddingbag"] or \
+                not off["qgemm_unprotected"] or not off["eb_unprotected"]:
+            fail(f"the unprotected {arch} rung launched {off}")
+        for name, row in ladder["plans"].items():
+            c = row["counters"]
+            n_eb = len(rungs[name].get("eb_flags", {}).get("flagged", ()))
+            if row["completed"] != 16:
+                fail(f"{arch} rung {name}: {row['completed']} of 16 "
+                     f"completed")
+            # the GEMM and KV checks are exact on clean data; every
+            # EmbeddingBag flag was witnessed above (a recompute rung
+            # reads a flagged row twice: its retry)
+            if c["qgemm_errors"] or c["kv_cache_errors"] or \
+                    c["embedding_bag_errors"] > n_eb or \
+                    bool(c["embedding_bag_errors"]) != bool(n_eb) or (
+                        name == "unprotected" and any(c.values())):
+                fail(f"{arch} rung {name} counters {c}")
+        ladder["launches_by_rung"] = rungs
+        ladder["seconds"] = time.perf_counter() - t1
+        log(f"{arch}: the rungs' EmbeddingBag flags at rel_bound "
+            f"{EB_REL_BOUND:g}, each a token of the table scan's "
+            f"{len(scans[arch]['k2_flagged'])}, with its witnesses "
+            f"(|rsum - csum| / bound under K2, for the exact sum, and the "
+            f"round-off's reach): " + ("; ".join(
+                f"{n}: {r['eb_flags']['flagged']} {r['eb_flags']['witness']}"
+                for n, r in rungs.items() if "eb_flags" in r) or "none"))
+        ladders[arch] = ladder
+        p = ladder["plans"]
+        log(f"SLO ladder {arch} (16 requests, 300 rps poisson, 4 slots, 16 "
+            f"new tokens; {smi_line()}): " + "; ".join(
+                f"{n}: TTFT p50/p95/p99 {r['ttft_ms']['p50']:.2f}/"
+                f"{r['ttft_ms']['p95']:.2f}/{r['ttft_ms']['p99']:.2f} ms, "
+                f"per token p50/p95/p99 {r['per_token_ms']['p50']:.2f}/"
+                f"{r['per_token_ms']['p95']:.2f}/"
+                f"{r['per_token_ms']['p99']:.2f} ms, "
+                f"{r['throughput_tok_s']:.1f} tok/s"
+                + (f", p99 TTFT x{r['ttft_p99_ratio']:.3f} and per token "
+                   f"x{r['tok_p99_ratio']:.3f} over unprotected"
+                   if "ttft_p99_ratio" in r else "")
+                for n, r in p.items())
+            + f"; launches by rung {rungs}")
+    return {"soak_launches": soak_launches,
+            "ladder_launches": ladder_launches,
+            "record": {"soak": soak, "slo": ladders, "card": smi_line()}}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3078,6 +3824,15 @@ def main() -> int:
     from repro_torch.serving import ServingEngine, TenantSpec, dlrm_stream
 
     t_start = time.perf_counter()
+    phase_s = {}
+    mark = [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f}s")
+
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3093,6 +3848,7 @@ def main() -> int:
                 if "registers" in ln]
         log(f"built {name} in {info['seconds']:.1f}s; " + "; ".join(regs))
     log(f"build wall {details['build_s']:.1f}s")
+    phase_done("1-2 card and build")
 
     # ---------------------- 3. kernels vs plain versions --------------------
     ex = EXTRAS
@@ -3116,11 +3872,19 @@ def main() -> int:
     m = 10                                         # dlrm_stream lookup batch
     errs = {"abft_qgemm": 0.0, "quantize_rows": 0.0, "abft_embeddingbag": 0.0}
 
-    def check_equal(name, got, want, what):
+    def check_equal(name, got, want, what, rerun=None):
         if got.shape != want.shape or not torch.equal(got, want):
-            bad = (got != want).sum().item() if got.shape == want.shape \
-                else "shape"
-            fail(f"{name}: {what} differs from the plain version ({bad})")
+            if got.shape != want.shape:
+                fail(f"{name}: {what} differs from the plain version "
+                     f"(shape)")
+            where = (got != want).nonzero()
+            at = [(tuple(i), int(got[tuple(i)]), int(want[tuple(i)]))
+                  for i in where[:4].tolist()]
+            # whether the same call gives the same result again
+            again = "" if rerun is None else \
+                f"; the same call again equal: {torch.equal(rerun(), want)}"
+            fail(f"{name}: {what} differs from the plain version "
+                 f"({where.shape[0]}; (index, got, want) {at}{again})")
 
     def rand_i8(rows, cols, dtype=torch.int8):
         lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
@@ -3153,11 +3917,14 @@ def main() -> int:
         for col in (False, True):
             got = abft_qgemm_cuda(a, bp, with_colcheck=col)
             want = ref.abft_qgemm_ref(a, bp, with_colcheck=col)
-            for g, w, what in zip(got, want, ("C", "err_rows", "col_check")):
+            for j, (g, w, what) in enumerate(
+                    zip(got, want, ("C", "err_rows", "col_check"))):
                 check_equal("abft_qgemm", g, w,
                             f"{what} at {tuple(a.shape)} {a.dtype} "
                             f"(k, n) = {(bp.shape[0], bp.shape[1] - LANE)} "
-                            f"col_check={col}")
+                            f"col_check={col} (err_rows {got[1].tolist()})",
+                            rerun=lambda: abft_qgemm_cuda(
+                                a, bp, with_colcheck=col)[j])
             if int(got[1].sum()) != 0:
                 fail("abft_qgemm flagged clean operands")
     bad_bp = layers[3]["w_packed"].clone()
@@ -3469,32 +4236,51 @@ def main() -> int:
         fail(f"K3 was handed {dtypes} on the DLRM path, not its bf16 "
              f"activations uncast")
 
+    phase_done("3-5 DLRM")
     # --------------------------- 6-8. RWKV6-1.6B ----------------------------
     from repro_torch.configs import get_arch
     rwkv = rwkv_phases(torch, dev, timer, details, get_arch("rwkv6-1.6b"),
                        (4, 4096))
+    phase_done("6-8 RWKV6-1.6B")
     # ----------------------- 9. the campaign grids --------------------------
     camp_dir = str(Path(args.out).parent / "campaign") if args.out else None
     campaign = campaign_phase(torch, dev, camp_dir)
     details["campaign"] = campaign
+    phase_done("9 campaign grids")
     # ------------------- 10. the thresholds grid (K2) ----------------------
     thresholds = thresholds_phase(torch, dev, camp_dir)
     details["thresholds"] = thresholds
+    phase_done("10 thresholds")
     # ------------- 11. the overhead benchmarks (Fig. 5, Table I) -----------
     overhead = overhead_phase(torch, dev, timer)
     details["overhead"] = overhead
+    phase_done("11 overhead benchmarks")
     # ------------------------- 12. the float DLRM --------------------------
     details["float_dlrm"] = float_dlrm = float_dlrm_phase(torch, dev, ex,
                                                           tables)
+    phase_done("12 float DLRM")
     # --------------------- 13. Llama-3.2-1B chat serving -------------------
     llama = llama_phase(torch, dev, timer)
     details["llama"] = llama["record"]
+    phase_done("13 Llama-3.2-1B")
     # --------------- 14. Llama-3.2-1B paged chat serving -------------------
     paged = llama_paged_phase(torch, dev, timer,
                               llama["record"]["serve"]["step_ms_median"],
                               camp_dir)
     details["llama_paged"] = paged["record"]
+    phase_done("14 Llama-3.2-1B paged")
+    # ------------- 15. granite-moe-3b-a800m (MoE) chat serving -------------
+    granite = granite_phase(torch, dev, timer)
+    details["granite"] = granite["record"]
+    phase_done("15 granite-moe-3b-a800m")
+    # --------------- 16. the serving soak and the SLO ladder ---------------
+    soak_slo = soak_slo_phase(torch, dev, camp_dir, {
+        "llama3.2-1b": llama["record"]["eb_table_scan"],
+        GRANITE: granite["record"]["eb_table_scan"]})
+    details["soak_slo"] = soak_slo["record"]
+    phase_done("16 serving soak and SLO ladder")
     kernels[0]["llama_shapes"] = llama["k1_times"]
+    kernels[0]["granite_expert_shapes"] = granite["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
     kernels[1]["rwkv_token_table"] = rwkv["k2_times"]
     kernels.append(rwkv["k4_row"])
@@ -3518,12 +4304,19 @@ def main() -> int:
                "overhead": overhead["launches"],
                "float_dlrm": float_dlrm["launches"],
                "llama": llama["launches"],
-               "llama_paged": paged["launches"]}
+               "llama_paged": paged["launches"],
+               "granite": granite["launches"],
+               "serving_soak": soak_slo["soak_launches"],
+               **{f"slo_ladder {a}": v for a, v in
+                  soak_slo["ladder_launches"].items()}}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}
     details["kernels"] = kernels
+    details["phase_seconds"] = phase_s
     details["seconds"] = time.perf_counter() - t_start
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
     log("large shapes: " + json.dumps(details["large"]))
     log(f"serve: request ms median {details['serve']['request_ms_median']:.3f}"
         f" of {serve_ms}")

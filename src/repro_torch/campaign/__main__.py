@@ -9,8 +9,15 @@ Examples::
     python -m repro_torch.campaign --grid thresholds --device cpu --out t/
     python -m repro_torch.campaign --grid victims --samples 4
     python -m repro_torch.campaign --grid paging --quick    # paged KV
+    python -m repro_torch.campaign --grid serving_soak --quick
+    python -m repro_torch.campaign --grid serving_soak --quick \
+        --plan "*:policy=recompute,kv_cache:on"             # every tenant
     python -m repro_torch.campaign --diff OLD.json NEW.json # exit 1 on
                                                             # regression
+
+``--plan`` (a compact plan string, a JSON plan, or ``@path.json``)
+replaces every tenant's plan of the ``serving_soak`` grid, unparsed, and
+the paged lane's plan of the ``paging`` grid, as the JAX CLI does.
 
 The JAX package's other grids and flags exit with 2, naming the ROADMAP
 item that ports them.
@@ -23,7 +30,6 @@ import sys
 
 #: flags of the JAX campaign CLI whose subsystems wait for later slices
 _NOT_PORTED = {
-    "--plan": "A4 (serving grids)",
     "--device-count": "A8 (sharding and launch)",
     "--trend": "A5 (observability)",
     "--obs-dir": "A5 (observability)",
@@ -50,7 +56,7 @@ def main(argv=None) -> int:
                          "or paper, their quick variants")
     ap.add_argument("--grid", default=None,
                     help="quick, pallas, paper, thresholds, soak, "
-                         "victims or paging")
+                         "victims, paging or serving_soak")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=0,
                     help="override the per-cell sample count (quick / "
@@ -62,6 +68,10 @@ def main(argv=None) -> int:
                     help="artifact directory (default: cwd)")
     ap.add_argument("--chunk", type=int, default=0,
                     help="trials per host synchronisation")
+    ap.add_argument("--plan", default=None,
+                    help="protection plan (compact string, JSON or "
+                         "@path.json) for every serving_soak tenant and "
+                         "the paging grid's paged lane")
     ap.add_argument("--diff", nargs=2, metavar=("OLD", "NEW"),
                     help="diff two BENCH_campaign_*.json artifacts and "
                          "exit 1 on detection/FP regressions")
@@ -88,20 +98,46 @@ def main(argv=None) -> int:
     grid = args.grid or ("quick" if args.quick else None)
     if grid is None:
         ap.error("pick a grid (--quick / --grid "
-                 "{quick,pallas,paper,thresholds,soak,victims,paging}) or "
-                 "--diff OLD NEW")
+                 "{quick,pallas,paper,thresholds,soak,victims,paging,"
+                 "serving_soak}) or --diff OLD NEW")
     if grid in NOT_PORTED:
         ap.error(f"--grid {grid} is not ported yet (ROADMAP "
                  f"{NOT_PORTED[grid]})")
-    if grid != "paging" and grid not in GRIDS:
-        ap.error(f"unknown grid {grid!r} ({', '.join(GRIDS)}, paging)")
+    if grid not in ("paging", "serving_soak") and grid not in GRIDS:
+        ap.error(f"unknown grid {grid!r} ({', '.join(GRIDS)}, paging, "
+                 f"serving_soak)")
+    if args.plan is not None and grid not in ("paging", "serving_soak"):
+        ap.error("--plan applies to the serving_soak and paging grids")
 
     from repro_torch.campaign.artifacts import markdown_table
+    if grid == "serving_soak":
+        # live-traffic soak: the serving engine, not the trial executor
+        import dataclasses
+
+        from repro_torch.serving.soak import (full_soak_spec,
+                                              quick_soak_spec,
+                                              run_soak_campaign)
+        spec = None
+        if args.plan is not None:
+            spec = quick_soak_spec(args.seed) if args.quick \
+                else full_soak_spec(args.seed)
+            spec = dataclasses.replace(spec, tenants=tuple(
+                (n, w, args.plan) for n, w, _ in spec.tenants))
+        result = run_soak_campaign(spec, quick=args.quick, seed=args.seed,
+                                   out_dir=args.out, device=args.device,
+                                   verbose=lambda s: print(s, flush=True))
+        print()
+        print(markdown_table(result))
+        print(f"artifact: "
+              f"{os.path.join(args.out, 'BENCH_campaign_serving_soak')}"
+              f".json")
+        return 0
     if grid == "paging":
         # paged-KV parity + repair cells (repro_torch.serving.paging_soak)
         from repro_torch.serving.paging_soak import run_paging_campaign
         result = run_paging_campaign(quick=args.quick, seed=args.seed,
-                                     out_dir=args.out, device=args.device,
+                                     plan=args.plan, out_dir=args.out,
+                                     device=args.device,
                                      verbose=lambda s: print(s, flush=True))
         print()
         print(markdown_table(result))

@@ -115,9 +115,11 @@ def wilson_gate(old: dict, new: dict, *, z: float = 1.96) -> dict:
     overlapping Wilson intervals: the effective detection rate (detected
     or masked over faulty trials; a cell that counts no masked trials,
     as the ``paging`` grid's, its detected ones) and the false-positive
-    rate (flags over clean trials).  Returns ``{"cells": [...], "failed":
-    [cell_id, ...], "uncovered": [cell_id, ...]}``; each cell entry
-    carries both intervals of both metrics and whether they overlap."""
+    rate (flags over clean trials), and for the ``serving_soak`` grid the
+    escape rate (corrupted and unflagged faults over faults).  Returns
+    ``{"cells": [...], "failed": [cell_id, ...], "uncovered": [cell_id,
+    ...]}``; each cell entry carries both intervals of each metric and
+    whether they overlap."""
     def count(m, k):
         return m[k] if k in m else m["detected"]
 
@@ -125,14 +127,17 @@ def wilson_gate(old: dict, new: dict, *, z: float = 1.96) -> dict:
     cells, failed = [], []
     for cid in sorted(set(oc) & set(nc)):
         entry = {"cell_id": cid}
-        for metric, k, n in (("detection", "effective_detected", "samples"),
-                             ("fp", "false_positives", "clean_samples")):
+        metrics = [("detection", "effective_detected", "samples"),
+                   ("fp", "false_positives", "clean_samples")]
+        if old.get("campaign") == new.get("campaign") == "serving_soak":
+            metrics.append(("escape", "escapes", "samples"))
+        for metric, k, n in metrics:
             a = wilson_interval(count(oc[cid], k), oc[cid][n], z)
             b = wilson_interval(count(nc[cid], k), nc[cid][n], z)
             entry[metric] = {"old": list(a), "new": list(b),
                              "overlap": _overlap(a, b)}
         cells.append(entry)
-        if not (entry["detection"]["overlap"] and entry["fp"]["overlap"]):
+        if not all(entry[m]["overlap"] for m, _, _ in metrics):
             failed.append(cid)
     return {"cells": cells, "failed": failed,
             "uncovered": sorted(set(oc) - set(nc))}

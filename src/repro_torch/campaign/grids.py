@@ -165,11 +165,10 @@ def soak_specs(seed: int = 0) -> List[CampaignSpec]:
 
 #: the JAX package's other grids and the ROADMAP items that port them
 NOT_PORTED = {
-    "serving_soak": "A4 (the serving soak)",
     "adaptive": "A5 (adaptive thresholds)",
     "training": "A6 (training under faults)",
     "multidevice": "A6 (training under faults)",
-    "full": "A4-A6",
+    "full": "A5-A6 (adaptive thresholds, training under faults)",
 }
 
 

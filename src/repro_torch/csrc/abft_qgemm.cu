@@ -71,7 +71,8 @@
 // without the checksum column (its tile when n is a multiple of 128, and
 // its lane in the map), the mod-127 epilogue, the row-sum scratch or the
 // ticket.  It is
-// built for uint8 A only, as the benchmark draws A.
+// built for int8 A (what a disabled plan rule runs on the serving path) and
+// for uint8 A (the benchmark's A).
 //
 // The launch plan (row tile, split count, aligned or ragged) is made in
 // Python and checked here.
@@ -627,36 +628,46 @@ REPRO_API int abft_qgemm_launch(const void* a, int a_unsigned, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The unprotected instance: a uint8 [m, k], b the same packed int8
-// [k, ldb = n + 128] -> c int32 [m, n] = a @ b[:, :n]; the plan as above,
-// made for the n columns alone (kernels/abft_qgemm.launch_plan with
-// protect=False).  Launched as a programmatic dependent, as K1 is.
-REPRO_API int qgemm_unprotected_launch(const void* a, const void* b, void* c,
-                                       int m, int n, int k, int ldb, int bm,
-                                       int splits, int k_per_split,
-                                       int aligned, void* stream) {
+namespace {
+
+template <typename TA>
+cudaError_t dispatch_unprotected(int bm, bool aligned, const Args& p,
+                                 cudaStream_t s) {
+  switch (bm) {
+    case 16:
+      return aligned ? launch<TA, 1, true, false, false>(p, s)
+                     : launch<TA, 1, false, false, false>(p, s);
+    case 32:
+      return aligned ? launch<TA, 2, true, false, false>(p, s)
+                     : launch<TA, 2, false, false, false>(p, s);
+    case 64:
+      return aligned ? launch<TA, 4, true, false, false>(p, s)
+                     : launch<TA, 4, false, false, false>(p, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The unprotected instance: a int8/uint8 [m, k] (a_unsigned selects
+// uint8), b the same packed int8 [k, ldb = n + 128] -> c int32 [m, n] =
+// a @ b[:, :n]; the plan as above, made for the n columns alone
+// (kernels/abft_qgemm.launch_plan with protect=False).  Launched as a
+// programmatic dependent, as K1 is.
+REPRO_API int qgemm_unprotected_launch(const void* a, int a_unsigned,
+                                       const void* b, void* c, int m, int n,
+                                       int k, int ldb, int bm, int splits,
+                                       int k_per_split, int aligned,
+                                       void* stream) {
   if (!plan_ok(a, b, m, n, k, ldb, splits, k_per_split, aligned))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args p = {a, b, static_cast<int32_t*>(c), nullptr, nullptr, nullptr,
                   nullptr, nullptr, m, n, k, ldb, splits, k_per_split, true};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (bm) {
-    case 16:
-      e = aligned ? launch<uint8_t, 1, true, false, false>(p, s)
-                  : launch<uint8_t, 1, false, false, false>(p, s);
-      break;
-    case 32:
-      e = aligned ? launch<uint8_t, 2, true, false, false>(p, s)
-                  : launch<uint8_t, 2, false, false, false>(p, s);
-      break;
-    case 64:
-      e = aligned ? launch<uint8_t, 4, true, false, false>(p, s)
-                  : launch<uint8_t, 4, false, false, false>(p, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t e =
+      a_unsigned ? dispatch_unprotected<uint8_t>(bm, aligned, p, s)
+                 : dispatch_unprotected<int8_t>(bm, aligned, p, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

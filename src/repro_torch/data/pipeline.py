@@ -14,9 +14,9 @@ batches are equal bit for bit.
 - :class:`Prefetcher` — a background thread that makes the next batches
   (and, given a device, moves them there) while the caller runs.
 
-:func:`make_dataset` serves the families the port has (``dlrm`` and the
-RWKV ``ssm``); placing a batch across a device mesh (the JAX
-``shard_batch``) waits for ROADMAP A8.
+:func:`make_dataset` serves the families the port has (``dlrm``, the
+decoder LMs ``dense`` and ``moe`` and the RWKV ``ssm``); placing a batch
+across a device mesh (the JAX ``shard_batch``) waits for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -32,9 +32,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 
 #: ROADMAP items that port each family the pipeline does not serve yet
 _NOT_PORTED = {
-    "dense": "A4 (LM decode and serving)",
-    "moe": "A4 (LM decode and serving)",
-    "vlm": "A4 (LM decode and serving)",
+    "vlm": "A7 (other families: llava)",
     "encdec": "A7 (other families: whisper)",
     "hybrid": "A7 (other families: mamba / hymba)",
 }

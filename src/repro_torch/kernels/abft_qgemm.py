@@ -45,12 +45,18 @@ A refused launch raises; nothing falls back to a plain launch.
 aligned or ragged path) on the host, so the CPU tests check it; the C
 entry checks it again.  A shape the kernel does not take raises.
 
-:func:`qgemm_unprotected_cuda` is the kernel's unprotected instance, the
-overhead benchmarks' baseline (``repro_torch.benchmarks.gemm_overhead``):
+:func:`qgemm_unprotected_cuda` is the kernel's unprotected instance:
 ``C = A @ B'[:, :n]`` from the same packed operand through the same
 mainloop, without the checksum column, the mod-127 epilogue or the
-scratch.  Its plain version is :func:`repro_torch.kernels.ref.qgemm_ref`.
-It is not a TPU kernel's port and nothing on the serving path calls it.
+scratch, for int8 A (what a disabled plan rule runs on the serving path:
+``QGEMM.unprotected``) and uint8 A (the overhead benchmarks' baseline,
+``repro_torch.benchmarks.gemm_overhead``).  Its plain version is
+:func:`repro_torch.kernels.ref.qgemm_ref`.  It is not a TPU kernel's
+port.
+
+Both wrappers take ``out=``: preallocated contiguous outputs, so that a
+stack of MoE experts (``kernels.ops``) writes one launch's C into its
+slice of one tensor.
 """
 from __future__ import annotations
 
@@ -172,9 +178,22 @@ def _launch():
                          i, p])
 
 
+def _out(t: Optional[torch.Tensor], shape, dev, what: str) -> torch.Tensor:
+    """A caller's output tensor, checked, or a new one."""
+    if t is None:
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape) or \
+            t.device != dev or not t.is_contiguous():
+        raise ValueError(f"out {what} must be a contiguous int32 tensor "
+                         f"{tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t
+
+
 def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
                     with_colcheck: bool = False,
-                    plan: Optional[QgemmPlan] = None, pdl: bool = True):
+                    plan: Optional[QgemmPlan] = None, pdl: bool = True,
+                    out: Optional[tuple] = None):
     """Run the fused ABFT GEMM on the card.
 
     ``a_q``: int8 or uint8 [m, k]; ``b_packed``: int8 [k, n + 128] from
@@ -184,7 +203,8 @@ def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
     ``with_colcheck``.  ``plan`` replaces :func:`launch_plan`'s choice
     (to measure the rule); the C entry refuses one that does not fit.
     ``pdl=False`` launches K1 as a plain successor of the kernel before it,
-    only to measure what programmatic dependent launch buys.
+    only to measure what programmatic dependent launch buys.  ``out``
+    ``(c, err_rows)`` are written instead of new tensors.
     """
     if not (a_q.is_cuda and b_packed.is_cuda) or a_q.device != b_packed.device:
         raise ValueError("abft_qgemm_cuda needs both operands on one CUDA "
@@ -204,8 +224,9 @@ def abft_qgemm_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
         raise ValueError(f"shape mismatch: A {tuple(a_q.shape)}, "
                          f"B' {tuple(b_packed.shape)}")
     dev = a_q.device
-    c = torch.empty((m, n), dtype=torch.int32, device=dev)
-    err = torch.empty((m,), dtype=torch.int32, device=dev)
+    c_out, err_out = (None, None) if out is None else out
+    c = _out(c_out, (m, n), dev, "C")
+    err = _out(err_out, (m,), dev, "err_rows")
     if m == 0:
         if with_colcheck:
             return c, err, torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -238,23 +259,27 @@ abft_qgemm_cuda.launches = 0
 def _launch_unprotected():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.entry(_NAME, "qgemm_unprotected_launch",
-                        [p, p, p, i, i, i, i, i, i, i, i, p])
+                        [p, i, p, p, i, i, i, i, i, i, i, i, p])
 
 
-def qgemm_unprotected_cuda(a_q: torch.Tensor,
-                           b_packed: torch.Tensor) -> torch.Tensor:
+def qgemm_unprotected_cuda(a_q: torch.Tensor, b_packed: torch.Tensor, *,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """K1's unprotected instance on the card: ``C = A @ B'[:, :n]``, int32
     ``[m, n]``, bit-exact with the protected kernel's C.
 
-    ``a_q``: uint8 [m, k] (the benchmark's A; no int8 instance is built);
-    ``b_packed``: int8 [k, n + 128]; both contiguous CUDA tensors on one
-    device.  The plan is :func:`launch_plan`'s (``protect=False``)."""
+    ``a_q``: int8 (the serving path's signed codes) or uint8 (the
+    overhead benchmark's A) [m, k]; ``b_packed``: int8 [k, n + 128]; both
+    contiguous CUDA tensors on one device.  The plan is
+    :func:`launch_plan`'s (``protect=False``).  ``out`` is written
+    instead of a new C."""
     if not (a_q.is_cuda and b_packed.is_cuda) or a_q.device != b_packed.device:
         raise ValueError("qgemm_unprotected_cuda needs both operands on one "
                          "CUDA device")
-    if a_q.dtype != torch.uint8 or b_packed.dtype != torch.int8:
-        raise TypeError(f"qgemm_unprotected_cuda takes uint8 A and int8 B', "
-                        f"got {a_q.dtype} and {b_packed.dtype}")
+    if a_q.dtype not in (torch.int8, torch.uint8) or \
+            b_packed.dtype != torch.int8:
+        raise TypeError(f"qgemm_unprotected_cuda takes int8 or uint8 A and "
+                        f"int8 B', got {a_q.dtype} and {b_packed.dtype}")
     if a_q.dim() != 2 or b_packed.dim() != 2 or \
             not (a_q.is_contiguous() and b_packed.is_contiguous()):
         raise ValueError("operands must be contiguous 2-D tensors")
@@ -265,14 +290,16 @@ def qgemm_unprotected_cuda(a_q: torch.Tensor,
         raise ValueError(f"shape mismatch: A {tuple(a_q.shape)}, "
                          f"B' {tuple(b_packed.shape)}")
     dev = a_q.device
-    c = torch.empty((m, n), dtype=torch.int32, device=dev)
+    c = _out(out, (m, n), dev, "C")
     if m == 0:
         return c
     plan = launch_plan(m, k, n, a_addr=a_q.data_ptr(),
                        b_addr=b_packed.data_ptr(), protect=False)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _launch_unprotected()(a_q.data_ptr(), b_packed.data_ptr(),
+        rc = _launch_unprotected()(a_q.data_ptr(),
+                                   int(a_q.dtype == torch.uint8),
+                                   b_packed.data_ptr(),
                                    c.data_ptr(), m, n, k, ldb, plan.bm,
                                    plan.splits, plan.k_per_split,
                                    int(plan.aligned), stream)

@@ -9,7 +9,14 @@ has no interpret mode, and nothing falls back silently.
 
 The :mod:`repro_torch.protect` adapters dispatch here; layer code should
 not call these directly.  :func:`qgemm_unprotected` and
-:func:`embedding_bag_unprotected` serve the overhead benchmarks alone.
+:func:`embedding_bag_unprotected` are what a disabled plan rule runs
+(the adapters' ``unprotected``) and the overhead benchmarks' baselines.
+
+K1 and its unprotected instance also take a stack of MoE experts:
+``A [E, m, k]`` against ``B' [E, k, n + 128]``, each expert's rows on
+its own weights.  On the card that is one launch an expert, each
+writing its slice of one output; the plain version is one batched
+product.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import AbftEbOut, EB_REL_BOUND, verify_bags
+from repro_torch.core import AbftEbOut, EB_REL_BOUND, LANE, verify_bags
 from repro_torch.kernels import ref as _ref
 
 
@@ -30,12 +37,38 @@ def _use_kernel(use_kernel: Optional[bool], x: torch.Tensor) -> bool:
     return bool(use_kernel)
 
 
+def _per_expert(launch, a_q: torch.Tensor,
+                b_packed: torch.Tensor) -> torch.Tensor:
+    """A stack of experts on the card: ``launch(a, b, c, e)`` once an
+    expert, each writing expert ``e``'s slice ``c`` of one int32 output
+    ``[E, m, n]``, which is returned."""
+    a_q, b_packed = a_q.contiguous(), b_packed.contiguous()
+    n_exp, m, _ = a_q.shape
+    c = torch.empty((n_exp, m, b_packed.shape[-1] - LANE),
+                    dtype=torch.int32, device=a_q.device)
+    for e in range(n_exp):
+        launch(a_q[e], b_packed[e], c[e], e)
+    return c
+
+
 def abft_qgemm(a_q: torch.Tensor, b_packed: torch.Tensor, *,
                use_kernel: Optional[bool] = None,
                with_colcheck: bool = False):
     """ABFT int8 GEMM against a packed B'. -> (C int32, err_rows int32 [m]),
     plus the exact int32 column check ``colsum(A) @ B`` with
     ``with_colcheck`` (what the ``correct`` policy consumes)."""
+    if b_packed.dim() == 3:
+        if with_colcheck:
+            raise ValueError("the column check takes one weight, not a "
+                             "stack of experts")
+        if not _use_kernel(use_kernel, a_q):
+            return _ref.abft_qgemm_ref(a_q, b_packed)
+        from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+        err = torch.empty(a_q.shape[:2], dtype=torch.int32,
+                          device=a_q.device)
+        c = _per_expert(lambda a, b, c_e, e: abft_qgemm_cuda(
+            a, b, out=(c_e, err[e])), a_q, b_packed)
+        return c, err
     if _use_kernel(use_kernel, a_q):
         from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
         return abft_qgemm_cuda(a_q.contiguous(), b_packed.contiguous(),
@@ -45,21 +78,31 @@ def abft_qgemm(a_q: torch.Tensor, b_packed: torch.Tensor, *,
 
 def qgemm_unprotected(a_q: torch.Tensor, b_packed: torch.Tensor, *,
                       use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """The overhead benchmarks' baseline: ``C = A @ B'[:, :n]`` (int32),
-    the protected GEMM's C without its check (uint8 A on the card)."""
-    if _use_kernel(use_kernel, a_q):
-        from repro_torch.kernels.abft_qgemm import qgemm_unprotected_cuda
-        return qgemm_unprotected_cuda(a_q.contiguous(),
-                                      b_packed.contiguous())
-    return _ref.qgemm_ref(a_q, b_packed)
+    """``C = A @ B'[:, :n]`` (int32), the protected GEMM's C without its
+    check: K1's unprotected instance on the card (int8 or uint8 A), the
+    exact integer product on the CPU.  A stack of experts as in
+    :func:`abft_qgemm`."""
+    if not _use_kernel(use_kernel, a_q):
+        return _ref.qgemm_ref(a_q, b_packed)
+    from repro_torch.kernels.abft_qgemm import qgemm_unprotected_cuda
+    if b_packed.dim() == 2:
+        return qgemm_unprotected_cuda(a_q.contiguous(), b_packed.contiguous())
+    return _per_expert(lambda a, b, c_e, e: qgemm_unprotected_cuda(
+        a, b, out=c_e), a_q, b_packed)
 
 
 def embedding_bag_unprotected(table_q, alphas, betas, indices, weights=None,
                               *, use_kernel: Optional[bool] = None
                               ) -> torch.Tensor:
-    """The overhead benchmarks' baseline: a stack's R alone, the protected
-    EmbeddingBag's R without its check (``[tables, rows, d]``,
+    """The EmbeddingBag's R without its check: K2's unprotected instance
+    on the card, the plain gather on the CPU.  Takes one table (``[rows,
+    d]``, ``indices [bags, pool]``) or a stack (``[tables, rows, d]``,
     ``indices [tables, bags, pool]``)."""
+    if table_q.dim() == 2:
+        return embedding_bag_unprotected(
+            table_q[None], alphas[None], betas[None], indices[None],
+            None if weights is None else weights[None],
+            use_kernel=use_kernel)[0]
     if _use_kernel(use_kernel, table_q):
         from repro_torch.kernels.abft_embeddingbag import eb_unprotected_cuda
         return eb_unprotected_cuda(

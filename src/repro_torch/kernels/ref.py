@@ -19,12 +19,14 @@ from repro_torch.core import EB_REL_BOUND, LANE, MOD, column_check, \
 def abft_qgemm_ref(a_q: torch.Tensor, b_packed: torch.Tensor,
                    with_colcheck: bool = False, mod: int = MOD):
     """Plain K1: ``(C int32 [m,n], err_rows int32 [m])``, plus the Eq.-1
-    column check ``colsum(A) @ B`` (int32 [n]) when ``with_colcheck``."""
-    n = b_packed.shape[1] - LANE
-    c_full = int_matmul(a_q, b_packed[:, :n + 1])
-    c = c_full[:, :n]
-    check = c_full[:, n] % mod
-    rowsum = torch.sum(c % mod, dim=1) % mod
+    column check ``colsum(A) @ B`` (int32 [n]) when ``with_colcheck``.
+    A stack of experts (``A [E, m, k]``, ``B' [E, k, n + 128]``) gives
+    ``C [E, m, n]`` and ``err_rows [E, m]``, each expert on its own B'."""
+    n = b_packed.shape[-1] - LANE
+    c_full = int_matmul(a_q, b_packed[..., :n + 1])
+    c = c_full[..., :n]
+    check = c_full[..., n] % mod
+    rowsum = torch.sum(c % mod, dim=-1) % mod
     err = (rowsum != check).to(torch.int32)
     if not with_colcheck:
         return c, err
@@ -32,9 +34,10 @@ def abft_qgemm_ref(a_q: torch.Tensor, b_packed: torch.Tensor,
 
 
 def qgemm_ref(a_q: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
-    """Plain unprotected K1: ``C = A @ B'[:, :n]`` int32 [m, n], the
-    protected kernel's C without its check."""
-    return int_matmul(a_q, b_packed[:, :b_packed.shape[1] - LANE])
+    """Plain unprotected K1: ``C = A @ B'[:, :n]`` int32 [m, n] (or a stack
+    of experts, ``[E, m, n]``), the protected kernel's C without its
+    check."""
+    return int_matmul(a_q, b_packed[..., :b_packed.shape[-1] - LANE])
 
 
 def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -117,6 +120,36 @@ def eb_check_slot_order(rsum: torch.Tensor, alphas: torch.Tensor,
             + d * torch.abs(b[..., p]))
     tol = rel_bound * torch.clamp(mag, min=1.0)
     return torch.abs(rsum - csum) > tol
+
+
+def eb_rsum_team_order(r: torch.Tensor, warps_per_bag: int) -> torch.Tensor:
+    """K2's rsum of bags each summed by a team of ``warps_per_bag`` warps
+    on 16-byte row words (``eb_plan``'s vector path with ``groups`` 1),
+    written plainly from R ``[..., bags, d]`` float32: lane ``l`` of the
+    team adds its words ``l, l + team, ...`` (16 columns each, in column
+    order) to a 0, the 32 lanes of each warp are summed by the xor
+    butterfly (offsets 16 to 1), and the warps' sums in warp order.
+    Given K2's R it gives K2's rsum bit for bit.  -> f32 [..., bags]."""
+    lead, d = r.shape[:-1], r.shape[-1]
+    team, n_words = 32 * warps_per_bag, d // 16
+    iters = -(-n_words // team)
+    words = torch.nn.functional.pad(r.reshape(*lead, n_words, 16),
+                                    (0, 0, 0, iters * team - n_words))
+    words = words.reshape(*lead, iters, team, 16)
+    mine = torch.arange(iters * team, device=r.device).reshape(
+        iters, team) < n_words
+    part = torch.zeros(lead + (team,), dtype=torch.float32, device=r.device)
+    for it in range(iters):
+        for e in range(16):
+            part = torch.where(mine[it], part + words[..., it, :, e], part)
+    part = part.reshape(*lead, warps_per_bag, 32)
+    lane = torch.arange(32, device=r.device)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[..., lane ^ off]
+    rsum = part[..., 0, 0]
+    for k in range(1, warps_per_bag):
+        rsum = rsum + part[..., k, 0]
+    return rsum
 
 
 def quantize_rows_ref(x: torch.Tensor):

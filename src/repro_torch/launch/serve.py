@@ -3,8 +3,8 @@
 
 ``python -m repro_torch.launch.serve --arch dlrm`` serves the full-width
 DLRM (26 tables x 4M rows x 128) on the card; ``--arch llama3.2-1b`` (or
-another registered dense LM) and ``--arch rwkv6-1.6b`` serve the
-full-width int8 model (chat requests: prefill, then continuous batched
+another registered dense LM), ``--arch granite-moe-3b-a800m`` (the MoE)
+and ``--arch rwkv6-1.6b`` serve the full-width int8 model (chat requests: prefill, then continuous batched
 decode over ``--slots``; up to ``--decode-tokens`` new tokens each);
 ``--device cpu --smoke`` serves a small model on the CPU through the
 plain PyTorch versions.  A seeded

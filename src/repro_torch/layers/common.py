@@ -17,8 +17,11 @@ class Ctx:
     legacy booleans apply: ``abft`` gates int8 GEMM + EB verification and
     ``float_abft`` gates float-GEMM ABFT.  ``wkv_chunk > 0`` selects the
     chunked matmul form of the RWKV6 WKV recurrence (kernel K4 on the
-    card) over a prefill's whole chunks.  The JAX context's
-    sharding, scan and cost-probe fields and its bf16 WKV operands
+    card) over a prefill's whole chunks.  ``moe_gather`` selects the
+    MoE's scatter / gather dispatch (False: the one-hot einsums) and
+    ``moe_seq_groups`` runs its token groups one at a time
+    (:mod:`repro_torch.layers.moe`).  The JAX context's sharding, layer
+    scan and cost-probe fields and its bf16 WKV operands
     (``wkv_mm_bf16``) belong to slices not ported yet.
     """
     quant: bool = False                   # int8 serving path
@@ -27,6 +30,8 @@ class Ctx:
     plan: Optional[Any] = None            # ProtectionPlan (overrides flags)
     compute_dtype: Any = torch.bfloat16
     wkv_chunk: int = 0                    # >0: chunked matmul-form WKV6
+    moe_gather: bool = False              # scatter/gather MoE dispatch
+    moe_seq_groups: bool = False          # MoE token groups one at a time
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

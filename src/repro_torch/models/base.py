@@ -8,8 +8,9 @@ the port has:
   decode(params, cache, tokens, pos, ctx)     -> (logits, cache, report)
   init_cache(batch, cache_len, device)        -> zero cache tree
 
-The ``dense`` family (the decoder LMs, :mod:`.lm`) and the ``ssm``
-family (RWKV6, :mod:`.rwkv`) are ported; every other family raises
+The ``dense`` and ``moe`` families (the decoder LMs, :mod:`.lm`) and
+the ``ssm`` family (RWKV6, :mod:`.rwkv`) are ported; every other family
+raises
 :class:`NotImplementedError` naming the ROADMAP item that ports it, and
 the serving engine relies on that refusal.  RWKV's recurrent state does
 not grow, so it ignores ``cache_len``.  The training ``loss`` waits for
@@ -25,7 +26,6 @@ from repro_torch.models import lm, rwkv
 
 #: ROADMAP items that port each family the facade does not serve yet
 _NOT_PORTED = {
-    "moe": "A4 (MoE)",
     "vlm": "A7 (llava)",
     "encdec": "A7 (whisper)",
     "hybrid": "A7 (mamba / hymba)",
@@ -50,11 +50,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             item = _NOT_PORTED.get(cfg.family, "unknown family")
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP "
-                f"{item}); the facade serves 'dense' and 'ssm'")
+                f"{item}); the facade serves 'dense', 'moe' and 'ssm'")
         self.cfg = cfg
 
     def init(self, seed: int, *, device="cuda"):

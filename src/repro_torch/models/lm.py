@@ -1,5 +1,5 @@
-"""Decoder-only LM, the dense family (Llama-3.2, Qwen3) — the JAX
-package's ``models/lm.py``.
+"""Decoder-only LM, the dense (Llama-3.2, Qwen3) and MoE
+(granite-moe) families — the JAX package's ``models/lm.py``.
 
 The parameter and cache trees keep the JAX layout, so
 :func:`repro_torch.models.convert.from_jax` carries its weights over
@@ -10,10 +10,13 @@ here the layer loop is written out and indexes the stack), and the cache
 is ``{"attn": {"k", "v"}}`` with leaves ``[L, B, Kv, S, dh]`` (or
 :class:`~repro_torch.core.QuantKV` of them), or, in the engine's paged
 lanes, two :class:`~repro_torch.paging.PagedKV` pools with leading-L
-leaves.  Every forward threads a FaultReport.
+leaves.  Every forward threads a FaultReport, and the full-sequence
+forward sums the MoE layers' load-balance loss (0 for dense).  A MoE
+layer has ``moe`` (:mod:`repro_torch.layers.moe`) where a dense one has
+``mlp``.
 
-The JAX module's MoE, hybrid (hymba) and VLM (llava) families wait for
-later slices (ROADMAP A4 for MoE, A7 for the other two); they raise.
+The JAX module's hybrid (hymba) and VLM (llava) families wait for
+ROADMAP A7; they raise.
 """
 from __future__ import annotations
 
@@ -27,22 +30,22 @@ from repro_torch.layers.common import Ctx, layer_at, stack_layers
 from repro_torch.layers.embedding import apply_embed, init_embed, init_qembed
 from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
 from repro_torch.layers.mlp import init_mlp, mlp
+from repro_torch.layers.moe import init_moe, moe_ffn
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.paging.cache import PagedKV
 
 HUGE_WINDOW = 1 << 30
 
 #: the LM families the port does not serve yet, and their ROADMAP items
-_NOT_PORTED = {"moe": "A4 (MoE)", "hybrid": "A7 (mamba / hymba)",
-               "vlm": "A7 (llava)"}
+_NOT_PORTED = {"hybrid": "A7 (mamba / hymba)", "vlm": "A7 (llava)"}
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         item = _NOT_PORTED.get(cfg.family, "none: not a decoder LM")
         raise NotImplementedError(
             f"LM family {cfg.family!r} is not ported yet (ROADMAP {item}); "
-            f"models.lm serves 'dense'")
+            f"models.lm serves 'dense' and 'moe'")
 
 
 # ------------------------------- init ---------------------------------------
@@ -51,15 +54,20 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, quant: bool, dtype, *,
                device):
     _check_family(cfg)
     d = cfg.d_model
-    return {
+    p = {
         "ln1": init_rmsnorm(d, dtype=dtype, device=device),
         "ln2": init_rmsnorm(d, dtype=dtype, device=device),
         "attn": attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.head_dim_, qk_norm=cfg.qk_norm,
                                     quant=quant, dtype=dtype, device=device),
-        "mlp": init_mlp(gen, d, cfg.d_ff, gated=cfg.gated_mlp, quant=quant,
-                        dtype=dtype, device=device),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, d, cfg.d_ff, cfg.n_experts, quant=quant,
+                            dtype=dtype, device=device)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.gated_mlp,
+                            quant=quant, dtype=dtype, device=device)
+    return p
 
 
 @torch.no_grad()
@@ -103,6 +111,16 @@ def _windows(cfg: ArchConfig) -> list:
             for w in window_schedule(cfg).tolist()]
 
 
+def _ffn(layer_p, h: torch.Tensor, ctx: Ctx, cfg: ArchConfig):
+    """The layer's feed-forward: (y, load-balance loss, report)."""
+    if cfg.family == "moe":
+        return moe_ffn(layer_p["moe"], h, ctx, n_experts=cfg.n_experts,
+                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       group_size=cfg.moe_group)
+    y, rep = mlp(layer_p["mlp"], h, ctx)
+    return y, torch.zeros((), dtype=torch.float32, device=h.device), rep
+
+
 # ------------------------------ full-seq forward ----------------------------
 
 @torch.no_grad()
@@ -121,6 +139,7 @@ def lm_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, *,
               rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
               prefix_global=cfg.meta_tokens, chunk=cfg.attn_chunk)
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(_windows(cfg)):
         layer_p = layer_at(params["layers"], i)
         h = rmsnorm(layer_p["ln1"], x)
@@ -134,13 +153,13 @@ def lm_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, *,
                                         window=window, **kw)
         x = x + a_out
         h2 = rmsnorm(layer_p["ln2"], x)
-        f_out, r_f = mlp(layer_p["mlp"], h2, ctx)
+        f_out, aux_l, r_f = _ffn(layer_p, h2, ctx, cfg)
         x = x + f_out
+        aux = aux + aux_l
         rep = policy.merge_reports(rep, r_a, r_f)
     x = rmsnorm(params["final_norm"], x)
     cache = stack_layers(caches) if with_cache else None
-    return x, cache, rep, torch.zeros((), dtype=torch.float32,
-                                      device=x.device)
+    return x, cache, rep, aux
 
 
 @torch.no_grad()
@@ -186,7 +205,11 @@ def lm_decode(params, cache, tokens, pos, ctx: Ctx, cfg: ArchConfig):
         new.append({"attn": new_attn})
         x = x + a_out
         h2 = rmsnorm(layer_p["ln2"], x)
-        f_out, r_f = mlp(layer_p["mlp"], h2, ctx)
+        if cfg.family == "moe":
+            f_out, _, r_f = _ffn(layer_p, h2[:, None, :], ctx, cfg)
+            f_out = f_out[:, 0, :]
+        else:
+            f_out, r_f = mlp(layer_p["mlp"], h2, ctx)
         x = x + f_out
         rep = policy.merge_reports(rep, r_a, r_f)
     x = rmsnorm(params["final_norm"], x)

@@ -31,10 +31,9 @@ import torch
 from repro_torch.core import (EB_REL_BOUND, LANE, QuantKV, abft_gemm_f32,
                               attend_quantized, column_check,
                               correct_single_error, correct_weight_flip,
-                              dequantize_kv, embedding_bag,
-                              encode_weight_f32, int_matmul, pack_encoded_b,
-                              quantize_kv_rows, table_rowsums,
-                              update_kv_row, verify_rows)
+                              dequantize_kv, encode_weight_f32, int_matmul,
+                              pack_encoded_b, quantize_kv_rows,
+                              table_rowsums, update_kv_row, verify_rows)
 from repro_torch.core.policy import register_op_kind
 from repro_torch.kernels import ops as kops
 from repro_torch.paging.cache import attend_paged, paged_append
@@ -82,6 +81,15 @@ class QGemmOp:
     ``encoded`` may also be ``(packed, colsum_ref)`` where ``colsum_ref``
     is the exact int32 column sums of the clean B block; with it the
     ``correct`` policy also repairs single *weight* flips.
+
+    A stack of MoE experts (packed ``[E, k, n + LANE]``, A ``[E, m, k]``)
+    is one call with one check per expert: the err count is an ``[E]``
+    vector, so the report sums to what a JAX ``vmap`` over per-expert
+    calls sums, and ``recompute`` keeps the re-run only for the experts
+    that still report errors.
+
+    A disabled rule runs :meth:`unprotected`: K1's unprotected instance
+    on the card, the exact integer product on the CPU.
     """
     name = "qgemm"
     schemes = ("packed", "plain", "cuda", "pallas", "unfused")
@@ -115,6 +123,8 @@ class QGemmOp:
 
     def __call__(self, encoded, a_q, *, rule: ResolvedRule = _DEFAULT_RULE):
         packed, colsum_ref = self._unpack(encoded)
+        if packed.dim() == 3:
+            return self._experts(packed, colsum_ref, a_q, rule)
         scheme = rule.scheme or "packed"
         want_col = rule.policy == "correct"
         n = self.out_dim(packed)
@@ -141,9 +151,29 @@ class QGemmOp:
                         err_rows.to(torch.bool),
                         self._aux(col, a_q, packed, colsum_ref))
 
+    def _experts(self, packed, colsum_ref, a_q, rule: ResolvedRule):
+        """A stack of experts: the fused schemes in one batched call (one
+        K1 launch an expert on the card); the unfused scheme and the
+        ``correct`` policy's column checks one expert at a time."""
+        scheme = rule.scheme or "packed"
+        if scheme in ("packed", "plain", "cuda", "pallas") and \
+                rule.policy != "correct":
+            use_kernel = {"packed": None, "plain": False}.get(scheme, True)
+            c, err_rows = kops.abft_qgemm(a_q, packed, use_kernel=use_kernel)
+            return c, Check(torch.sum(err_rows, dim=-1, dtype=torch.int32),
+                            err_rows.to(torch.bool))
+        outs = [self(packed[e] if colsum_ref is None
+                     else (packed[e], colsum_ref[e]), a_q[e], rule=rule)
+                for e in range(packed.shape[0])]
+        checks = [ck for _, ck in outs]
+        return (torch.stack([c for c, _ in outs]),
+                Check(torch.stack([ck.err_count for ck in checks]),
+                      torch.stack([ck.err_mask for ck in checks]),
+                      [ck.aux for ck in checks]))
+
     def unprotected(self, encoded, a_q):
         packed, _ = self._unpack(encoded)
-        return int_matmul(a_q, packed[:, :self.out_dim(packed)])
+        return kops.qgemm_unprotected(a_q, packed)
 
     def correct(self, out, check: Check):
         """Single-error repair; returns (fixed, residual_err, applied).
@@ -155,6 +185,11 @@ class QGemmOp:
         B leaves the weight encodings self-consistent.
         """
         aux = check.aux
+        if isinstance(aux, list):              # a stack of experts
+            per = [self.correct(out[e], Check(check.err_count[e],
+                                              check.err_mask[e], aux[e]))
+                   for e in range(len(aux))]
+            return tuple(torch.stack(t) for t in zip(*per))
         if isinstance(aux, dict):
             fixed, cell = correct_single_error(out, check.err_mask,
                                                aux["col_check"])
@@ -238,8 +273,11 @@ class EmbeddingBagOp:
         return out.r, Check(out.err_count, out.err_bags)
 
     def unprotected(self, encoded, indices, weights=None):
+        """K2's unprotected instance on the card, the plain gather on the
+        CPU."""
         table_q, alphas, betas, _ = encoded
-        return embedding_bag(table_q, alphas, betas, indices, weights)
+        return kops.embedding_bag_unprotected(table_q, alphas, betas,
+                                              indices, weights)
 
 
 # ---------------------------------------------------------------------------

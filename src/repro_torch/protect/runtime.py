@@ -12,9 +12,10 @@ give the JAX package's behavior (qgemm/EB gated by ``abft``, float GEMMs
 by ``float_abft``, KV cache off).
 
 A call whose adapter reports one count per independent check (a stack of
-EmbeddingBag tables) counts one check per entry, and the recompute policy
-retries only the entries that still report errors — the sums a JAX
-``vmap`` over per-table calls gives.
+EmbeddingBag tables, a stack of MoE experts) counts one check per entry,
+and the recompute policy keeps the re-run only for the entries that still
+report errors — the sums a JAX ``vmap`` over per-table or per-expert
+calls gives.
 
 The JAX module's ``observe_metrics`` (a step's counters landed in the
 observability bus) waits for ``obs``, ROADMAP A5.
@@ -86,6 +87,10 @@ def protected_call(op: str, encoded, *inputs, ctx=None,
     if policy_name == "correct":
         out, check = adapter(encoded, *inputs, rule=rule, **call_kwargs)
         out, residual, applied = adapter.correct(out, check)
+        if residual.dim():                  # one check per expert
+            return out, op_report(op, _total(residual),
+                                  checks=residual.numel(),
+                                  corrections=_total(applied))
         return out, op_report(op, residual, corrections=applied)
 
     if policy_name == "recompute":

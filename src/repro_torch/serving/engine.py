@@ -2,8 +2,8 @@
 and LM chat requests.
 
 :class:`ServingEngine` serves one-shot DLRM requests or, for the
-``dense`` (decoder LMs with a KV cache) and ``ssm`` (RWKV6) families,
-chat requests by continuous batching.  Tenants (traffic
+``dense`` and ``moe`` (decoder LMs with a KV cache) and ``ssm`` (RWKV6)
+families, chat requests by continuous batching.  Tenants (traffic
 classes) carry their own :class:`~repro_torch.protect.ProtectionPlan`,
 and tenants sharing a plan share a **lane**: one plan-bound set of steps
 and one fixed-slot batcher.  Per engine iteration:

@@ -220,6 +220,28 @@ def test_qgemm_pdl_after_quantize_rows(rng, dev, m, k, n):
         assert int(got[1].sum()) == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8])
+@pytest.mark.parametrize("k,n", [(13, 512), (512, 256), (479, 1024),
+                                 (1024, 1024)])
+def test_qgemm_repeated_calls_bit_exact(rng, dev, k, n, dtype):
+    """The same DLRM-layer call (m = 10; k 479 takes the masked path)
+    many times, queued without synchronisation, with and without the
+    column check: every C, err_rows and column check bit-exact, so a
+    race in the split-K reduce or the staging shows as a mismatch."""
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+    a = torch.from_numpy(rng.integers(lo, hi, size=(10, k))).to(dtype).to(
+        dev)
+    bp = _packed(rng, k, n, dev)
+    for col in (False, True):
+        want = ref.abft_qgemm_ref(a, bp, with_colcheck=col)
+        outs = [abft_qgemm_cuda(a, bp, with_colcheck=col)
+                for _ in range(256)]
+        bad = [i for i, got in enumerate(outs)
+               if not all(torch.equal(g, w) for g, w in zip(got, want))]
+        assert not bad, f"{len(bad)} of 256 calls differ (first {bad[:4]})"
+
+
 @pytest.mark.parametrize("m,k,n", PDL_SHAPES)
 def test_qgemm_pdl_after_in_place_flip(rng, dev, m, k, n):
     """K1 right after a kernel that flips a B' byte in place sees the
@@ -364,6 +386,24 @@ def test_eb_kernel_matches_plain(rng, dev, tables, rows, d, bags, pool,
     idx[0, 0, 0] = rows + 5
     idx[-1, -1, 0] = 2**31 - 1
     _eb_held(t, al, be, idx, rs, w, 1e-5)
+
+
+@pytest.mark.parametrize("rows,d,bags,pool", [
+    (49408, 1536, 64, 1), (128256, 2048, 64, 1), (5000, 4096, 9, 5),
+    (300, 9216, 9, 3)])
+def test_eb_rsum_is_the_team_order_sum(rng, dev, rows, d, bags, pool):
+    """On the team path (16-byte words, one bag a team of warps) K2's
+    rsum is its R summed in the order ``ref.eb_rsum_team_order`` writes
+    plainly, bit for bit, and its flags that sum's compare at 1e-5."""
+    from repro_torch.kernels import abft_embeddingbag as eb
+    t, al, be, idx, rs, w = _eb_case(rng, dev, 1, rows, d, bags, pool, True)
+    plan = eb.eb_plan(1, bags, pool, d, rows, table_addr=t.data_ptr())
+    assert plan.vec and plan.groups == 1
+    r, rsum, flags, _ = eb.abft_eb_cuda(t, al, be, idx, rs, w)
+    want = ref.eb_rsum_team_order(r, plan.warps_per_bag)
+    assert torch.equal(rsum, want)
+    assert torch.equal(flags, ref.eb_check_slot_order(want, al, be, idx, rs,
+                                                      d, w))
 
 
 # random scales at 1e-3 and 1e-5; at 1e-7 round-off decides some clean
@@ -665,21 +705,95 @@ def test_qgemm_unprotected_equals_the_protected_c(rng, dev, m, n, k):
 
 
 def test_qgemm_unprotected_refuses_int8_a_and_a_bad_plan(rng, dev):
+    # int8 A is taken since the serving path's unprotected rung runs it;
+    # a wider A is refused
     import repro_torch.kernels.abft_qgemm as k1
     bp = _packed(rng, 256, 128, dev)
     with pytest.raises(TypeError):
-        k1.qgemm_unprotected_cuda(torch.zeros((4, 256), dtype=torch.int8,
+        k1.qgemm_unprotected_cuda(torch.zeros((4, 256), dtype=torch.int16,
                                               device=dev), bp)
     # the C entry checks the plan it is handed
     a = torch.zeros((4, 256), dtype=torch.uint8, device=dev)
     c = torch.empty((4, 128), dtype=torch.int32, device=dev)
     bad = k1.launch_plan(4, 256, 128, protect=False)._replace(k_per_split=64)
     rc = k1._launch_unprotected()(
-        a.data_ptr(), bp.data_ptr(), c.data_ptr(), 4, 128, 256, bp.shape[1],
-        bad.bm, bad.splits, bad.k_per_split, int(bad.aligned),
+        a.data_ptr(), 1, bp.data_ptr(), c.data_ptr(), 4, 128, 256,
+        bp.shape[1], bad.bm, bad.splits, bad.k_per_split, int(bad.aligned),
         torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="launch failed"):
         k1._build.check(k1._NAME, rc)
+
+
+# the signed instance, the serving path's unprotected rung: bit-exact with
+# the exact integer product at the Llama-3.2-1B decode and head shapes,
+# granite-moe's expert shapes (decode and a 64-token prefill's capacity
+# 16) and the DLRM's layers at a request's m = 10
+@pytest.mark.parametrize("m,k,n", [
+    (4, 2048, 2048), (64, 2048, 8192), (1, 2048, 128256),
+    (4, 1536, 512), (16, 1536, 512), (4, 512, 1536), (16, 512, 1536),
+    (10, 13, 512), (10, 479, 1024), (10, 256, 1)])
+def test_qgemm_unprotected_int8_a_equals_int_matmul(rng, dev, m, k, n):
+    from repro_torch.core import int_matmul
+    from repro_torch.kernels.abft_qgemm import qgemm_unprotected_cuda
+    a = torch.from_numpy(rng.integers(-128, 128, size=(m, k))
+                         .astype(np.int8)).to(dev)
+    bp = _packed(rng, k, n, dev)
+    c = qgemm_unprotected_cuda(a, bp)
+    assert torch.equal(c, int_matmul(a, bp[:, :n]))
+    assert torch.equal(c, ops.qgemm_unprotected(a, bp, use_kernel=False))
+    assert torch.equal(qgemm_unprotected_cuda(_misaligned(a), bp), c)
+
+
+# a stack of experts: one launch an expert into one output, each held to
+# the plain batched product, and the per-expert check vector
+@pytest.mark.parametrize("e,m,k,n", [(40, 4, 1536, 512), (40, 16, 512, 1536),
+                                     (4, 10, 64, 128)])
+def test_qgemm_expert_stack_matches_plain(rng, dev, e, m, k, n):
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    a = torch.from_numpy(rng.integers(-128, 128, size=(e, m, k))
+                         .astype(np.int8)).to(dev)
+    bp = torch.stack([_packed(rng, k, n, dev) for _ in range(e)])
+    bp[e // 2, k // 3, n // 2] ^= 4                 # one expert's weight
+    before = abft_qgemm_cuda.launches
+    c, err = ops.abft_qgemm(a, bp)
+    assert abft_qgemm_cuda.launches == before + e
+    want_c, want_err = ref.abft_qgemm_ref(a.cpu(), bp.cpu())
+    assert torch.equal(c.cpu(), want_c) and torch.equal(err.cpu(), want_err)
+    assert int(err[e // 2].sum()) > 0 and int(err.sum()) == int(
+        err[e // 2].sum())
+    cu = ops.qgemm_unprotected(a, bp)
+    assert torch.equal(cu.cpu(), want_c)
+
+
+def test_unprotected_engine_step_runs_no_float64_gemm(dev):
+    """A ``*:off`` plan on the card runs K1's and K2's unprotected
+    instances: no float64 GEMM among the device operations the profiler
+    counts (a float64 scalar fill of the rope's ``theta ** x`` is not a
+    product)."""
+    import chip_smoke
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.kernels.abft_embeddingbag import eb_unprotected_cuda
+    from repro_torch.kernels.abft_qgemm import qgemm_unprotected_cuda
+    from repro_torch.protect import ProtectionPlan
+    from repro_torch.serving import Request, ServingEngine, TenantSpec
+    for arch in ("llama3.2-1b", "granite-moe-3b-a800m"):
+        eng = ServingEngine(reduce_cfg(get_arch(arch)), [TenantSpec(
+            "t", ProtectionPlan.parse("*:off", name="off"))], n_slots=2,
+            max_prompt=16, max_new_tokens=3, device=dev)
+        reqs = [Request(rid=i, tenant="t", arrival_s=0.0, prompt_len=12,
+                        max_new_tokens=3, seed=i) for i in range(2)]
+        eng.run(reqs)
+        q0, e0 = qgemm_unprotected_cuda.launches, eb_unprotected_cuda.launches
+
+        def serve():
+            eng.reset_state()
+            eng.run(reqs, warmup=False)
+        ops_seen = chip_smoke.device_ops(torch, serve)
+        assert qgemm_unprotected_cuda.launches > q0
+        assert eb_unprotected_cuda.launches > e0
+        gemms = [name for name, _ in ops_seen if "gemm" in name.lower()]
+        assert not [n for n in gemms if "dgemm" in n.lower() or any(
+            s in n.lower() for s in ("f64", "double"))], gemms
 
 
 @pytest.mark.parametrize("weighted", [False, True])

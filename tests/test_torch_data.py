@@ -50,6 +50,19 @@ def test_lm_batches_equal_jax(kind):
     assert ("labels" in t.batch_at(0)) == (kind == "train")
 
 
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-8b",
+                                  "granite-moe-3b-a800m"])
+def test_decoder_lm_batches_equal_jax(arch, kind):
+    """The dense and MoE decoder LMs, once refused, get JAX's batches."""
+    j = J.make_dataset(j_arch(arch), JShape("s", kind, 24, 3))
+    t = T.make_dataset(t_arch(arch), TShape("s", kind, 24, 3))
+    assert isinstance(t, T.SyntheticLMDataset)
+    for step in (0, 1, 9):
+        _equal(j.batch_at(step), t.batch_at(step))
+    assert int(t.batch_at(0)["tokens"].max()) < t_arch(arch).vocab
+
+
 def test_iteration_is_batch_at_in_order():
     t = T.make_dataset(t_arch("dlrm"), TShape("s", "prefill", 1, 4))
     for step, b in enumerate(itertools.islice(iter(t), 3)):
@@ -58,7 +71,7 @@ def test_iteration_is_batch_at_in_order():
 
 def test_other_families_raise_naming_their_item():
     cfg = t_arch("rwkv6-1.6b")
-    for fam, item in (("dense", "A4"), ("vlm", "A4"), ("encdec", "A7"),
+    for fam, item in (("vlm", "llava"), ("vlm", "A7"), ("encdec", "A7"),
                       ("hybrid", "A7")):
         with pytest.raises(NotImplementedError, match=item):
             T.make_dataset(dataclasses.replace(cfg, family=fam),

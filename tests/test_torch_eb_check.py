@@ -128,6 +128,36 @@ def test_slot_order_sum_is_a_loop_over_slots(rng):
         np.testing.assert_array_equal(r[0, b].numpy(), acc)
 
 
+@pytest.mark.parametrize("d,warps", [(64, 1), (1536, 3), (2048, 4),
+                                     (9216, 8)])
+def test_team_order_rsum_is_lanes_then_butterfly_then_warps(rng, d, warps):
+    # each lane's words in column order from 0, the xor butterfly inside
+    # each warp, the warps in order: every addition rounded to float32
+    r = (rng.standard_normal((3, d)) * 10).astype(np.float32)
+    got = tref.eb_rsum_team_order(_t(r), warps).numpy()
+    f32 = np.float32
+    team, n_words = 32 * warps, d // 16
+    assert got.shape == (3,)
+    for b in range(3):
+        part = np.zeros(team, f32)
+        for lane in range(team):
+            for w in range(lane, n_words, team):
+                for e in range(16):
+                    part[lane] = f32(part[lane] + r[b, 16 * w + e])
+        part = part.reshape(warps, 32)
+        for off in (16, 8, 4, 2, 1):
+            part = (part + part[:, np.arange(32) ^ off]).astype(f32)
+        want = part[0, 0]
+        for k in range(1, warps):
+            want = f32(want + part[k, 0])
+        assert got[b] == want
+    # a float32 sum of d terms: within gamma_h x sum|R| of the exact sum
+    h = 16 * -(-n_words // team) + 5 + warps
+    exact = r.astype(np.float64).sum(-1)
+    assert np.all(np.abs(got - exact)
+                  <= h * 2.0**-24 * np.abs(r).astype(np.float64).sum(-1))
+
+
 def test_slot_order_sum_clamps_past_the_table(rng):
     t, al, be, idx, _ = _inputs(rng, 2, 40, 16, 3, 5, weighted=False)
     past = idx.copy()

@@ -433,7 +433,7 @@ def test_float_lm_logits_and_cross_entropy_match_jax():
 
 
 def test_lm_and_facade_refuse_what_is_not_ported(monkeypatch):
-    for fam, item in (("moe", "A4"), ("hybrid", "A7"), ("vlm", "A7")):
+    for fam, item in (("hybrid", "mamba"), ("hybrid", "A7"), ("vlm", "A7")):
         cfg = dataclasses.replace(T_CFG, family=fam)
         with pytest.raises(NotImplementedError, match=item):
             t_base.build_model(cfg)

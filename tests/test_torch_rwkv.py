@@ -330,7 +330,7 @@ def test_init_rwkv_distributions():
 
 def test_rwkv_and_facade_refuse_what_is_not_ported(monkeypatch):
     import dataclasses
-    for fam, item in (("moe", "A4"), ("encdec", "A7"),
+    for fam, item in (("vlm", "A7"), ("encdec", "A7"),
                       ("hybrid", "A7")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(dataclasses.replace(T_CFG, family=fam))

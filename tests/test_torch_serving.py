@@ -96,7 +96,7 @@ def test_engine_rejects_bad_payload_and_unported_family():
     with pytest.raises(ValueError, match="bag index"):
         eng.run([req])
     with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(dataclasses.replace(T_CFG, family="moe"),
+        ServingEngine(dataclasses.replace(T_CFG, family="hybrid"),
                       [TenantSpec("default")], device="cpu")
 
 
@@ -112,7 +112,7 @@ def test_serve_cli_smoke_on_cpu(tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--obs-dir", "obs"], "A5"), (["--fp-budget", "0.01"], "A5"),
     (["--monitor"], "A5"), (["--device-count", "2"], "A8"),
-    (["--arch", "granite-moe-3b-a800m"], "A4"),
+    (["--arch", "llama4-scout-17b-a16e"], "A8"),
     (["--arch", "internlm2-20b"], "A7"),
     (["--arch", "mistral-large-123b"], "A8")])
 def test_serve_cli_rejects_unported_parts(capsys, flag, item):
