@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Twelve paths run, each with every launch counter set to 0 just before
+Thirteen paths run, each with every launch counter set to 0 just before
 it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
 int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
 (K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
 (K1, K2 and their unprotected instances), the float DLRM converted to
 int8 (K1-K3), int8 Llama-3.2-1B chat serving (K1-K3), the same model
 served from the paged KV cache (K1-K3), int8 granite-moe-3b-a800m (MoE)
-chat serving (K1-K3), the serving soak (K1-K3) and the protection SLO
+chat serving (K1-K3), the serving soak (K1-K3), the protection SLO
 ladder for Llama-3.2-1B and for granite (K1-K3 and the unprotected
-instances of K1 and K2).  Each phase's seconds are printed.  Phases (any
+instances of K1 and K2) and Llama-3.2-1B served under the observability
+layer, the detection-health monitor and adaptive thresholds (K1-K3).
+Each phase's seconds are printed.  Phases (any
 failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
@@ -235,15 +237,43 @@ failure exits non-zero; nothing is caught and passed over):
    protected kernel, and its device operations (by the profiler, one
    request) hold no float64 GEMM; p50/p95/p99 TTFT, per-token latency
    and throughput of each rung and each protected rung's p99 over the
-   unprotected rung's are printed with the card's name and power limit.
+   unprotected rung's are printed with the card's name and power limit;
+17. observability, monitor and adaptive thresholds: phase 13's
+   full-width Llama-3.2-1B weights served under
+   ``*:policy=log,embedding_bag:threshold=adaptive`` with
+   ``Observability``, ``Monitor()`` and
+   ``AdaptiveThresholds(ControllerConfig(fp_budget=0.01))``: 24 requests
+   all at t = 0, one tenant, 4 slots, the 64-token bucket, up to 16 new
+   tokens, ``mlp.down`` flips at steps 4, 5 and 6, each flagged at its
+   step; ``detection-burst`` fires and resolves, the tenant walks to
+   ``quarantined`` and back to ``healthy``, the engine's ``escalate``,
+   ``quarantine`` and ``recover`` actions occur, all 24 complete; the
+   four obs artifacts (under ``--out``'s ``obs/``) read back, every
+   event validated, ``replay`` equal to the live registry's
+   fault-pipeline lines, the trace loaded as Chrome-trace JSON; a second
+   monitored run whose controller moves the EmbeddingBag bound to its
+   floor 1e-6 (the lane's plan held to it); the same stream with no
+   flip, 3 plain and 3 monitored runs in turns, every run on a new
+   engine, both step medians printed; device-to-host copies of a short
+   stream equal with and without obs, monitor and adapt (profiler); the
+   monitor's per-tick fold under 5% of a step, and
+   ``repro_torch.benchmarks.monitor_overhead`` under 5%; ``--grid
+   adaptive --quick`` on the card (JAX's draws): every cell's gates,
+   every count equal to the CPU run on the same draws, detection inside
+   the JAX CLI's artifact's and the committed baseline's Wilson
+   intervals, the differ against the JAX CLI's artifact with 0
+   regressions; ``--trend`` over the committed quick
+   history with phase 9's card artifact newest, rc 0; the path's K1, K2
+   and K3 launches and the controllers' summaries.
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
 (DLRM for K1-K3, RWKV for K4, the overhead benchmarks for the unprotected
 instances), and ``launches_by_path`` holds every kernel's count on each
-of the twelve paths (DLRM serve, RWKV serve, campaign, thresholds,
+of the thirteen paths (DLRM serve, RWKV serve, campaign, thresholds,
 overhead, float DLRM, Llama serve, Llama paged serve, granite serve,
-serving soak, the SLO ladder of each model), all six counts set to 0
+serving soak, the SLO ladder of each model, observability), all six
+counts set to 0
 just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the repository's ``src/`` beside this
@@ -1927,7 +1957,8 @@ def campaign_phase(torch, dev, out_dir) -> dict:
             f"{v['margins_of_differing']}, causes {v['causes']})"
             for cid, v in tft.items() if not v["target"].startswith("gemm")))
     return {"launches": launches, "seconds": seconds, "cells": cells,
-            "gates": gates, "kernel_shapes": shapes, "trial_for_trial": tft}
+            "gates": gates, "kernel_shapes": shapes, "trial_for_trial": tft,
+            "quick_artifact": runs["quick"]}
 
 
 #: the bound at which float32 round-off decides a clean bag's Eq. (5) flag
@@ -2595,7 +2626,8 @@ def llama_phase(torch, dev, timer) -> dict:
               "gemm_shapes": per_shape, "small_card_vs_cpu": small_out,
               "eb_table_scan": scan}
     return {"launches": launches, "record": record,
-            "k1_times": per_shape, "k2_times": k2["times"]}
+            "k1_times": per_shape, "k2_times": k2["times"],
+            "params": params}
 
 
 #: phase 14's two paged tenants (each its own lane and pool) and the
@@ -3793,6 +3825,369 @@ def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
             "record": {"soak": soak, "slo": ladders, "card": smi_line()}}
 
 
+#: the plan phase 17 serves full-width Llama-3.2-1B under
+OBS_PLAN = "*:policy=log,embedding_bag:threshold=adaptive"
+#: the JAX CLI's adaptive quick artifact in this repo's JAX environment
+#: (python -m repro.campaign --grid adaptive --quick --seed 0), and the
+#: older committed baseline whose FP column it does not reproduce
+ADAPTIVE_JAX = ("src/repro_torch/campaign/baselines/"
+                "BENCH_campaign_adaptive_quick.json")
+ADAPTIVE_BASELINE = "benchmarks/baselines/BENCH_campaign_adaptive_quick.json"
+#: registry families replay must rebuild exactly from the JSONL
+MIRRORED = ("repro_detections_total", "repro_injections_total",
+            "repro_abft_checks_total", "repro_abft_errors_total",
+            "repro_alerts_total", "repro_health_transitions_total",
+            "repro_health_state", "repro_health_actions_total",
+            "repro_escapes_total", "repro_false_positives_total",
+            "repro_paging_ops_total")
+
+
+def dtoh_copies(torch, fn) -> int:
+    """Device-to-host copies one call of ``fn`` makes, by the profiler
+    (after a warm-up call)."""
+    return sum(n for name, n in device_ops(torch, fn)
+               if "dtoh" in name.lower().replace(" ", ""))
+
+
+def observability_phase(torch, dev, llama_params, quick_artifact,
+                        out_dir, cfg=None) -> dict:
+    """Phase 17: full-width Llama-3.2-1B (phase 13's weights) served under
+    ``*:policy=log,embedding_bag:threshold=adaptive`` with
+    ``Observability``, a default ``Monitor`` and
+    ``AdaptiveThresholds(ControllerConfig(fp_budget=0.01))``: 24 requests
+    at t = 0, 4 slots, the 64-token bucket, 16 new tokens, ``mlp.down``
+    flips at steps 4, 5 and 6, driven healthy -> quarantined -> healthy;
+    the four obs artifacts, read back, validated and replayed; a second
+    monitored run whose controller moves the bound; the same stream with
+    no flip, plain and monitored in turns; device-to-host copies with and
+    without obs, monitor and adapt; the monitor's fold time over a step;
+    the ``monitor_overhead`` benchmark; ``--grid adaptive --quick`` on
+    the card, held to the CPU run and the JAX artifact; ``--trend`` over
+    the committed quick history with phase 9's card artifact as its
+    newest entry.  Every run has a new engine."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.adapt import AdaptiveThresholds, ControllerConfig
+    from repro_torch.benchmarks import monitor_overhead
+    from repro_torch.campaign.adaptive import run_adaptive_campaign
+    from repro_torch.campaign.artifacts import write_artifacts
+    from repro_torch.campaign.diff import diff_artifacts, wilson_gate
+    from repro_torch.campaign.trend import run_trend
+    from repro_torch.configs import get_arch
+    from repro_torch.core import EB_REL_BOUND
+    from repro_torch.obs import (EventBus, Monitor, Observability, replay,
+                                 validate_event)
+    from repro_torch.protect import ProtectionPlan
+    from repro_torch.serving import (FaultInjection, Request, ServingEngine,
+                                     TenantSpec, chat_stream)
+
+    cfg = cfg or get_arch("llama3.2-1b")
+    t0 = time.perf_counter()
+
+    def fresh():
+        """A new engine on phase 13's weights (its own init is dropped):
+        a run's escalation and bound moves stay with its engine."""
+        eng = ServingEngine(cfg, [TenantSpec("t", ProtectionPlan.parse(
+            OBS_PLAN, name="t"))], n_slots=4, max_prompt=64,
+            max_new_tokens=16, seed=0, device=dev)
+        eng.params = llama_params
+        return eng
+    stream = [dataclasses.replace(r, arrival_s=0.0) for r in chat_stream(
+        24, tenants={"t": 1.0}, rate_rps=100.0, seed=0, mean_prompt=32,
+        max_prompt=64, mean_output=8, max_output=16)]
+    burst = (4, 5, 6)
+
+    def monitored(config, flips=burst):
+        eng = fresh()
+        obs, mon = Observability.create(), Monitor()
+        ad = AdaptiveThresholds(config=config)
+        tel = eng.run(stream, obs=obs, monitor=mon, adapt=ad, inject=[
+            FaultInjection(step=s, victim="mlp.down", seed=i)
+            for i, s in enumerate(flips)])
+        return tel, obs, mon, ad, eng
+
+    # --------- 17a. the main path: the burst, quarantine and back ---------
+    wrappers = zero_launches()
+    with eb_flag_tap() as seen_eb:
+        tel, obs, mon, ad, _ = monitored(ControllerConfig(fp_budget=0.01))
+        launches = read_launches(wrappers)
+        eb_tokens = flagged_tokens(torch, seen_eb)
+    s = tel.summary()
+    ms = s["monitor"]
+    per = s["per_tenant"]["t"]
+    actions = [e.attrs["action"] for e in obs.bus
+               if e.kind == "health" and e.source == "serving.engine"]
+    hops = [(t["old"], t["new"]) for t in ms["transitions"]]
+    burst_alerts = [a for a in ms["alerts"] if a["rule"] == "detection-burst"]
+    flips = [(i.step, i.detected, i.detect_step) for i in tel.injections]
+    walk = " -> ".join([hops[0][0]] + [n for _, n in hops]) if hops \
+        else "none"
+    log(f"Llama obs path: {per['completed']} of 24 completed, "
+        f"{len(tel.steps)} steps, {ms['ticks']} monitor ticks; alerts "
+        + ", ".join(f"{a['rule']} [{a['severity']}] tick {a['tick']}"
+                    f"{'' if a['resolved_t_s'] is None else ' resolved'}"
+                    for a in ms["alerts"])
+        + f"; health {walk}"
+        + f"; engine actions {actions}; flips (step, flagged, at) {flips}; "
+          f"launches {launches}")
+    if not burst_alerts or any(a["resolved_t_s"] is None
+                               for a in burst_alerts):
+        fail(f"detection-burst did not fire and resolve: {ms['alerts']}")
+    if not any(n == "quarantined" for _, n in hops) or \
+            ms["health"] != {"tenant:t": "healthy"}:
+        fail(f"health walk {hops}, final {ms['health']}")
+    if not {"escalate", "quarantine", "recover"} <= set(actions):
+        fail(f"engine actions {actions}")
+    if per["completed"] != 24 or per["aborted"]:
+        fail(f"Llama obs path: {per}")
+    if [f for f in flips if f != (f[0], True, f[0])] or \
+            [f[0] for f in flips] != list(burst):
+        fail(f"a flip not flagged at its step: {flips}")
+    if min(launches[k] for k in ("abft_qgemm", "abft_embeddingbag",
+                                 "quantize_rows")) <= 0:
+        fail(f"a kernel of the obs path never launched: {launches}")
+    esc_step = next(e.step for e in obs.bus if e.kind == "health"
+                    and e.attrs.get("action") == "escalate")
+    first_rc = next(ev for ev in tel.steps if ev.step > esc_step)
+    ctrl = s["thresholds"]
+    moves = [(e.step, e.attrs["direction"], e.bound, e.detector_value)
+             for e in obs.bus if e.kind == "threshold"]
+    log(f"escalation at step {esc_step}; the lane's first recompute step "
+        f"(step {first_rc.step}, {first_rc.kind}) "
+        f"{first_rc.duration_s * 1e3:.2f} ms; "
+        f"controller {ctrl}, moves {moves}; EmbeddingBag flags at "
+        f"rel_bound 1e-5 drove it from tokens {eb_tokens} (ROADMAP §C6)")
+
+    # ------------- 17b. the four artifacts, read back and replayed --------
+    tmp = tempfile.TemporaryDirectory()
+    obs_dir = str(Path(out_dir) / "obs") if out_dir else tmp.name
+    paths = obs.write(obs_dir)
+    with open(paths["events"]) as f:
+        for line in f:
+            validate_event(json.loads(line))
+    back = EventBus.from_jsonl(paths["events"])
+    if len(back) != len(obs.bus):
+        fail(f"JSONL holds {len(back)} of {len(obs.bus)} events")
+
+    def mirrored(reg):
+        return sorted(ln for ln in reg.to_prometheus().splitlines()
+                      if ln.startswith(MIRRORED))
+    if mirrored(replay(paths["events"])) != mirrored(obs.registry):
+        fail("replay of the JSONL differs from the live registry")
+    with open(paths["trace"]) as f:
+        trace = json.load(f)
+    if not trace.get("traceEvents"):
+        fail("the Chrome trace holds no event")
+    log(f"obs artifacts in {obs_dir}: {len(back)} events valid, replay "
+        f"equal to the live registry ({len(mirrored(obs.registry))} "
+        f"fault-pipeline lines), trace of {len(trace['traceEvents'])} "
+        f"events")
+
+    # ---- 17c. the monitor's cost: fold time, turns, device->host copies ---
+    best = float("inf")
+    for _ in range(7):
+        m2 = Monitor()
+        t1 = time.perf_counter()
+        for ev in obs.bus:
+            m2.on_event(ev)
+        best = min(best, time.perf_counter() - t1)
+    # the second monitored run's controller may move (one EmbeddingBag
+    # check a step; FP budget 0.5 in an 8-tick window), its floor 1e-6
+    # above the float32 round-off of the token table's checks
+    tel2, obs2, _, ad2, eng2 = monitored(ControllerConfig(
+        fp_budget=0.5, hysteresis=1.0, min_checks=2, cooldown_ticks=2,
+        settle_ticks=3, floor=1e-6, window_ticks=8))
+    moved = [(e.step, e.attrs["direction"], e.detector_value)
+             for e in obs2.bus if e.kind == "threshold"]
+    bound2 = ad2.summary()[0]["rel_bound"]
+    lane_bound = eng2._lane_of["t"].plan.resolve("embedding_bag").rel_bound
+    if (EB_REL_BOUND if lane_bound is None else lane_bound) != bound2:
+        fail(f"the lane runs at {lane_bound}, the controller at {bound2}")
+    # the monitor's end-to-end cost: the same stream with no flip (nothing
+    # escalates), plain and with obs+monitor+adapt, in turns, 3 runs each
+    ab = {"plain": [], "monitored": []}
+    for _ in range(3):
+        ab["plain"].append(fresh().run(stream))
+        tel_m, _, mon_m, _, _ = monitored(ControllerConfig(fp_budget=0.01),
+                                          flips=())
+        if mon_m.summary()["transitions"]:
+            fail("a monitored run with no flip changed the tenant's health")
+        ab["monitored"].append(tel_m)
+
+    def medians(tel):
+        return {kind: float(np.median([ev.duration_s * 1e3
+                                       for ev in tel.steps
+                                       if ev.kind == kind]))
+                for kind in ("prefill", "decode")}
+    per_run = {k: [medians(t) for t in v] for k, v in ab.items()}
+    med = {k: {kind: float(np.median([r[kind] for r in v]))
+               for kind in ("prefill", "decode")}
+           for k, v in per_run.items()}
+    ab_cost = {kind: med["monitored"][kind] / med["plain"][kind] - 1.0
+               for kind in ("prefill", "decode")}
+    pre_esc = float(np.median([ev.duration_s * 1e3 for ev in tel.steps
+                               if ev.kind == "decode"
+                               and ev.step <= esc_step] or [float("nan")]))
+    step_ms = float(np.median([ev.duration_s * 1e3 for ev in tel.steps]))
+    fold_ms = 1e3 * best / max(1, ms["ticks"])
+    share = fold_ms / step_ms
+    # device->host copies: a short stream with and without obs, monitor
+    # and adapt (no flip, so no escalation), each profiled after a warm-up
+    short = [Request(rid=i, tenant="t", arrival_s=0.0, prompt_len=64,
+                     max_new_tokens=4, seed=60 + i) for i in range(4)]
+
+    def serve_short(with_obs):
+        eng = fresh()
+
+        def go():
+            eng.reset_state()
+            if with_obs:
+                eng.run(short, warmup=False, obs=Observability.create(),
+                        monitor=Monitor(), adapt=AdaptiveThresholds(
+                            config=ControllerConfig(fp_budget=0.01)))
+            else:
+                eng.run(short, warmup=False)
+        return go
+    copies = {"plain": dtoh_copies(torch, serve_short(False)),
+              "monitored": dtoh_copies(torch, serve_short(True))}
+    n_steps = len(fresh().run(short, warmup=False).steps)
+    log(f"Llama obs path ({smi_line()}): step medians ms, 3 plain and 3 "
+        f"monitored runs in turns, no flip: plain {med['plain']}, "
+        f"monitored {med['monitored']} (monitored over plain: prefill "
+        f"{100 * ab_cost['prefill']:+.2f}%, decode "
+        f"{100 * ab_cost['decode']:+.2f}%; per run {per_run}); the burst "
+        f"run's decode before its escalation {pre_esc:.2f} ms; monitor "
+        f"fold {fold_ms:.4f} ms a tick = {100 * share:.3f}% of the "
+        f"{step_ms:.2f} ms step median; device->host copies over "
+        f"{n_steps} steps of 4 requests: {copies}; the second monitored "
+        f"run's controller moved {moved} to {bound2:.3g}")
+    if copies["plain"] != copies["monitored"] or copies["plain"] <= 0:
+        fail(f"device->host copies differ with obs+monitor+adapt: {copies}")
+    if share >= 0.05:
+        fail(f"the monitor's fold is {100 * share:.2f}% of a step")
+    bench = monitor_overhead.measure(dev)
+    log(f"monitor_overhead (reduced Llama, 32 requests): "
+        f"{bench['monitor_per_tick_ms']:.4f} ms a tick over "
+        f"{bench['per_step_ms']:.3f} ms a step = "
+        f"{bench['monitor_overhead_pct_of_step']:.3f}%")
+    if bench["monitor_overhead_frac_of_step"] >= monitor_overhead.ACCEPT_FRAC:
+        fail(f"monitor_overhead {bench['monitor_overhead_pct_of_step']:.2f}%")
+
+    # ---------------- 17d. --grid adaptive --quick on the card -------------
+    t1 = time.perf_counter()
+    adaptive = run_adaptive_campaign(
+        quick=True, seed=0, device=dev, verbose=log,
+        out_dir=str(Path(out_dir) / "campaign") if out_dir else None)
+    card_s = time.perf_counter() - t1
+    on_cpu = run_adaptive_campaign(quick=True, seed=0, device="cpu")
+    with open(ROOT / ADAPTIVE_JAX) as f:
+        jax_now = json.load(f)
+    with open(ROOT / ADAPTIVE_BASELINE) as f:
+        base = json.load(f)
+    g_now, g_base = wilson_gate(jax_now, adaptive), wilson_gate(base,
+                                                                adaptive)
+    d_now, d_base = [
+        [(r["cell_id"], r["kind"], r["old"], r["new"])
+         for r in diff_artifacts(ref_art, adaptive)["regressions"]]
+        for ref_art in (jax_now, base)]
+    for c in adaptive["cells"]:
+        m = c["metrics"]
+        if not (m["converged"] and m["fp_budget_held"] and
+                m["detection_ok"]):
+            fail(f"adaptive cell {c['cell_id']}: {m}")
+    # the card's stream is the CPU port's bit for bit (JAX's draws, one
+    # fixed order of float32 adds): every count and bound equal
+    keys = ("detected", "false_positives", "clean_samples", "samples",
+            "adjustments", "move_ticks", "converged_rel_bound")
+    split = [(c["cell_id"], k, c["metrics"][k], p["metrics"][k])
+             for c, p in zip(adaptive["cells"], on_cpu["cells"])
+             for k in keys if c["metrics"][k] != p["metrics"][k]]
+    if split:
+        fail(f"adaptive grid: the card differs from the CPU on the same "
+             f"draws: {split}")
+    # against the JAX CLI's artifact (the same draws): detection by
+    # Wilson overlap and the differ (detection and FP, 2 points), 0
+    # regressions; against the older baseline, detection by Wilson overlap
+    for gate in (g_now, g_base):
+        if len(gate["cells"]) != 3 or gate["uncovered"] or not all(
+                c["detection"]["overlap"] for c in gate["cells"]):
+            fail(f"adaptive grid: detection outside the JAX intervals "
+                 f"{gate['cells']}")
+    if d_now:
+        fail(f"adaptive grid: differ regressions against the JAX CLI's "
+             f"artifact {d_now}")
+    log(f"--grid adaptive --quick on the card in {card_s:.1f}s, equal to "
+        f"the CPU run on the same draws: " + "; ".join(
+            f"{c['cell_id']}: detect {c['metrics']['detected']} of "
+            f"{c['metrics']['samples']} (JAX {j['metrics']['detected']}; "
+            f"best static {c['metrics']['best_static_detection']}), fp "
+            f"{c['metrics']['fp_rate']:.4f} (JAX "
+            f"{j['metrics']['fp_rate']:.4f}), bound "
+            f"{c['metrics']['converged_rel_bound']:.3g} after "
+            f"{c['metrics']['adjustments']} moves (JAX "
+            f"{j['metrics']['adjustments']})"
+            for c, j in zip(adaptive["cells"], jax_now["cells"]))
+        + "; detection inside the JAX artifact's and the older "
+          "baseline's Wilson intervals in every cell; differ vs JAX: "
+          "0 regressions; FP Wilson intervals new / JAX / baseline "
+          "(the round-off cliff's FP is the sums' order's, ROADMAP §C8): "
+        + "; ".join(f"{a['cell_id'].split('/')[1]} {a['fp']['new']} / "
+                    f"{a['fp']['old']} / {b['fp']['old']}"
+                    for a, b in zip(g_now["cells"], g_base["cells"]))
+        + f"; differ vs the older baseline (printed; the JAX package "
+          f"fails it too) {d_base}")
+
+    # ------------- 17e. --trend with phase 9's card artifact newest --------
+    quick_dir = tempfile.TemporaryDirectory()
+    newest = write_artifacts(quick_artifact, quick_dir.name)[0]
+    history = sorted(str(p) for p in (ROOT / "benchmarks" / "baselines")
+                     .glob("BENCH_campaign_quick*.json")) + [newest]
+    md = []
+    rc = run_trend(history, emit=md.append)
+    for line in "\n".join(md).splitlines():
+        if line.startswith(("|", "No trend", "## Trend")) or "gated" in line:
+            log(f"  trend | {line}")
+    if rc != 0:
+        fail(f"--trend over the committed quick history with the card's "
+             f"artifact newest: rc {rc}")
+    tmp.cleanup()
+    quick_dir.cleanup()
+    seconds = time.perf_counter() - t0
+    log(f"phase 17 K1/K2/K3 launches on the obs path: "
+        f"{launches['abft_qgemm']} / {launches['abft_embeddingbag']} / "
+        f"{launches['quantize_rows']}; controller {ctrl}")
+    record = {"card": smi_line(), "seconds": seconds,
+              "completed": per["completed"], "steps": len(tel.steps),
+              "ticks": ms["ticks"], "alerts": ms["alerts"],
+              "transitions": ms["transitions"], "actions": actions,
+              "flips": flips, "escalation_step": esc_step,
+              "first_recompute_step_ms": first_rc.duration_s * 1e3,
+              "controller": ctrl, "controller_moves": moves,
+              "eb_flagged_tokens": eb_tokens,
+              "second_controller": ad2.summary(),
+              "second_controller_moves": moved,
+              "step_ms_median": med, "step_ms_per_run": per_run,
+              "monitored_over_plain": ab_cost,
+              "decode_ms_before_escalation": pre_esc,
+              "monitor_fold_ms_per_tick": fold_ms,
+              "monitor_share_of_step": share, "dtoh_copies": copies,
+              "dtoh_steps": n_steps, "monitor_overhead": bench,
+              "adaptive": {c["cell_id"]: {k: c["metrics"][k] for k in (
+                  "detection_rate", "fp_rate", "converged_rel_bound",
+                  "adjustments", "best_static_detection", "realized_fp_rate",
+                  "samples", "clean_samples")} for c in adaptive["cells"]},
+              "adaptive_wilson_vs_jax": g_now["cells"],
+              "adaptive_wilson_vs_baseline": g_base["cells"],
+              "adaptive_differ_vs_jax": d_now,
+              "adaptive_card_equals_cpu": not split,
+              "adaptive_differ_vs_baseline": d_base,
+              "trend_rc": rc}
+    return {"launches": launches, "record": record}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4245,6 +4640,7 @@ def main() -> int:
     # ----------------------- 9. the campaign grids --------------------------
     camp_dir = str(Path(args.out).parent / "campaign") if args.out else None
     campaign = campaign_phase(torch, dev, camp_dir)
+    quick_artifact = campaign.pop("quick_artifact")
     details["campaign"] = campaign
     phase_done("9 campaign grids")
     # ------------------- 10. the thresholds grid (K2) ----------------------
@@ -4279,6 +4675,12 @@ def main() -> int:
         GRANITE: granite["record"]["eb_table_scan"]})
     details["soak_slo"] = soak_slo["record"]
     phase_done("16 serving soak and SLO ladder")
+    # ------- 17. observability, monitor and adaptive thresholds ----------
+    obs_path = observability_phase(torch, dev, llama.pop("params"),
+                                   quick_artifact, args.out and str(
+                                       Path(args.out).parent))
+    details["observability"] = obs_path["record"]
+    phase_done("17 observability, monitor and adaptive thresholds")
     kernels[0]["llama_shapes"] = llama["k1_times"]
     kernels[0]["granite_expert_shapes"] = granite["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
@@ -4308,7 +4710,8 @@ def main() -> int:
                "granite": granite["launches"],
                "serving_soak": soak_slo["soak_launches"],
                **{f"slo_ladder {a}": v for a, v in
-                  soak_slo["ladder_launches"].items()}}
+                  soak_slo["ladder_launches"].items()},
+               "observability": obs_path["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

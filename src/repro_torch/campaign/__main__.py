@@ -12,15 +12,22 @@ Examples::
     python -m repro_torch.campaign --grid serving_soak --quick
     python -m repro_torch.campaign --grid serving_soak --quick \
         --plan "*:policy=recompute,kv_cache:on"             # every tenant
+    python -m repro_torch.campaign --grid adaptive --quick  # threshold loop
     python -m repro_torch.campaign --diff OLD.json NEW.json # exit 1 on
                                                             # regression
+    python -m repro_torch.campaign --trend                  # baseline history
+    python -m repro_torch.campaign --trend BASE.json ... NEW.json
+    python -m repro_torch.campaign --quick --monitor --obs-dir obs/
 
 ``--plan`` (a compact plan string, a JSON plan, or ``@path.json``)
 replaces every tenant's plan of the ``serving_soak`` grid, unparsed, and
 the paged lane's plan of the ``paging`` grid, as the JAX CLI does.
+``--obs-dir`` exports the run's fault events (JSONL), Chrome trace and
+Prometheus text; ``--monitor`` attaches the detection-health monitor.
 
-The JAX package's other grids and flags exit with 2, naming the ROADMAP
-item that ports them.
+The JAX package's other grids (``training``, ``multidevice``, ``full``)
+and ``--device-count`` exit with 2, naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -31,10 +38,6 @@ import sys
 #: flags of the JAX campaign CLI whose subsystems wait for later slices
 _NOT_PORTED = {
     "--device-count": "A8 (sharding and launch)",
-    "--trend": "A5 (observability)",
-    "--obs-dir": "A5 (observability)",
-    "--obs-flush-every": "A5 (observability)",
-    "--monitor": "A5 (health monitor)",
 }
 
 
@@ -56,7 +59,7 @@ def main(argv=None) -> int:
                          "or paper, their quick variants")
     ap.add_argument("--grid", default=None,
                     help="quick, pallas, paper, thresholds, soak, "
-                         "victims, paging or serving_soak")
+                         "victims, paging, serving_soak or adaptive")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=0,
                     help="override the per-cell sample count (quick / "
@@ -83,6 +86,29 @@ def main(argv=None) -> int:
                     help="--diff: allowed overhead rise (opt-in)")
     ap.add_argument("--diff-out", default=None,
                     help="--diff: also write the markdown report here")
+    ap.add_argument("--trend", nargs="*", metavar="ARTIFACT", default=None,
+                    help="fold artifacts (oldest..newest) into a per-cell "
+                         "history table and gate the newest against the "
+                         "prior median; with no paths, uses the committed "
+                         "benchmarks/baselines/BENCH_campaign_*.json; "
+                         "exits 1 on trend regressions")
+    ap.add_argument("--trend-out", default=None,
+                    help="--trend: also write the markdown history here")
+    ap.add_argument("--latency-tol", type=float, default=None,
+                    help="--trend: allowed overhead rise vs the prior "
+                         "median (opt-in — wall-clock noise)")
+    ap.add_argument("--obs-dir", default=None,
+                    help="export observability artifacts (fault-event "
+                         "JSONL, Chrome trace, Prometheus text) for the "
+                         "run into this directory")
+    ap.add_argument("--obs-flush-every", type=int, default=0, metavar="N",
+                    help="crash-durable obs: append events to the JSONL "
+                         "as they happen and rewrite metric/trace "
+                         "snapshots every N events (needs --obs-dir)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="attach the live detection-health monitor to "
+                         "the obs bus (windowed alert rules + per-scope "
+                         "health states; summary printed at the end)")
     for flag in _NOT_PORTED:
         ap.add_argument(flag, nargs="*", action=_NotPorted,
                         help=argparse.SUPPRESS)
@@ -94,20 +120,37 @@ def main(argv=None) -> int:
                         fp_tol=args.fp_tol,
                         overhead_tol=args.overhead_tol,
                         out_path=args.diff_out)
+    if args.trend is not None:
+        from repro_torch.campaign.trend import run_trend
+        return run_trend(args.trend, det_tol=args.det_tol,
+                         fp_tol=args.fp_tol, latency_tol=args.latency_tol,
+                         out_path=args.trend_out)
 
     grid = args.grid or ("quick" if args.quick else None)
     if grid is None:
         ap.error("pick a grid (--quick / --grid "
                  "{quick,pallas,paper,thresholds,soak,victims,paging,"
-                 "serving_soak}) or --diff OLD NEW")
+                 "serving_soak,adaptive}) or --diff OLD NEW")
     if grid in NOT_PORTED:
         ap.error(f"--grid {grid} is not ported yet (ROADMAP "
                  f"{NOT_PORTED[grid]})")
-    if grid not in ("paging", "serving_soak") and grid not in GRIDS:
-        ap.error(f"unknown grid {grid!r} ({', '.join(GRIDS)}, paging, "
-                 f"serving_soak)")
+    engines = ("paging", "serving_soak", "adaptive")
+    if grid not in engines and grid not in GRIDS:
+        ap.error(f"unknown grid {grid!r} ({', '.join(GRIDS)}, "
+                 f"{', '.join(engines)})")
     if args.plan is not None and grid not in ("paging", "serving_soak"):
         ap.error("--plan applies to the serving_soak and paging grids")
+
+    obs = None
+    if args.obs_dir or args.monitor:
+        from repro_torch.obs import Observability
+        obs = Observability.create()
+        if args.obs_dir and args.obs_flush_every > 0:
+            obs.open_incremental(args.obs_dir, every=args.obs_flush_every)
+    monitor = None
+    if args.monitor:
+        from repro_torch.obs import Monitor
+        monitor = Monitor()
 
     from repro_torch.campaign.artifacts import markdown_table
     if grid == "serving_soak":
@@ -125,25 +168,42 @@ def main(argv=None) -> int:
                 (n, w, args.plan) for n, w, _ in spec.tenants))
         result = run_soak_campaign(spec, quick=args.quick, seed=args.seed,
                                    out_dir=args.out, device=args.device,
+                                   obs=obs, monitor=monitor,
                                    verbose=lambda s: print(s, flush=True))
         print()
         print(markdown_table(result))
         print(f"artifact: "
               f"{os.path.join(args.out, 'BENCH_campaign_serving_soak')}"
               f".json")
+        _print_monitor(monitor)
+        _write_obs(obs, args.obs_dir)
+        return 0
+    if grid == "adaptive":
+        # controller-convergence cells (repro_torch.campaign.adaptive)
+        from repro_torch.campaign.adaptive import run_adaptive_campaign
+        result = run_adaptive_campaign(
+            quick=args.quick, seed=args.seed, out_dir=args.out, obs=obs,
+            device=args.device, verbose=lambda s: print(s, flush=True))
+        print()
+        print(markdown_table(result))
+        name = "adaptive_quick" if args.quick else "adaptive"
+        print(f"artifact: "
+              f"{os.path.join(args.out, 'BENCH_campaign_' + name)}.json")
+        _write_obs(obs, args.obs_dir)
         return 0
     if grid == "paging":
         # paged-KV parity + repair cells (repro_torch.serving.paging_soak)
         from repro_torch.serving.paging_soak import run_paging_campaign
         result = run_paging_campaign(quick=args.quick, seed=args.seed,
                                      plan=args.plan, out_dir=args.out,
-                                     device=args.device,
+                                     device=args.device, obs=obs,
                                      verbose=lambda s: print(s, flush=True))
         print()
         print(markdown_table(result))
         name = "paging_quick" if args.quick else "paging"
         print(f"artifact: "
               f"{os.path.join(args.out, 'BENCH_campaign_' + name)}.json")
+        _write_obs(obs, args.obs_dir)
         return 0
 
     from repro_torch.campaign.artifacts import (breakdown_markdown,
@@ -165,7 +225,8 @@ def main(argv=None) -> int:
                             samples=args.samples)
     name = "pallas_quick" if grid == "pallas" and args.quick else grid
     result = run_campaign(name, specs, device=args.device, out_dir=args.out,
-                          chunk=args.chunk or CHUNK,
+                          chunk=args.chunk or CHUNK, obs=obs,
+                          monitor=monitor,
                           verbose=lambda s: print(s, flush=True))
     print()
     print(markdown_table(result))
@@ -176,7 +237,27 @@ def main(argv=None) -> int:
         print(bd)
     print(f"artifact: {os.path.join(args.out, 'BENCH_campaign_' + name)}"
           f".json")
+    _print_monitor(monitor)
+    _write_obs(obs, args.obs_dir)
     return 0
+
+
+def _print_monitor(monitor) -> None:
+    if monitor is None:
+        return
+    ms = monitor.summary()
+    print(f"monitor: {ms['ticks']} tick(s), {ms['alerts_fired']} "
+          f"alert(s), health {ms['health'] or '{}'}")
+    for a in ms["alerts"]:
+        print(f"  alert {a['rule']} [{a['severity']}] {a['scope']}: "
+              f"{a['metric']}={a['value']:.4g} vs {a['threshold']:.4g}")
+
+
+def _write_obs(obs, obs_dir) -> None:
+    if obs is None or obs_dir is None:
+        return
+    for kind, path in sorted(obs.write(obs_dir).items()):
+        print(f"obs {kind}: {path}")
 
 
 if __name__ == "__main__":

@@ -14,9 +14,15 @@ latency histogram and the token divergence from the clean twin run.
 
 On the card the protected calls run the CUDA kernels; a kernel that fails
 to build or launch fails the cell (nothing falls back).
+
+With ``obs`` (a :class:`repro_torch.obs.Observability`) each cell's
+build/trials/clean/overhead phases land as spans and its outcome as
+counters and a ``cell`` event; a ``monitor`` bound to it drives per-cell
+health states.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -99,36 +105,92 @@ def _soak_counts(soaks: dict, steps: int):
     return torch.stack([detected, soaks["corrupted"]], dim=1), extras
 
 
+def _cell_span(obs, name: str, plan: CellPlan):
+    """A tracer span for one cell phase, or a no-op without obs."""
+    if obs is None:
+        return contextlib.nullcontext()
+    return obs.tracer.span(name, cat="campaign", cell=plan.cell_id)
+
+
+def _publish_cell(obs, plan: CellPlan, metrics: CellMetrics) -> None:
+    """Land one finished cell in the obs layer: outcome counters labeled
+    by cell id (the Prometheus face of the artifact's CellMetrics) and a
+    summary ``cell`` event carrying detector value vs analytic bound."""
+    if obs is None:
+        return
+    from repro_torch.obs import FaultEvent
+    reg = obs.registry
+    labels = {"cell": plan.cell_id}
+    reg.counter("repro_injections_total",
+                "injected faults per cell").inc(metrics.samples, **labels)
+    reg.counter("repro_detections_total",
+                "detected (or masked) faults per cell").inc(
+                    metrics.effective_detected, **labels)
+    reg.counter("repro_escapes_total",
+                "undetected corruptions (SDC) per cell").inc(
+                    metrics.escapes, **labels)
+    reg.counter("repro_false_positives_total",
+                "clean-run flags per cell").inc(
+                    metrics.false_positives, **labels)
+    obs.bus.emit(FaultEvent(
+        op=plan.target, step=0, source="campaign.executor", kind="cell",
+        t_s=obs.tracer.now_s(), errors=metrics.detected,
+        checks=metrics.samples, cell_id=plan.cell_id,
+        bit_band=plan.bit_band,
+        detector_value=metrics.detection_rate,
+        bound=metrics.analytic_bound,
+        attrs={"escapes": metrics.escapes,
+               "false_positives": metrics.false_positives,
+               "fp_rate": metrics.fp_rate,
+               # what the {cell} detections counter was inc'd with —
+               # replay reads it so round-trip stays counter-exact
+               # (detected alone misses masked-by-recompute trials)
+               "effective_detected": metrics.effective_detected,
+               "clean_samples": metrics.clean_samples}))
+    if metrics.false_positives:
+        obs.bus.emit(FaultEvent(
+            op=plan.target, step=0, source="campaign.executor",
+            kind="false_positive", t_s=obs.tracer.now_s(),
+            errors=metrics.false_positives,
+            checks=metrics.clean_samples, cell_id=plan.cell_id,
+            bit_band=plan.bit_band))
+
+
 def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
-             chunk: int = CHUNK) -> CellResult:
+             chunk: int = CHUNK, obs=None, monitor=None) -> CellResult:
     """Run one cell on ``device``.  The protected calls run the kernels
     where the operands are CUDA tensors (the port's rule), unless
     ``plain`` asks for the plain versions on any device."""
+    if monitor is not None and obs is not None:
+        monitor.bind(obs)          # cell events tick the health machine
     dev = resolve_device(device)
     target = get_target(plan.target)
     t0 = time.perf_counter()
     g_build, g_trial, g_clean = _generators(plan.seed)
-    state = target.build(plan, g_build, device=dev, plain=plain)
+    with _cell_span(obs, "build", plan):
+        state = target.build(plan, g_build, device=dev, plain=plain)
 
     def trial(t):
         return target.trial(state, plan, t)
 
     faulty = target.draw(state, plan, g_trial, plan.samples, True)
     soak_extras: dict = {}
-    if target.soak is not None:
-        flags, soak_extras = _soak_counts(_run_soaks(
-            lambda t: target.soak(state, plan, t), faulty, chunk),
-            plan.steps)
-    else:
-        flags = _run_trials(trial, faulty, dev, chunk)
+    with _cell_span(obs, "trials", plan):
+        if target.soak is not None:
+            flags, soak_extras = _soak_counts(_run_soaks(
+                lambda t: target.soak(state, plan, t), faulty, chunk),
+                plan.steps)
+        else:
+            flags = _run_trials(trial, faulty, dev, chunk)
     detected, corrupted = (int(c) for c in flags.sum(0))
     det_and_cor = int((flags[:, 0] & flags[:, 1]).sum())
 
     clean = torch.zeros((0,), dtype=torch.bool)
     if plan.clean_samples > 0:
-        clean = _run_trials(trial, target.draw(state, plan, g_clean,
-                                               plan.clean_samples, False),
-                            dev, chunk)[:, 0]
+        with _cell_span(obs, "clean", plan):
+            clean = _run_trials(trial, target.draw(
+                state, plan, g_clean, plan.clean_samples, False),
+                dev, chunk)[:, 0]
 
     protected_s = unprotected_s = None
     overhead_breakdown = None
@@ -136,11 +198,14 @@ def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
             if plan.measure_overhead and target.overhead is not None
             else None)
     if pair is not None:
-        protected_s = median_time(pair[0], device=dev)
-        unprotected_s = median_time(pair[1], device=dev)
+        with _cell_span(obs, "overhead", plan):
+            protected_s = median_time(pair[0], device=dev)
+            unprotected_s = median_time(pair[1], device=dev)
     if plan.measure_overhead and target.overhead_phases is not None:
         overhead_breakdown = phase_breakdown(
-            target.overhead_phases(state, plan), device=dev)
+            target.overhead_phases(state, plan), device=dev,
+            tracer=obs.tracer if obs is not None else None,
+            cell=plan.cell_id)
 
     metrics = compute_metrics(
         samples=plan.samples, detected=detected, corrupted=corrupted,
@@ -150,6 +215,7 @@ def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
         analytic_bound=target.analytic_bound(plan),
         protected_s=protected_s, unprotected_s=unprotected_s,
         overhead_breakdown=overhead_breakdown, **soak_extras)
+    _publish_cell(obs, plan, metrics)
     return CellResult(plan=plan, metrics=metrics,
                       seconds=time.perf_counter() - t0, trials=flags,
                       clean=clean)
@@ -157,7 +223,8 @@ def run_cell(plan: CellPlan, *, device="cuda", plain: bool = False,
 
 def run_specs(specs: Sequence[CampaignSpec], *, device="cuda",
               chunk: int = CHUNK,
-              verbose: Optional[Callable[[str], None]] = None
+              verbose: Optional[Callable[[str], None]] = None,
+              obs=None, monitor=None
               ) -> Tuple[List[CellResult], List[dict]]:
     """Expand and execute a list of specs; returns (results, skipped)."""
     results: List[CellResult] = []
@@ -166,7 +233,8 @@ def run_specs(specs: Sequence[CampaignSpec], *, device="cuda",
         plans, skips = expand(spec)
         skipped.extend(skips)
         for plan in plans:
-            r = run_cell(plan, device=device, chunk=chunk)
+            r = run_cell(plan, device=device, chunk=chunk, obs=obs,
+                         monitor=monitor)
             results.append(r)
             if verbose:
                 m = r.metrics
@@ -180,15 +248,19 @@ def run_specs(specs: Sequence[CampaignSpec], *, device="cuda",
 def run_campaign(name: str, specs: Sequence[CampaignSpec], *,
                  device="cuda", out_dir: Optional[str] = None,
                  chunk: int = CHUNK,
-                 verbose: Optional[Callable[[str], None]] = None) -> dict:
-    """Execute specs, assemble the artifact dict, optionally write it."""
+                 verbose: Optional[Callable[[str], None]] = None,
+                 obs=None, monitor=None) -> dict:
+    """Execute specs, assemble the artifact dict, optionally write it.
+    ``obs`` records per-phase spans, cell summary events and outcome
+    counters alongside the artifact; ``monitor`` additionally watches the
+    published cell outcomes and drives per-cell health states."""
     from repro_torch.campaign.artifacts import (campaign_to_dict,
                                                 write_artifacts)
 
     dev = resolve_device(device)
     t0 = time.perf_counter()
     results, skipped = run_specs(specs, device=dev, chunk=chunk,
-                                 verbose=verbose)
+                                 verbose=verbose, obs=obs, monitor=monitor)
     result = campaign_to_dict(
         name, list(specs),
         [{"plan": r.plan, "metrics": r.metrics, "seconds": r.seconds}

@@ -165,10 +165,9 @@ def soak_specs(seed: int = 0) -> List[CampaignSpec]:
 
 #: the JAX package's other grids and the ROADMAP items that port them
 NOT_PORTED = {
-    "adaptive": "A5 (adaptive thresholds)",
     "training": "A6 (training under faults)",
     "multidevice": "A6 (training under faults)",
-    "full": "A5-A6 (adaptive thresholds, training under faults)",
+    "full": "A6 (training under faults)",
 }
 
 

@@ -52,10 +52,19 @@ def median_time(fn: Callable, *, device: torch.device, warmup: int = 2,
 
 def phase_breakdown(phases: Mapping[str, Callable], *,
                     device: torch.device, warmup: int = 2, iters: int = 5,
-                    min_time_s: float = 0.05) -> Dict[str, float]:
+                    min_time_s: float = 0.05, tracer=None,
+                    **span_args) -> Dict[str, float]:
     """Median seconds per named phase thunk, in mapping order (shorter
     defaults than :func:`median_time`: the breakdown is a per-cell column,
-    not the headline overhead number)."""
-    return {name: median_time(fn, device=device, warmup=warmup,
-                              iters=iters, min_time_s=min_time_s)
-            for name, fn in phases.items()}
+    not the headline overhead number).  With a ``tracer``, each phase also
+    lands as an accounting span (cat ``"overhead"``, duration = the
+    median) next to the cell's build/trials spans."""
+    out: Dict[str, float] = {}
+    for name, fn in phases.items():
+        t0 = tracer.now_s() if tracer is not None else 0.0
+        out[name] = median_time(fn, device=device, warmup=warmup,
+                                iters=iters, min_time_s=min_time_s)
+        if tracer is not None:
+            tracer.add_span(f"phase:{name}", cat="overhead", start_s=t0,
+                            dur_s=out[name], **span_args)
+    return out

@@ -22,13 +22,19 @@ per-tenant latency percentiles next to the ABFT fault counters::
     --tenant "batch=*:policy=log,embedding_bag:off"
     --inject-step 7 --inject-victim attn.wq      # transient flip at step 7
     --inject-step 7 --inject-persistent          # ... left in place
+    --monitor --obs-dir obs/                     # alerts, tenant health,
+                                                 #   quarantine; events,
+                                                 #   trace, Prometheus text
+    --adaptive --fp-budget 0.01 \
+    --plan "*:policy=log,embedding_bag:threshold=adaptive"
+                                                 # FP-budget rel_bound loop
 
 ``--inject-step`` restores the clean weight right after the faulty step
 (unless ``--inject-persistent``), and the log says whether and when the
 flip was flagged.  As in the JAX CLI, a KV-cache flip is reached through
 the engine's API (``FaultInjection(target="kv")``) only.  The JAX serve
-CLI's flags for parts not ported yet are rejected with the ROADMAP item
-that ports them.
+CLI's ``--device-count`` (sharding) is rejected with the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -41,12 +47,6 @@ import sys
 
 #: flags of the JAX driver whose subsystems wait for later slices
 _NOT_PORTED = {
-    "--obs-dir": "A5 (observability)",
-    "--obs-flush-every": "A5 (observability)",
-    "--monitor": "A5 (health monitor)",
-    "--adaptive": "A5 (adaptive thresholds)",
-    "--fp-budget": "A5 (adaptive thresholds)",
-    "--calibrate-from": "A5 (adaptive thresholds)",
     "--device-count": "A8 (sharding and launch)",
 }
 
@@ -127,6 +127,34 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None,
                     help="write the full telemetry timeline here")
+    ap.add_argument("--obs-dir", default=None,
+                    help="export observability artifacts (fault-event "
+                         "JSONL, Chrome trace, Prometheus text) here")
+    ap.add_argument("--obs-flush-every", type=int, default=0,
+                    metavar="N",
+                    help="crash-durable obs: append each event to the "
+                         "JSONL as it happens and rewrite the metrics/"
+                         "trace snapshots every N events (needs "
+                         "--obs-dir)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="attach the live detection-health monitor: "
+                         "windowed alert rules over the obs bus drive "
+                         "healthy/degraded/quarantined tenant states "
+                         "with real engine responses (admission "
+                         "quarantine, plan escalation, paged-KV scrub)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="close the threshold loop: ops whose plan says "
+                         "threshold=adaptive get a per-(op, tenant) "
+                         "FP-budget controller over rel_bound, fed by "
+                         "the monitor's Wilson flag-rate estimates "
+                         "(implies --monitor)")
+    ap.add_argument("--fp-budget", type=float, default=0.01,
+                    help="--adaptive: tolerated false-positive rate the "
+                         "controllers hold")
+    ap.add_argument("--calibrate-from", default=None, metavar="ARTIFACT",
+                    help="--adaptive: seed initial bounds from a "
+                         "committed --grid thresholds sweep artifact "
+                         "instead of the ops' static defaults")
     for flag in _NOT_PORTED:
         ap.add_argument(flag, nargs="?", action=_NotPorted,
                         help=argparse.SUPPRESS)
@@ -234,12 +262,39 @@ def main(argv=None) -> int:
                   for i, s in enumerate(sorted(args.inject_step))
                   if s >= 0]
 
+    obs = None
+    if args.obs_dir or args.monitor or args.adaptive:
+        from repro_torch.obs import Observability
+        obs = Observability.create()
+        if args.obs_dir and args.obs_flush_every > 0:
+            obs.open_incremental(args.obs_dir, every=args.obs_flush_every)
+    monitor = None
+    if args.monitor or args.adaptive:
+        from repro_torch.obs import Monitor
+        monitor = Monitor()
+    adapt = None
+    if args.adaptive:
+        from repro_torch.adapt import (AdaptiveThresholds,
+                                       ControllerConfig,
+                                       calibrate_from_sweep)
+        adapt = AdaptiveThresholds(
+            config=ControllerConfig(fp_budget=args.fp_budget),
+            source="launch.serve")
+        if args.calibrate_from:
+            bound = calibrate_from_sweep(args.calibrate_from,
+                                         fp_budget=args.fp_budget)
+            for t in tenants:
+                adapt.manage("embedding_bag", t.name, rel_bound=bound)
+            log.info("adaptive: calibrated embedding_bag rel_bound=%.3g "
+                     "from %s", bound, args.calibrate_from)
+
     log.info("serving %d %s requests (%s arrivals @ %g rps) on %s, "
              "%d slots, %d lane(s)...", args.requests, cfg.family,
              args.arrival, args.rate, engine.device, args.slots,
              len(engine.lanes))
     try:
-        telemetry = engine.run(stream, inject=inject)
+        telemetry = engine.run(stream, inject=inject, obs=obs,
+                               monitor=monitor, adapt=adapt)
     except ValueError as e:             # a victim pattern matching no leaf
         ap.error(str(e))
     s = telemetry.summary()
@@ -270,6 +325,29 @@ def main(argv=None) -> int:
                      ts["ttft_ms"]["p99"], ts["per_token_ms"]["p99"])
     nz = {k: v for k, v in s["faults"]["counters"].items() if v}
     log.info("fault counters: %s", nz or "all zero")
+    if monitor is not None:
+        ms = s.get("monitor") or monitor.summary()
+        log.info("monitor: %d evaluation tick(s), %d alert(s) fired, "
+                 "health %s", ms["ticks"], ms["alerts_fired"],
+                 ms["health"] or "{}")
+        for a in ms["alerts"]:
+            log.info("  alert %-16s [%s] %s: %s=%.4g %s %.4g at t=%.3fs%s",
+                     a["rule"], a["severity"], a["scope"], a["metric"],
+                     a["value"], ">=", a["threshold"], a["t_s"],
+                     "" if a["resolved_t_s"] is None
+                     else f" (resolved t={a['resolved_t_s']:.3f}s)")
+        for tr in ms["transitions"]:
+            log.info("  health %-16s %s -> %s at tick %d (%s)",
+                     tr["scope"], tr["old"], tr["new"], tr["tick"],
+                     tr["reason"] or "recovered")
+    if adapt is not None:
+        for c in s.get("thresholds") or adapt.summary():
+            log.info("threshold %s/%s: rel_bound=%.3g after %d move(s), "
+                     "%sconverged%s", c["op"], c["tenant"],
+                     c["rel_bound"], c["adjustments"],
+                     "" if c["converged"] else "NOT ",
+                     "" if c["ticks_to_converge"] is None
+                     else f" at tick {c['ticks_to_converge']}")
     for lane_key, st in engine.paging_stats().items():
         log.info("paging %s: resident=%d/%d high-water=%d "
                  "prefix-hit=%.2f evictions=%d rebuilds=%d", lane_key,
@@ -285,6 +363,9 @@ def main(argv=None) -> int:
         else:
             log.info(">>> injected %s at step %d: NOT detected "
                      "(masked or escaped)", inj.victim, inj.step)
+    if args.obs_dir:
+        for kind, path in sorted(obs.write(args.obs_dir).items()):
+            log.info("obs %s: %s", kind, path)
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as fp:

@@ -20,13 +20,14 @@ from repro_torch.protect.ops import (Check, OPS, ProtectedOp, get_op,
 from repro_torch.protect.plan import (OpRule, POLICY_NAMES, ProtectionPlan,
                                       ResolvedRule, default_plan,
                                       unprotected_plan)
-from repro_torch.protect.runtime import protected_call, rule_for
+from repro_torch.protect.runtime import (observe_metrics, protected_call,
+                                         rule_for)
 
 __all__ = [
     "ProtectionPlan", "OpRule", "ResolvedRule", "POLICY_NAMES",
     "default_plan", "unprotected_plan",
     "ProtectedOp", "Check", "OPS", "register_op", "get_op",
-    "protected_call", "rule_for",
+    "protected_call", "rule_for", "observe_metrics",
     "protect", "Protected", "encode_tree",
     "FaultReport", "op_report", "empty_report", "merge_reports",
     "op_kinds", "register_op_kind",

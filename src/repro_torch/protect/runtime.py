@@ -17,8 +17,8 @@ and the recompute policy keeps the re-run only for the entries that still
 report errors — the sums a JAX ``vmap`` over per-table or per-expert
 calls gives.
 
-The JAX module's ``observe_metrics`` (a step's counters landed in the
-observability bus) waits for ``obs``, ROADMAP A5.
+:func:`observe_metrics` lands one step's counters, already copied to the
+host, in an :class:`~repro_torch.obs.Observability` bundle.
 """
 from __future__ import annotations
 
@@ -113,6 +113,66 @@ def protected_call(op: str, encoded, *inputs, ctx=None,
     if isinstance(check.aux, dict) and "n_checks" in check.aux:
         n_checks = check.aux["n_checks"]
     return out, op_report(op, _total(check.err_count), checks=n_checks)
+
+
+def observe_metrics(metrics, *, source: str, step: int = 0,
+                    t_s: float = 0.0, obs=None, cell_id=None,
+                    request_ids=(), bit_band=None, shard=None,
+                    attrs=None) -> int:
+    """Land one step's FaultReport counters host-side.
+
+    ``metrics`` is the step's counter dict as the step already copied it
+    to the host (``metrics_to_ints``: Python ints), so this reads no
+    tensor.  Increments the ``repro_abft_{checks,errors}_total`` counters
+    (plus one ``repro_detections_total{op,source}`` inc per flagged op),
+    emits one ``detection`` :class:`~repro_torch.obs.FaultEvent` per
+    flagged op kind, and — when anything was checked or the caller passed
+    step ``attrs`` (the serving engine's lane/tenant/duration context) —
+    one ``info``/``channel=step`` summary event carrying the per-op
+    (checks, errors) counts.  That summary is what feeds the live
+    :class:`~repro_torch.obs.Monitor` and makes
+    ``repro_torch.obs.replay`` exact.  Returns the step's total residual
+    errors; a ``None`` obs is a cheap no-op path that still returns the
+    error count.
+    """
+    from repro_torch.obs.events import op_counts
+
+    counts = op_counts(metrics)
+    errors = sum(errs for _, _, errs in counts)
+    if obs is None:
+        return errors
+    from repro_torch.obs import FaultEvent, events_from_metrics
+    by_op = {}
+    total_checks = 0
+    for kind, checks, errs in counts:
+        if checks or errs:
+            by_op[kind] = [int(checks), int(errs)]
+            total_checks += int(checks)
+            obs.registry.counter(
+                "repro_abft_checks_total",
+                "ABFT checks by op kind").inc(checks, op=kind,
+                                              source=source)
+            obs.registry.counter(
+                "repro_abft_errors_total",
+                "residual ABFT errors by op kind").inc(errs, op=kind,
+                                                       source=source)
+        if errs > 0:
+            labels = {"op": kind, "source": source}
+            if cell_id:
+                labels["cell"] = cell_id
+            obs.registry.counter(
+                "repro_detections_total",
+                "detected faults by op kind, source, and cell"
+            ).inc(1, **labels)
+    obs.bus.extend(events_from_metrics(
+        metrics, step=step, source=source, t_s=t_s, cell_id=cell_id,
+        request_ids=tuple(request_ids), bit_band=bit_band, shard=shard))
+    if by_op or attrs:
+        obs.bus.emit(FaultEvent(
+            op="step", step=step, source=source, kind="info", t_s=t_s,
+            errors=int(errors), checks=total_checks, cell_id=cell_id,
+            attrs={"channel": "step", "by_op": by_op, **(attrs or {})}))
+    return errors
 
 
 def kv_rule(ctx, name: str = "attn") -> ResolvedRule:

@@ -51,9 +51,17 @@ its read touches, and a flagged page is scrubbed, evicted and rebuilt by
 re-prefill (``recompute``/``correct``) or its owner aborted (``abort``,
 or a decode-tail page) between steps.  The pools are written in place.
 
-The JAX engine's observability (``obs``: spans, gauges and paging
-events), health monitor and adaptive thresholds wait for ROADMAP A5;
-the paging stats they publish are :meth:`ServingEngine.paging_stats`.
+``run(obs=, monitor=, adapt=)`` closes the loops of the JAX engine:
+``obs`` (:class:`repro_torch.obs.Observability`) lands every step's
+counters — the ints the step already copied to the host, no tensor read
+again — with spans, paging events and gauges; ``monitor``
+(:class:`repro_torch.obs.Monitor`) turns them into alerts and tenant
+health, and its transitions gate a quarantined tenant's admissions,
+escalate its lane's plan (``log`` → ``recompute``) and scrub a paged
+lane; ``adapt`` (:class:`repro_torch.adapt.AdaptiveThresholds`) moves the
+``rel_bound`` of ops a plan marks ``threshold=adaptive``.  A plan change
+rebuilds the lane's step closures (:meth:`ServingEngine._build_lane_fns`);
+no kernel is rebuilt, since K2 takes ``rel_bound`` as a launch argument.
 """
 from __future__ import annotations
 
@@ -197,6 +205,14 @@ class ServingEngine:
         self._warm = False
         #: applied injections: [(leaf, flat_index, bit, persistent)]
         self._injection_state: list = []
+        #: Observability bundle for the CURRENT run (run(obs=...))
+        self._obs = None
+        #: detection-health Monitor for the CURRENT run (run(monitor=...))
+        self._monitor = None
+        #: AdaptiveThresholds controller bundle (run(adapt=...))
+        self._adapt = None
+        #: lane keys whose plan was already escalated (one-way per engine)
+        self._escalated = set()
 
         #: PagingConfig | None — paged, prefix-shared, per-page-checksummed
         #: KV mode (module docstring)
@@ -520,6 +536,70 @@ class ServingEngine:
         lane.batcher.retire(slot.index)
         self._record_slot(slot, telemetry, aborted=True)
 
+    def _publish_paging(self, lane: _Lane) -> None:
+        if self._obs is None or lane.pager is None:
+            return
+        st = lane.pager.stats()
+        g = self._obs.registry.gauge
+        g("repro_paging_pages_resident",
+          "allocated pages in the lane pool").set(
+              st["pages_resident"], lane=lane.key)
+        g("repro_paging_pages_free", "free pages in the lane pool").set(
+            st["pages_free"], lane=lane.key)
+        g("repro_paging_pages_shared",
+          "pages referenced by more than one holder").set(
+              st["pages_shared"], lane=lane.key)
+        g("repro_paging_pages_high_water",
+          "peak allocated pages since reset").set(
+              st["pages_high_water"], lane=lane.key)
+        g("repro_paging_prefix_hit_rate",
+          "prompt chunks served from shared pages").set(
+              st["prefix_hit_rate"], lane=lane.key)
+        g("repro_paging_page_evictions",
+          "pages evicted (LRU pressure + corrupt)").set(
+              st["page_evictions"], lane=lane.key)
+        g("repro_paging_page_rebuilds",
+          "prompt re-prefills after corrupt-page eviction").set(
+              st["page_rebuilds"], lane=lane.key)
+
+    def _paging_event(self, action: str, lane: _Lane, *,
+                      dur_s: float = 0.0, **attrs) -> None:
+        """One paged-KV lifecycle operation (admit / evict_corrupt /
+        rebuild / scrub_cache): a tracer span, a
+        ``repro_paging_ops_total{action,lane}`` inc, and a typed
+        ``info``/``channel=paging`` event, replayable from the JSONL."""
+        if self._obs is None:
+            return
+        from repro_torch.obs import FaultEvent
+        self._obs.tracer.add_span(
+            f"paged_{action}", cat="paging",
+            start_s=self.clock_s - dur_s, dur_s=dur_s, lane=lane.key,
+            step=self.global_step, **attrs)
+        self._obs.registry.counter(
+            "repro_paging_ops_total",
+            "paged-KV lifecycle operations by action and lane").inc(
+                1, action=action, lane=lane.key)
+        rid = attrs.get("rid")
+        self._obs.bus.emit(FaultEvent(
+            op=action, step=self.global_step, source="serving.engine",
+            kind="info", t_s=self.clock_s,
+            request_ids=(int(rid),) if rid is not None else (),
+            attrs={"channel": "paging", "action": action,
+                   "lane": lane.key, **attrs}))
+
+    def _publish_injection(self, victim: str, **attrs) -> None:
+        """An applied injection as a counter inc and an ``injection``
+        event (what the monitor's escape proxy counts)."""
+        if self._obs is None:
+            return
+        from repro_torch.obs import FaultEvent
+        self._obs.registry.counter(
+            "repro_injections_total",
+            "injected faults by source").inc(1, source="serving.engine")
+        self._obs.bus.emit(FaultEvent(
+            op=victim, step=self.global_step, source="serving.engine",
+            kind="injection", t_s=self.clock_s, attrs=attrs))
+
     def paging_stats(self) -> Dict[str, dict]:
         """Per-lane paging stats + byte accounting (campaign metrics)."""
         from repro_torch.paging import pool_page_bytes
@@ -561,6 +641,8 @@ class ServingEngine:
         telemetry.add_injection(InjectionRecord(
             step=self.global_step, victim=path, clock_s=self.clock_s,
             persistent=inj.persistent))
+        self._publish_injection(path, persistent=inj.persistent,
+                                seed=inj.seed)
 
     def _apply_kv_injection(self, inj: FaultInjection,
                             telemetry: Telemetry) -> None:
@@ -613,6 +695,8 @@ class ServingEngine:
         telemetry.add_injection(InjectionRecord(
             step=self.global_step, victim=victim, clock_s=self.clock_s,
             persistent=True))
+        self._publish_injection(victim, persistent=True, seed=inj.seed,
+                                target="kv")
 
     def _restore_injection(self, *, include_persistent: bool = False):
         """Undo applied injections in reverse application order: transient
@@ -681,6 +765,30 @@ class ServingEngine:
             occupancy=lane.batcher.occupancy(),
             queue_depth=self.queue.depth(), counters=counters,
             errors=errors, injected=injected, slot_rids=tuple(slot_rids)))
+        if self._obs is not None:
+            self._obs.tracer.add_span(
+                kind, cat="serving", start_s=self.clock_s - dt, dur_s=dt,
+                lane=lane.key, step=self.global_step,
+                occupancy=lane.batcher.occupancy())
+            self._obs.registry.counter(
+                "repro_steps_total", "engine steps by kind").inc(
+                    1, kind=kind, source="serving.engine")
+            self._obs.registry.histogram(
+                "repro_step_duration_ms",
+                "engine step wall duration").observe(
+                    dt * 1e3, kind=kind)
+            if metrics is not None:
+                # the ints the step copied once: no tensor is read here
+                from repro_torch.protect.runtime import observe_metrics
+                observe_metrics(
+                    metrics, source="serving.engine",
+                    step=self.global_step, t_s=self.clock_s,
+                    obs=self._obs, request_ids=tuple(slot_rids),
+                    attrs={"kind": kind, "lane": lane.key,
+                           "duration_ms": dt * 1e3,
+                           "tenants": sorted({
+                               s.request.tenant
+                               for s in lane.batcher.active_slots()})})
         return errors
 
     def _do_dlrm(self, lane: _Lane, slot_like: Slot, telemetry: Telemetry,
@@ -798,8 +906,13 @@ class ServingEngine:
         slot.token_ids = [int(tok[0])]
         slot.bucket = bucket
         slot.prefill_tokens, slot.shared_prefix_tokens = plan.tokens(p)
+        self._paging_event("admit", lane, slot=slot.index, rid=req.rid,
+                           bucket=bucket, pages=len(plan.page_ids),
+                           shared_pages=plan.shared_pages,
+                           new_pages=plan.new_pages)
         self._step_event("prefill", lane, dt, metrics, telemetry, injected,
                          slot_rids=(req.rid,))
+        self._publish_paging(lane)
 
     def _do_decode(self, lane: _Lane, telemetry: Telemetry,
                    injected: bool = False):
@@ -843,6 +956,7 @@ class ServingEngine:
             if lane.pager is not None:
                 lane.pager.retire(slot.index)
             self._record_slot(slot, telemetry)
+        self._publish_paging(lane)
 
     def _paged_pre_decode(self, lane: _Lane, telemetry: Telemetry):
         """Before a paged decode step: allocate decode-tail pages for
@@ -876,8 +990,12 @@ class ServingEngine:
         from repro_torch.paging import scrub_cache
 
         pager = lane.pager
+        t0 = time.perf_counter()
         flags = scrub_cache(lane.cache, lane.pos)
         bad = (flags["k"] + flags["v"]).cpu().numpy()
+        self._paging_event("scrub_cache", lane,
+                           dur_s=time.perf_counter() - t0,
+                           flagged=int((bad > 0).sum()), policy=policy)
         for slot in list(lane.batcher.active_slots()):
             chunks = [int(c) for c in np.nonzero(bad[slot.index])[0]]
             if not chunks:
@@ -887,6 +1005,10 @@ class ServingEngine:
                 for c in chunks:
                     if not pager.evict_corrupt(slot.index, c):
                         rebuild = False      # corrupt decode-tail page
+                self._paging_event(
+                    "evict_corrupt", lane, slot=slot.index,
+                    rid=slot.request.rid, chunks=chunks,
+                    rebuildable=rebuild)
             if not (rebuild and self._rebuild_prompt(lane, slot,
                                                      telemetry)):
                 self._abort_slot(lane, slot, telemetry)
@@ -921,19 +1043,151 @@ class ServingEngine:
             return False
         self._pack_pages(lane.cache, cache1, plan.page_ids)
         self._push_table(lane)
+        self._paging_event("rebuild", lane, dur_s=dt, slot=slot.index,
+                           rid=req.rid, pages=len(plan.page_ids))
         self._step_event("rebuild", lane, dt, metrics, telemetry,
                          slot_rids=(req.rid,))
         return True
+
+    # ------------------------------ monitor responses ------------------------
+
+    def _admits(self, lane: _Lane):
+        """The lane's admission predicate, gated by tenant health when a
+        monitor is attached (quarantined tenants only pass as recovery
+        probes)."""
+        if self._monitor is None:
+            return lane.accepts
+        mon = self._monitor
+        return lambda req: (lane.accepts(req)
+                            and mon.admission_allowed(req.tenant))
+
+    def _health_action(self, action: str, scope: str,
+                       lane: _Lane) -> None:
+        """Record one applied engine response (quarantine / escalate /
+        scrub / recover) as a counter and a typed health event."""
+        if self._obs is None:
+            return
+        from repro_torch.obs import FaultEvent
+        self._obs.registry.counter(
+            "repro_health_actions_total",
+            "engine responses to health transitions").inc(
+                1, action=action, scope=scope)
+        self._obs.bus.emit(FaultEvent(
+            op="health", step=self.global_step, source="serving.engine",
+            kind="health", t_s=self.clock_s,
+            attrs={"scope": scope, "action": action, "lane": lane.key}))
+
+    def _escalate_lane(self, lane: _Lane) -> bool:
+        """Upgrade the lane's plan detect→act policies (``log`` →
+        ``recompute``) and rebuild its step closures; one-way per engine.
+        The escalated plan switches no op on or off, so the lane's cache
+        and batch are kept."""
+        if lane.key in self._escalated:
+            return False
+        lane.plan = lane.plan.escalated()
+        self._build_lane_fns(lane)
+        self._escalated.add(lane.key)
+        return True
+
+    def _apply_monitor_responses(self, telemetry: Telemetry) -> None:
+        """Drain the monitor's health transitions and apply the
+        configured responses to the owning tenant lanes."""
+        from repro_torch.obs.health import HEALTH_STATES
+
+        mon = self._monitor
+        for tr in mon.poll_transitions():
+            if not tr.scope.startswith("tenant:"):
+                continue
+            tenant = tr.scope.split(":", 1)[1]
+            lane = self._lane_of.get(tenant)
+            if lane is None:
+                continue
+            worse = (HEALTH_STATES.index(tr.new)
+                     > HEALTH_STATES.index(tr.old))
+            if not worse:
+                self._health_action("recover", tr.scope, lane)
+                continue
+            if tr.new == "quarantined" and mon.responses.quarantine:
+                self._health_action("quarantine", tr.scope, lane)
+            if mon.responses.escalate and self._escalate_lane(lane):
+                self._health_action("escalate", tr.scope, lane)
+            if mon.responses.scrub and lane.pager is not None \
+                    and lane.cache is not None:
+                self._paged_repair(lane, telemetry, "recompute")
+                self._health_action("scrub", tr.scope, lane)
+
+    # ------------------------------ adaptive thresholds ----------------------
+
+    def _register_adaptive(self) -> None:
+        """One controller per (op, tenant) whose lane plan opts the op
+        into ``threshold=adaptive``, seeded from the plan's resolved
+        ``rel_bound`` (or the op default) unless the caller pre-seeded
+        the controller (e.g. from ``calibrate_from_sweep``)."""
+        from repro_torch.adapt import _op_default_bound
+        from repro_torch.core.policy import op_kinds
+        for lane in self.lanes:
+            for op in op_kinds():
+                r = lane.plan.resolve(op)
+                if not (r.enabled and r.threshold == "adaptive"):
+                    continue
+                current = (r.rel_bound if r.rel_bound is not None
+                           else _op_default_bound(op))
+                for tenant in sorted(lane.tenants):
+                    c = self._adapt.manage(op, tenant,
+                                           rel_bound=r.rel_bound)
+                    # the lane runs at the controller's bound (which may
+                    # predate this run via calibration)
+                    if c.rel_bound != current:
+                        self._apply_bound(op, tenant, c.rel_bound)
+
+    def _apply_bound(self, op: str, tenant: str, bound: float) -> None:
+        """Rewrite one tenant lane's plan with the controller's bound and
+        rebuild its step closures, as :meth:`_escalate_lane` does; the
+        kernels take the bound as a launch argument."""
+        from repro_torch.protect.plan import OpRule
+
+        lane = self._lane_of.get(tenant)
+        if lane is None:
+            return
+        lane.plan = lane.plan.with_rules(
+            OpRule(pattern=op, rel_bound=float(bound)))
+        self._build_lane_fns(lane)
+
+    def _apply_adaptive(self) -> None:
+        if self._adapt is None or self._monitor is None:
+            return
+        moved = self._adapt.tick(self._monitor, t_s=self.clock_s,
+                                 step=self.global_step)
+        for (op, tenant), bound in moved.items():
+            self._apply_bound(op, tenant, bound)
 
     # ------------------------------ main loop --------------------------------
 
     def run(self, requests: Sequence[Request], *,
             inject: Optional[Sequence[FaultInjection]] = None,
             telemetry: Optional[Telemetry] = None, warmup: bool = True,
-            max_iterations: int = 1_000_000) -> Telemetry:
+            max_iterations: int = 1_000_000,
+            obs=None, monitor=None, adapt=None) -> Telemetry:
         """Serve ``requests`` to completion and return the timeline, with
-        the ``inject`` faults applied at their global steps."""
+        the ``inject`` faults applied at their global steps.
+
+        ``obs`` (a :class:`repro_torch.obs.Observability`) lands every
+        step's counters, spans and per-request-attributed detection
+        events host-side for this run.  ``monitor`` (a
+        :class:`repro_torch.obs.Monitor`) is bound to ``obs`` (one is
+        created if the caller passed none), fed by the step summaries
+        over the bus, and its health transitions trigger responses
+        between iterations: gate a quarantined tenant's admissions (with
+        recovery probes), escalate the lane's plan (``log`` →
+        ``recompute``), scrub a paged lane.  ``adapt`` (a
+        :class:`repro_torch.adapt.AdaptiveThresholds`, needs ``monitor``)
+        gives every (op, tenant) whose plan marks the op
+        ``threshold=adaptive`` an FP-budget controller over its
+        ``rel_bound``, ticked each iteration.  The monitor's and the
+        controllers' summaries land on the returned telemetry."""
         telemetry = telemetry if telemetry is not None else Telemetry()
+        if adapt is not None and monitor is None:
+            raise ValueError("adapt= needs monitor= (its sensor)")
         injections = sorted(inject or [], key=lambda j: j.step)
         for inj in injections:
             if inj.target not in ("weights", "kv"):
@@ -951,12 +1205,31 @@ class ServingEngine:
                     f"serve {r.kind!r} requests")
         if warmup:
             self.warmup(pending[0] if pending else None)
+        if monitor is not None and obs is None:
+            from repro_torch.obs import Observability
+            obs = Observability.create()
+        self._obs = obs
+        self._monitor = monitor
+        if monitor is not None:
+            monitor.bind(obs)
+        self._adapt = adapt
         try:
-            return self._run_loop(pending, injections, telemetry,
-                                  max_iterations)
+            if adapt is not None:
+                adapt.bind(obs)
+                self._register_adaptive()
+            out = self._run_loop(pending, injections, telemetry,
+                                 max_iterations)
+            if monitor is not None:
+                out.monitor = monitor.summary()
+            if adapt is not None:
+                out.thresholds = adapt.summary()
+            return out
         finally:
             # a transient flip never outlives the run, even one that raised
             self._restore_injection()
+            self._obs = None
+            self._monitor = None
+            self._adapt = None
 
     def _run_loop(self, pending, injections, telemetry,
                   max_iterations) -> Telemetry:
@@ -994,10 +1267,13 @@ class ServingEngine:
                 self._apply_injection(injections[inj_i], telemetry)
                 inj_i += 1
 
-            # 2. admissions: a one-shot dlrm forward, or an LM prefill
+            clock_before = self.clock_s
+            # 2. admissions: a one-shot dlrm forward, or an LM prefill; a
+            #    quarantined tenant's requests stay queued, but for the
+            #    monitor's periodic recovery probes
             for lane in self.lanes:
                 for slot in lane.batcher.admit(self.queue, self.clock_s,
-                                               accept=lane.accepts):
+                                               accept=self._admits(lane)):
                     if slot.request.kind == "dlrm":
                         lane.batcher.retire(slot.index)
                         self._do_dlrm(lane, slot, telemetry, injected_now)
@@ -1013,6 +1289,18 @@ class ServingEngine:
             for lane in self.lanes:
                 if lane.batcher.occupancy():
                     self._do_decode(lane, telemetry, injected_now)
+
+            if self._monitor is not None:
+                if self.clock_s == clock_before and (
+                        self.queue or any(ln.batcher.occupancy()
+                                          for ln in self.lanes)):
+                    # a fully gated iteration stepped nothing, so nothing
+                    # ticked the monitor: advance the clock a hair and
+                    # tick it, so probes and recovery can unlock
+                    self.clock_s += 1e-3
+                    self._monitor.idle_tick(self.clock_s)
+                self._apply_monitor_responses(telemetry)
+                self._apply_adaptive()
 
             if injected_now:
                 self._restore_injection()

@@ -20,9 +20,9 @@ from one ``prefix_seed``):
 
 Artifacts are ordinary ``BENCH_campaign_paging*.json`` files in the JAX
 schema, so the differs of both packages read them; the extra
-parity/cost booleans ride in the cell metrics.  The JAX module's ``obs``
-argument (events and counters per cell) waits for ROADMAP A5.  The
-engines' clock is wall time, so on another machine admission can batch
+parity/cost booleans ride in the cell metrics; with ``obs`` each cell's
+faulty passes run instrumented and its outcome lands as counters and a
+``cell`` event.  The engines' clock is wall time, so on another machine admission can batch
 the stream differently and the counts move; the gates are the four
 booleans and Wilson overlap.
 """
@@ -183,7 +183,7 @@ def _tree_nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def _fault_passes(engine, stream, grid):
+def _fault_passes(engine, stream, grid, obs=None):
     """One clean pass + one faulty pass per grid entry; returns
     (clean_telemetry, clean-pass state snapshot, [per-fault dicts]).
 
@@ -205,7 +205,8 @@ def _fault_passes(engine, stream, grid):
     for step, seed in grid:
         engine.reset_state()
         faulty = engine.run(stream, inject=[FaultInjection(
-            step=step, target="kv", persistent=True, seed=seed)])
+            step=step, target="kv", persistent=True, seed=seed)],
+            obs=obs)
         summ = faulty.summary()
         inj = summ["faults"]["injections"]
         toks = _token_map(faulty)
@@ -226,7 +227,7 @@ def _fault_passes(engine, stream, grid):
 # ------------------------------ cells ---------------------------------------
 
 def run_parity_cell(plan: PagingCellPlan, spec: PagingSoakSpec, *,
-                    paged_engine, contig_engine) -> dict:
+                    paged_engine, contig_engine, obs=None) -> dict:
     """Paged vs contiguous under the same KV bit-flip grid."""
     t0 = time.perf_counter()
     grid = [(s, spec.seed + 17 * i)
@@ -234,7 +235,8 @@ def run_parity_cell(plan: PagingCellPlan, spec: PagingSoakSpec, *,
     stream_p = _stream(spec, paged_engine)
     stream_c = _stream(spec, contig_engine)
 
-    clean_p, snap_p, faults_p = _fault_passes(paged_engine, stream_p, grid)
+    clean_p, snap_p, faults_p = _fault_passes(paged_engine, stream_p,
+                                              grid, obs=obs)
     pstats = next(iter(snap_p["paging"].values()), {})
     clean_c, snap_c, faults_c = _fault_passes(contig_engine, stream_c, grid)
 
@@ -298,12 +300,13 @@ def run_parity_cell(plan: PagingCellPlan, spec: PagingSoakSpec, *,
             t["completed"] for t in clean_ps["per_tenant"].values()),
         "throughput_tok_s": clean_ps["throughput_tok_s"],
     })
+    _publish_cell(obs, plan, metrics)
     return {"plan": plan, "metrics": metrics,
             "seconds": time.perf_counter() - t0}
 
 
 def run_rebuild_cell(plan: PagingCellPlan, spec: PagingSoakSpec, *,
-                     rebuild_engine) -> dict:
+                     rebuild_engine, obs=None) -> dict:
     """One persistent KV flip under ``policy=recompute``: the engine must
     detect it, evict the corrupt page, and re-prefill the owner online."""
     from repro_torch.serving.engine import FaultInjection
@@ -324,7 +327,8 @@ def run_rebuild_cell(plan: PagingCellPlan, spec: PagingSoakSpec, *,
     for step, seed in grid:
         rebuild_engine.reset_state()
         faulty = rebuild_engine.run(stream, inject=[FaultInjection(
-            step=step, target="kv", persistent=True, seed=seed)])
+            step=step, target="kv", persistent=True, seed=seed)],
+            obs=obs)
         st = next(iter(rebuild_engine.paging_stats().values()), {})
         rebuilds += int(st.get("page_rebuilds", 0))
         summ = faulty.summary()
@@ -359,8 +363,35 @@ def run_rebuild_cell(plan: PagingCellPlan, spec: PagingSoakSpec, *,
         "aborted": aborted,
         "completed": completed,
     })
+    _publish_cell(obs, plan, metrics)
     return {"plan": plan, "metrics": metrics,
             "seconds": time.perf_counter() - t0}
+
+
+def _publish_cell(obs, plan: PagingCellPlan,
+                  metrics: PagingMetrics) -> None:
+    if obs is None:
+        return
+    from repro_torch.obs import FaultEvent
+    reg = obs.registry
+    reg.counter("repro_injections_total",
+                "injected faults per campaign cell"
+                ).inc(metrics["samples"], cell=plan.cell_id)
+    reg.counter("repro_detections_total",
+                "online-detected injected faults per campaign cell"
+                ).inc(metrics["detected"], cell=plan.cell_id)
+    reg.counter("repro_false_positives_total",
+                "clean-pass flags per campaign cell"
+                ).inc(metrics["false_positives"], cell=plan.cell_id)
+    obs.bus.emit(FaultEvent(
+        op=plan.target, kind="cell", step=0, source="serving.paging",
+        cell_id=plan.cell_id, errors=metrics["detected"],
+        checks=metrics["samples"],
+        detector_value=metrics["detection_rate"],
+        attrs={k: metrics[k] for k in
+               ("fp_rate", "false_positives", "parity_ok", "verify_ok",
+                "bytes_ok", "rebuild_ok", "page_rebuilds")
+               if k in metrics.to_dict()}))
 
 
 # ------------------------------ campaign ------------------------------------
@@ -409,7 +440,7 @@ def run_paging_campaign(spec: Optional[PagingSoakSpec] = None, *,
                         quick: bool = True, seed: int = 0,
                         plan: Optional[str] = None,
                         out_dir: Optional[str] = None,
-                        verbose=None, device="cuda") -> dict:
+                        verbose=None, device="cuda", obs=None) -> dict:
     """Run the parity + rebuild cells on ``device``; returns (and
     optionally writes) the ``BENCH_campaign_paging[_quick]`` artifact
     dict."""
@@ -427,9 +458,10 @@ def run_paging_campaign(spec: Optional[PagingSoakSpec] = None, *,
     for cp in paging_plans(spec):
         if cp.kind == "parity":
             cell = run_parity_cell(cp, spec, paged_engine=paged,
-                                   contig_engine=contig)
+                                   contig_engine=contig, obs=obs)
         else:
-            cell = run_rebuild_cell(cp, spec, rebuild_engine=rebuild)
+            cell = run_rebuild_cell(cp, spec, rebuild_engine=rebuild,
+                                    obs=obs)
         cells.append(cell)
         if verbose:
             m = cell["metrics"]

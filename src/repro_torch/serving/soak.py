@@ -23,8 +23,9 @@ differs of both packages read them.  The engines' clock is hybrid
 (service time is step wall time), so on another machine admission can
 batch the stream differently: at a burst rate (every arrival in the
 first step) a cell is the same on either package; at the specs' 200 rps
-rates are compared by Wilson interval.  The JAX module's ``obs`` and
-``monitor`` arguments wait for ROADMAP A5.
+rates are compared by Wilson interval.  With ``obs`` the faulty pass runs
+instrumented and each cell's outcome lands as counters and a ``cell``
+event; ``monitor`` watches the faulty passes.
 """
 from __future__ import annotations
 
@@ -145,12 +146,67 @@ def _degradation(clean: dict, faulty: dict) -> dict:
     return out
 
 
+def _publish_soak_cell(obs, plan: SoakCellPlan, metrics: "SoakMetrics",
+                       injected: List[dict]) -> None:
+    """Land the cell's outcome in the obs registry + event bus.
+
+    Counters mirror the artifact's SoakMetrics exactly (detections =
+    flagged injections, false positives = clean-pass flags) so the
+    Prometheus text and the JSON artifact can be cross-checked; the
+    per-step/per-op detection events were already emitted live by the
+    engine during the faulty pass."""
+    if obs is None:
+        return
+    from repro_torch.obs import FaultEvent
+
+    reg = obs.registry
+    cell = plan.cell_id
+    reg.counter("repro_injections_total",
+                "injected faults per campaign cell"
+                ).inc(metrics["samples"], cell=cell)
+    reg.counter("repro_detections_total",
+                "online-detected injected faults per campaign cell"
+                ).inc(metrics["detected"], cell=cell)
+    reg.counter("repro_escapes_total",
+                "corrupted-and-undetected faults per campaign cell"
+                ).inc(metrics["escapes"], cell=cell)
+    reg.counter("repro_false_positives_total",
+                "clean-pass flags per campaign cell"
+                ).inc(metrics["false_positives"], cell=cell)
+    for inj in injected:
+        reg.counter("repro_injections_total",
+                    "injected faults per campaign cell"
+                    ).inc(1, source="serving.soak")
+        obs.bus.emit(FaultEvent(
+            op=inj.get("victim") or "auto", kind="injection",
+            step=inj["step"], source="serving.soak",
+            cell_id=plan.cell_id, errors=int(bool(inj["detected"])),
+            checks=1, request_ids=tuple(inj.get("attributed_rids", ())),
+            attrs={"detected": inj["detected"],
+                   "latency_steps": inj["latency_steps"],
+                   "persistent": plan.persistent}))
+    obs.bus.emit(FaultEvent(
+        op=plan.target, kind="cell", step=0, source="serving.soak",
+        cell_id=plan.cell_id, errors=metrics["detected"],
+        checks=metrics["samples"],
+        detector_value=metrics["detection_rate"],
+        attrs={"escapes": metrics["escapes"],
+               "false_positives": metrics["false_positives"],
+               "fp_rate": metrics["fp_rate"]}))
+
+
 def run_soak_cell(plan: SoakCellPlan, *, engine=None,
-                  keep_telemetry: bool = False, device="cuda") -> dict:
+                  keep_telemetry: bool = False, device="cuda", obs=None,
+                  monitor=None) -> dict:
     """One cell: clean pass + faulty pass over the same stream.
 
     Returns ``{"plan", "metrics", "seconds"[, "telemetry"]}``; pass a
-    prebuilt ``engine`` (same arch/tenants) to reuse it across cells."""
+    prebuilt ``engine`` (same arch/tenants) to reuse it across cells.
+    With ``obs``, the FAULTY pass runs instrumented (per-step detection
+    events with resident request ids, spans, step counters) and the cell
+    outcome lands as campaign-level counters; the clean pass stays
+    uninstrumented so its flags count only as the cell's false-positive
+    column, not as detection events."""
     from repro_torch.serving.engine import FaultInjection, tenant_weights
     from repro_torch.serving.workload import chat_stream
 
@@ -176,7 +232,8 @@ def run_soak_cell(plan: SoakCellPlan, *, engine=None,
                                  persistent=plan.persistent,
                                  seed=plan.seed + 17 * i)
                   for i, s in enumerate(plan.inject_steps)]
-    faulty = engine.run(stream, inject=injections)
+    faulty = engine.run(stream, inject=injections, obs=obs,
+                        monitor=monitor)
     engine.reset_state()          # restores any persistent fault
     faulty_summary = faulty.summary()
 
@@ -216,6 +273,7 @@ def run_soak_cell(plan: SoakCellPlan, *, engine=None,
         "slo_clean": slo_clean,
         "slo_degradation": _degradation(slo_clean, slo_faulty),
     })
+    _publish_soak_cell(obs, plan, metrics, injected)
     out = {"plan": plan, "metrics": metrics,
            "seconds": time.perf_counter() - t0}
     if keep_telemetry:
@@ -263,7 +321,8 @@ def full_soak_spec(seed: int = 0) -> SoakSpec:
 def run_soak_campaign(spec: Optional[SoakSpec] = None, *,
                       quick: bool = True, seed: int = 0,
                       out_dir: Optional[str] = None,
-                      verbose=None, device="cuda") -> dict:
+                      verbose=None, device="cuda", obs=None,
+                      monitor=None) -> dict:
     """Run every cell of the spec on ``device``; returns (and optionally
     writes) the ``BENCH_campaign_serving_soak`` artifact dict."""
     from repro_torch.campaign.artifacts import (campaign_to_dict,
@@ -278,7 +337,8 @@ def run_soak_campaign(spec: Optional[SoakSpec] = None, *,
                           spec.max_new_tokens, spec.seed, dev)
     cells = []
     for plan in soak_plans(spec):
-        cell = run_soak_cell(plan, engine=engine)
+        cell = run_soak_cell(plan, engine=engine, obs=obs,
+                             monitor=monitor)
         cells.append(cell)
         if verbose:
             m = cell["metrics"]

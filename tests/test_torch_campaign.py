@@ -248,8 +248,9 @@ def test_importing_the_cli_runs_nothing(capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--grid", "adaptive"], "A5"), (["--grid", "training"], "A6"),
-    (["--grid", "full"], "A5"), (["--quick", "--monitor"], "A5"),
+    (["--grid", "multidevice", "--quick"], "A6"),
+    (["--grid", "training"], "A6"), (["--grid", "full"], "A6"),
+    (["--grid", "paper", "--device-count", "2"], "A8"),
     (["--quick", "--device-count", "4"], "A8")])
 def test_cli_refuses_unported_grids_and_flags(capsys, argv, item):
     with pytest.raises(SystemExit) as ei:

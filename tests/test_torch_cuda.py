@@ -882,3 +882,177 @@ def test_paged_cache_on_card_matches_the_cpu_run(rng, dev, kv, p, dh,
     for name in "kv":
         assert torch.equal(card[2][name].cpu(), cpu[2][name])
     assert int(cpu[2]["k"].sum()) == 2                # both sharing slots
+
+
+def _monitored_serve(device, params):
+    """The reduced Llama on ``device`` under ``*:policy=log,
+    embedding_bag:threshold=adaptive`` with a Monitor and an FP-budget
+    controller, every arrival at t = 0 and ``mlp.down`` flips at steps
+    4, 5 and 6: (per-step counters, untimed events, monitor and
+    controller summaries, the lane's final plan)."""
+    import dataclasses as dc
+
+    from repro_torch.adapt import AdaptiveThresholds, ControllerConfig
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.obs import Monitor, Observability
+    from repro_torch.protect import ProtectionPlan
+    from repro_torch.serving import (FaultInjection, ServingEngine,
+                                     TenantSpec, chat_stream)
+    eng = ServingEngine(reduce_cfg(get_arch("llama3.2-1b")), [TenantSpec(
+        "t", ProtectionPlan.parse(
+            "*:policy=log,embedding_bag:threshold=adaptive", name="t"))],
+        n_slots=2, max_prompt=8, max_new_tokens=4, seed=0, device=device)
+    eng.params = _to(params, eng.device)
+    stream = [dc.replace(r, arrival_s=0.0) for r in chat_stream(
+        24, tenants={"t": 1.0}, rate_rps=500.0, seed=3, mean_prompt=6,
+        max_prompt=8, mean_output=3, max_output=4)]
+    obs, mon = Observability.create(), Monitor()
+    ad = AdaptiveThresholds(config=ControllerConfig(
+        fp_budget=0.5, hysteresis=1.0, min_checks=2, cooldown_ticks=2,
+        settle_ticks=3, floor=1e-6, window_ticks=8))
+    tel = eng.run(stream, obs=obs, monitor=mon, adapt=ad, inject=[
+        FaultInjection(step=s, victim="mlp.down", seed=i)
+        for i, s in enumerate((4, 5, 6))])
+    events = []
+    for e in obs.bus:
+        d = e.to_dict()
+        d.pop("t_s")
+        d["attrs"].pop("duration_ms", None)
+        events.append(d)
+    ms = mon.summary()
+    for a in ms["alerts"] + ms["active_alerts"]:
+        a.pop("t_s"), a.pop("resolved_t_s")
+    for t in ms["transitions"]:
+        t.pop("t_s")
+    return ([(e.step, e.kind, e.slot_rids, e.counters) for e in tel.steps],
+            events, ms, ad.summary(),
+            (eng._lane_of["t"].plan.name, eng._lane_of["t"].plan.describe()))
+
+
+def _eb_round_off_case(table, alphas, betas, idx, rel_bound) -> bool:
+    """Whether a one-table bag's Eq. (5) flag is within float32 round-off
+    of its bound: | |sum of its float64 terms - csum| - tol | is at most
+    (d + 2) u times the terms' magnitude, so the summation order decides
+    it."""
+    d = table.shape[-1]
+    rows = idx[idx >= 0].long()
+    a, b = alphas[rows].double(), betas[rows].double()
+    terms = a[:, None] * table[rows].double() + b[:, None]
+    ct = table[rows].sum(-1, dtype=torch.int64).double()
+    csum = (a * ct + d * b).sum()
+    mag = (a.abs() * ct.abs() + d * b.abs()).sum()
+    tol = rel_bound * max(float(mag), 1.0)
+    reach = (d + 2) * 2.0**-24 * float(terms.abs().sum() + csum.abs())
+    return abs(abs(float(terms.sum() - csum)) - tol) <= reach
+
+
+def test_monitored_adaptive_engine_on_card_counts_as_on_the_cpu(
+        dev, monkeypatch):
+    """An engine on the card with ``monitor=`` and ``adapt=`` against the
+    same engine and weights on the CPU, step for step: every counter,
+    every event (times aside), the health walk to quarantine and back,
+    the controller's moves and the lane's escalated plan are equal.
+
+    The token table is the model's own, from seed 0, and the controller
+    tightens to its floor 1e-6, where clean bags flag.  There the order
+    of K2's sums and the plain branch's decides a flag within float32
+    round-off of the bound (ROADMAP §C2, §C6): the CPU engine takes each
+    EmbeddingBag call's flags from the card's same call, and every flag
+    where the two differ must be such a round-off case."""
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.base import build_model
+    params = build_model(reduce_cfg(get_arch("llama3.2-1b"))).init(
+        0, device="cpu")
+    real = kops.abft_embedding_bag
+    calls = []
+
+    # the LM's lookups are one-table calls (which call the stacked form)
+    def recording(table_q, alphas, betas, indices, *args, **kw):
+        out = real(table_q, alphas, betas, indices, *args, **kw)
+        if indices.dim() == 2:
+            calls.append((indices.cpu(), out.err_bags.cpu(),
+                          kw["rel_bound"]))
+        return out
+
+    def replaying(table_q, alphas, betas, indices, *args, **kw):
+        out = real(table_q, alphas, betas, indices, *args, **kw)
+        if indices.dim() != 2:
+            return out
+        idx, err, bound = calls.pop(0)
+        assert torch.equal(idx, indices) and bound == kw["rel_bound"]
+        for bag in torch.nonzero(err != out.err_bags).flatten().tolist():
+            assert _eb_round_off_case(table_q, alphas, betas, idx[bag],
+                                      bound), (bag, bound)
+        return out._replace(err_bags=err, err_count=err.sum(
+            dtype=torch.int32))
+
+    monkeypatch.setattr(kops, "abft_embedding_bag", recording)
+    card = _monitored_serve(dev, params)
+    monkeypatch.setattr(kops, "abft_embedding_bag", replaying)
+    cpu = _monitored_serve("cpu", params)
+    assert not calls
+    for name, a, b in zip(("steps", "events", "monitor", "controllers",
+                           "plan"), card, cpu):
+        if isinstance(a, list):
+            diff = [(i, x, y) for i, (x, y) in enumerate(zip(a, b))
+                    if x != y][:2]
+            assert len(a) == len(b) and not diff, (name, len(a), len(b),
+                                                  diff)
+        assert a == b, name
+    steps, events, ms, ctrls, plan = card
+    # to quarantine and out of it (clean flags at the floor may keep the
+    # tenant degraded at the end)
+    assert any(t["new"] == "quarantined" for t in ms["transitions"])
+    assert any(t["old"] == "quarantined" for t in ms["transitions"])
+    assert ctrls[0]["adjustments"] >= 1 and plan[0] == "t+escalated"
+
+
+@pytest.mark.parametrize("drift", ["variance_shift", "bursty"])
+def test_adaptive_grid_cell_on_card_equals_cpu(dev, drift):
+    """``--grid adaptive``'s ratio stream takes JAX's draws and one fixed
+    order of float32 adds: a cell on the card counts, moves and converges
+    exactly as on the CPU."""
+    from repro_torch.campaign import adaptive as grid
+    spec = grid.quick_adaptive_spec(0)
+    plan = next(p for p in grid.adaptive_plans(spec) if p.drift == drift)
+    card, cpu = (grid.run_adaptive_cell(plan, config=spec.controller_config(),
+                                        device=d)["metrics"].to_dict()
+                 for d in (dev, "cpu"))
+    assert card == cpu
+
+
+@pytest.mark.parametrize("dyadic", [False, True])
+def test_eb_flags_after_a_bound_move_equal_a_fresh_call(rng, dev, dyadic):
+    """A controller's bound move rewrites the plan and K2 takes the new
+    ``rel_bound`` as a launch argument: the protected call under the
+    moved plan flags exactly what a fresh K2 call at that bound flags
+    (and, on dyadic scales, the plain branch), with no state kept from
+    the call at the old bound."""
+    from repro_torch.layers.common import Ctx
+    from repro_torch.protect import OpRule, ProtectionPlan, protected_call
+    t, al, be, idx, rs, w = _eb_case(rng, dev, 1, 4096, 128, 64, 16,
+                                     False, dyadic)
+    t[0, int(idx[0, 3, 0]), 7] ^= 4                  # a low-bit flip
+    plan = ProtectionPlan.parse("*:policy=log,embedding_bag:threshold="
+                                "adaptive,embedding_bag:rel_bound=1e-5")
+    enc = (t, al, be, rs)
+    _, rep0 = protected_call("embedding_bag", enc, idx, w,
+                             ctx=Ctx(quant=True, plan=plan))
+    for bound in (1e-3, 3e-6, 1e-7, 1.35e-5):
+        moved = plan.with_rules(OpRule(pattern="embedding_bag",
+                                       rel_bound=bound))
+        assert moved.resolve("embedding_bag").rel_bound == bound
+        _, rep = protected_call("embedding_bag", enc, idx, w,
+                                ctx=Ctx(quant=True, plan=moved))
+        fresh = ops.abft_embedding_bag(t, al, be, idx, rs, w,
+                                       rel_bound=bound)
+        assert int(rep.errors["embedding_bag"]) == int(fresh.err_count)
+        if dyadic:
+            plain = ops.abft_embedding_bag(t, al, be, idx, rs, w,
+                                           rel_bound=bound,
+                                           use_kernel=False)
+            assert torch.equal(fresh.err_bags, plain.err_bags)
+    assert int(rep0.errors["embedding_bag"]) == int(
+        ops.abft_embedding_bag(t, al, be, idx, rs, w,
+                               rel_bound=1e-5).err_count)

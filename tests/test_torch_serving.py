@@ -110,8 +110,9 @@ def test_serve_cli_smoke_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--obs-dir", "obs"], "A5"), (["--fp-budget", "0.01"], "A5"),
-    (["--monitor"], "A5"), (["--device-count", "2"], "A8"),
+    (["--arch", "hymba-1.5b"], "A7"), (["--arch", "whisper-large-v3"], "A7"),
+    (["--arch", "llava-next-mistral-7b"], "A7"),
+    (["--device-count", "2"], "A8"),
     (["--arch", "llama4-scout-17b-a16e"], "A8"),
     (["--arch", "internlm2-20b"], "A7"),
     (["--arch", "mistral-large-123b"], "A8")])
