@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Thirteen paths run, each with every launch counter set to 0 just before
+Fourteen paths run, each with every launch counter set to 0 just before
 it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
 int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
 (K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
@@ -12,8 +12,10 @@ int8 (K1-K3), int8 Llama-3.2-1B chat serving (K1-K3), the same model
 served from the paged KV cache (K1-K3), int8 granite-moe-3b-a800m (MoE)
 chat serving (K1-K3), the serving soak (K1-K3), the protection SLO
 ladder for Llama-3.2-1B and for granite (K1-K3 and the unprotected
-instances of K1 and K2) and Llama-3.2-1B served under the observability
-layer, the detection-health monitor and adaptive thresholds (K1-K3).
+instances of K1 and K2), Llama-3.2-1B served under the observability
+layer, the detection-health monitor and adaptive thresholds (K1-K3), and
+full-width Llama-3.2-1B trained under faults (no kernel of the port: all
+six counters read 0).
 Each phase's seconds are printed.  Phases (any
 failure exits non-zero; nothing is caught and passed over):
 
@@ -226,7 +228,7 @@ failure exits non-zero; nothing is caught and passed over):
    (``src/repro_torch/campaign/baselines/``) and 0 regressions from the
    port's differ; then the protection SLO ladder
    (``repro_torch.benchmarks.serving_slo``: ``*:off``, ``*:policy=log``,
-   ``*:policy=recompute,kv_cache:on`` over one stream of 16 requests at
+   ``*:policy=recompute,kv_cache:on`` over one stream of 12 requests at
    300 rps, Poisson, 4 slots, 16 new tokens) at full width for
    Llama-3.2-1B and granite: every request completes with 0 errors but
    the EmbeddingBag flags of clean token rows, each a token the table
@@ -253,7 +255,7 @@ failure exits non-zero; nothing is caught and passed over):
    fault-pipeline lines, the trace loaded as Chrome-trace JSON; a second
    monitored run whose controller moves the EmbeddingBag bound to its
    floor 1e-6 (the lane's plan held to it); the same stream with no
-   flip, 3 plain and 3 monitored runs in turns, every run on a new
+   flip, 2 plain and 2 monitored runs in turns, every run on a new
    engine, both step medians printed; device-to-host copies of a short
    stream equal with and without obs, monitor and adapt (profiler); the
    monitor's per-tick fold under 5% of a step, and
@@ -266,14 +268,34 @@ failure exits non-zero; nothing is caught and passed over):
    history with phase 9's card artifact newest, rc 0; the path's K1, K2
    and K3 launches and the controllers' summaries.
 
+18. training under faults: full-width Llama-3.2-1B from seed 0 with
+   float32 master weights, bf16 compute, 4 accumulated microbatches of 2
+   x 256 tokens, the int8 error-feedback gradient reduction checked mod
+   8191 and ``TrainLoop(fault_policy="recompute")`` under deterministic
+   algorithms: 6 clean steps (every loss finite, ``comm/errors`` 0 at
+   every step; the state's reckoned bytes beside the peak allocation,
+   step times, tokens/s and one profiled step's kernels and busy share);
+   the loop's final checksummed checkpoint of the whole state (the free
+   disk printed, a temporary directory) restored and verified on the
+   card, equal leaf for leaf, with its save and restore seconds; the
+   same run with one byte of the ``mlp`` victim's int8 payload flipped
+   between the encode and the reduction at step 3: ``comm/errors`` 1 at
+   that call, one faulty step and one recompute, final parameters equal
+   to the clean run's bit for bit; what deterministic algorithms cost a
+   step (steps in turns); ``--grid training --quick`` on the card gated
+   against the JAX CLI's artifact and the baseline (Wilson overlap in
+   every cell, the differ flagging no FP rate, lost cell or checked
+   seam, the int8 payload caught at latency 0 in every trial, no flag
+   outside the checksum, the post-verify gradient diverging).
+
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
 (DLRM for K1-K3, RWKV for K4, the overhead benchmarks for the unprotected
 instances), and ``launches_by_path`` holds every kernel's count on each
-of the thirteen paths (DLRM serve, RWKV serve, campaign, thresholds,
+of the fourteen paths (DLRM serve, RWKV serve, campaign, thresholds,
 overhead, float DLRM, Llama serve, Llama paged serve, granite serve,
-serving soak, the SLO ladder of each model, observability), all six
-counts set to 0
+serving soak, the SLO ladder of each model, observability, training),
+all six counts set to 0
 just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the repository's ``src/`` beside this
@@ -285,10 +307,17 @@ import argparse
 import contextlib
 import itertools
 import json
+import math
+import os
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# cuBLAS reads it when CUDA initialises: phase 18 trains under
+# torch.use_deterministic_algorithms, whose GEMMs need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1399,7 +1428,7 @@ def rwkv_phases(torch, dev, timer, details, cfg, big_batch_seq) -> dict:
     # the smoke-size model: card against the plain CPU run
     small = reduce_cfg(cfg)
     model = build_model(small)
-    p_cpu = model.init(0, device="cpu")
+    p_cpu = model.init(0, quant=True, device="cpu")
     small_out = small_card_vs_cpu(torch, dev, small, model, p_cpu,
                                   default_plan(), (64, 24))
 
@@ -2542,7 +2571,7 @@ def llama_phase(torch, dev, timer) -> dict:
     small = reduce_cfg(cfg)
     model = build_model(small)
     small_out = small_card_vs_cpu(torch, dev, small, model,
-                                  model.init(0, device="cpu"),
+                                  model.init(0, quant=True, device="cpu"),
                                   default_plan(), (64, 24),
                                   f32_after_split=2.0**-5)
 
@@ -3502,7 +3531,7 @@ def granite_phase(torch, dev, timer) -> dict:
     # a moved int8 code can move a token's experts: after a free run's
     # first code split only its counters and finite logits are held
     small_out = small_card_vs_cpu(torch, dev, small, model,
-                                  model.init(0, device="cpu"),
+                                  model.init(0, quant=True, device="cpu"),
                                   default_plan(), (64, 24),
                                   hold_after_split=False)
 
@@ -3673,6 +3702,11 @@ SOAK_BASELINE = ("src/repro_torch/campaign/baselines/"
                  "BENCH_campaign_serving_soak_quick.json")
 
 
+#: requests a rung of the SLO ladder serves (fewer requests, not fewer
+#: checks, keep the whole script inside its time)
+SLO_REQUESTS = 12
+
+
 def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
     """Phase 16: the serving soak's quick grid on the card, gated against
     the JAX baseline, then the protection SLO ladder at full width for
@@ -3772,7 +3806,7 @@ def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
             flagged_tokens(torch, seen_eb)      # the probe's own lookups
             zero_launches()                     # the next rung's window
         with eb_flag_tap() as seen_eb:
-            ladder = run_ladder(arch, requests=16, rate=300.0,
+            ladder = run_ladder(arch, requests=SLO_REQUESTS, rate=300.0,
                                 arrival="poisson", slots=4, max_new=16,
                                 seed=0, smoke=False, device=dev, emit=log,
                                 probe=probe)
@@ -3785,9 +3819,9 @@ def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
         for name, row in ladder["plans"].items():
             c = row["counters"]
             n_eb = len(rungs[name].get("eb_flags", {}).get("flagged", ()))
-            if row["completed"] != 16:
-                fail(f"{arch} rung {name}: {row['completed']} of 16 "
-                     f"completed")
+            if row["completed"] != SLO_REQUESTS:
+                fail(f"{arch} rung {name}: {row['completed']} of "
+                     f"{SLO_REQUESTS} completed")
             # the GEMM and KV checks are exact on clean data; every
             # EmbeddingBag flag was witnessed above (a recompute rung
             # reads a flagged row twice: its retry)
@@ -3807,8 +3841,8 @@ def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
                 for n, r in rungs.items() if "eb_flags" in r) or "none"))
         ladders[arch] = ladder
         p = ladder["plans"]
-        log(f"SLO ladder {arch} (16 requests, 300 rps poisson, 4 slots, 16 "
-            f"new tokens; {smi_line()}): " + "; ".join(
+        log(f"SLO ladder {arch} ({SLO_REQUESTS} requests, 300 rps "
+            f"poisson, 4 slots, 16 new tokens; {smi_line()}): " + "; ".join(
                 f"{n}: TTFT p50/p95/p99 {r['ttft_ms']['p50']:.2f}/"
                 f"{r['ttft_ms']['p95']:.2f}/{r['ttft_ms']['p99']:.2f} ms, "
                 f"per token p50/p95/p99 {r['per_token_ms']['p50']:.2f}/"
@@ -4007,9 +4041,9 @@ def observability_phase(torch, dev, llama_params, quick_artifact,
     if (EB_REL_BOUND if lane_bound is None else lane_bound) != bound2:
         fail(f"the lane runs at {lane_bound}, the controller at {bound2}")
     # the monitor's end-to-end cost: the same stream with no flip (nothing
-    # escalates), plain and with obs+monitor+adapt, in turns, 3 runs each
+    # escalates), plain and with obs+monitor+adapt, in turns, 2 runs each
     ab = {"plain": [], "monitored": []}
-    for _ in range(3):
+    for _ in range(2):
         ab["plain"].append(fresh().run(stream))
         tel_m, _, mon_m, _, _ = monitored(ControllerConfig(fp_budget=0.01),
                                           flips=())
@@ -4054,7 +4088,7 @@ def observability_phase(torch, dev, llama_params, quick_artifact,
     copies = {"plain": dtoh_copies(torch, serve_short(False)),
               "monitored": dtoh_copies(torch, serve_short(True))}
     n_steps = len(fresh().run(short, warmup=False).steps)
-    log(f"Llama obs path ({smi_line()}): step medians ms, 3 plain and 3 "
+    log(f"Llama obs path ({smi_line()}): step medians ms, 2 plain and 2 "
         f"monitored runs in turns, no flip: plain {med['plain']}, "
         f"monitored {med['monitored']} (monitored over plain: prefill "
         f"{100 * ab_cost['prefill']:+.2f}%, decode "
@@ -4185,6 +4219,327 @@ def observability_phase(torch, dev, llama_params, quick_artifact,
               "adaptive_card_equals_cpu": not split,
               "adaptive_differ_vs_baseline": d_base,
               "trend_rc": rc}
+    return {"launches": launches, "record": record}
+
+
+#: the training grid's gates: the JAX CLI's artifact (jax 0.9.0) and the
+#: committed baseline
+TRAINING_JAX = ("src/repro_torch/campaign/baselines/"
+                "BENCH_campaign_training_quick.json")
+TRAINING_BASELINE = "benchmarks/baselines/BENCH_campaign_training_quick.json"
+
+
+def profile_train_step(torch, step_fn, state, batch) -> dict:
+    """One train step under the profiler: CUDA kernels launched and the
+    device-busy share of the step's wall time (a diagnostic: where the
+    profiler cannot trace the card it says so and the run goes on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            t_us = getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0))
+            if t_us > 0:
+                by_name[ev.key] = (t_us / 1e3, ev.count)
+    except Exception as e:              # noqa: BLE001 - diagnostic only
+        log(f"profiler could not trace the card: {e!r}")
+        return {"error": repr(e)}
+    device_ms = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "kernels": sum(c for _, c in by_name.values()),
+            "top": [{"name": k, "ms": t, "count": c} for k, (t, c) in top]}
+
+
+def training_phase(torch, dev, out_dir) -> dict:
+    """Phase 18: full-width Llama-3.2-1B trained on the card (float32
+    master weights, bf16 compute, 4 accumulated microbatches of 2 x 256
+    tokens, the int8 error-feedback gradient reduction checked mod 8191,
+    ``TrainLoop(fault_policy="recompute")``, under deterministic
+    algorithms): (a) 6 clean steps, every loss finite and ``comm/errors``
+    0, the state's reckoned bytes beside the peak allocation, step times
+    and a profiled step; (c) the loop's final checksummed checkpoint of
+    the full state read back equal; (b) the same 6 steps with one byte of
+    the ``mlp`` victim's int8 payload flipped between the encode and the
+    reduction at step 3: ``comm/errors`` 1 there, one faulty step and one
+    recompute, final params equal to (a)'s bit for bit; what determinism
+    costs a step; (d) ``--grid training --quick`` gated against the JAX
+    artifacts.  No kernel of the port runs on this path: all six launch
+    counters must read 0."""
+    import shutil
+    import tempfile
+
+    from repro_torch.campaign.artifacts import write_artifacts
+    from repro_torch.campaign.diff import diff_artifacts, wilson_gate
+    from repro_torch.campaign.executor import run_campaign
+    from repro_torch.campaign.grids import training_specs
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inject import victim_leaf_index
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import make_dataset
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.device import deterministic
+    from repro_torch.launch.steps import (init_train_state, make_train_step,
+                                          state_bytes, train_state_shapes)
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.runtime import LoopConfig, TrainLoop
+
+    t0 = time.perf_counter()
+    card = smi_line()
+    wrappers = zero_launches()
+    cfg = get_arch("llama3.2-1b")
+    model = build_model(cfg)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
+    n_steps, batch, seq = 6, 8, 256
+    dataset = make_dataset(cfg, ShapeConfig("phase18", "train", seq, batch))
+    shapes = train_state_shapes(model, compress=True)
+    reckon = {"params": state_bytes(shapes["params"]),
+              "m": state_bytes(shapes["opt"]["m"]),
+              "v": state_bytes(shapes["opt"]["v"]),
+              "residual": state_bytes(shapes["comm"]),
+              "total": state_bytes(shapes)}
+    free_disk = shutil.disk_usage(tempfile.gettempdir()).free
+    log(f"phase 18 on {card}: Llama-3.2-1B full width, {n_steps} steps of "
+        f"{batch} x {seq} tokens in {cfg.train_accum} microbatches, state "
+        + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in reckon.items())
+        + f"; free disk {free_disk / 2**30:.1f} GiB")
+
+    ckpt_root = tempfile.mkdtemp(prefix="phase18_")
+    calls = []                  # (step, comm/errors) of every step call
+
+    def recorded(fn):
+        def step(state, b):
+            new, m = fn(state, b)
+            calls.append((int(state["step"]), int(m["comm/errors"])))
+            return new, m
+        return step
+
+    step_ms = []
+
+    def timed(fn):
+        def step(state, b):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+        return step
+
+    def train(tag, payload_hook=None):
+        calls.clear()
+        step_ms.clear()
+        fn = make_train_step(model, ctx, accum=cfg.train_accum,
+                             total_steps=n_steps, compress=True,
+                             payload_hook=payload_hook)
+        losses = []
+        loop = TrainLoop(
+            timed(recorded(fn)), dataset,
+            cfg=LoopConfig(ckpt_dir=str(Path(ckpt_root) / tag),
+                           fault_policy="recompute", log_every=1),
+            metrics_hook=lambda s, m: losses.append(
+                m["loss_final"]))
+        with deterministic():
+            # no reference to the initial state is kept here: the loop
+            # holds the pre-step state and the step builds the new one
+            final, _ = loop.run(init_train_state(model, 0, compress=True,
+                                                 device=dev), n_steps)
+        return loop, final, losses, list(calls), list(step_ms), fn
+
+    try:
+        # ----------------------- 18a. six clean steps ----------------------
+        # earlier phases' tensors still held (the DLRM tables) are not
+        # this path's: the peak is read above what was allocated before
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loop_a, final_a, losses, calls_a, ms_a, fn_a = train("a")
+        peak = torch.cuda.max_memory_allocated() - held
+        if not (len(losses) == n_steps and all(math.isfinite(x)
+                                               for x in losses)):
+            fail(f"phase 18a: losses {losses}")
+        if any(e for _, e in calls_a) or loop_a.stats != {
+                "recomputes": 0, "restores": 0, "faulty_steps": 0}:
+            fail(f"phase 18a: clean steps flagged: {calls_a} "
+                 f"{loop_a.stats}")
+        med = statistics.median(ms_a[1:])
+        log(f"18a: losses {[round(x, 4) for x in losses]}, comm/errors 0 "
+            f"at every step; step ms {[round(x, 1) for x in ms_a]} "
+            f"(median of steps 1-5 {med:.1f} ms, "
+            f"{batch * seq / med * 1e3:.0f} tokens/s); peak allocated "
+            f"{peak / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB "
+            f"earlier phases hold, against the state's "
+            f"{reckon['total'] / 2**30:.2f} GiB ({card})")
+        data0 = to_device(dataset.batch_at(0), dev)
+        with deterministic():
+            prof = profile_train_step(torch, fn_a, final_a, data0)
+        log(f"18a: one profiled step: {prof.get('kernels')} kernels, "
+            f"device {prof.get('device_ms', 0):.1f} ms of "
+            f"{prof.get('wall_ms', 0):.1f} ms wall (busy "
+            f"{prof.get('busy_share')}); top "
+            + "; ".join(f"{t['name'][:40]} {t['ms']:.2f}ms x{t['count']}"
+                        for t in prof.get("top", [])[:6]))
+
+        # ---------- 18c. the loop's final checkpoint of the full state -----
+        save = dict(loop_a.ckpt.last_save)
+        step_dir = Path(ckpt_root) / "a" / f"step_{n_steps:09d}"
+        on_disk = sum(p.stat().st_size for p in step_dir.iterdir())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = load_checkpoint(str(Path(ckpt_root) / "a"), n_steps,
+                               final_a)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        bad = [i for i, (a, b) in enumerate(zip(tree_leaves(final_a),
+                                                tree_leaves(back)))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        if bad or save.get("step") != n_steps:
+            fail(f"phase 18c: restored leaves {bad} differ ({save})")
+        del back
+        log(f"18c: the final state ({len(tree_leaves(final_a))} leaves, "
+            f"{on_disk / 2**30:.2f} GiB on disk) saved by the loop: the "
+            f"caller held {save['snapshot_s']:.2f} s (checksums on the "
+            f"card, host copies), the write done {save['write_s']:.2f} s "
+            f"after the save began; restored and checksum-verified on the "
+            f"card in {restore_s:.2f} s, equal leaf for leaf ({card})")
+        params_a = final_a["params"]
+
+        # ------------- determinism's cost: steps in turns, on / off --------
+        turns = {"deterministic": [], "default": []}
+        for mode in ("deterministic", "default", "default",
+                     "deterministic"):
+            torch.use_deterministic_algorithms(mode == "deterministic")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn_a(final_a, data0)
+            torch.cuda.synchronize()
+            turns[mode].append((time.perf_counter() - t1) * 1e3)
+        torch.use_deterministic_algorithms(False)
+        det_cost = statistics.mean(turns["deterministic"]) / \
+            statistics.mean(turns["default"]) - 1.0
+        log(f"determinism: step ms deterministic {turns['deterministic']} "
+            f"default {turns['default']}: {100 * det_cost:+.1f}% a step")
+        shutil.rmtree(Path(ckpt_root) / "a", ignore_errors=True)
+        del final_a
+
+        # ------ 18b. a payload byte flipped in transit at step 3 ------------
+        vidx, vpath = victim_leaf_index(params_a, "mlp", prefer_int8=False)
+        struck = []
+
+        def flip_at_3(payload, state):
+            if int(state["step"]) == 3 and not struck:
+                leaf = tree_leaves(payload["q"])[vidx]
+                leaf.view(-1).view(torch.uint8)[12345] ^= 1 << 6
+                struck.append(int(state["step"]))
+            return payload
+
+        loop_b, final_b, losses_b, calls_b, ms_b, _ = train(
+            "b", payload_hook=flip_at_3)
+        want_calls = [(0, 0), (1, 0), (2, 0), (3, 1), (3, 0), (4, 0),
+                      (5, 0)]
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params_a), tree_leaves(final_b["params"])))
+        if calls_b != want_calls or loop_b.stats != {
+                "recomputes": 1, "restores": 0, "faulty_steps": 1} \
+                or not same:
+            fail(f"phase 18b: calls {calls_b} (want {want_calls}), stats "
+                 f"{loop_b.stats}, final params equal to 18a: {same}")
+        log(f"18b: a byte of {vpath}'s int8 payload flipped in transit at "
+            f"step 3: comm/errors per call {calls_b}, loop stats "
+            f"{loop_b.stats}, final params equal to 18a's bit for bit")
+        del final_b, params_a
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # ------------- 18d. --grid training --quick on the card ----------------
+    t1 = time.perf_counter()
+    grid = run_campaign("training_quick", training_specs(0, quick=True),
+                        device=dev, verbose=log)
+    grid_s = time.perf_counter() - t1
+    if out_dir:
+        write_artifacts(grid, str(Path(out_dir) / "campaign"))
+    refs = {}
+    for name, path in (("jax_now", TRAINING_JAX),
+                       ("baseline", TRAINING_BASELINE)):
+        with open(ROOT / path) as f:
+            refs[name] = json.load(f)
+    cells = {c["cell_id"]: c["metrics"] for c in grid["cells"]}
+    gates = {k: wilson_gate(r, grid) for k, r in refs.items()}
+    diffs = {k: diff_artifacts(r, grid) for k, r in refs.items()}
+    for k in refs:
+        if gates[k]["failed"] or gates[k]["uncovered"] or \
+                len(gates[k]["cells"]) != 11:
+            fail(f"training grid outside the {k} Wilson intervals: "
+                 f"{gates[k]['failed']} {gates[k]['uncovered']}")
+        # the differ may flag only a bound-0 seam's masked share (ROADMAP
+        # §C11): never an FP rate, a lost cell or a checked seam
+        for r in diffs[k]["regressions"]:
+            m = cells.get(r["cell_id"], {})
+            if r["kind"] != "detection_rate" or \
+                    m.get("analytic_bound") != 0.0 or m.get("detected"):
+                fail(f"training grid: differ regression vs {k}: {r}")
+    for cid, m in cells.items():
+        if m["false_positives"]:
+            fail(f"training grid: {cid} flagged a clean run")
+        if cid.startswith("train_payload/") and "/int8" in cid:
+            if m["detected"] != m["samples"] or \
+                    m["detection_latency_hist"][0] != m["samples"]:
+                fail(f"training grid: {cid} missed a payload flip: {m}")
+        elif m["detected"]:
+            fail(f"training grid: {cid} detected a flip outside the "
+                 f"checksum: {m}")
+    post = cells["train_grad_post/bitflip/significant/2x16/float32"]
+    if not (post["divergence_mean"] > 0 and post["escapes"] > 0):
+        fail(f"training grid: grad_post shows no divergence: {post}")
+    log(f"--grid training --quick on the card in {grid_s:.1f}s: " + "; ".join(
+        f"{cid} detect {m['detected']}/{m['samples']} escape "
+        f"{m['escapes']} div {m['divergence_mean']:.3g}"
+        for cid, m in cells.items())
+        + "; Wilson overlap with the JAX CLI's artifact and the baseline "
+          "in every cell; differ (masked shares only): "
+        + "; ".join(f"{k} " + str([(r["cell_id"], r["old"], r["new"])
+                                   for r in d["regressions"]])
+                    for k, d in diffs.items()))
+
+    launches = read_launches(wrappers)
+    if any(launches.values()):
+        fail(f"phase 18: the training path launched a kernel: {launches}")
+    seconds = time.perf_counter() - t0
+    record = {"card": card, "seconds": seconds, "state_bytes": reckon,
+              "peak_allocated": peak, "held_before": held,
+              "free_disk": free_disk,
+              "losses": losses, "step_ms": ms_a, "step_ms_median": med,
+              "tokens_per_s": batch * seq / med * 1e3, "profile": prof,
+              "checkpoint": {**save, "restore_s": restore_s,
+                             "bytes_on_disk": on_disk},
+              "determinism_turns_ms": turns,
+              "determinism_cost": det_cost,
+              "flip_calls": calls_b, "flip_stats": loop_b.stats,
+              "flip_step_ms": ms_b,
+              "grid_seconds": grid_s,
+              "grid": {cid: {k: m[k] for k in (
+                  "samples", "detected", "corrupted", "escapes",
+                  "divergence_mean", "loss_divergence_mean",
+                  "detection_latency_hist", "protected_s",
+                  "unprotected_s")} for cid, m in cells.items()},
+              "grid_differ": {k: d["regressions"] for k, d in diffs.items()}}
+    log(f"phase 18 launches (all six must be 0): {launches}; "
+        f"{seconds:.1f}s")
     return {"launches": launches, "record": record}
 
 
@@ -4681,6 +5036,11 @@ def main() -> int:
                                        Path(args.out).parent))
     details["observability"] = obs_path["record"]
     phase_done("17 observability, monitor and adaptive thresholds")
+    # -------------------- 18. training under faults ----------------------
+    training = training_phase(torch, dev, args.out and str(
+        Path(args.out).parent))
+    details["training"] = training["record"]
+    phase_done("18 training")
     kernels[0]["llama_shapes"] = llama["k1_times"]
     kernels[0]["granite_expert_shapes"] = granite["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
@@ -4711,7 +5071,8 @@ def main() -> int:
                "serving_soak": soak_slo["soak_launches"],
                **{f"slo_ladder {a}": v for a, v in
                   soak_slo["ladder_launches"].items()},
-               "observability": obs_path["launches"]}
+               "observability": obs_path["launches"],
+               "training": training["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

@@ -16,6 +16,11 @@ projection and the token embedding:
 - :mod:`repro_torch.serving`, :mod:`repro_torch.launch.serve` — serving,
   with weight-fault injection
 - :mod:`repro_torch.campaign` — the main-path resilience campaign
+- :mod:`repro_torch.optim`, :mod:`repro_torch.runtime`,
+  :mod:`repro_torch.checkpoint`, :mod:`repro_torch.launch.train` —
+  training under faults: AdamW, the int8 error-feedback gradient
+  reduction checked mod 8191, the detect->act loop, checksummed
+  checkpoints
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

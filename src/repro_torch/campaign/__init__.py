@@ -32,6 +32,7 @@ from repro_torch.campaign.spec import (CampaignSpec, CellPlan,
 from repro_torch.campaign.targets import (Fault, InjectableTarget, TARGETS,
                                           Trial, get_target,
                                           register_target)
+from repro_torch.campaign import targets_training  # noqa: F401,E402
 
 __all__ = [
     "CampaignSpec", "CellPlan", "expand", "cell_seed", "DLRM_GEMM_SHAPES",

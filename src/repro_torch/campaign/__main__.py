@@ -13,6 +13,7 @@ Examples::
     python -m repro_torch.campaign --grid serving_soak --quick \
         --plan "*:policy=recompute,kv_cache:on"             # every tenant
     python -m repro_torch.campaign --grid adaptive --quick  # threshold loop
+    python -m repro_torch.campaign --grid training --quick  # train seams
     python -m repro_torch.campaign --diff OLD.json NEW.json # exit 1 on
                                                             # regression
     python -m repro_torch.campaign --trend                  # baseline history
@@ -25,9 +26,11 @@ the paged lane's plan of the ``paging`` grid, as the JAX CLI does.
 ``--obs-dir`` exports the run's fault events (JSONL), Chrome trace and
 Prometheus text; ``--monitor`` attaches the detection-health monitor.
 
-The JAX package's other grids (``training``, ``multidevice``, ``full``)
-and ``--device-count`` exit with 2, naming the ROADMAP item that ports
-them.
+The JAX package's other grids (``multidevice``, ``full``) and
+``--device-count`` exit with 2, naming the ROADMAP item that ports them.
+A grid that trains (``training``) runs under
+``torch.use_deterministic_algorithms``; the CLI sets
+``CUBLAS_WORKSPACE_CONFIG`` before CUDA initialises.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ class _NotPorted(argparse.Action):
 
 
 def main(argv=None) -> int:
+    # cuBLAS reads it when CUDA initialises; the training grid needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.campaign.grids import GRIDS, NOT_PORTED
 
     ap = argparse.ArgumentParser(
@@ -55,15 +60,16 @@ def main(argv=None) -> int:
         description="Fault-injection sweeps of the main path (K1, K2 on "
                     "the card), JSON artifacts, and the artifact differ.")
     ap.add_argument("--quick", action="store_true",
-                    help="shorthand for --grid quick; with --grid pallas "
-                         "or paper, their quick variants")
+                    help="shorthand for --grid quick; with --grid pallas, "
+                         "paper or training, their quick variants")
     ap.add_argument("--grid", default=None,
                     help="quick, pallas, paper, thresholds, soak, "
-                         "victims, paging, serving_soak or adaptive")
+                         "victims, training, paging, serving_soak or "
+                         "adaptive")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=0,
                     help="override the per-cell sample count (quick / "
-                         "pallas / thresholds / victims grids)")
+                         "pallas / thresholds / victims / training grids)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the cells run (default: the card; no "
                          "fallback)")
@@ -129,8 +135,8 @@ def main(argv=None) -> int:
     grid = args.grid or ("quick" if args.quick else None)
     if grid is None:
         ap.error("pick a grid (--quick / --grid "
-                 "{quick,pallas,paper,thresholds,soak,victims,paging,"
-                 "serving_soak,adaptive}) or --diff OLD NEW")
+                 "{quick,pallas,paper,thresholds,soak,victims,training,"
+                 "paging,serving_soak,adaptive}) or --diff OLD NEW")
     if grid in NOT_PORTED:
         ap.error(f"--grid {grid} is not ported yet (ROADMAP "
                  f"{NOT_PORTED[grid]})")
@@ -223,7 +229,8 @@ def main(argv=None) -> int:
     else:
         specs = GRIDS[grid](seed=args.seed, quick=args.quick,
                             samples=args.samples)
-    name = "pallas_quick" if grid == "pallas" and args.quick else grid
+    name = f"{grid}_quick" if grid in ("pallas", "training") \
+        and args.quick else grid
     result = run_campaign(name, specs, device=args.device, out_dir=args.out,
                           chunk=args.chunk or CHUNK, obs=obs,
                           monitor=monitor,

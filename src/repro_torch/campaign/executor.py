@@ -78,13 +78,16 @@ def _run_soaks(soak: Callable[[Trial], dict], trials: Sequence[Trial],
                chunk: int = CHUNK) -> dict:
     """``soak(t)`` over ``trials``, read on the host once per chunk:
     ``detected_steps`` bool ``[n, steps]``, ``corrupted`` bool ``[n]``
-    and ``divergence`` float ``[n]``."""
-    out = {"detected_steps": [], "corrupted": [], "divergence": []}
+    and ``divergence`` float ``[n]``, and ``loss_divergence`` float
+    ``[n]`` where the target reports it (the training seams)."""
+    out = {"detected_steps": [], "corrupted": [], "divergence": [],
+           "loss_divergence": []}
     for i in range(0, len(trials), chunk):
         runs = [soak(t) for t in trials[i:i + chunk]]
         for k in out:
-            out[k].append(torch.stack([r[k] for r in runs]).cpu())
-    return {k: torch.cat(v) for k, v in out.items()}
+            if all(k in r for r in runs):
+                out[k].append(torch.stack([r[k] for r in runs]).cpu())
+    return {k: torch.cat(v) for k, v in out.items() if v}
 
 
 def _soak_counts(soaks: dict, steps: int):
@@ -97,10 +100,13 @@ def _soak_counts(soaks: dict, steps: int):
     hist = [int(((first == t) & detected).sum()) for t in range(steps)]
     div = soaks["divergence"]
     n = max(len(div), 1)
+    loss_div = soaks.get("loss_divergence")
     extras = {"steps": steps, "detection_latency_hist": hist,
               "divergence_mean": float(div.sum()) / n,
               "divergence_max": float(div.max()) if len(div) else 0.0,
-              "loss_divergence_mean": 0.0, "shards": 1,
+              "loss_divergence_mean": (float(loss_div.sum()) / n
+                                       if loss_div is not None else 0.0),
+              "shards": 1,
               "collective_verified": False, "shard_detections": None}
     return torch.stack([detected, soaks["corrupted"]], dim=1), extras
 

@@ -12,6 +12,9 @@
              detection intervals, with the overhead columns.
 ``soak``   — the full-model decode sweep plus a multi-step decode soak.
 ``victims`` — which weight leaf of the reduced LM the decode soak flips.
+``training`` — training-step resilience: faults at every seam of the
+             compressed-gradient pipeline, single step and a multi-step
+             soak (:mod:`repro_torch.campaign.targets_training`).
 """
 from __future__ import annotations
 
@@ -163,19 +166,56 @@ def soak_specs(seed: int = 0) -> List[CampaignSpec]:
     return [single, multi]
 
 
+#: every single-device training-pipeline seam
+TRAINING_TARGETS = ("train_grad_pre", "train_payload", "train_grad_post",
+                    "train_moments")
+
+
+def training_specs(seed: int = 0, quick: bool = False,
+                   samples: int = 0) -> List[CampaignSpec]:
+    """Training-step resilience: real optimizer steps with faults at every
+    seam of the compressed-gradient pipeline, plus a multi-step soak that
+    tracks one upset across consecutive steps until detected, masked or
+    escaped.
+
+    Two specs: single-step coverage of the four seams, then the
+    ``steps``-deep soak over the stateful seams (payload transport, error
+    feedback, moments) with a transient-vs-persistent sweep, whose
+    per-step detection-latency histogram lands in the soak columns."""
+    n = samples or (6 if quick else 20)
+    soak_steps = 4 if quick else 8
+    single = CampaignSpec(
+        name="train-seams",
+        targets=TRAINING_TARGETS,
+        fault_models=("bitflip",),
+        bit_bands=("significant",) if quick else ("significant", "low"),
+        dtypes=("int8", "float32"),
+        samples=n, clean_samples=2, seed=seed,
+        measure_overhead=True)
+    soak = CampaignSpec(
+        name="train-soak",
+        targets=("train_payload", "train_moments"),
+        fault_models=("bitflip",),
+        bit_bands=("significant",),
+        dtypes=("int8", "float32"),
+        samples=max(4, n // 2), clean_samples=2, seed=seed,
+        steps=soak_steps, persistent=(False, True))
+    return [single, soak]
+
+
 #: the JAX package's other grids and the ROADMAP items that port them
 NOT_PORTED = {
-    "training": "A6 (training under faults)",
-    "multidevice": "A6 (training under faults)",
-    "full": "A6 (training under faults)",
+    "multidevice": "A8 (sharding and launch: the data mesh)",
+    "full": "A8 (sharding and launch: its multidevice specs)",
 }
 
 
 #: the grids the port runs, by CLI name
 GRIDS = {"quick": quick_specs, "paper": paper_specs,
          "thresholds": thresholds_specs, "pallas": pallas_specs,
-         "soak": soak_specs, "victims": victims_specs}
+         "soak": soak_specs, "victims": victims_specs,
+         "training": training_specs}
 
 __all__ = ["quick_specs", "paper_specs", "thresholds_specs", "pallas_specs",
-           "soak_specs", "victims_specs", "VICTIM_PATTERNS", "GRIDS",
-           "NOT_PORTED"]
+           "soak_specs", "victims_specs", "training_specs",
+           "TRAINING_TARGETS", "VICTIM_PATTERNS", "GRIDS", "NOT_PORTED"]

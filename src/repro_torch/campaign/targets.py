@@ -174,6 +174,10 @@ def register_target(target: InjectableTarget) -> InjectableTarget:
 
 
 def get_target(name: str) -> InjectableTarget:
+    from repro_torch.campaign.targets_training import NOT_PORTED
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"target {name!r} is not ported yet "
+                                  f"(ROADMAP {NOT_PORTED[name]})")
     if name not in TARGETS:
         raise KeyError(
             f"unknown target {name!r}; registered: {sorted(TARGETS)}")
@@ -620,7 +624,7 @@ def _decode_build(plan: CellPlan, gen: torch.Generator, *, device,
     model = build_model(cfg)
     ctx = Ctx(quant=True, plan=default_plan(), compute_dtype=torch.bfloat16)
     seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
-    params = to_device(model.init(seed, device="cpu"), dev)
+    params = to_device(model.init(seed, quant=True, device="cpu"), dev)
 
     rng = np.random.default_rng(plan.seed)
     tokens = torch.from_numpy(rng.integers(

@@ -1,0 +1,356 @@
+"""Training-step injectable targets: faults in the optimizer pipeline (the
+JAX package's ``campaign/targets_training.py``, single device).
+
+A real optimizer step, ``model.loss`` -> gradient -> int8 error-feedback
+compression -> :func:`~repro_torch.runtime.compression.checked_psum` ->
+decompress -> clip -> AdamW, the primitives and order of
+``launch.steps.make_train_step(compress=True)`` with injection seams
+between the stages (as in JAX: a fixed ``TRAIN_LR`` instead of the
+schedule, one microbatch, the single-device collective), run for
+``plan.steps`` consecutive steps over the seeded data pipeline with a bit
+flip at the cell's seam:
+
+* ``train_grad_pre``  — the raw f32 gradient before compression: the
+  payload checksum is taken after the corruption, so the check verifies
+  a consistently wrong payload (bound 0); int8 quantization masks
+  low-bit flips.
+* ``train_grad_post`` — the mean gradient after the verified reduction:
+  the post-verify window (bound 0).
+* ``train_payload``   — dtype ``int8``: the compressed payload between
+  the checksum encode and the reduction, which the mod-8191 additivity
+  check covers (bound 1); dtype ``float32``: the error-feedback
+  residual, local state outside the checksum (bound 0) whose corruption
+  surfaces a step later.
+* ``train_moments``   — the AdamW first moment: silent optimizer-state
+  corruption (bound 0).
+
+The mesh seams (``train_payload_shard``, ``train_reduced``) and sharded
+soaks run over a data mesh and wait for ROADMAP A8.
+
+Ground truth is a clean twin: the same steps over the same batches with
+no flip, run once per cell at build.  ``corrupted`` is an exact
+final-parameter mismatch; ``divergence`` (relative L2 parameter drift)
+and ``loss_divergence`` say how far the fault went.  Transient faults
+strike at step 0, persistent ones (``plan.persistent``) the same element
+and bit every step.
+
+Each cell draws JAX's own stream (:mod:`repro_torch.campaign.prng`): the
+trial keys are ``split(split(key(seed), 3)[1], samples)`` and each key's
+victim element and bit are drawn as ``repro.core.inject`` draws them, so
+a trial flips the element and bit the JAX cell's trial flips.  The
+weights come from the port's own init, seeded from the cell's build key
+(a test hands the JAX cell's weights in through ``params``).
+
+On the card the steps run under ``torch.use_deterministic_algorithms``:
+the clean twin is an exact comparison, and a nondeterministic embedding
+backward or GEMM would count every trial as corrupted.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.campaign import prng
+from repro_torch.campaign.spec import CellPlan
+from repro_torch.campaign.targets import (Fault, InjectableTarget, Trial,
+                                          inject_, register_target)
+from repro_torch.core.inject import (bit_band, signed_view,
+                                     victim_leaf_index, wrap_signed)
+from repro_torch.core.tree import tree_leaves
+from repro_torch.device import deterministic
+from repro_torch.optim import (adamw_init, adamw_update,
+                               clip_by_global_norm)
+from repro_torch.runtime.compression import (CompressionState,
+                                             checked_psum, compress_grads,
+                                             decompress_grads,
+                                             init_compression)
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_LR = 1e-3
+MAX_GRAD_NORM = 1.0
+
+#: default injection victim: an MLP projection, not the largest leaf (the
+#: token table, whose gradient is mostly zeros: a flip there is crushed
+#: by AdamW's eps, every trial masked)
+TRAIN_DEFAULT_VICTIM = "mlp"
+
+#: the single-device injection seams, in pipeline order
+INJECT_POINTS = ("grad_pre", "payload", "error_feedback", "grad_post",
+                 "moment")
+
+#: the JAX package's mesh seams and the ROADMAP item that ports them
+NOT_PORTED = {
+    "train_payload_shard": "A8 (sharding and launch: the data mesh)",
+    "train_reduced": "A8 (sharding and launch: the data mesh)",
+}
+
+
+def _inject_point(plan: CellPlan) -> str:
+    """The seam a cell injects at; ``train_payload`` picks the payload
+    (int8) or the error-feedback residual (float32) by its dtype."""
+    point = {"train_grad_pre": "grad_pre", "train_grad_post": "grad_post",
+             "train_moments": "moment"}.get(plan.target)
+    if point is not None:
+        return point
+    return "payload" if plan.dtype == "int8" else "error_feedback"
+
+
+def _seam_dtype(plan: CellPlan) -> torch.dtype:
+    """The dtype of the leaf the seam flips (the payload is int8, every
+    other seam's tree float32)."""
+    return torch.int8 if _inject_point(plan) == "payload" else torch.float32
+
+
+def cell_keys(plan: CellPlan) -> np.ndarray:
+    """The cell's build, trial and clean keys (JAX's executor split)."""
+    return prng.split(prng.key(plan.seed), 3)
+
+
+def _fault_at(key: np.ndarray, size: int, dtype: torch.dtype,
+              plan: CellPlan) -> Tuple[Fault, ...]:
+    """The faults JAX's ``apply_fault(key, leaf, plan)`` strikes on a leaf
+    of ``size`` elements and ``dtype`` (not a packed weight, so the live
+    region is the whole leaf)."""
+    nbits = torch.empty((), dtype=dtype).element_size() * 8
+    if plan.fault_model == "random_value":
+        k1, k2 = prng.split(key)
+        idx = int(prng.randint(k1, (), 0, size))
+        rnd = int(prng.random_bits(k2, ())) & ((1 << min(nbits, 32)) - 1)
+        return (Fault(idx, value=wrap_signed(rnd, nbits)),)
+    if plan.fault_model != "bitflip":
+        raise ValueError(f"unknown fault model {plan.fault_model!r}")
+    lo, hi = bit_band(dtype, plan.bit_band)
+    if plan.flips == 1:
+        k1, k2 = prng.split(key)
+        return (Fault(int(prng.randint(k1, (), 0, size)),
+                      int(prng.randint(k2, (), lo, hi))),)
+    # random_bitflips: distinct indices by Floyd's algorithm
+    k_idx, k_bit = prng.split(key)
+    sel: List[int] = []
+    for t in range(plan.flips):
+        i = size - plan.flips + t
+        j = int(prng.randint(prng.fold_in(k_idx, t), (), 0, i + 1))
+        sel.append(i if j in sel else j)
+    bits = prng.randint(k_bit, (plan.flips,), lo, hi)
+    return tuple(Fault(i, int(b)) for i, b in zip(sel, bits))
+
+
+def _fwd_errors(metrics) -> torch.Tensor:
+    """The forward's residual ABFT errors (keyed counters, no aliases)."""
+    from repro_torch.core.policy import op_kinds
+    return sum((metrics[f"abft/{op}_errors"] for op in op_kinds()), 0)
+
+
+def _train_build(plan: CellPlan, gen: torch.Generator, *, device,
+                 plain: bool = False, params=None):
+    """The reduced Llama-3.2-1B, its optimizer and compression state, the
+    cell's batches and the clean twin.  The path runs no kernel, so
+    ``plain`` changes nothing."""
+    del gen, plain
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.models.convert import to_device as tree_to
+    from repro_torch.protect import default_plan
+
+    if plan.data_shards > 1:
+        raise NotImplementedError(
+            f"{plan.target}: a sharded soak is not ported yet (ROADMAP "
+            f"{NOT_PORTED['train_reduced']})")
+    dev = torch.device(device)
+    batch, seq_len = plan.shape
+    cfg = reduce_cfg(get_arch(TRAIN_ARCH))
+    model = build_model(cfg)
+    ctx = Ctx(plan=default_plan(), quant=False, compute_dtype=torch.float32)
+    if params is None:
+        seed = int(prng.random_bits(cell_keys(plan)[0], ())) & 0x7FFFFFFF
+        params = model.init(seed, device="cpu")
+    params = tree_to(params, dev)
+
+    # the seeded pipeline's batches, one a step, plus a held-out batch the
+    # post-soak loss is taken on (a fault in the last update moves only
+    # that loss)
+    dataset = make_dataset(cfg, ShapeConfig("campaign", "train",
+                                            seq_len, batch))
+    per_step = [to_device(dataset.batch_at(t), dev)
+                for t in range(plan.steps + 1)]
+    grad_fn = make_grad_fn(model, ctx)
+
+    def loss_only(p, mb):
+        with torch.no_grad():
+            return model.loss(p, mb, ctx)[0]
+
+    victim_idx, victim_path = victim_leaf_index(
+        params, plan.victim or TRAIN_DEFAULT_VICTIM, prefer_int8=False)
+    state = {"params": params, "opt": adamw_init(params),
+             "comm": init_compression(params),
+             "batches": per_step[:-1], "eval_batch": per_step[-1],
+             "grad_fn": grad_fn, "loss_only": loss_only,
+             "victim_idx": victim_idx, "victim_path": victim_path,
+             "victim_numel": tree_leaves(params)[victim_idx].numel(),
+             "device": dev}
+    clean_params, clean_errs, clean_losses, clean_final = _run_soak(
+        state, plan, (), [False] * plan.steps)
+    state.update(clean_params=clean_params, clean_errs=clean_errs,
+                 clean_losses=clean_losses, clean_final_loss=clean_final)
+    return state
+
+
+def _flip_(tree, vidx: int, faults) -> None:
+    """Strike ``faults`` into leaf ``vidx`` of ``tree``, in place (every
+    seam's tree is a new tensor tree of the step, or the state it
+    hands to the next step)."""
+    leaf = tree_leaves(tree)[vidx]
+    inject_(signed_view(leaf), faults, leaf.element_size() * 8)
+
+
+def _run_soak(state, plan: CellPlan, faults, mask) -> Tuple:
+    """``plan.steps`` train steps with ``faults`` struck at the cell's
+    seam on the steps where ``mask`` is True.  -> (final params, errors
+    [steps], losses [steps], the held-out loss of the final params)."""
+    point = _inject_point(plan)
+    vidx = state["victim_idx"]
+    params, opt, error = state["params"], state["opt"], state["comm"].error
+    errs, losses = [], []
+    with deterministic():
+        for step, strike in enumerate(mask):
+            strike = strike and bool(faults)
+            (loss, metrics), grads = state["grad_fn"](
+                params, state["batches"][step])
+            if strike and point == "grad_pre":
+                _flip_(grads, vidx, faults)
+            payload, comm = compress_grads(grads,
+                                           CompressionState(error=error))
+            if strike and point == "payload":
+                _flip_(payload["q"], vidx, faults)
+            if strike and point == "error_feedback":
+                _flip_(comm.error, vidx, faults)
+            summed, scale_sum, comm_errs = checked_psum(payload, None)
+            mean = decompress_grads(summed, scale_sum, 1)
+            if strike and point == "grad_post":
+                _flip_(mean, vidx, faults)
+            clipped, _ = clip_by_global_norm(mean, MAX_GRAD_NORM)
+            params, opt = adamw_update(clipped, opt, params, TRAIN_LR)
+            if strike and point == "moment":
+                _flip_(opt["m"], vidx, faults)
+            error = comm.error
+            errs.append(_fwd_errors(metrics) + comm_errs)
+            losses.append(loss)
+        final_loss = state["loss_only"](params, state["eval_batch"])
+    return params, torch.stack(errs), torch.stack(losses), final_loss
+
+
+def divergence(params_f, params_c) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(relative L2 drift, exact-mismatch bool) against the clean twin."""
+    lf, lc = tree_leaves(params_f), tree_leaves(params_c)
+    num = sum(torch.sum(torch.square(a.to(torch.float32)
+                                     - b.to(torch.float32)))
+              for a, b in zip(lf, lc))
+    den = sum(torch.sum(torch.square(b.to(torch.float32))) for b in lc)
+    rel = torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-30)
+    changed = torch.stack([torch.any(a != b) for a, b in zip(lf, lc)]).any()
+    return rel, changed
+
+
+def _train_draw(state, plan: CellPlan, gen, n: int, faulty: bool):
+    """``n`` trials' faults from the cell's JAX key stream (the faulty
+    trials' keys; clean trials strike nothing)."""
+    del gen
+    if not faulty:
+        return [Trial()] * n
+    keys = prng.split(cell_keys(plan)[1], n)
+    return [Trial(_fault_at(k, state["victim_numel"], _seam_dtype(plan),
+                            plan)) for k in keys]
+
+
+def _train_soak(state, plan: CellPlan, t: Trial) -> dict:
+    steps = plan.steps
+    mask = [True] * steps if plan.persistent \
+        else [s == 0 for s in range(steps)]
+    params_f, errs, losses, final_loss = _run_soak(state, plan, t.faults,
+                                                   mask)
+    div, changed = divergence(params_f, state["clean_params"])
+    loss_div = torch.maximum(
+        torch.max(torch.abs(losses - state["clean_losses"])),
+        torch.abs(final_loss - state["clean_final_loss"]))
+    return {"detected_steps": errs > 0, "corrupted": changed,
+            "divergence": div, "loss_divergence": loss_div}
+
+
+def _train_trial(state, plan: CellPlan, t: Trial):
+    """A clean trial: the clean twin's flags, taken once at build (its
+    trajectory is deterministic); any flag is a false positive."""
+    assert not t.faults, "training targets run their faulty trials as soaks"
+    return torch.any(state["clean_errs"] > 0), False
+
+
+def _train_overhead(state, plan: CellPlan):
+    """One protected (compress + checked reduction) against one plain
+    train step, for the canonical cell only (the int8 payload seam at
+    the significant band, one step), as in JAX: the thunks do not depend
+    on the cell's seam, band or dtype."""
+    if not (_inject_point(plan) == "payload"
+            and plan.bit_band == "significant" and plan.steps == 1
+            and plan.data_shards == 1):
+        return None
+    grad_fn = state["grad_fn"]
+    params, opt, comm = state["params"], state["opt"], state["comm"]
+    mb = state["batches"][0]
+
+    def protected():
+        _, grads = grad_fn(params, mb)
+        payload, _ = compress_grads(grads, comm)
+        summed, scale_sum, errs = checked_psum(payload, None)
+        mean = decompress_grads(summed, scale_sum, 1)
+        clipped, _ = clip_by_global_norm(mean, MAX_GRAD_NORM)
+        return adamw_update(clipped, opt, params, TRAIN_LR)[0], errs
+
+    def unprotected():
+        _, grads = grad_fn(params, mb)
+        clipped, _ = clip_by_global_norm(grads, MAX_GRAD_NORM)
+        return adamw_update(clipped, opt, params, TRAIN_LR)[0]
+
+    return protected, unprotected
+
+
+def _train_bound(plan: CellPlan):
+    if _inject_point(plan) == "payload":
+        # |Δ| = 2^k ≤ 128 < 8191: one int8 bit flip always moves the
+        # payload's residue
+        if plan.fault_model == "bitflip" and plan.flips == 1:
+            return 1.0
+        return None
+    # every other seam lies outside the transport checksum by design
+    return 0.0
+
+
+_F32_BANDS = ("all", "low", "significant", "sign", "exponent", "mantissa",
+              "high_mantissa")
+_TRAIN_SHAPES = ((2, 16),)     # (batch, seq_len) of the reduced LM
+
+
+def _register(name: str, dtypes: Tuple[str, ...],
+              bands: Tuple[str, ...]) -> None:
+    register_target(InjectableTarget(
+        name=name, build=_train_build, draw=_train_draw,
+        trial=_train_trial, soak=_train_soak,
+        default_shapes=_TRAIN_SHAPES, shape_arity=2, dtypes=dtypes,
+        bands=bands, analytic_bound=_train_bound,
+        overhead=_train_overhead, multi_flip=True, victim_selectable=True,
+        shardable=True))
+
+
+_register("train_grad_pre", ("float32",), _F32_BANDS)
+_register("train_grad_post", ("float32",), _F32_BANDS)
+_register("train_payload", ("int8", "float32"), _F32_BANDS)
+_register("train_moments", ("float32",), _F32_BANDS)
+
+
+__all__ = ["TRAIN_ARCH", "TRAIN_LR", "MAX_GRAD_NORM", "INJECT_POINTS",
+           "NOT_PORTED", "cell_keys", "divergence"]

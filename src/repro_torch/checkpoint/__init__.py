@@ -1,0 +1,7 @@
+from repro_torch.checkpoint.ckpt import (  # noqa: F401
+    CheckpointCorruption,
+    CheckpointManager,
+    latest_step,
+    load_checkpoint,
+    save_checkpoint,
+)

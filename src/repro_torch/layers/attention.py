@@ -138,6 +138,9 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
         kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
                                                value=-1)
     scale = dh ** -0.5
+    # q is rounded to bf16 once, as JAX's ``qf``: its gradient then sums
+    # the chunks' contributions in bf16, as JAX's scan does
+    qf = q.to(torch.bfloat16)
     qp = q_positions[:, None, :, None]                     # [B,1,Sq,1]
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -145,7 +148,7 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
     acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
-        s = _bf16_matmul(q, k[:, :, sl].transpose(-1, -2)) * scale
+        s = _bf16_matmul(qf, k[:, :, sl].transpose(-1, -2)) * scale
         kp = kv_positions[:, sl][:, None, None, :]          # [B,1,1,C]
         mask = kp >= 0
         if causal:

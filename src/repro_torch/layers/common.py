@@ -49,6 +49,20 @@ def stack_layers(trees):
     return torch.stack(trees)
 
 
+def unstack_layers(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree: one ``torch.unbind``
+    per leaf.  Its backward stacks the layers' gradients in one op, where
+    ``n`` calls of :func:`layer_at` (one select each) would each write a
+    zero-filled gradient of the whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        parts = [unstack_layers(v, n) for v in tree]
+        return [type(tree)(*(p[i] for p in parts)) for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def layer_at(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     if isinstance(tree, dict):

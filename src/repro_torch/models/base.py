@@ -1,22 +1,28 @@
-"""Model facade: family dispatch for serving, and the loss function.
+"""Model facade: family dispatch, input specs and the loss function.
 
-``Model(cfg)`` exposes the JAX package's serving API over the families
-the port has:
+``Model(cfg)`` exposes the JAX package's API over the families the port
+has:
 
-  init(seed, device)                          -> int8 parameter tree
+  init(seed, quant, dtype, device)            -> parameter tree
+  loss(params, batch, ctx)                    -> (loss, (metrics, report))
   prefill(params, batch, ctx, cache_len)      -> (logits, cache, report)
   decode(params, cache, tokens, pos, ctx)     -> (logits, cache, report)
   init_cache(batch, cache_len, device)        -> zero cache tree
+  input_specs(shape)                          -> {name: TensorSpec}
 
 The ``dense`` and ``moe`` families (the decoder LMs, :mod:`.lm`) and
-the ``ssm`` family (RWKV6, :mod:`.rwkv`) are ported; every other family
-raises
-:class:`NotImplementedError` naming the ROADMAP item that ports it, and
-the serving engine relies on that refusal.  RWKV's recurrent state does
-not grow, so it ignores ``cache_len``.  The training ``loss`` waits for
-ROADMAP A6; :func:`cross_entropy` is its loss.
+the ``ssm`` family (RWKV6, :mod:`.rwkv`) serve; every other family
+raises :class:`NotImplementedError` naming the ROADMAP item that ports
+it, and the serving engine relies on that refusal.  RWKV's recurrent
+state does not grow, so it ignores ``cache_len``.  ``init`` gives the
+float form unless ``quant`` asks for the int8 serving form, as JAX's
+does; RWKV has only its int8 form here.  ``loss`` trains the ``dense``
+family: MoE training (its load-balance loss) and the float RWKV wait for
+ROADMAP A7 and raise.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -32,7 +38,19 @@ _NOT_PORTED = {
     "dlrm": "none: the DLRM is served by repro_torch.models.dlrm",
 }
 
+#: ROADMAP items that train each family ``loss`` does not train yet
+_NO_LOSS = {
+    "moe": "A7 (MoE training: the load-balance loss)",
+    "ssm": "A7 (the float RWKV path)",
+}
+
 IGNORE = -1
+
+
+class TensorSpec(NamedTuple):
+    """A batch leaf's shape and dtype (JAX's ``ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -57,11 +75,35 @@ class Model:
                 f"{item}); the facade serves 'dense', 'moe' and 'ssm'")
         self.cfg = cfg
 
-    def init(self, seed: int, *, device="cuda"):
-        """The int8 serving form (the float LM: :func:`lm.init_lm`)."""
+    def init(self, seed: int, *, quant: bool = False,
+             dtype=torch.float32, device="cuda"):
+        """Random parameters from ``seed``: the float form in ``dtype``,
+        or with ``quant`` the int8 serving form (the only form RWKV has
+        in the port)."""
         if self.cfg.family == "ssm":
+            if not quant:
+                raise NotImplementedError(
+                    "the float RWKV is not ported yet (ROADMAP "
+                    f"{_NO_LOSS['ssm']}); pass quant=True")
             return rwkv.init_rwkv(seed, self.cfg, device=device)
-        return lm.init_lm(seed, self.cfg, quant=True, device=device)
+        return lm.init_lm(seed, self.cfg, quant=quant, dtype=dtype,
+                          device=device)
+
+    def loss(self, params, batch, ctx: Ctx):
+        """Masked next-token cross entropy + 0.01 x the load-balance loss
+        (0 for ``dense``).  -> (loss, (metrics, report)); the metrics
+        hold ``loss``, ``aux_loss`` and the report's counters."""
+        if self.cfg.family in _NO_LOSS:
+            raise NotImplementedError(
+                f"training family {self.cfg.family!r} is not ported yet "
+                f"(ROADMAP {_NO_LOSS[self.cfg.family]}); loss trains "
+                f"'dense'")
+        logits, rep, aux = lm.lm_logits(params, batch["tokens"], ctx,
+                                        self.cfg)
+        loss = cross_entropy(logits, batch["labels"], self.cfg.vocab)
+        loss = loss + 0.01 * aux
+        metrics = {"loss": loss, "aux_loss": aux, **rep.as_metrics()}
+        return loss, (metrics, rep)
 
     def prefill(self, params, batch, ctx: Ctx, cache_len: int):
         if self.cfg.family == "ssm":
@@ -83,6 +125,19 @@ class Model:
             return rwkv.init_rwkv_state_values(self.cfg, batch,
                                                device=device)
         return lm.init_lm_cache(self.cfg, batch, cache_len, device=device)
+
+
+    def input_specs(self, shape) -> dict:
+        """{name: TensorSpec} of a batch of the shape suite ``shape``
+        (a :class:`~repro_torch.configs.base.ShapeConfig`)."""
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": TensorSpec((b,), torch.int32),
+                    "pos": TensorSpec((b,), torch.int32)}
+        specs = {"tokens": TensorSpec((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((b, s), torch.int32)
+        return specs
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -18,7 +18,13 @@ bits into ``torch.bfloat16``:
   betas, rowsums}``, ``ln0``/``ln_out`` ``{scale, bias}``, ``head``
   ``{w_packed, alpha, colsum}`` and ``layers`` with every leaf stacked on
   a leading ``[L, ...]`` axis (``ln1``, ``tm``, ``ln2``, ``cm``), which
-  :mod:`repro_torch.models.rwkv` indexes as it is.
+  :mod:`repro_torch.models.rwkv` indexes as it is;
+* the float LM (``init_lm(..., quant=False)``): ``{w}`` linears and the
+  float token table ``{table}``, stacked as above;
+* the whole training state (``launch.steps.init_train_state``):
+  ``params``, ``opt`` ``{m, v, count}``, ``step`` and ``comm``, whose
+  ``CompressionState`` becomes the port's
+  (:class:`repro_torch.runtime.compression.CompressionState`).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ def from_jax(tree: Any, device="cuda") -> Any:
         if isinstance(node, dict):
             return {k: rec(v) for k, v in node.items()}
         if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(rec(v) for v in node))
+            return _named_tuple(node)(*(rec(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(rec(v) for v in node)
         if isinstance(node, np.ndarray) or np.isscalar(node):
@@ -54,6 +60,15 @@ def from_jax(tree: Any, device="cuda") -> Any:
                         f"{type(node).__name__}")
 
     return rec(tree)
+
+
+def _named_tuple(node) -> type:
+    """The port's class for a JAX named tuple of the training state (the
+    compression residuals), else the tuple's own class."""
+    if type(node).__name__ == "CompressionState":
+        from repro_torch.runtime.compression import CompressionState
+        return CompressionState
+    return type(node)
 
 
 def to_device(tree: Any, device) -> Any:

@@ -26,7 +26,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import policy
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
-from repro_torch.layers.common import Ctx, layer_at, stack_layers
+from repro_torch.layers.common import (Ctx, layer_at, stack_layers,
+                                       unstack_layers)
 from repro_torch.layers.embedding import apply_embed, init_embed, init_qembed
 from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
 from repro_torch.layers.mlp import init_mlp, mlp
@@ -77,10 +78,14 @@ def init_lm(seed: int, cfg: ArchConfig, quant: bool = False,
     ``init_lm`` distributions (not its values: the generators differ).
     ``quant`` gives the int8 serving form: the token table as
     :func:`init_qembed` and every linear as ``init_qlinear`` without
-    bias, over the padded vocabulary."""
+    bias, over the padded vocabulary.  ``device="meta"`` gives the
+    tree's shapes and dtypes without storage."""
     _check_family(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # "meta" gives the tree's shapes and dtypes without storage
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     vp = cfg.vocab_padded
     return {
         "embed": (init_qembed(gen, vp, cfg.d_model, device=dev) if quant
@@ -123,12 +128,18 @@ def _ffn(layer_p, h: torch.Tensor, ctx: Ctx, cfg: ArchConfig):
 
 # ------------------------------ full-seq forward ----------------------------
 
-@torch.no_grad()
 def lm_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, *,
               with_cache: bool = False, cache_len: int = 0):
     """Embed + all layers.  Returns (x [B,S,d], cache | None, report,
     aux); the cache is stacked ``[L, ...]`` as the JAX layer scan
-    stacks it."""
+    stacks it.  Differentiable: the training loss takes its gradient
+    through it (float parameters that require grad); the serving entry
+    points call it under ``torch.no_grad``.  The stacked leaves are
+    unbound into layers once (``unstack_layers``), so the layers'
+    gradients are stacked in one op, as JAX's scan gives them.  JAX remats
+    the layer scan; the port keeps every layer's activations instead:
+    at a microbatch of 2 x 256 tokens they are small beside the float32
+    training state, and remat changes memory, not numbers."""
     _check_family(cfg)
     x, rep = apply_embed(params["embed"], tokens, ctx)
     b, s, _ = x.shape
@@ -140,8 +151,8 @@ def lm_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, *,
               prefix_global=cfg.meta_tokens, chunk=cfg.attn_chunk)
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, window in enumerate(_windows(cfg)):
-        layer_p = layer_at(params["layers"], i)
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+    for layer_p, window in zip(layers, _windows(cfg)):
         h = rmsnorm(layer_p["ln1"], x)
         if with_cache:
             a_out, cache_l, r_a = attn.attention_prefill(
@@ -162,9 +173,9 @@ def lm_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, *,
     return x, cache, rep, aux
 
 
-@torch.no_grad()
 def lm_logits(params, tokens, ctx: Ctx, cfg: ArchConfig):
-    """Training forward: full logits [B, S, vocab_padded]."""
+    """Training forward: full logits [B, S, vocab_padded] (differentiable,
+    as :func:`lm_hidden`)."""
     x, _, rep, aux = lm_hidden(params, tokens, ctx, cfg)
     logits, r_h = apply_linear(params["lm_head"], x, ctx, name="lm_head")
     return logits, policy.merge_reports(rep, r_h), aux

@@ -248,7 +248,8 @@ class ServingEngine:
             bucket = max_prompt if paging is None else self._max_bucket
             self.cache_len = (bucket + max_new_tokens + cfg.meta_tokens
                               + 8)
-            self.params = self.model.init(seed, device=self.device)
+            self.params = self.model.init(seed, quant=True,
+                                          device=self.device)
 
         # ------------------------- plan lanes --------------------------------
         by_plan: Dict[str, List[TenantSpec]] = {}

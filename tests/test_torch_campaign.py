@@ -248,8 +248,9 @@ def test_importing_the_cli_runs_nothing(capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--grid", "multidevice", "--quick"], "A6"),
-    (["--grid", "training"], "A6"), (["--grid", "full"], "A6"),
+    (["--grid", "multidevice", "--quick"], "A8"),
+    (["--grid", "training", "--device-count", "4"], "A8"),
+    (["--grid", "full"], "A8"),
     (["--grid", "paper", "--device-count", "2"], "A8"),
     (["--quick", "--device-count", "4"], "A8")])
 def test_cli_refuses_unported_grids_and_flags(capsys, argv, item):

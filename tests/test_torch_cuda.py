@@ -647,7 +647,7 @@ def test_rwkv_prefill_state_feeds_decode_on_card(dev, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = reduce_cfg(get_arch("rwkv6-1.6b"))
     model = build_model(cfg)
-    p_cpu = model.init(0, device="cpu")
+    p_cpu = model.init(0, quant=True, device="cpu")
     p_dev = _to(p_cpu, dev)
     ctx = Ctx(quant=True, wkv_chunk=16,
               compute_dtype=getattr(torch, dtype))
@@ -963,7 +963,7 @@ def test_monitored_adaptive_engine_on_card_counts_as_on_the_cpu(
     from repro_torch.kernels import ops as kops
     from repro_torch.models.base import build_model
     params = build_model(reduce_cfg(get_arch("llama3.2-1b"))).init(
-        0, device="cpu")
+        0, quant=True, device="cpu")
     real = kops.abft_embedding_bag
     calls = []
 
@@ -1056,3 +1056,106 @@ def test_eb_flags_after_a_bound_move_equal_a_fresh_call(rng, dev, dyadic):
     assert int(rep0.errors["embedding_bag"]) == int(
         ops.abft_embedding_bag(t, al, be, idx, rs, w,
                                rel_bound=1e-5).err_count)
+
+
+# ------------------------- training (ROADMAP A6) ----------------------------
+
+def _train_setup(dev_name):
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.models.convert import to_device
+    model = build_model(reduce_cfg(get_arch("llama3.2-1b")))
+    state = to_device(init_train_state(model, 0, compress=True,
+                                       device="cpu"), dev_name)
+    step = make_train_step(model, Ctx(quant=False,
+                                      compute_dtype=torch.float32),
+                           accum=2, peak_lr=1e-2, warmup=0, total_steps=10,
+                           compress=True)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, model.cfg.vocab, (4, 17)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev_name),
+             "labels": torch.from_numpy(toks[:, 1:]).to(dev_name)}
+    return model, state, step, batch
+
+
+def test_cuda_sqrt_is_correctly_rounded(dev):
+    """AdamW's square root on the card is the IEEE one, as XLA's (on the
+    CPU the port takes it in float64: ``optim.adamw.ieee_sqrt``)."""
+    from repro_torch.optim.adamw import ieee_sqrt
+    rng = np.random.default_rng(0)
+    x = np.concatenate([np.abs(rng.standard_normal(500_000)),
+                        10.0 ** rng.uniform(-30, 30, 500_000)]
+                       ).astype(np.float32)
+    got = ieee_sqrt(torch.from_numpy(x).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x))
+
+
+def test_train_step_on_card_within_tolerance_of_the_cpu(dev):
+    """The reduced Llama's loss and gradients on the card against the CPU
+    run (the attention's bf16 cotangents: 2^-7 of each leaf's largest
+    magnitude, ROADMAP §C10), and a full step (2 microbatches, the
+    checked compression, AdamW) with 0 comm errors on both."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.device import deterministic
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.layers.common import Ctx
+    model, s_cpu, step, b_cpu = _train_setup("cpu")
+    _, s_dev, _, b_dev = _train_setup(dev)
+    grad = make_grad_fn(model, Ctx(quant=False,
+                                   compute_dtype=torch.float32))
+    with deterministic():
+        (l_c, _), g_c = grad(s_cpu["params"], b_cpu)
+        (l_d, _), g_d = grad(s_dev["params"], b_dev)
+        n_c, m_c = step(s_cpu, b_cpu)
+        n_d, m_d = step(s_dev, b_dev)
+    assert abs(float(l_d) - float(l_c)) <= 1e-5 * abs(float(l_c))
+    for a, b in zip(tree_leaves(g_c), tree_leaves(g_d)):
+        scale = float(a.abs().max()) or 1.0
+        assert float((a - b.cpu()).abs().max()) <= 2 ** -7 * scale
+    assert int(m_c["comm/errors"]) == int(m_d["comm/errors"]) == 0
+    assert abs(float(m_d["loss_final"]) - float(m_c["loss_final"])) <= \
+        1e-5 * abs(float(m_c["loss_final"]))
+    for a, b in zip(tree_leaves(n_c["params"]), tree_leaves(n_d["params"])):
+        # a first Adam step is lr·sign(g): equal but where a gradient
+        # near 0 (or its int8 code) splits between the devices
+        diff = (a - b.cpu()).abs()
+        assert float(diff.max()) <= 2.5e-2
+        assert float((diff > 1e-6).to(torch.float32).mean()) <= 0.01
+
+
+def test_train_steps_deterministic_on_card(dev):
+    """Three steps twice from one state under deterministic algorithms:
+    every leaf of the final state bit-equal (the clean twin's premise)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.device import deterministic
+    _, state, step, batch = _train_setup(dev)
+    finals = []
+    for _ in range(2):
+        s = state
+        with deterministic():
+            for _ in range(3):
+                s, _m = step(s, batch)
+        finals.append(s)
+    for a, b in zip(tree_leaves(finals[0]), tree_leaves(finals[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell_id", [
+    "train_payload/bitflip/significant/2x16/int8",
+    "train_grad_pre/bitflip/significant/2x16/float32"])
+def test_training_cell_on_card_equals_cpu(dev, cell_id):
+    """One training cell on the card and on the CPU, trial for trial:
+    the same draws (JAX's stream), the same weights (made on the CPU from
+    the cell's key), the same detections and corruptions."""
+    from repro_torch.campaign.executor import run_cell
+    from repro_torch.campaign.grids import training_specs
+    from repro_torch.campaign.spec import expand
+    plan = {p.cell_id: p for s in training_specs(0, quick=True)
+            for p in expand(s)[0]}[cell_id]
+    card = run_cell(plan, device=dev)
+    cpu = run_cell(plan, device="cpu")
+    assert torch.equal(card.trials, cpu.trials)
+    assert torch.equal(card.clean, cpu.clean)
+    assert card.metrics.detected == cpu.metrics.detected

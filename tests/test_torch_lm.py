@@ -300,7 +300,7 @@ def test_llama_tree_and_victims_are_the_jax_ones(weights):
     assert p["layers"]["attn"]["wk"]["w_packed"].shape == (L, d, 32 + 128)
     assert p["layers"]["mlp"]["down"]["w_packed"].shape == (L, 128, d + 128)
     assert p["lm_head"]["w_packed"].shape == (d, vp + 128)
-    mine = t_base.build_model(T_CFG).init(0, device="cpu")
+    mine = t_base.build_model(T_CFG).init(0, quant=True, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path
     want = {jax.tree_util.keystr(k): (v.shape, v.dtype.name)
             for k, v in flat(weights)[0]}

@@ -310,7 +310,7 @@ def test_granite_tree_and_victims_are_the_jax_ones(weights):
     assert moe["gate"]["w_packed"].shape == (L, e, d, f + 128)
     assert moe["down"]["w_packed"].shape == (L, e, f, d + 128)
     assert moe["up"]["alpha"].shape == moe["up"]["colsum"].shape == (L, e, f)
-    mine = t_base.build_model(T_CFG).init(0, device="cpu")
+    mine = t_base.build_model(T_CFG).init(0, quant=True, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path
     want = [(jax.tree_util.keystr(k), v.shape, v.dtype.name)
             for k, v in flat(weights)[0]]

@@ -261,7 +261,7 @@ def test_from_jax_keeps_rwkv_layout(weights):
     np.testing.assert_array_equal(p["layers"]["tm"]["mu"].numpy(),
                                   weights["layers"]["tm"]["mu"])
     # the port's own init has the same tree, shapes and dtypes
-    mine = build_model(T_CFG).init(0, device="cpu")
+    mine = build_model(T_CFG).init(0, quant=True, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path
     want = {jax.tree_util.keystr(k): (v.shape, v.dtype.name)
             for k, v in flat(weights)[0]}
