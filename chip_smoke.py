@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Fourteen paths run, each with every launch counter set to 0 just before
+Eighteen paths run, each with every launch counter set to 0 just before
 it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
 int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
 (K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
@@ -13,9 +13,11 @@ served from the paged KV cache (K1-K3), int8 granite-moe-3b-a800m (MoE)
 chat serving (K1-K3), the serving soak (K1-K3), the protection SLO
 ladder for Llama-3.2-1B and for granite (K1-K3 and the unprotected
 instances of K1 and K2), Llama-3.2-1B served under the observability
-layer, the detection-health monitor and adaptive thresholds (K1-K3), and
+layer, the detection-health monitor and adaptive thresholds (K1-K3),
 full-width Llama-3.2-1B trained under faults (no kernel of the port: all
-six counters read 0).
+six counters read 0), and int8 whisper-large-v3, hymba-1.5b,
+llava-next-mistral-7b and internlm2-20b chat serving (K1-K3), one path
+each.
 Each phase's seconds are printed.  Phases (any
 failure exits non-zero; nothing is caught and passed over):
 
@@ -286,15 +288,38 @@ failure exits non-zero; nothing is caught and passed over):
    against the JAX CLI's artifact and the baseline (Wilson overlap in
    every cell, the differ flagging no FP rate, lost cell or checked
    seam, the int8 payload caught at latency 0 in every trial, no flag
-   outside the checksum, the post-verify gradient diverging).
+   outside the checksum, the post-verify gradient diverging);
+19. ROADMAP A7's families at full width, one at a time, each model and
+   its lanes freed before the next (internlm2, ~20 GB, last): whisper-
+   large-v3 (32 + 32 layers, d 1280, 1500 stub frames), hymba-1.5b (32
+   layers, d 1600, Mamba heads beside attention, 128 meta tokens),
+   llava-next-mistral-7b (32 layers, d 4096, 576 stub patches through
+   the projector) and internlm2-20b (48 layers, d 6144), int8 from seed
+   0: the reckoned bytes beside the build's peak (which must stay under
+   a second stack of the layers); K1 (C, err_rows, the column check) and
+   K3 bit-exact at every projection shape at the prefill's m and a
+   decode step's 4 (whisper's encoder at 1500 rows, llava's projector at
+   576), and 64 repeated K1 calls where K is not a whole number of 128-
+   row stages (hymba's 1600); K2 at the token table at 64 and 4 tokens,
+   then over every row with phase 13's witnesses, and its team passes a
+   row; 4 requests at t = 0 on a bf16-cache and a ``*:policy=recompute,
+   kv_cache:on`` tenant (64-token bucket, 16 new tokens): 0 errors but
+   the scan's witnessed tokens, K1/K2/K3 launches equal to the count
+   reckoned from the code, K4 and the unprotected instances 0, step
+   medians and one profiled decode step; a weight flip (whisper's
+   decoder ``mlp.down``, hymba's ``ssm.out_proj``, llava's
+   ``projector.fc1`` at a prefill, internlm2's ``attn.wq``) flagged at
+   its step and restored; the reduced model card against CPU, free and
+   in lockstep (hymba with a third, windowed layer).
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
 (DLRM for K1-K3, RWKV for K4, the overhead benchmarks for the unprotected
 instances), and ``launches_by_path`` holds every kernel's count on each
-of the fourteen paths (DLRM serve, RWKV serve, campaign, thresholds,
+of the eighteen paths (DLRM serve, RWKV serve, campaign, thresholds,
 overhead, float DLRM, Llama serve, Llama paged serve, granite serve,
-serving soak, the SLO ladder of each model, observability, training),
+serving soak, the SLO ladder of each model, observability, training,
+whisper, hymba, llava, internlm2),
 all six counts set to 0
 just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -305,6 +330,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -959,7 +985,7 @@ def pair_times(timer, calls, reps: int, rounds: int = 3) -> dict:
 
 def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
                       f32_after_split: float = 1e-4,
-                      hold_after_split: bool = True) -> dict:
+                      hold_after_split: bool = True, extra=None) -> dict:
     """A smoke-size model's prefill and 3 greedy decodes on the card
     against the plain run on the CPU, on the same weights ``p_cpu``, at
     each prompt length of ``seqs``, in float32 and bfloat16, free and in
@@ -988,7 +1014,9 @@ def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
     token's choice of experts and with it the whole row) a free run is
     held to the bound up to its first code split and to finite logits
     and equal counters after it; the lockstep run is held at every
-    step."""
+    step.  ``extra`` holds a family's other prefill inputs for the batch
+    of 2 (llava's ``patches``, whisper's ``frames``; CPU tensors); the
+    patches and the meta tokens open the sequence before the prompt."""
     import numpy as np
 
     from repro_torch.core.policy import metrics_to_ints
@@ -1036,16 +1064,19 @@ def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
                  f"{len(watch['card'])} activations at step {step}")
         return cpu_out, dev_out
 
+    extra = extra or {}
+    prefix = small.meta_tokens + (small.n_patches if small.patch_dim else 0)
+
     def run_case(tokens, ctx, lockstep):
         watch.update(lockstep=lockstep, taken=[])
         label = f"{ctx.compute_dtype}, prompt {tokens.shape[1]}, " + (
             "lockstep" if lockstep else "free")
-        cache_len = tokens.shape[1] + 8
+        cache_len = tokens.shape[1] + prefix + 8
+        batch = {"tokens": tokens, **extra}
+        batch_dev = {k: v.to(dev) for k, v in batch.items()}
         (lc, cc, rc), (ld, cd, rd) = both(
-            0, lambda: model.prefill(p_dev, {"tokens": tokens.to(dev)}, ctx,
-                                     cache_len),
-            lambda: model.prefill(p_cpu, {"tokens": tokens}, ctx,
-                                  cache_len))
+            0, lambda: model.prefill(p_dev, batch_dev, ctx, cache_len),
+            lambda: model.prefill(p_cpu, batch, ctx, cache_len))
         split, errs = None, []
         for step in range(4):
             if split is None and not lockstep:
@@ -1083,7 +1114,7 @@ def small_card_vs_cpu(torch, dev, small, model, p_cpu, plan, seqs,
                 break
             # both sides decode the CPU's token
             nxt = torch.argmax(lcf, -1).to(torch.int32)
-            pos = torch.full_like(nxt, tokens.shape[1] + step)
+            pos = torch.full_like(nxt, tokens.shape[1] + prefix + step)
             (lc, cc, rc), (ld, cd, rd) = both(
                 step + 1,
                 lambda: model.decode(p_dev, cd, nxt.to(dev), pos.to(dev),
@@ -4543,6 +4574,435 @@ def training_phase(torch, dev, out_dir) -> dict:
     return {"launches": launches, "record": record}
 
 
+#: phase 19's families, served in this order (internlm2, the largest,
+#: last), each with the victim of its injected weight flip and the step it
+#: is flipped at (0: a request's prefill, 1: its first decode step)
+FAMILY_FLIPS = {"whisper-large-v3": ("dec.layers.mlp.down", 1),
+                "hymba-1.5b": ("ssm.out_proj", 1),
+                "llava-next-mistral-7b": ("projector.fc1", 0),
+                "internlm2-20b": ("attn.wq", 1)}
+#: a phase-19 request's prompt bucket and new tokens
+FAMILY_PROMPT, FAMILY_NEW = 64, 16
+#: K1 calls at each shape of phase 19 whose K is not a whole number of
+#: K1's 128-row stages (hymba's d 1600), queued without a sync
+FAMILY_REPEATS = 64
+
+
+def family_k1_per_step(cfg) -> tuple:
+    """K1 launches (each after one K3) of a prefill and of a decode step,
+    reckoned from the code: the protected linears a step calls, and the
+    head."""
+    n_layers = cfg.n_layers
+    if cfg.family == "encdec":
+        # encoder: 4 attention + 2 MLP a layer; decoder prefill: 4 self,
+        # 4 cross, 2 MLP and the cache's cross.wk / cross.wv a layer; a
+        # decode step: 4 self, the cross q and o, 2 MLP a layer
+        return (6 * cfg.enc_layers + 12 * n_layers + 1,
+                8 * n_layers + 1)
+    # 4 attention, 3 (SwiGLU) or 2 MLP, and hymba's 3 SSM projections
+    per = 4 + (3 if cfg.gated_mlp else 2) + \
+        (3 if cfg.family == "hybrid" else 0)
+    # llava's prefill runs the 2-layer patch projector first
+    return (per * n_layers + 1 + (2 if cfg.patch_dim else 0),
+            per * n_layers + 1)
+
+
+def family_gemms(cfg, params, m_prefill: int) -> list:
+    """``(name, stacked B' [layers, k, n + 128], ms)`` at every projection
+    shape of the family's step, each at the m the serve hands it: the
+    prefill's rows (``m_prefill``: the bucket and the meta tokens or
+    patches; whisper's encoder and cross K/V at its 1500 frames; llava's
+    projector at its 576 patches), a decode step's 4, the head's 1 and 4.
+    An attention's ``wo`` has ``wq``'s shape, a SwiGLU's ``up`` its
+    ``gate``'s."""
+    if cfg.family == "encdec":
+        enc, dec, t = params["enc"]["layers"], params["dec"]["layers"], \
+            cfg.enc_seq
+        return [("enc.attn.wq", enc["attn"]["wq"]["w_packed"], (t,)),
+                ("enc.mlp.up", enc["mlp"]["up"]["w_packed"], (t,)),
+                ("enc.mlp.down", enc["mlp"]["down"]["w_packed"], (t,)),
+                ("dec.self.wq", dec["self"]["wq"]["w_packed"],
+                 (m_prefill, 4)),
+                ("dec.mlp.up", dec["mlp"]["up"]["w_packed"], (m_prefill, 4)),
+                ("dec.mlp.down", dec["mlp"]["down"]["w_packed"],
+                 (m_prefill, 4)),
+                ("dec.head", params["dec"]["head"]["w_packed"][None],
+                 (1, 4))]
+    lay = params["layers"]
+    out = [(f"{blk}.{w}", lay[blk][w]["w_packed"], (m_prefill, 4))
+           for blk, w in (("attn", "wq"), ("attn", "wk"), ("mlp", "gate"),
+                          ("mlp", "down"))]
+    if cfg.family == "hybrid":
+        out += [(f"ssm.{w}", lay["ssm"][w]["w_packed"], (m_prefill, 4))
+                for w in ("in_proj", "x_proj", "out_proj")]
+    if cfg.patch_dim:
+        out += [(f"projector.{w}",
+                 params["projector"][w]["w_packed"][None],
+                 (cfg.n_patches,)) for w in ("fc1", "fc2")]
+    out.append(("lm_head", params["lm_head"]["w_packed"][None], (1, 4)))
+    return out
+
+
+def profile_step(torch, fn) -> dict:
+    """Device time of one call of ``fn`` against its wall time (a
+    synchronize after it): the busy share of, say, one decode step.  Only
+    the card's activity is traced (the host's ops would multiply the
+    profiler's own cost).  A diagnostic: where the profiler cannot trace
+    the card it says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms, kernels = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                dev_ms += getattr(ev, "self_device_time_total",
+                                  getattr(ev, "self_cuda_time_total", 0)
+                                  ) / 1e3
+                kernels += ev.count
+    except Exception as e:              # noqa: BLE001 - diagnostic only
+        log(f"profiler could not trace the card: {e!r}")
+        return {"error": repr(e)}
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": kernels,
+            "busy_share": dev_ms / wall_ms if wall_ms else None}
+
+
+def family_phase(torch, dev) -> dict:
+    """Phase 19: ROADMAP A7's four families, each built at full width on
+    the card from seed 0 (int8) and served through K1-K3 on a bf16-cache
+    and a ``*:policy=recompute,kv_cache:on`` tenant, one at a time, each
+    model and its lanes freed before the next.  Returns each family's
+    launch counts and the record."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.core import EB_REL_BOUND
+    from repro_torch.core.inject import leaf_paths, victim_leaf_index
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abft_embeddingbag import eb_plan
+    from repro_torch.kernels.abft_qgemm import (BK, abft_qgemm_cuda,
+                                                 launch_plan)
+    from repro_torch.models.base import build_model
+    from repro_torch.protect import ProtectionPlan, default_plan
+    from repro_torch.serving import (FaultInjection, Request, ServingEngine,
+                                     TenantSpec)
+
+    kv_plan = dataclasses.replace(default_plan().with_rules(
+        *ProtectionPlan.from_any(KV_PLAN).rules), name="kv")
+    launches_by, record = {}, {"card": smi_line()}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for arch, (victim, flip_step) in FAMILY_FLIPS.items():
+        t_fam = time.perf_counter()
+        cfg = get_arch(arch)
+        short = arch.split("-")[0]
+        rec = {"seconds_by_part": {}}
+        mark = [t_fam]
+
+        def part(name):
+            now = time.perf_counter()
+            rec["seconds_by_part"][name] = now - mark[0]
+            mark[0] = now
+
+        # ------------------- 19a. build, bytes against the peak ---------
+        # an engine's lanes and steps hold it in reference cycles: the
+        # last family's model is freed only by a collection
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        extra = cfg.meta_tokens + 8 + (cfg.n_patches if cfg.patch_dim
+                                       else 0)
+        cache_len = FAMILY_PROMPT + FAMILY_NEW + extra
+        shapes = build_model(cfg, max_pos=cache_len + 8).init(
+            0, quant=True, device="meta")
+        metas = [t for _, t in leaf_paths(shapes)]
+        reckoned = sum(t.numel() * t.element_size() for t in metas)
+        # init_stacked writes each layer into the stacked leaves, so the
+        # peak is the model and the temporaries of one weight's init:
+        # the int8 block, B' and int32 row and column sums (~12 B an
+        # element of the largest, as whisper's build measured); a list
+        # of layers stacked at the end would add the whole stack
+        n_stack = cfg.n_layers + cfg.enc_layers
+        stacked = sum(t.numel() * t.element_size() for t in metas
+                      if t.dim() and t.shape[0] in (cfg.n_layers,
+                                                    cfg.enc_layers))
+        biggest = max(t[0].numel() if t.dim() == 3 else t.numel()
+                      for t in metas if t.dtype == torch.int8)
+        peak_reckoned = held + reckoned + 12 * biggest
+        peak_bound = held + reckoned + stacked
+        log(f"{arch}: reckoned int8 model {reckoned / 1e9:.3f} GB "
+            f"({stacked / 1e9:.3f} GB of it in {n_stack} stacked layers); "
+            f"held before the build {held / 2**30:.2f} GiB; reckoned peak "
+            f"{peak_reckoned / 2**30:.2f} GiB (held + model + 12 B x the "
+            f"largest weight's {biggest} elements), under "
+            f"{peak_bound / 2**30:.2f} GiB (held + model + a second stack) "
+            f"on {record['card']}")
+        t0 = time.perf_counter()
+        engine = ServingEngine(cfg, [TenantSpec("default", default_plan()),
+                                     TenantSpec("kv", kv_plan)],
+                               n_slots=4, max_prompt=FAMILY_PROMPT,
+                               max_new_tokens=FAMILY_NEW, seed=0,
+                               device=dev)
+        torch.cuda.synchronize()
+        params = engine.params
+        got = sum(t.numel() * t.element_size()
+                  for _, t in leaf_paths(params))
+        peak = torch.cuda.max_memory_allocated()
+        rec["bytes"] = {"reckoned": reckoned, "built": got, "held": held,
+                        "stacked": stacked, "peak": peak,
+                        "peak_reckoned": peak_reckoned,
+                        "peak_bound": peak_bound,
+                        "temporaries_per_element": (peak - held - got)
+                        / biggest,
+                        "build_s": time.perf_counter() - t0}
+        log(f"{arch} on the card in {rec['bytes']['build_s']:.1f}s: "
+            f"{got / 1e9:.3f} GB of parameters (reckoned "
+            f"{reckoned / 1e9:.3f}); peak {peak / 2**30:.2f} GiB allocated "
+            f"(reckoned {peak_reckoned / 2**30:.2f}, bound "
+            f"{peak_bound / 2**30:.2f}; the build's temporaries "
+            f"{rec['bytes']['temporaries_per_element']:.2f} B an element "
+            f"of the largest weight); cache_len {engine.cache_len}")
+        if got != reckoned or engine.cache_len != cache_len:
+            fail(f"{arch}: built {got} B against {reckoned} reckoned, "
+                 f"cache_len {engine.cache_len} against {cache_len}")
+        if peak >= peak_bound:
+            fail(f"{arch}: the build peaked at {peak} B, as high as a "
+                 f"second stack of its layers ({peak_bound})")
+        lanes = {lane.key: lane for lane in engine.lanes}
+        if sorted(lanes) != ["lane0[default]", "lane1[kv]"]:
+            fail(f"unexpected {arch} lanes {sorted(lanes)}")
+        part("build")
+
+        # ---------------- 19b. K1 and K3 at the family's shapes ----------
+        m_prefill = FAMILY_PROMPT + cfg.meta_tokens + (
+            cfg.n_patches if cfg.patch_dim else 0)
+        gemms = family_gemms(cfg, params, m_prefill)
+        rec["gemms"] = check_gemms(torch, dev, gen, gemms)
+        partial = []
+        for name, stack, ms_ in gemms:
+            bp = stack[-1]
+            k, n = bp.shape[0], bp.shape[1] - 128
+            if k % BK == 0:
+                continue
+            for m in ms_:
+                plan = launch_plan(m, k, n, a_addr=0, b_addr=bp.data_ptr())
+                a = torch.randint(-128, 128, (m, k), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                for col in (False, True):
+                    want = ref.abft_qgemm_ref(a, bp, with_colcheck=col)
+                    outs = [abft_qgemm_cuda(a, bp, with_colcheck=col)
+                            for _ in range(FAMILY_REPEATS)]
+                    bad = [i for i, g in enumerate(outs)
+                           if not all(torch.equal(x, w)
+                                      for x, w in zip(g, want))]
+                    if bad:
+                        c0 = outs[bad[0]][0]
+                        where = (c0 != want[0]).nonzero().tolist()[:4]
+                        fail(f"{arch} {name} m={m} (k={k}, n={n}, col "
+                             f"check {col}): {len(bad)} of "
+                             f"{FAMILY_REPEATS} repeated K1 calls differ "
+                             f"(first {bad[:4]}, C at {where})")
+                partial.append(f"{name} m={m} (k, n) = ({k}, {n}): aligned "
+                               f"{plan.aligned}, splits {plan.splits}, "
+                               f"k % {BK} = {k % BK}")
+        rec["partial_k_repeats"] = partial
+        part("k1_k3")
+        log(f"{arch}: K1 (C, err_rows, column check) and K3 (bf16 and f32) "
+            f"bit-exact at " + "; ".join(rec["gemms"])
+            + (f"; K1 {FAMILY_REPEATS} x 2 repeated calls bit-exact where "
+               f"K is not a whole number of stages: " + "; ".join(partial)
+               if partial else ""))
+
+        # ------------ 19c. K2 at the token table, then every row ---------
+        emb = params["dec"]["embed"] if cfg.family == "encdec" \
+            else params["embed"]
+        enc4 = (emb["table"][None], emb["alphas"][None], emb["betas"][None],
+                emb["rowsums"][None])
+        req0 = Request(rid=0, tenant="default", arrival_s=0.0,
+                       prompt_len=FAMILY_PROMPT, max_new_tokens=2, seed=5)
+        prompt = torch.from_numpy(engine._chat_tokens(
+            req0, FAMILY_PROMPT).astype(np.int32)).to(dev)
+        rec["k2_checks"] = {f"{n} tokens": eb_checks(
+            torch, enc4, prompt[:n].reshape(1, -1, 1), f"{short} {n} tokens")
+            for n in (64, 4)}
+        rows, d = emb["table"].shape
+        plan = eb_plan(1, 64, 1, d, rows, table_addr=emb["table"].data_ptr())
+        passes = math.ceil(plan.lanes / (32 * plan.warps_per_bag))
+        rec["k2_team"] = {"lanes": plan.lanes,
+                          "warps_per_bag": plan.warps_per_bag,
+                          "passes": passes}
+        log(f"{arch}: K2 on the {tuple(emb['table'].shape)} token table at "
+            f"pool 1 (64 and 4 bags): R bit-exact with the slot-order sum, "
+            f"flags equal to the plain branch at rel_bound 1e-3 and 1e-5 and "
+            f"to its formula at all three; a row is {plan.lanes} 16-byte "
+            f"words on a team of {plan.warps_per_bag} warps: {passes} team "
+            f"pass(es) a row")
+        scan = scan_token_table(torch, short, emb)
+        rec["eb_table_scan"] = scan
+        part("k2")
+
+        # ------------------ 19d. serve both tenants ----------------------
+        pre, dec = family_k1_per_step(cfg)
+        reqs = [Request(rid=i, tenant=("default", "kv")[i % 2],
+                        arrival_s=0.0, prompt_len=FAMILY_PROMPT,
+                        max_new_tokens=FAMILY_NEW, seed=100 + i)
+                for i in range(4)]
+        with eb_flag_tap() as seen:
+            wrappers = zero_launches()
+            tel = engine.run(reqs)             # the warm-up runs inside
+            launches = read_launches(wrappers)
+            flags = flagged_tokens(torch, seen)
+        s = tel.summary()
+        counters, per = s["faults"]["counters"], s["per_tenant"]
+        kinds = [ev.kind for ev in tel.steps]
+        n_pre, n_dec = kinds.count("prefill"), kinds.count("decode")
+        steps = {(kind, key): [ev.duration_s * 1e3 for ev in tel.steps
+                               if ev.kind == kind and ev.lane == key]
+                 for kind in ("prefill", "decode") for key in lanes}
+        if flags:
+            # each flag of a clean serve: a token the table scan flagged,
+            # witnessed again alone
+            again = eb_token_scan(torch, emb, EB_REL_BOUND, torch.tensor(
+                sorted(set(flags)), device=dev))
+            if sorted(again["k2_flagged"]) != sorted(set(flags)) or \
+                    not set(flags) <= set(scan["k2_flagged"]):
+                fail(f"{arch}: the EmbeddingBag flagged tokens {flags} in "
+                     f"the clean serve, {again['k2_flagged']} of them "
+                     f"alone, the table scan {scan['k2_flagged']}")
+            rec["eb_flags"] = {"flagged": flags, **again}
+        # the warm-up ran one prefill and one decode step a lane in the
+        # window; a recompute lane re-runs a flagged EmbeddingBag once
+        want_l = {"abft_qgemm": pre * (n_pre + 2) + dec * (n_dec + 2),
+                  "quantize_rows": pre * (n_pre + 2) + dec * (n_dec + 2),
+                  "abft_embeddingbag": len(kinds) + 4 + counters["retries"],
+                  "wkv6_chunked": 0, "qgemm_unprotected": 0,
+                  "eb_unprotected": 0}
+        kv_reads = cfg.n_layers * len(steps[("decode", "lane1[kv]")])
+        log(f"{arch}: served {sum(p['requests'] for p in per.values())} "
+            f"chat requests at t = 0 over two tenants: " + "; ".join(
+                f"{t}: {p['completed']} completed, {p['tokens_out']} tokens"
+                for t, p in per.items())
+            + f"; {n_pre} prefill and {n_dec} decode steps; launches "
+            f"{launches}, reckoned {want_l} (K1 {pre} a prefill, {dec} a "
+            f"decode step, each after one K3; K2 one a step, the warm-up's "
+            f"2 + 2 steps included); counters "
+            f"{ {k: v for k, v in counters.items() if v} }; EmbeddingBag "
+            f"flags {flags}")
+        if sum(p["completed"] for p in per.values()) != 4 or \
+                any(p["aborted"] for p in per.values()):
+            fail(f"not every {arch} request completed: {per}")
+        n_eb = len(flags)
+        if counters["qgemm_errors"] or counters["kv_cache_errors"] or \
+                counters["embedding_bag_errors"] > n_eb or \
+                bool(counters["embedding_bag_errors"]) != bool(n_eb) or \
+                counters["qgemm_checks"] != pre * n_pre + dec * n_dec or \
+                counters["embedding_bag_checks"] != len(kinds) or \
+                counters["kv_cache_checks"] != kv_reads:
+            fail(f"{arch} counters {counters} for {n_pre} prefill and "
+                 f"{n_dec} decode steps (EmbeddingBag flags {flags})")
+        if launches != want_l:
+            fail(f"{arch} launches {launches} differ from the path's "
+                 f"{want_l}")
+        toks = [t for r in tel.requests for t in (r.tokens or [])]
+        if len(toks) != 4 * FAMILY_NEW or \
+                not all(0 <= t < cfg.vocab for t in toks):
+            fail(f"{arch}: served tokens outside the vocabulary or missing")
+        launches_by[short] = launches
+        med = {f"{k} {key}": float(np.median(v))
+               for (k, key), v in steps.items() if v}
+        part("serve")
+        # one decode step of the kv lane (its 4 slots) under the profiler
+        lane = lanes["lane1[kv]"]
+        prof = profile_step(torch, lambda: lane.decode_fn(
+            engine.params, lane.cache, lane.tokens, lane.pos))
+        part("profile")
+        rec["serve"] = {"tenants": per, "launches": launches,
+                        "reckoned": want_l, "counters": counters,
+                        "k1_per_step": {"prefill": pre, "decode": dec},
+                        "steps_ms": {f"{k} {key}": v
+                                     for (k, key), v in steps.items()},
+                        "step_ms_median": med, "decode_profile": prof}
+        log(f"{arch} serve on {record['card']}: step medians ms "
+            + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+            + f"; one kv-lane decode step profiled: {prof.get('kernels')} "
+            f"kernels, device {prof.get('device_ms', 0):.2f} of "
+            f"{prof.get('wall_ms', 0):.2f} ms, busy "
+            f"{prof.get('busy_share')}")
+
+        # -------------- 19e. an injected flip, flagged at its step -------
+        idx, path = victim_leaf_index(params, victim)
+        leaf = leaf_paths(params)[idx][1]
+        engine.reset_state()
+        fp0 = leaf_fingerprint(torch, leaf)
+        with eb_flag_tap() as seen:
+            tel = engine.run([Request(
+                rid=0, tenant="default", arrival_s=0.0,
+                prompt_len=FAMILY_PROMPT, max_new_tokens=3, seed=3)],
+                inject=[FaultInjection(step=flip_step, victim=victim,
+                                       seed=0)], warmup=False)
+            eb = flagged_tokens(torch, seen)
+        (inj,) = tel.injections
+        k1_flagged = [ev.step for ev in tel.steps
+                      if ev.counters["qgemm_errors"]]
+        if inj.victim != path or not inj.detected or \
+                inj.detect_step != flip_step or k1_flagged != [flip_step] \
+                or leaf_fingerprint(torch, leaf) != fp0 or \
+                not set(eb) <= set(scan["k2_flagged"]):
+            fail(f"{arch} {victim} flip at step {flip_step}: {inj}; K1 "
+                 f"flagged steps {k1_flagged}; EmbeddingBag flags {eb}; "
+                 f"leaf restored {leaf_fingerprint(torch, leaf) == fp0}")
+        rec["flip"] = {"victim": inj.victim, "step": inj.step,
+                       "detect_step": inj.detect_step,
+                       "qgemm_errors": sum(ev.counters["qgemm_errors"]
+                                           for ev in tel.steps),
+                       "eb_flags": eb}
+        log(f"{arch} FaultInjection: {inj.victim} flipped at step "
+            f"{flip_step} ({'prefill' if flip_step == 0 else 'decode'}), "
+            f"flagged there only ({rec['flip']['qgemm_errors']} qgemm "
+            f"errors) and restored bit for bit")
+        del engine, params, leaf, lane, tel, emb, enc4, gemms
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        part("flip")
+
+        # -------------- 19f. the reduced model, card against CPU ---------
+        small = reduce_cfg(cfg)
+        if small.family == "hybrid":
+            # the reduced hymba's two layers are both global: a third
+            # (layer 1) slides its 8-token window over the 24-token
+            # prompt after the 4 meta tokens
+            small = dataclasses.replace(small, n_layers=3)
+        model = build_model(small)
+        rng = np.random.default_rng(17)
+        inputs = {}
+        if small.patch_dim:
+            inputs["patches"] = torch.from_numpy(rng.standard_normal(
+                (2, small.n_patches, small.patch_dim)).astype(np.float32))
+        if small.family == "encdec":
+            inputs["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, small.enc_seq, small.d_model)).astype(np.float32))
+        rec["small_card_vs_cpu"] = small_card_vs_cpu(
+            torch, dev, small, model,
+            model.init(0, quant=True, device="cpu"), default_plan(), (24,),
+            f32_after_split=2.0**-5, extra=inputs)
+        part("small_card_vs_cpu")
+        rec["seconds"] = time.perf_counter() - t_fam
+        log(f"phase 19 {arch}: {rec['seconds']:.1f}s (" + ", ".join(
+            f"{k} {v:.1f}" for k, v in rec["seconds_by_part"].items())
+            + ")")
+        record[short] = rec
+    return {"launches": launches_by, "record": record}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5041,6 +5501,10 @@ def main() -> int:
         Path(args.out).parent))
     details["training"] = training["record"]
     phase_done("18 training")
+    # -------- 19. whisper, hymba, llava and internlm2 at full width --------
+    families = family_phase(torch, dev)
+    details["families"] = families["record"]
+    phase_done("19 whisper, hymba, llava, internlm2")
     kernels[0]["llama_shapes"] = llama["k1_times"]
     kernels[0]["granite_expert_shapes"] = granite["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
@@ -5072,7 +5536,8 @@ def main() -> int:
                **{f"slo_ladder {a}": v for a, v in
                   soak_slo["ladder_launches"].items()},
                "observability": obs_path["launches"],
-               "training": training["launches"]}
+               "training": training["launches"],
+               **families["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

@@ -14,9 +14,9 @@ batches are equal bit for bit.
 - :class:`Prefetcher` — a background thread that makes the next batches
   (and, given a device, moves them there) while the caller runs.
 
-:func:`make_dataset` serves the families the port has (``dlrm``, the
-decoder LMs ``dense`` and ``moe`` and the RWKV ``ssm``); placing a batch
-across a device mesh (the JAX ``shard_batch``) waits for ROADMAP A8.
+:func:`make_dataset` serves every family of the registry; placing a
+batch across a device mesh (the JAX ``shard_batch``) waits for ROADMAP
+A8.
 """
 from __future__ import annotations
 
@@ -29,14 +29,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-
-#: ROADMAP items that port each family the pipeline does not serve yet
-_NOT_PORTED = {
-    "vlm": "A7 (other families: llava)",
-    "encdec": "A7 (other families: whisper)",
-    "hybrid": "A7 (other families: mamba / hymba)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
@@ -132,10 +124,6 @@ def make_dataset(cfg: ArchConfig, shape: ShapeConfig,
                  data_cfg: DataConfig = DataConfig()):
     if cfg.family == "dlrm":
         return SyntheticDLRMDataset(cfg, shape, data_cfg)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[cfg.family]})")
     return SyntheticLMDataset(cfg, shape, data_cfg)
 
 

@@ -3,8 +3,12 @@
 
 ``python -m repro_torch.launch.serve --arch dlrm`` serves the full-width
 DLRM (26 tables x 4M rows x 128) on the card; ``--arch llama3.2-1b`` (or
-another registered dense LM), ``--arch granite-moe-3b-a800m`` (the MoE)
-and ``--arch rwkv6-1.6b`` serve the full-width int8 model (chat requests: prefill, then continuous batched
+another registered dense LM: ``qwen3-8b``, ``internlm2-20b``), ``--arch
+granite-moe-3b-a800m`` (the MoE), ``--arch rwkv6-1.6b``, ``--arch
+whisper-large-v3`` (encoder-decoder, stub frames), ``--arch hymba-1.5b``
+(attention beside Mamba heads, meta tokens) and ``--arch
+llava-next-mistral-7b`` (stub patches through the projector) serve the
+full-width int8 model (chat requests: prefill, then continuous batched
 decode over ``--slots``; up to ``--decode-tokens`` new tokens each);
 ``--device cpu --smoke`` serves a small model on the CPU through the
 plain PyTorch versions.  A seeded

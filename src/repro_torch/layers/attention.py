@@ -20,8 +20,12 @@ product of two bf16 values is exact in float32, so the operands are
 widened and multiplied by ``torch.matmul`` in float32).  Masking
 supports causal, a sliding window and an always-visible global prefix.
 
+Cross-attention (whisper's decoder): :func:`attention` takes its keys
+and values from ``x_kv`` without RoPE, and :func:`attention_decode` with
+``cross=True`` reads the static cache of the encoder memory's K and V.
+
 Not ported from the JAX module: the sequence-parallel ``constrain``
-calls (sharding, ROADMAP A8) and cross-attention (whisper, A7).
+calls (sharding, ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -69,21 +73,24 @@ def _split_heads(x: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
 
 
 def _project(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim, positions,
-             use_rope, rope_theta):
+             use_rope, rope_theta, x_kv=None, kv_positions=None):
     """Project + norm + rope: q [B,S,H,dh], k and v [B,S,Kv,dh] and the
-    three reports."""
+    three reports.  ``x_kv`` (cross-attention) gives k and v, and then
+    nothing is rotated."""
+    src = x if x_kv is None else x_kv
     q, r1 = apply_linear(p["wq"], x, ctx, name="attn.wq")
-    k, r2 = apply_linear(p["wk"], x, ctx, name="attn.wk")
-    v, r3 = apply_linear(p["wv"], x, ctx, name="attn.wv")
+    k, r2 = apply_linear(p["wk"], src, ctx, name="attn.wk")
+    v, r3 = apply_linear(p["wv"], src, ctx, name="attn.wv")
     q = _split_heads(q, n_heads, head_dim)
     k = _split_heads(k, n_kv, head_dim)
     v = _split_heads(v, n_kv, head_dim)
     if "q_norm" in p:
         q = headnorm(p["q_norm"], q)
         k = headnorm(p["k_norm"], k)
-    if use_rope:
+    if use_rope and x_kv is None:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        k = apply_rope(k, positions if kv_positions is None
+                       else kv_positions, rope_theta)
     return q, k, v, (r1, r2, r3)
 
 
@@ -97,12 +104,13 @@ def _h_layout(q, k, v, n_heads: int, n_kv: int):
 
 
 def _qkv(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim, positions, use_rope,
-         rope_theta):
+         rope_theta, x_kv=None, kv_positions=None):
     """Project + norm + rope + repeat-to-H.  Returns q, k, v in H-layout
     ``[B, H, S, dh]`` and the three reports."""
     q, k, v, reps = _project(p, x, ctx, n_heads=n_heads, n_kv=n_kv,
                              head_dim=head_dim, positions=positions,
-                             use_rope=use_rope, rope_theta=rope_theta)
+                             use_rope=use_rope, rope_theta=rope_theta,
+                             x_kv=x_kv, kv_positions=kv_positions)
     return (*_h_layout(q, k, v, n_heads, n_kv), reps)
 
 
@@ -167,15 +175,19 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
 def attention(p, x, ctx: Ctx, *, n_heads: int, n_kv: int, head_dim: int,
               positions, rope_theta: float = 10000.0, use_rope: bool = True,
               causal: bool = True, window=None, prefix_global: int = 0,
+              x_kv=None, kv_positions=None,
               chunk: int = 1024) -> Tuple[torch.Tensor, policy.FaultReport]:
-    """Full-sequence self-attention (the training forward).
-    x [B,S,d] -> [B,S,d]."""
+    """Full-sequence attention (the training forward, whisper's encoder).
+    x [B,S,d] -> [B,S,d].  ``x_kv`` [B,T,d] switches to cross-attention:
+    keys and values from it (at ``kv_positions`` [B,T]), no RoPE."""
     b, s, _ = x.shape
+    kv_pos = positions if kv_positions is None else kv_positions
     q, k, v, reps = _qkv(p, x, ctx, n_heads=n_heads, n_kv=n_kv,
                          head_dim=head_dim, positions=positions,
-                         use_rope=use_rope, rope_theta=rope_theta)
+                         use_rope=use_rope, rope_theta=rope_theta,
+                         x_kv=x_kv, kv_positions=kv_pos)
     out = flash_attention(q, k, v, q_positions=positions,
-                          kv_positions=positions, causal=causal,
+                          kv_positions=kv_pos, causal=causal,
                           window=window, prefix_global=prefix_global,
                           chunk=chunk)
     out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
@@ -223,18 +235,27 @@ def attention_prefill(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim,
 def attention_decode(p, x, cache, pos, ctx: Ctx, *, n_heads: int, n_kv: int,
                      head_dim: int, rope_theta: float = 10000.0,
                      use_rope: bool = True, window=None,
-                     prefix_global: int = 0):
+                     prefix_global: int = 0, cross: bool = False):
     """One-token decode.  x [B,d]; cache {k, v [B,Kv,S,dh]} — tensors in
     the compute dtype, or :class:`QuantKV` when the plan enables
     kv_cache protection — or {k, v: PagedKV} (per-layer pools); pos [B].
     The new row is written at ``pos``: into a new cache (a position past
     it is dropped, as in JAX), or into the mapped pool page in place.
-    Returns (y [B,d], new_cache, report)."""
+    ``cross=True`` (whisper's decoder) projects q alone and attends the
+    static cache of the encoder memory, every position valid; that cache
+    is never quantized or paged.  Returns (y [B,d], new_cache, report)."""
     b, _ = x.shape
     if not isinstance(cache["k"], (torch.Tensor, QuantKV, PagedKV)):
         raise NotImplementedError(
             f"a {type(cache['k']).__name__} KV cache is not a tensor, "
             f"QuantKV or PagedKV")
+    if cross:
+        q, r1 = apply_linear(p["wq"], x[:, None, :], ctx, name="attn.wq")
+        q = _split_heads(q, n_heads, head_dim)
+        if "q_norm" in p:
+            q = headnorm(p["q_norm"], q)
+        return _attend_cache(p, q, cache, None, ctx, (r1,),
+                             n_heads=n_heads, n_kv=n_kv, head_dim=head_dim)
     quant_kv = isinstance(cache["k"], QuantKV)
     paged_kv = isinstance(cache["k"], PagedKV)
     q, k_new, v_new, reports = _project(
@@ -272,14 +293,26 @@ def attention_decode(p, x, cache, pos, ctx: Ctx, *, n_heads: int, n_kv: int,
 
     cache = {"k": set_rows(cache["k"], bidx, pos, k_new[:, 0]),
              "v": set_rows(cache["v"], bidx, pos, v_new[:, 0])}
+    return _attend_cache(p, q, cache, pos, ctx, reports, n_heads=n_heads,
+                         n_kv=n_kv, head_dim=head_dim, window=window,
+                         prefix_global=prefix_global)
+
+
+def _attend_cache(p, q, cache, pos, ctx: Ctx, reports, *, n_heads, n_kv,
+                  head_dim, window=None, prefix_global: int = 0):
+    """q [B,1,H,dh] against a plain grouped-layout cache, then ``wo``:
+    positions up to ``pos`` (and in the window), or every position where
+    ``pos`` is None (the cross cache).  Returns (y, cache, report)."""
+    b = q.shape[0]
     s_max = cache["k"].shape[2]
     g = n_heads // n_kv
     qg = q.reshape(b, n_kv, g, head_dim)
     s = _bf16_matmul(qg, cache["k"].transpose(-1, -2)) * head_dim ** -0.5
-    kp = torch.arange(s_max, device=x.device)[None, None, None, :]
-    qp = pos[:, None, None, None]
-    valid = _window_mask(kp <= qp, qp, kp, window, prefix_global)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    if pos is not None:
+        kp = torch.arange(s_max, device=q.device)[None, None, None, :]
+        qp = pos[:, None, None, None]
+        valid = _window_mask(kp <= qp, qp, kp, window, prefix_global)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     probs = torch.softmax(s, dim=-1)
     out = _bf16_matmul(probs, cache["v"])
     out = out.reshape(b, n_heads * head_dim).to(ctx.compute_dtype)

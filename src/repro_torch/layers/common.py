@@ -22,7 +22,9 @@ class Ctx:
     ``moe_seq_groups`` runs its token groups one at a time
     (:mod:`repro_torch.layers.moe`).  The JAX context's sharding, layer
     scan and cost-probe fields and its bf16 WKV operands
-    (``wkv_mm_bf16``) belong to slices not ported yet.
+    (``wkv_mm_bf16``) belong to slices not ported yet; its ``ssm_chunk``
+    (a training remat of the Mamba scan, the same steps) is not needed
+    (:mod:`repro_torch.layers.mamba`).
     """
     quant: bool = False                   # int8 serving path
     abft: bool = True                     # ABFT verification on (legacy)
@@ -47,6 +49,40 @@ def stack_layers(trees):
     if isinstance(first, tuple) and hasattr(first, "_fields"):
         return type(first)(*(stack_layers(list(f)) for f in zip(*trees)))
     return torch.stack(trees)
+
+
+def init_stacked(make, n: int):
+    """``stack_layers([make() for _ in range(n)])`` without holding the
+    ``n`` layers and their stack at once: each layer made is written into
+    preallocated ``[n, ...]`` leaves and dropped, so the peak is the stack
+    and one layer.  ``make`` runs ``n`` times in order, as in the list,
+    so a generator it draws from gives the same tensors."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(alloc(v) for v in t))
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                           device=t.device)
+
+    def put(out, t, i):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                put(out[k], v, i)
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for o, v in zip(out, t):
+                put(o, v, i)
+        else:
+            out[i].copy_(t)
+
+    out = None
+    for i in range(n):
+        layer = make()
+        if out is None:
+            out = alloc(layer)
+        put(out, layer, i)
+        del layer
+    return out
 
 
 def unstack_layers(tree, n: int) -> list:

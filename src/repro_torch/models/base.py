@@ -1,7 +1,7 @@
 """Model facade: family dispatch, input specs and the loss function.
 
-``Model(cfg)`` exposes the JAX package's API over the families the port
-has:
+``Model(cfg, max_pos)`` exposes the JAX package's API over the families
+the port has:
 
   init(seed, quant, dtype, device)            -> parameter tree
   loss(params, batch, ctx)                    -> (loss, (metrics, report))
@@ -10,15 +10,16 @@ has:
   init_cache(batch, cache_len, device)        -> zero cache tree
   input_specs(shape)                          -> {name: TensorSpec}
 
-The ``dense`` and ``moe`` families (the decoder LMs, :mod:`.lm`) and
-the ``ssm`` family (RWKV6, :mod:`.rwkv`) serve; every other family
-raises :class:`NotImplementedError` naming the ROADMAP item that ports
-it, and the serving engine relies on that refusal.  RWKV's recurrent
-state does not grow, so it ignores ``cache_len``.  ``init`` gives the
-float form unless ``quant`` asks for the int8 serving form, as JAX's
-does; RWKV has only its int8 form here.  ``loss`` trains the ``dense``
-family: MoE training (its load-balance loss) and the float RWKV wait for
-ROADMAP A7 and raise.
+The decoder LMs (``dense``, ``moe``, the ``hybrid`` hymba and the
+``vlm`` llava, :mod:`.lm`), the ``ssm`` family (RWKV6, :mod:`.rwkv`) and
+the ``encdec`` whisper (:mod:`.whisper`, whose learned decoder positions
+``max_pos`` sizes) serve; the ``dlrm`` family raises
+:class:`NotImplementedError` naming its own model module.  RWKV's
+recurrent state does not grow, so it ignores ``cache_len``.  ``init``
+gives the float form unless ``quant`` asks for the int8 serving form, as
+JAX's does; RWKV has only its int8 form here.  ``loss`` trains the
+``dense`` family: the others' training (MoE's load-balance loss, the
+float RWKV, whisper, hymba and llava) waits for ROADMAP A7 and raises.
 """
 from __future__ import annotations
 
@@ -28,20 +29,17 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.layers.common import Ctx
-from repro_torch.models import lm, rwkv
+from repro_torch.models import lm, rwkv, whisper
 
-#: ROADMAP items that port each family the facade does not serve yet
-_NOT_PORTED = {
-    "vlm": "A7 (llava)",
-    "encdec": "A7 (whisper)",
-    "hybrid": "A7 (mamba / hymba)",
-    "dlrm": "none: the DLRM is served by repro_torch.models.dlrm",
-}
+#: the families the facade serves
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 #: ROADMAP items that train each family ``loss`` does not train yet
 _NO_LOSS = {
     "moe": "A7 (MoE training: the load-balance loss)",
     "ssm": "A7 (the float RWKV path)",
+    **{f: "A7 (training of the other families)"
+       for f in ("encdec", "hybrid", "vlm")},
 }
 
 IGNORE = -1
@@ -67,13 +65,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 class Model:
-    def __init__(self, cfg: ArchConfig):
-        if cfg.family not in ("dense", "moe", "ssm"):
-            item = _NOT_PORTED.get(cfg.family, "unknown family")
+    def __init__(self, cfg: ArchConfig, max_pos: int = 4096):
+        if cfg.family not in FAMILIES:
+            item = ("none: the DLRM is served by repro_torch.models.dlrm"
+                    if cfg.family == "dlrm" else "unknown family")
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP "
-                f"{item}); the facade serves 'dense', 'moe' and 'ssm'")
+                f"{item}); the facade serves {FAMILIES}")
         self.cfg = cfg
+        self.max_pos = max_pos  # whisper's learned-position table size
 
     def init(self, seed: int, *, quant: bool = False,
              dtype=torch.float32, device="cuda"):
@@ -86,6 +86,10 @@ class Model:
                     "the float RWKV is not ported yet (ROADMAP "
                     f"{_NO_LOSS['ssm']}); pass quant=True")
             return rwkv.init_rwkv(seed, self.cfg, device=device)
+        if self.cfg.family == "encdec":
+            return whisper.init_whisper(seed, self.cfg, self.max_pos,
+                                        quant=quant, dtype=dtype,
+                                        device=device)
         return lm.init_lm(seed, self.cfg, quant=quant, dtype=dtype,
                           device=device)
 
@@ -108,37 +112,60 @@ class Model:
     def prefill(self, params, batch, ctx: Ctx, cache_len: int):
         if self.cfg.family == "ssm":
             return rwkv.rwkv_prefill(params, batch["tokens"], ctx, self.cfg)
+        if self.cfg.family == "encdec":
+            return whisper.whisper_prefill(params, batch["frames"],
+                                           batch["tokens"], ctx, self.cfg,
+                                           cache_len=cache_len)
         return lm.lm_prefill(params, batch["tokens"], ctx, self.cfg,
-                             cache_len=cache_len)
+                             cache_len=cache_len,
+                             patches=batch.get("patches"))
 
     def decode(self, params, cache, tokens, pos, ctx: Ctx):
         if self.cfg.family == "ssm":
             return rwkv.rwkv_decode(params, cache, tokens, pos, ctx,
                                     self.cfg)
+        if self.cfg.family == "encdec":
+            return whisper.whisper_decode(params, cache, tokens, pos, ctx,
+                                          self.cfg)
         return lm.lm_decode(params, cache, tokens, pos, ctx, self.cfg)
 
     def init_cache(self, batch: int, cache_len: int, *, device):
-        """The zero cache (bf16 K/V for ``dense``).  The serving engine
-        does not call it: it widens each lane's first prefill cache, so a
-        lane whose plan quantizes the cache gets QuantKV leaves."""
+        """The zero cache (bf16 K/V; hymba's f32 SSM state, whisper's self
+        and cross caches).  The serving engine does not call it: it
+        widens each lane's first prefill cache, so a lane whose plan
+        quantizes the cache gets QuantKV leaves."""
         if self.cfg.family == "ssm":
             return rwkv.init_rwkv_state_values(self.cfg, batch,
                                                device=device)
+        if self.cfg.family == "encdec":
+            return whisper.init_whisper_cache(self.cfg, batch, cache_len,
+                                              device=device)
         return lm.init_lm_cache(self.cfg, batch, cache_len, device=device)
-
 
     def input_specs(self, shape) -> dict:
         """{name: TensorSpec} of a batch of the shape suite ``shape``
         (a :class:`~repro_torch.configs.base.ShapeConfig`)."""
+        cfg = self.cfg
         b, s = shape.global_batch, shape.seq_len
         if shape.kind == "decode":
             return {"tokens": TensorSpec((b,), torch.int32),
                     "pos": TensorSpec((b,), torch.int32)}
-        specs = {"tokens": TensorSpec((b, s), torch.int32)}
+        specs = {}
+        text_len = s
+        if cfg.family == "vlm":
+            text_len = s - cfg.n_patches
+            specs["patches"] = TensorSpec((b, cfg.n_patches, cfg.patch_dim),
+                                          torch.float32)
+        if cfg.family == "hybrid":
+            text_len = s - cfg.meta_tokens   # meta tokens count toward S
+        if cfg.family == "encdec":
+            specs["frames"] = TensorSpec((b, cfg.enc_seq, cfg.d_model),
+                                         torch.float32)
+        specs["tokens"] = TensorSpec((b, text_len), torch.int32)
         if shape.kind == "train":
-            specs["labels"] = TensorSpec((b, s), torch.int32)
+            specs["labels"] = TensorSpec((b, text_len), torch.int32)
         return specs
 
 
-def build_model(cfg: ArchConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ArchConfig, max_pos: int = 4096) -> Model:
+    return Model(cfg, max_pos=max_pos)

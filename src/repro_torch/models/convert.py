@@ -19,6 +19,16 @@ bits into ``torch.bfloat16``:
   ``{w_packed, alpha, colsum}`` and ``layers`` with every leaf stacked on
   a leading ``[L, ...]`` axis (``ln1``, ``tm``, ``ln2``, ``cm``), which
   :mod:`repro_torch.models.rwkv` indexes as it is;
+* the hybrid LM (hymba): the dense LM's tree, each layer with ``ssm``
+  (``in_proj``, ``x_proj``, ``out_proj`` linears, ``conv_w``,
+  ``dt_proj {w, b}``, ``a_log``, ``d_skip``), ``attn_out_norm`` and
+  ``ssm_out_norm``, and the top-level ``meta`` tokens; the VLM (llava):
+  the dense LM's tree and ``projector {fc1, fc2}`` (linears with bias);
+* whisper (``init_whisper``): ``enc {layers {ln1, attn, ln2, mlp},
+  ln_post}`` and ``dec {embed, pos, layers {ln1, self, ln2, cross, ln3,
+  mlp}, ln, head}``, the LayerNorms ``{scale, bias}``, every linear with
+  bias but the head, each stack of layers on a leading ``[L, ...]``
+  axis;
 * the float LM (``init_lm(..., quant=False)``): ``{w}`` linears and the
   float token table ``{table}``, stacked as above;
 * the whole training state (``launch.steps.init_train_state``):

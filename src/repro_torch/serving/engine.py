@@ -2,8 +2,11 @@
 and LM chat requests.
 
 :class:`ServingEngine` serves one-shot DLRM requests or, for the
-``dense`` and ``moe`` (decoder LMs with a KV cache) and ``ssm`` (RWKV6)
-families, chat requests by continuous batching.  Tenants (traffic
+``dense``, ``moe``, ``hybrid`` and ``vlm`` decoder LMs (a KV cache;
+hymba's SSM state beside it), the ``encdec`` whisper (a self and a
+static cross cache) and the ``ssm`` RWKV6, chat requests by continuous
+batching; llava's stub patches and whisper's stub frames are drawn from
+the request's seed after its tokens, as the JAX engine draws them.  Tenants (traffic
 classes) carry their own :class:`~repro_torch.protect.ProtectionPlan`,
 and tenants sharing a plan share a **lane**: one plan-bound set of steps
 and one fixed-slot batcher.  Per engine iteration:
@@ -177,10 +180,6 @@ class ServingEngine:
         from repro_torch.device import resolve_device
 
         self.is_dlrm = cfg.family == "dlrm"
-        if not self.is_dlrm:
-            from repro_torch.models.base import build_model
-            # raises NotImplementedError for a family not ported yet
-            self.model = build_model(cfg)
         if not tenants:
             raise ValueError("need at least one TenantSpec")
         names = [t.name for t in tenants]
@@ -243,11 +242,18 @@ class ServingEngine:
             self.params = init_dlrm(seed, self.dlrm_extras,
                                     device=self.device)
         else:
-            # the KV cache holds the prompt bucket, the new tokens and a
-            # margin of 8, as in the JAX engine
+            from repro_torch.models.base import build_model
+            # build_model raises NotImplementedError for a family the
+            # port does not serve.  The KV cache holds the meta tokens,
+            # the patches, the prompt bucket, the new tokens and a margin
+            # of 8, as in the JAX engine; whisper's learned positions
+            # reach 8 past it
             bucket = max_prompt if paging is None else self._max_bucket
-            self.cache_len = (bucket + max_new_tokens + cfg.meta_tokens
-                              + 8)
+            extra = cfg.meta_tokens + 8
+            if cfg.family == "vlm":
+                extra += cfg.n_patches
+            self.cache_len = bucket + max_new_tokens + extra
+            self.model = build_model(cfg, max_pos=self.cache_len + 8)
             self.params = self.model.init(seed, quant=True,
                                           device=self.device)
 
@@ -350,12 +356,14 @@ class ServingEngine:
 
     # ------------------------------ request payloads -------------------------
 
-    def _chat_tokens(self, req: Request, bucket: int) -> np.ndarray:
+    def _chat_tokens(self, req: Request, bucket: int,
+                     rng=None) -> np.ndarray:
         """The request's deterministic prompt tokens (the JAX engine's
-        draws from the request's seed), padded to ``bucket``; a request
-        carrying (prefix_seed, prefix_len) opens with the shared prompt."""
+        draws from the request's seed, or from ``rng``), padded to
+        ``bucket``; a request carrying (prefix_seed, prefix_len) opens
+        with the shared prompt."""
         cfg = self.cfg
-        rng = np.random.default_rng(req.seed)
+        rng = np.random.default_rng(req.seed) if rng is None else rng
         pfx = min(int(req.prefix_len or 0), bucket)
         if pfx > 0 and req.prefix_seed is not None:
             head = np.random.default_rng(req.prefix_seed).integers(
@@ -367,13 +375,31 @@ class ServingEngine:
     def _chat_batch(self, req: Request, bucket: Optional[int] = None
                     ) -> dict:
         """One prompt, padded to ``bucket``: a paged lane's page-multiple
-        bucket, else the single fixed bucket ``max_prompt``."""
-        tokens = self._chat_tokens(req, bucket or self.max_prompt)
-        return {"tokens": torch.from_numpy(
+        bucket, else the single fixed bucket ``max_prompt``; then, from
+        the same draws as JAX's, llava's stub patch features or whisper's
+        stub frames."""
+        cfg = self.cfg
+        rng = np.random.default_rng(req.seed)
+        tokens = self._chat_tokens(req, bucket or self.max_prompt, rng)
+        batch = {"tokens": torch.from_numpy(
             tokens[None, :].astype(np.int32)).to(self.device)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.from_numpy(rng.standard_normal(
+                (1, cfg.n_patches, cfg.patch_dim)).astype(np.float32)).to(
+                self.device)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (1, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(
+                self.device)
+        return batch
 
     def _prefill_pos(self) -> int:
-        return self.max_prompt + self.cfg.meta_tokens
+        """The first decode position: the prompt after the meta tokens
+        and the patches."""
+        pos = self.max_prompt + self.cfg.meta_tokens
+        if self.cfg.family == "vlm":
+            pos += self.cfg.n_patches
+        return pos
 
     def _payload(self, req: Request):
         """The request's tensors on the device, validated on the host

@@ -242,6 +242,64 @@ def test_qgemm_repeated_calls_bit_exact(rng, dev, k, n, dtype):
         assert not bad, f"{len(bad)} of 256 calls differ (first {bad[:4]})"
 
 
+@pytest.mark.parametrize("m,k,n", [
+    # hymba: k = 1600 is 12.5 of K1's 128-row stages (q/o, k/v, the SSM
+    # in-projection and the MLP's gate at the prefill's 192 rows and a
+    # decode step's 4), and x_proj's n = 64
+    (192, 1600, 1600), (4, 1600, 320), (192, 1600, 6400), (4, 1600, 5504),
+    (192, 3200, 64),
+    # llava's patch projector at its 576 patches
+    (576, 1024, 4096), (576, 4096, 4096)])
+def test_qgemm_family_shapes_bit_exact_in_repeated_calls(rng, dev, m, k, n):
+    """ROADMAP A7's new K1 shapes, 64 calls queued without a sync with
+    and without the column check: every C, err_rows and column check
+    bit-exact (``test_qgemm_repeated_calls_bit_exact``'s race probe)."""
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    a = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(
+        np.int8)).to(dev)
+    bp = _packed(rng, k, n, dev)
+    for col in (False, True):
+        want = ref.abft_qgemm_ref(a, bp, with_colcheck=col)
+        outs = [abft_qgemm_cuda(a, bp, with_colcheck=col)
+                for _ in range(64)]
+        bad = [i for i, got in enumerate(outs)
+               if not all(torch.equal(g, w) for g, w in zip(got, want))]
+        assert not bad, f"{len(bad)} of 64 calls differ (first {bad[:4]})"
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "hymba-1.5b",
+                                  "llava-next-mistral-7b", "internlm2-20b"])
+def test_reduced_family_on_card_matches_the_cpu_run(dev, arch):
+    """Each A7 family's reduced model on the card (K1-K3) against the
+    plain CPU run on the same weights, free and in lockstep, in float32
+    and bfloat16: ``chip_smoke.small_card_vs_cpu``, as phase 19 runs it
+    (hymba with a third layer, whose 8-token window the 24-token prompt
+    outruns)."""
+    import dataclasses
+
+    import chip_smoke
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.models.base import build_model
+    from repro_torch.protect import default_plan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = reduce_cfg(get_arch(arch))
+    if small.family == "hybrid":
+        small = dataclasses.replace(small, n_layers=3)
+    model = build_model(small)
+    rng = np.random.default_rng(17)
+    extra = {}
+    if small.patch_dim:
+        extra["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, small.n_patches, small.patch_dim)).astype(np.float32))
+    if small.family == "encdec":
+        extra["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, small.enc_seq, small.d_model)).astype(np.float32))
+    out = chip_smoke.small_card_vs_cpu(
+        torch, dev, small, model, model.init(0, quant=True, device="cpu"),
+        default_plan(), (24,), f32_after_split=2.0**-5, extra=extra)
+    assert len(out) == 4
+
+
 @pytest.mark.parametrize("m,k,n", PDL_SHAPES)
 def test_qgemm_pdl_after_in_place_flip(rng, dev, m, k, n):
     """K1 right after a kernel that flips a B' byte in place sees the
@@ -367,7 +425,13 @@ EB_CARD_SHAPES = [(3, 1000, 128, 10, 16), (2, 64, 40, 5, 100),
                   (1, 128256, 2048, 4, 1), (2, 300, 16, 9, 33),
                   (2, 300, 32, 9, 20), (2, 300, 64, 9, 20),
                   (2, 300, 256, 9, 40), (2, 300, 48, 9, 20),
-                  (1, 50, 4096, 3, 5)]
+                  (1, 50, 4096, 3, 5),
+                  # the token tables' widths of whisper (1280), hymba
+                  # (1600), llava (4096) and internlm2 (6144: two team
+                  # passes a row) at pool 1
+                  (1, 51968, 1280, 64, 1), (1, 32256, 1600, 4, 1),
+                  (1, 32000, 4096, 64, 1), (1, 8192, 6144, 64, 1),
+                  (1, 8192, 6144, 4, 1)]
 
 
 @pytest.mark.parametrize("padding", ["tail", "anywhere"])
@@ -390,7 +454,8 @@ def test_eb_kernel_matches_plain(rng, dev, tables, rows, d, bags, pool,
 
 @pytest.mark.parametrize("rows,d,bags,pool", [
     (49408, 1536, 64, 1), (128256, 2048, 64, 1), (5000, 4096, 9, 5),
-    (300, 9216, 9, 3)])
+    (300, 9216, 9, 3), (51968, 1280, 64, 1), (32256, 1600, 64, 1),
+    (32000, 4096, 64, 1), (8192, 6144, 64, 1)])
 def test_eb_rsum_is_the_team_order_sum(rng, dev, rows, d, bags, pool):
     """On the team path (16-byte words, one bag a team of warps) K2's
     rsum is its R summed in the order ``ref.eb_rsum_team_order`` writes

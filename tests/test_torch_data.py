@@ -1,7 +1,6 @@
 """The port's synthetic data pipeline against the JAX package's: both
 draw every batch from numpy's generator seeded by (seed, step), so the
 batches are equal bit for bit."""
-import dataclasses
 import itertools
 import threading
 
@@ -70,12 +69,17 @@ def test_iteration_is_batch_at_in_order():
 
 
 def test_other_families_raise_naming_their_item():
-    cfg = t_arch("rwkv6-1.6b")
-    for fam, item in (("vlm", "llava"), ("vlm", "A7"), ("encdec", "A7"),
-                      ("hybrid", "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.make_dataset(dataclasses.replace(cfg, family=fam),
-                           TShape("s", "prefill", 8, 1))
+    """The families that raised until ROADMAP A7's serving slice (vlm,
+    encdec, hybrid) now get JAX's batches: the patch and frame stubs
+    drawn before the tokens, the meta tokens counted in the length."""
+    for arch in ("llava-next-mistral-7b", "whisper-large-v3", "hymba-1.5b"):
+        j = J.make_dataset(j_arch(arch), JShape("s", "train", 600, 2))
+        t = T.make_dataset(t_arch(arch), TShape("s", "train", 600, 2))
+        assert isinstance(t, T.SyntheticLMDataset)
+        for step in (0, 4):
+            _equal(j.batch_at(step), t.batch_at(step))
+    assert T.make_dataset(t_arch("hymba-1.5b"), TShape(
+        "s", "train", 600, 2)).batch_at(0)["tokens"].shape == (2, 600 - 128)
 
 
 def test_prefetcher_yields_the_batches_in_order_on_the_device():

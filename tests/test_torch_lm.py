@@ -433,12 +433,23 @@ def test_float_lm_logits_and_cross_entropy_match_jax():
 
 
 def test_lm_and_facade_refuse_what_is_not_ported(monkeypatch):
-    for fam, item in (("hybrid", "mamba"), ("hybrid", "A7"), ("vlm", "A7")):
+    # the hybrid and VLM families serve now (tests/test_torch_families.py);
+    # their training, and the families models.lm does not run, are refused
+    for fam, item in (("hybrid", "A7"), ("vlm", "A7"),
+                      ("hybrid", "training of the other families"),
+                      ("vlm", "training of the other families")):
         cfg = dataclasses.replace(T_CFG, family=fam)
         with pytest.raises(NotImplementedError, match=item):
-            t_base.build_model(cfg)
-        with pytest.raises(NotImplementedError, match=item):
-            t_lm.init_lm(0, cfg, device="cpu")
+            t_base.build_model(cfg).loss({}, {}, TCtx())
+    for fam, exc, item in (("dlrm", NotImplementedError, "models.dlrm"),
+                           ("ssm", ValueError, "not a decoder LM"),
+                           ("encdec", ValueError, "not a decoder LM")):
+        cfg = dataclasses.replace(T_CFG, family=fam)
+        with pytest.raises(exc, match=item):
+            if fam == "dlrm":
+                t_base.build_model(cfg)
+            else:
+                t_lm.init_lm(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError,
                        match="not a tensor, QuantKV or PagedKV"):
         t_att.attention_decode(

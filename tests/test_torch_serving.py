@@ -96,7 +96,7 @@ def test_engine_rejects_bad_payload_and_unported_family():
     with pytest.raises(ValueError, match="bag index"):
         eng.run([req])
     with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(dataclasses.replace(T_CFG, family="hybrid"),
+        ServingEngine(dataclasses.replace(T_CFG, family="rnn"),
                       [TenantSpec("default")], device="cpu")
 
 
@@ -110,11 +110,12 @@ def test_serve_cli_smoke_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--arch", "hymba-1.5b"], "A7"), (["--arch", "whisper-large-v3"], "A7"),
-    (["--arch", "llava-next-mistral-7b"], "A7"),
+    (["--arch", "mistral-large-123b", "--requests", "1"], "A8"),
+    (["--arch", "llama4-scout-17b-a16e", "--requests", "1"], "A8"),
+    (["--arch", "mistral-large-123b", "--plan", "*:off"], "A8"),
     (["--device-count", "2"], "A8"),
     (["--arch", "llama4-scout-17b-a16e"], "A8"),
-    (["--arch", "internlm2-20b"], "A7"),
+    (["--device-count", "4", "--arch", "llama3.2-1b"], "A8"),
     (["--arch", "mistral-large-123b"], "A8")])
 def test_serve_cli_rejects_unported_parts(capsys, flag, item):
     with pytest.raises(SystemExit) as ei:
