@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Eighteen paths run, each with every launch counter set to 0 just before
-it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
+Twenty-three paths run, each with every launch counter set to 0 just
+before it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
 int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
 (K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
 (K1, K2 and their unprotected instances), the float DLRM converted to
@@ -15,9 +15,10 @@ ladder for Llama-3.2-1B and for granite (K1-K3 and the unprotected
 instances of K1 and K2), Llama-3.2-1B served under the observability
 layer, the detection-health monitor and adaptive thresholds (K1-K3),
 full-width Llama-3.2-1B trained under faults (no kernel of the port: all
-six counters read 0), and int8 whisper-large-v3, hymba-1.5b,
+six counters read 0), int8 whisper-large-v3, hymba-1.5b,
 llava-next-mistral-7b and internlm2-20b chat serving (K1-K3), one path
-each.
+each, and rwkv6-1.6b, whisper-large-v3, hymba-1.5b, llava-next-mistral-7b
+and granite-moe-3b-a800m trained (all six counters 0), one path each.
 Each phase's seconds are printed.  Phases (any
 failure exits non-zero; nothing is caught and passed over):
 
@@ -199,10 +200,11 @@ failure exits non-zero; nothing is caught and passed over):
    the JAX baseline's Wilson intervals in both cells, 0 regressions from
    the port's differ, its pages verified per token and KV bytes printed
    beside the baseline's;
-15. make the full-width int8 granite-moe-3b-a800m (32 layers, d 1536, 24
-   query and 8 KV heads of 64, 40 experts of width 512, top-8, vocab
-   49155; random weights from seed 0; its int8 bytes held to the
-   config's reckoning, 3.99 GB) with the default plan's bf16-cache
+15. make the full-width int8 granite-moe-3b-a800m (16 of its 32 layers,
+   for time; d 1536, 24 query and 8 KV heads of 64, 40 experts of width
+   512, top-8, vocab 49155; random weights from seed 0; its int8 bytes
+   held to the config's reckoning, 2.07 GB at this depth, 3.99 GB at
+   all 32) with the default plan's bf16-cache
    tenant and a ``*:policy=recompute,kv_cache:on`` tenant; hold K3 over
    all 40 experts' rows and K1 (the expert stack of one launch an
    expert, single experts with and without the column check, a flipped
@@ -213,7 +215,7 @@ failure exits non-zero; nothing is caught and passed over):
    64 and 4 tokens and over every row, as phase 13 holds Llama's; serve
    8 ``chat_stream`` requests (64-token bucket,
    up to 32 new tokens, 4 slots, 100 rps) with 0 errors and K1 launched
-   32 x (4 + 3 x 40) + 1 = 3,969 times a step; a ``moe.gate`` expert-
+   16 x (4 + 3 x 40) + 1 = 1,985 times a step; a ``moe.gate`` expert-
    weight flip flagged at its step only (the flipped expert printed, and
    whether a token chose it there) and a KV payload flip on the
    ``kv_cache:on`` lane flagged at the next decode; the smoke-size
@@ -232,7 +234,8 @@ failure exits non-zero; nothing is caught and passed over):
    (``repro_torch.benchmarks.serving_slo``: ``*:off``, ``*:policy=log``,
    ``*:policy=recompute,kv_cache:on`` over one stream of 12 requests at
    300 rps, Poisson, 4 slots, 16 new tokens) at full width for
-   Llama-3.2-1B and granite: every request completes with 0 errors but
+   Llama-3.2-1B and granite (granite at 8 of its 32 layers, for time):
+   every request completes with 0 errors but
    the EmbeddingBag flags of clean token rows, each a token the table
    scan of phase 13 or 15 flagged and witnessed again alone; each rung's
    counts are set to 0 before it and read right after its run (the
@@ -280,7 +283,8 @@ failure exits non-zero; nothing is caught and passed over):
    the loop's final checksummed checkpoint of the whole state (the free
    disk printed, a temporary directory) restored and verified on the
    card, equal leaf for leaf, with its save and restore seconds; the
-   same run with one byte of the ``mlp`` victim's int8 payload flipped
+   same run (writing no checkpoint) with one byte of the ``mlp``
+   victim's int8 payload flipped
    between the encode and the reduction at step 3: ``comm/errors`` 1 at
    that call, one faulty step and one recompute, final parameters equal
    to the clean run's bit for bit; what deterministic algorithms cost a
@@ -290,11 +294,12 @@ failure exits non-zero; nothing is caught and passed over):
    seam, the int8 payload caught at latency 0 in every trial, no flag
    outside the checksum, the post-verify gradient diverging);
 19. ROADMAP A7's families at full width, one at a time, each model and
-   its lanes freed before the next (internlm2, ~20 GB, last): whisper-
-   large-v3 (32 + 32 layers, d 1280, 1500 stub frames), hymba-1.5b (32
-   layers, d 1600, Mamba heads beside attention, 128 meta tokens),
-   llava-next-mistral-7b (32 layers, d 4096, 576 stub patches through
-   the projector) and internlm2-20b (48 layers, d 6144), int8 from seed
+   its lanes freed before the next (internlm2 last): whisper-large-v3
+   (32 + 32 layers, d 1280, 1500 stub frames), hymba-1.5b (16 of its 32
+   layers, for time; d 1600, Mamba heads beside attention, 128 meta
+   tokens), llava-next-mistral-7b (16 of 32 layers, d 4096, 576 stub
+   patches through the projector) and internlm2-20b (24 of 48 layers,
+   d 6144, 10.7 GB), int8 from seed
    0: the reckoned bytes beside the build's peak (which must stay under
    a second stack of the layers); K1 (C, err_rows, the column check) and
    K3 bit-exact at every projection shape at the prefill's m and a
@@ -310,16 +315,35 @@ failure exits non-zero; nothing is caught and passed over):
    decoder ``mlp.down``, hymba's ``ssm.out_proj``, llava's
    ``projector.fc1`` at a prefill, internlm2's ``attn.wq``) flagged at
    its step and restored; the reduced model card against CPU, free and
-   in lockstep (hymba with a third, windowed layer).
+   in lockstep (hymba with a third, windowed layer);
+20. training of the other families, phase 3's DLRM freed first: rwkv6-
+   1.6b, whisper-large-v3, hymba-1.5b, llava-next-mistral-7b and
+   granite-moe-3b-a800m, one at a time, at full width as the train CLI
+   trains them (float32 master weights, bf16 compute, 8 sequences of
+   256 text tokens plus hymba's 128 meta tokens, llava's 576 stub
+   patches and whisper's 1500 stub frames, each config's
+   ``train_accum`` (granite 16 sequences for its 16), ``compress=True``,
+   ``TrainLoop(fault_policy="recompute")``, deterministic algorithms),
+   2 steps each and granite 3, llava at 7 and granite at 17 of their
+   32 layers (the depths that fit ~72 GiB: two states, the gradient sum
+   and the activations); every loss finite, ``comm/errors`` 0; the
+   state's reckoned bytes beside the peak allocation, step times, text
+   tokens/s, one profiled step's device operations and busy share; the
+   reduced model's loss and every gradient leaf card against CPU in
+   float32 and bf16 compute; granite again with one byte of its
+   ``moe.gate`` expert stack's int8 payload flipped in transit at step
+   2: ``comm/errors`` 1 there, one recompute, final parameters equal to
+   the clean run's bit for bit; all six launch counters 0 on each path.
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
 (DLRM for K1-K3, RWKV for K4, the overhead benchmarks for the unprotected
 instances), and ``launches_by_path`` holds every kernel's count on each
-of the eighteen paths (DLRM serve, RWKV serve, campaign, thresholds,
-overhead, float DLRM, Llama serve, Llama paged serve, granite serve,
-serving soak, the SLO ladder of each model, observability, training,
-whisper, hymba, llava, internlm2),
+of the paths (DLRM serve, RWKV serve, campaign, thresholds, overhead,
+float DLRM, Llama serve, Llama paged serve, granite serve, serving soak,
+the SLO ladder of each model, observability, training, whisper, hymba,
+llava, internlm2, and the training of rwkv6, whisper, hymba, llava and
+granite),
 all six counts set to 0
 just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -3208,17 +3232,52 @@ def llama_paged_phase(torch, dev, timer, contig_step_ms: dict,
 
 
 GRANITE = "granite-moe-3b-a800m"
-#: the int8 (packed) bytes of full-width granite by the config's widths
-#: (vocab_padded 49,408 keeps the head aligned)
-GRANITE_BYTES = {"experts": 32 * 40 * (2 * 1536 * 640 + 512 * 1664),
-                 "attention": 226_492_416, "table": 75_890_688,
-                 "head": 76_087_296}
+#: the depth cuts by (phase, model), each at full width with every shape
+#: and check kept (a layer's shapes and checks are every layer's).  For
+#: time, so the whole run stays inside 800 s on a slow host (PERF.md §4
+#: gives each cut's seconds): 15, granite served at 8 of 32 layers; 16,
+#: the SLO ladder's rungs, Llama at 8 of 16 and granite at 4 (a model's
+#: token table, the scans' subject, is drawn before its layers, so it is
+#: phases 13's and 15's at any depth); 18, Llama trained at 8 of 16;
+#: 19, hymba and llava at 8 of 32, internlm2 at 12 of 48 (whisper stays
+#: whole: its build's check needs its layer stack, 1.60 GB, above the
+#: 0.80 GB its token table's build takes, and at 16 + 16 the two meet).
+#: For memory, 20 (PERF.md §4 reckons each): the training loop holds the
+#: pre-step state and builds the new one, so the peak is about two
+#: 16 B/param states, the float32 gradient sum and the activations, and
+#: these two models pass ~72 GiB at full depth
+LLAMA = "llama3.2-1b"
+DEPTH = {(15, GRANITE): 8, (16, LLAMA): 8, (16, GRANITE): 4,
+         (18, LLAMA): 8,
+         (19, "hymba-1.5b"): 8, (19, "llava-next-mistral-7b"): 8,
+         (19, "internlm2-20b"): 12,
+         (20, "llava-next-mistral-7b"): 7, (20, GRANITE): 17}
+
+
+def depth_cut(phase: int, arch: str):
+    """``arch``'s config at its depth in ``phase`` (:data:`DEPTH`; the
+    config's own where the phase keeps it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if (phase, arch) in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[phase, arch])
+    return cfg
+
+
+#: the int8 (packed) bytes of full-width granite at phase 15's depth by
+#: the config's widths (vocab_padded 49,408 keeps the head aligned)
+GRANITE_BYTES = {"experts": DEPTH[15, GRANITE] * 40 * (2 * 1536 * 640
+                                                       + 512 * 1664),
+                 "attention": DEPTH[15, GRANITE] * 7_077_888,
+                 "table": 75_890_688, "head": 76_087_296}
 #: K1 and K3 launches a granite prefill or decode step: one K1 an expert
 #: for each of the 3 expert projections, one K3 a projection over every
-#: expert's rows, and the 4 attention projections of each of the 32
-#: layers, and the head
-GRANITE_K1_PER_STEP = 32 * (4 + 3 * 40) + 1
-GRANITE_K3_PER_STEP = 32 * (4 + 3) + 1
+#: expert's rows, and the 4 attention projections of each layer, and the
+#: head
+GRANITE_K1_PER_STEP = DEPTH[15, GRANITE] * (4 + 3 * 40) + 1
+GRANITE_K3_PER_STEP = DEPTH[15, GRANITE] * (4 + 3) + 1
 
 
 @contextlib.contextmanager
@@ -3242,9 +3301,10 @@ def routing_tap(engine):
 
 
 def granite_phase(torch, dev, timer) -> dict:
-    """Phase 15: full-width int8 granite-moe-3b-a800m (32 layers, d 1536,
-    24 query and 8 KV heads of 64, 40 experts of width 512, top-8, vocab
-    49155; random weights from seed 0) served on the card through K1-K3,
+    """Phase 15: full-width int8 granite-moe-3b-a800m (its depth in
+    :data:`DEPTH` of its 32 layers, d 1536, 24 query and 8 KV heads of 64, 40 experts
+    of width 512, top-8, vocab 49155; random weights from seed 0) served
+    on the card through K1-K3,
     with a bf16-cache tenant and a ``kv_cache:on`` tenant.  Returns the
     path's launch counts, K1's times at the expert shapes and the
     record."""
@@ -3254,7 +3314,7 @@ def granite_phase(torch, dev, timer) -> dict:
 
     from repro_torch.benchmarks.common import (F32_OPS_PER_S,
                                                INT8_OPS_PER_S, bound_ms)
-    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.configs import reduce_cfg
     from repro_torch.core import LANE
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.kernels.abft_qgemm import (abft_qgemm_cuda,
@@ -3266,7 +3326,7 @@ def granite_phase(torch, dev, timer) -> dict:
     from repro_torch.serving import (FaultInjection, Request, ServingEngine,
                                      TenantSpec, chat_stream)
 
-    cfg = get_arch(GRANITE)
+    cfg = depth_cut(15, GRANITE)
     n_exp, n_layers = cfg.n_experts, cfg.n_layers
     kv_plan = dataclasses.replace(default_plan().with_rules(
         *ProtectionPlan.from_any(KV_PLAN).rules), name="kv")
@@ -3741,7 +3801,8 @@ SLO_REQUESTS = 12
 def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
     """Phase 16: the serving soak's quick grid on the card, gated against
     the JAX baseline, then the protection SLO ladder at full width for
-    Llama-3.2-1B and granite-moe-3b-a800m.  ``scans`` holds each model's
+    Llama-3.2-1B and granite-moe-3b-a800m (both at their depths in
+    :data:`DEPTH`).  ``scans`` holds each model's
     token-table scan (:func:`eb_token_scan`, phases 13 and 15: the same
     seed-0 tables).  Returns each path's launch counts, the ladder's the
     sum of its rungs', and the record."""
@@ -3837,10 +3898,12 @@ def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
             flagged_tokens(torch, seen_eb)      # the probe's own lookups
             zero_launches()                     # the next rung's window
         with eb_flag_tap() as seen_eb:
-            ladder = run_ladder(arch, requests=SLO_REQUESTS, rate=300.0,
+            cfg = depth_cut(16, arch)
+            ladder = run_ladder(cfg, requests=SLO_REQUESTS, rate=300.0,
                                 arrival="poisson", slots=4, max_new=16,
                                 seed=0, smoke=False, device=dev, emit=log,
                                 probe=probe)
+        ladder["layers"] = cfg.n_layers
         ladder_launches[arch] = {k: sum(r[k] for r in rungs.values())
                                  for k in wrappers}
         off = rungs["unprotected"]
@@ -3872,8 +3935,9 @@ def soak_slo_phase(torch, dev, out_dir, scans: dict) -> dict:
                 for n, r in rungs.items() if "eb_flags" in r) or "none"))
         ladders[arch] = ladder
         p = ladder["plans"]
-        log(f"SLO ladder {arch} ({SLO_REQUESTS} requests, 300 rps "
-            f"poisson, 4 slots, 16 new tokens; {smi_line()}): " + "; ".join(
+        log(f"SLO ladder {arch} ({ladder['layers']} layers, {SLO_REQUESTS} "
+            f"requests, 300 rps poisson, 4 slots, 16 new tokens; "
+            f"{smi_line()}): " + "; ".join(
                 f"{n}: TTFT p50/p95/p99 {r['ttft_ms']['p50']:.2f}/"
                 f"{r['ttft_ms']['p95']:.2f}/{r['ttft_ms']['p99']:.2f} ms, "
                 f"per token p50/p95/p99 {r['per_token_ms']['p50']:.2f}/"
@@ -4294,7 +4358,8 @@ def profile_train_step(torch, step_fn, state, batch) -> dict:
 
 
 def training_phase(torch, dev, out_dir) -> dict:
-    """Phase 18: full-width Llama-3.2-1B trained on the card (float32
+    """Phase 18: full-width Llama-3.2-1B (at its depth in :data:`DEPTH`)
+    trained on the card (float32
     master weights, bf16 compute, 4 accumulated microbatches of 2 x 256
     tokens, the int8 error-feedback gradient reduction checked mod 8191,
     ``TrainLoop(fault_policy="recompute")``, under deterministic
@@ -4316,7 +4381,6 @@ def training_phase(torch, dev, out_dir) -> dict:
     from repro_torch.campaign.executor import run_campaign
     from repro_torch.campaign.grids import training_specs
     from repro_torch.checkpoint import load_checkpoint
-    from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.inject import victim_leaf_index
     from repro_torch.core.tree import tree_leaves
@@ -4332,7 +4396,7 @@ def training_phase(torch, dev, out_dir) -> dict:
     t0 = time.perf_counter()
     card = smi_line()
     wrappers = zero_launches()
-    cfg = get_arch("llama3.2-1b")
+    cfg = depth_cut(18, LLAMA)
     model = build_model(cfg)
     ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
     n_steps, batch, seq = 6, 8, 256
@@ -4344,7 +4408,8 @@ def training_phase(torch, dev, out_dir) -> dict:
               "residual": state_bytes(shapes["comm"]),
               "total": state_bytes(shapes)}
     free_disk = shutil.disk_usage(tempfile.gettempdir()).free
-    log(f"phase 18 on {card}: Llama-3.2-1B full width, {n_steps} steps of "
+    log(f"phase 18 on {card}: Llama-3.2-1B full width, {cfg.n_layers} of "
+        f"16 layers, {n_steps} steps of "
         f"{batch} x {seq} tokens in {cfg.train_accum} microbatches, state "
         + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in reckon.items())
         + f"; free disk {free_disk / 2**30:.1f} GiB")
@@ -4384,6 +4449,10 @@ def training_phase(torch, dev, out_dir) -> dict:
                            fault_policy="recompute", log_every=1),
             metrics_hook=lambda s, m: losses.append(
                 m["loss_final"]))
+        if payload_hook is not None:
+            # 18c reads 18a's checkpoint; 18b's (another 22 GB write,
+            # ~40 s) would be read by nothing
+            loop.ckpt = _NoCheckpoints()
         with deterministic():
             # no reference to the initial state is kept here: the loop
             # holds the pre-step state and the step builds the new one
@@ -4645,10 +4714,14 @@ def family_gemms(cfg, params, m_prefill: int) -> list:
 
 def profile_step(torch, fn) -> dict:
     """Device time of one call of ``fn`` against its wall time (a
-    synchronize after it): the busy share of, say, one decode step.  Only
-    the card's activity is traced (the host's ops would multiply the
-    profiler's own cost).  A diagnostic: where the profiler cannot trace
-    the card it says so."""
+    synchronize after it): the busy share of, say, one decode step or one
+    training step.  -> device ms, wall ms, device operations (kernels,
+    copies, fills) and the busy share.  Only the card's activity is
+    traced (the host's ops would multiply the profiler's own cost), and
+    it is read from the profiler's raw events: turning each into a
+    ``FunctionEvent`` for ``key_averages`` takes ~0.25 ms an event, longer
+    than a step of 10^4-10^6 of them.  A diagnostic: where the profiler
+    cannot trace the card it says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -4658,23 +4731,20 @@ def profile_step(torch, fn) -> dict:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        dev_ms, kernels = 0.0, 0
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                dev_ms += getattr(ev, "self_device_time_total",
-                                  getattr(ev, "self_cuda_time_total", 0)
-                                  ) / 1e3
-                kernels += ev.count
+        evs = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+        dev_ms = sum(e.duration_ns() for e in evs) / 1e6
     except Exception as e:              # noqa: BLE001 - diagnostic only
         log(f"profiler could not trace the card: {e!r}")
         return {"error": repr(e)}
-    return {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": kernels,
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": len(evs),
             "busy_share": dev_ms / wall_ms if wall_ms else None}
 
 
 def family_phase(torch, dev) -> dict:
     """Phase 19: ROADMAP A7's four families, each built at full width on
-    the card from seed 0 (int8) and served through K1-K3 on a bf16-cache
+    the card from seed 0 (int8; hymba, llava and internlm2 at the depths
+    of :data:`DEPTH`) and served through K1-K3 on a bf16-cache
     and a ``*:policy=recompute,kv_cache:on`` tenant, one at a time, each
     model and its lanes freed before the next.  Returns each family's
     launch counts and the record."""
@@ -4682,7 +4752,7 @@ def family_phase(torch, dev) -> dict:
 
     import numpy as np
 
-    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.configs import reduce_cfg
     from repro_torch.core import EB_REL_BOUND
     from repro_torch.core.inject import leaf_paths, victim_leaf_index
     from repro_torch.kernels import ref
@@ -4700,7 +4770,7 @@ def family_phase(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(19)
     for arch, (victim, flip_step) in FAMILY_FLIPS.items():
         t_fam = time.perf_counter()
-        cfg = get_arch(arch)
+        cfg = depth_cut(19, arch)
         short = arch.split("-")[0]
         rec = {"seconds_by_part": {}}
         mark = [t_fam]
@@ -5000,6 +5070,267 @@ def family_phase(torch, dev) -> dict:
             f"{k} {v:.1f}" for k, v in rec["seconds_by_part"].items())
             + ")")
         record[short] = rec
+    return {"launches": launches_by, "record": record}
+
+
+#: phase 20's families, trained in this order (granite last: its run is
+#: repeated with a payload flip)
+TRAIN_FAMILIES = ("rwkv6-1.6b", "whisper-large-v3", "hymba-1.5b",
+                  "llava-next-mistral-7b", "granite-moe-3b-a800m")
+#: text tokens a sequence (the train CLI's --seq-len; hymba's meta tokens
+#: and llava's patches come on top)
+TRAIN_TEXT = 256
+#: steps a family: 2, and granite 3 (its payload flip strikes step 2)
+TRAIN_STEPS = {"granite-moe-3b-a800m": 3}
+
+
+class _NoCheckpoints:
+    """A ``CheckpointManager`` stand-in that saves and restores nothing:
+    phase 20's loops write no checkpoint of their 22-55 GiB states
+    (phase 18 holds the loop's checkpoints)."""
+
+    last_save = None
+
+    def maybe_save(self, step, state, *, force=False):
+        return None
+
+    def wait(self):
+        return None
+
+    def restore_latest(self, like, *, verify=True):
+        return None
+
+
+def reduced_train_card_vs_cpu(torch, dev, arch: str) -> dict:
+    """The reduced model's loss and every gradient leaf on the card
+    against the CPU run, float32 and bf16 compute, on the same weights
+    and batch (seed 0), under deterministic algorithms, within
+    :mod:`repro_torch.launch.parity`'s tolerances, card against CPU."""
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inject import leaf_paths
+    from repro_torch.data import make_dataset
+    from repro_torch.data.pipeline import to_device as batch_to
+    from repro_torch.device import deterministic
+    from repro_torch.launch.parity import (grad_scale, grad_tolerance,
+                                           loss_tolerance)
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.models.convert import to_device
+
+    cfg = reduce_cfg(get_arch(arch))
+    prefix = cfg.meta_tokens + cfg.n_patches
+    model = build_model(cfg, max_pos=16 + prefix + 8)
+    p_cpu = model.init(0, device="cpu")
+    p_dev = to_device(p_cpu, dev)
+    batch = make_dataset(cfg, ShapeConfig("p20", "train", 16 + prefix, 2)
+                         ).batch_at(0)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        fn = make_grad_fn(model, Ctx(quant=False,
+                                     compute_dtype=getattr(torch, dtype)))
+        with deterministic():
+            (l_c, _), g_c = fn(p_cpu, batch_to(batch, "cpu"))
+            (l_d, _), g_d = fn(p_dev, batch_to(batch, dev))
+        loss_err = abs(float(l_d) - float(l_c)) / abs(float(l_c))
+        named_c = dict(leaf_paths(g_c))
+        tol = grad_tolerance(cfg, dtype)
+        worst = (0.0, "")
+        for (path, a), (_, b) in zip(leaf_paths(g_c), leaf_paths(g_d)):
+            err = float((a.float() - b.float().cpu()).abs().max()) / \
+                grad_scale(path, named_c)
+            worst = max(worst, (err, path))
+        out[dtype] = {"loss_rel_err": loss_err, "worst_leaf": worst[1],
+                      "worst_leaf_err": worst[0], "tolerance": tol}
+    bad = {d: r for d, r in out.items()
+           if r["loss_rel_err"] > loss_tolerance(cfg, d, card=True)
+           or r["worst_leaf_err"] > r["tolerance"]}
+    if bad:
+        fail(f"phase 20 {arch}: reduced card vs CPU outside the "
+             f"tolerances: {bad}")
+    return out
+
+
+def train_family(torch, dev, arch: str, n_steps: int = 2,
+                 flip: bool = False) -> dict:
+    """One family trained at full width on the card as the train CLI
+    trains it (float32 master weights, bf16 compute, its
+    ``train_accum``, the checked int8 compression,
+    ``TrainLoop(fault_policy="recompute")``, deterministic algorithms),
+    ``n_steps`` steps at its phase-20 depth (:data:`DEPTH`); with
+    ``flip`` a second run flips one byte of the MoE expert stack's int8
+    payload in transit at step 2, which must be caught in comm/errors,
+    recomputed and end bit-equal to the clean run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inject import victim_leaf_index
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import make_dataset
+    from repro_torch.data.pipeline import to_device as batch_to
+    from repro_torch.device import deterministic
+    from repro_torch.launch.steps import (init_train_state, make_train_step,
+                                          state_bytes, train_state_shapes)
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.runtime import LoopConfig, TrainLoop
+
+    t0 = time.perf_counter()
+    full = get_arch(arch)
+    cfg = depth_cut(20, arch)
+    # the CLI's batch: 8 sequences (granite's 16 microbatches need 16)
+    batch = max(8, cfg.train_accum)
+    seq = TRAIN_TEXT + cfg.meta_tokens + cfg.n_patches
+    model = build_model(cfg, max_pos=seq + cfg.meta_tokens + 8)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
+    dataset = make_dataset(cfg, ShapeConfig("phase20", "train", seq, batch))
+    shapes = train_state_shapes(model, compress=True)
+    reckon = state_bytes(shapes)
+    n_params = state_bytes(shapes["params"]) // 4
+    del shapes
+    calls, step_ms = [], []
+
+    def step_fn(fn):
+        def step(state, b):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            new, m = fn(state, b)
+            calls.append((int(state["step"]), int(m["comm/errors"])))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            return new, m
+        return step
+
+    def train(payload_hook=None):
+        calls.clear()
+        step_ms.clear()
+        fn = make_train_step(model, ctx, accum=cfg.train_accum,
+                             total_steps=n_steps, compress=True,
+                             payload_hook=payload_hook)
+        losses = []
+        loop = TrainLoop(step_fn(fn), dataset,
+                         cfg=LoopConfig(fault_policy="recompute",
+                                        log_every=1),
+                         metrics_hook=lambda s, m: losses.append(
+                             m["loss_final"]))
+        loop.ckpt = _NoCheckpoints()
+        with deterministic():
+            final, _ = loop.run(init_train_state(model, 0, compress=True,
+                                                 device=dev), n_steps)
+        return loop, final, losses, fn
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    loop, final, losses, fn = train()
+    peak = torch.cuda.max_memory_allocated() - held
+    # the caching allocator's flush-and-retry of a failed cudaMalloc
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    ms = list(step_ms)
+    calls_a = list(calls)
+    if not (len(losses) == n_steps and all(math.isfinite(x)
+                                           for x in losses)):
+        fail(f"phase 20 {arch}: losses {losses}")
+    if any(e for _, e in calls_a) or loop.stats != {
+            "recomputes": 0, "restores": 0, "faulty_steps": 0}:
+        fail(f"phase 20 {arch}: clean steps flagged: {calls_a} "
+             f"{loop.stats}")
+    med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    train_s = time.perf_counter() - t0
+    data0 = batch_to(dataset.batch_at(0), dev)
+    with deterministic():
+        prof = profile_step(torch, lambda: fn(final, data0))
+    # the step and its captured scan loops go before the next run
+    del data0, fn, loop
+    prof["seconds"] = time.perf_counter() - t0 - train_s
+    rec = {"n_layers": cfg.n_layers, "full_layers": full.n_layers,
+           "batch": batch, "seq": seq, "accum": cfg.train_accum,
+           "params": n_params, "state_bytes": reckon, "held_before": held,
+           "peak_allocated": peak, "alloc_retries": retries,
+           "losses": losses, "calls": calls_a,
+           "step_ms": ms, "step_ms_median": med,
+           "text_tokens_per_s": batch * TRAIN_TEXT / med * 1e3,
+           "train_s": train_s, "profile": prof}
+    if flip:
+        vidx, vpath = victim_leaf_index(final["params"], "moe.gate",
+                                        prefer_int8=False)
+        clean = [t.cpu() for t in tree_leaves(final["params"])]
+        del final
+        struck = []
+
+        def flip_at_2(payload, state):
+            if int(state["step"]) == 2 and not struck:
+                leaf = tree_leaves(payload["q"])[vidx]
+                leaf.view(-1).view(torch.uint8)[leaf.numel() // 2 + 7] ^= 1 << 6
+                struck.append(int(state["step"]))
+            return payload
+
+        loop_b, final, _, fn = train(payload_hook=flip_at_2)
+        want = [(s, 0) for s in range(2)] + [(2, 1), (2, 0)] + \
+            [(s, 0) for s in range(3, n_steps)]
+        same = all(torch.equal(a, b.cpu()) for a, b in zip(
+            clean, tree_leaves(final["params"])))
+        if calls != want or loop_b.stats != {
+                "recomputes": 1, "restores": 0, "faulty_steps": 1} \
+                or not same:
+            fail(f"phase 20 {arch}: flip calls {calls} (want {want}), "
+                 f"stats {loop_b.stats}, final params equal to the clean "
+                 f"run's: {same}")
+        rec.update(flip_victim=vpath, flip_calls=list(calls),
+                   flip_stats=loop_b.stats, flip_step_ms=list(step_ms))
+        del clean, loop_b, fn
+    del final
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def train_families_phase(torch, dev) -> dict:
+    """Phase 20: granite-moe-3b-a800m, rwkv6-1.6b, whisper-large-v3,
+    hymba-1.5b and llava-next-mistral-7b trained at full width on the
+    card (:func:`train_family`; llava and granite at the depths of
+    :data:`DEPTH`), granite again with a payload flip; each family's
+    reduced model held card against CPU (:func:`reduced_train_card_vs_cpu`).
+    Every launch counter is set to 0 before a family and read after it:
+    all six must read 0 (no kernel of the port trains; K4 has no
+    backward).  Returns the launches by path and the record."""
+    card = smi_line()
+    launches_by, record = {}, {"card": card}
+    for arch in TRAIN_FAMILIES:
+        wrappers = zero_launches()
+        n_steps = TRAIN_STEPS.get(arch, 2)
+        rec = train_family(torch, dev, arch, n_steps,
+                           flip=arch == GRANITE)
+        rec["reduced_card_vs_cpu"] = reduced_train_card_vs_cpu(
+            torch, dev, arch)
+        launches = read_launches(wrappers)
+        if any(launches.values()):
+            fail(f"phase 20 {arch}: the training path launched a kernel: "
+                 f"{launches}")
+        launches_by[f"train {arch}"] = launches
+        record[arch] = rec
+        prof = rec["profile"]
+        log(f"phase 20 {arch} on {card}: {rec['n_layers']} of "
+            f"{rec['full_layers']} layers, {rec['params'] / 1e9:.3f} B "
+            f"params, {n_steps} steps of {rec['batch']} x {rec['seq']} in "
+            f"{rec['accum']} microbatches; losses "
+            f"{[round(x, 4) for x in rec['losses']]}, comm/errors per call "
+            f"{rec['calls']}; state {rec['state_bytes'] / 2**30:.2f} GiB, "
+            f"peak allocated {rec['peak_allocated'] / 2**30:.2f} GiB over "
+            f"{rec['held_before'] / 2**30:.2f} GiB held ("
+            f"{rec['alloc_retries']} allocator retries); step ms "
+            f"{[round(x, 1) for x in rec['step_ms']]} (median "
+            f"{rec['step_ms_median']:.1f}, {rec['text_tokens_per_s']:.0f} "
+            f"text tokens/s); profiled step {prof.get('kernels')} kernels, "
+            f"busy {prof.get('busy_share')}; reduced card vs CPU "
+            + ", ".join(f"{d} loss {r['loss_rel_err']:.2e} worst "
+                        f"{r['worst_leaf']} {r['worst_leaf_err']:.2e}"
+                        for d, r in rec["reduced_card_vs_cpu"].items())
+            + (f"; flip of {rec['flip_victim']} at step 2: calls "
+               f"{rec['flip_calls']}, {rec['flip_stats']}, final params "
+               f"equal to the clean run's bit for bit"
+               if "flip_calls" in rec else "")
+            + f"; launches {launches}; {rec['seconds']:.1f}s")
     return {"launches": launches_by, "record": record}
 
 
@@ -5505,6 +5836,16 @@ def main() -> int:
     families = family_phase(torch, dev)
     details["families"] = families["record"]
     phase_done("19 whisper, hymba, llava, internlm2")
+    # ------- 20. training of granite, RWKV6, whisper, hymba and llava -------
+    # phase 3's DLRM (its 14 GB of tables) trains nothing: freed first
+    del engine, params, tables, layers, enc, enc4, big_bags, top0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 20 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated")
+    train_fams = train_families_phase(torch, dev)
+    details["train_families"] = train_fams["record"]
+    phase_done("20 training of the other families")
     kernels[0]["llama_shapes"] = llama["k1_times"]
     kernels[0]["granite_expert_shapes"] = granite["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
@@ -5537,7 +5878,8 @@ def main() -> int:
                   soak_slo["ladder_launches"].items()},
                "observability": obs_path["launches"],
                "training": training["launches"],
-               **families["launches"]}
+               **families["launches"],
+               **train_fams["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

@@ -34,13 +34,14 @@ PLANS = (
 )
 
 
-def run_ladder(arch: str, *, requests: int, rate: float, arrival: str,
+def run_ladder(arch, *, requests: int, rate: float, arrival: str,
                slots: int, max_new: int, seed: int, smoke: bool,
                device="cuda", emit=print, probe=None) -> dict:
     """Serve one stream under each plan of :data:`PLANS`; returns the
-    ``BENCH_serving_slo`` dict.  ``probe(name, engine)``, where given, is
-    called after each rung's run while its engine lives (a caller's
-    launch counts or device-operation check)."""
+    ``BENCH_serving_slo`` dict.  ``arch`` is a registered name or an
+    ``ArchConfig`` (a caller's cut of one).  ``probe(name, engine)``,
+    where given, is called after each rung's run while its engine lives
+    (a caller's launch counts or device-operation check)."""
     from repro_torch.campaign.artifacts import environment_info
     from repro_torch.configs.registry import get_arch
     from repro_torch.device import resolve_device
@@ -48,7 +49,7 @@ def run_ladder(arch: str, *, requests: int, rate: float, arrival: str,
     from repro_torch.serving import ServingEngine, TenantSpec, chat_stream
 
     dev = resolve_device(device)
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
     if smoke:
         from repro_torch.configs import reduce_cfg
         cfg = reduce_cfg(cfg)
@@ -103,7 +104,7 @@ def run_ladder(arch: str, *, requests: int, rate: float, arrival: str,
         emit(f"{name}: p99 TTFT ×{rows[name]['ttft_p99_ratio']:.3f}, "
              f"p99 per-token ×{rows[name]['tok_p99_ratio']:.3f} "
              f"vs unprotected")
-    return {"arch": arch, "requests": requests, "rate_rps": rate,
+    return {"arch": cfg.name, "requests": requests, "rate_rps": rate,
             "arrival": arrival, "slots": slots, "seed": seed,
             "env": environment_info(dev), "plans": rows}
 

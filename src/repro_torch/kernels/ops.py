@@ -182,7 +182,17 @@ def wkv_chunked(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     in float32 or bfloat16 as they are (bf16 -> f32 is exact); any other
     type, or a bf16 head width it cannot copy in 4-byte units, is cast to
     float32 first.  The plain path casts to float32, as the JAX layer
-    does."""
+    does.
+
+    K4 has no backward (nor has the JAX package's Pallas kernel): handed
+    an input that requires grad while autograd records, this raises on
+    every device, where the kernel would return a result with no
+    gradient.  Training takes its plain version by name."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (rh, kh, vh, lwh, u, state)):
+        raise RuntimeError(
+            "wkv_chunked (kernel K4) has no backward: train through "
+            "repro_torch.kernels.ref.wkv_chunked_ref")
     if _use_kernel(use_kernel, rh):
         from repro_torch.kernels.wkv6_chunked import takes, \
             wkv6_chunked_cuda

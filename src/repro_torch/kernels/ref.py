@@ -171,9 +171,9 @@ def quantize_rows_ref(x: torch.Tensor):
 
 def wkv_chunked_ref(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                     lwh: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                    chunk: int = 16):
-    """Plain K4: the chunked matmul form of the WKV6 recurrence (the f32
-    ``layers/rwkv6.wkv_chunked`` of the JAX package).
+                    chunk: int = 16, mm_dtype=torch.float32):
+    """Plain K4: the chunked matmul form of the WKV6 recurrence (the
+    ``layers/rwkv6.wkv_chunked`` of the JAX package), differentiable.
 
     rh/kh/vh/lwh [B, S, H, dh] f32 (lwh the log decay), u [H, dh], state
     [B, H, dh, dh]; ``S % chunk == 0``.  With la the in-chunk cumulative
@@ -184,9 +184,15 @@ def wkv_chunked_ref(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
         S = e^la_end S + (k e^(la_end - la))^T v
 
     r, k and v may come in bfloat16; they are cast to float32 here
-    (exactly), as the JAX layer casts them.  Returns ``(y [B, S, H, dh],
-    new_state)``.  On the card it must run with TF32 off: its matmuls are
-    the float32 reference."""
+    (exactly), as the JAX layer casts them.  ``mm_dtype`` bfloat16 (the
+    float training layer's ``wkv_mm_bf16``) rounds the matmul operands
+    to bf16 and sums in float32, as JAX's ``preferred_element_type``
+    does (a product of two bf16 values is exact in float32): the scaled
+    r and k, the scores and v, the bonus term's v too; the inter-chunk
+    product reads the rounded r against the float32 state.  Float32 (K4's
+    reference) rounds nothing.  Returns ``(y [B, S, H, dh], new_state)``.
+    On the card it must run with TF32 off: its matmuls are the float32
+    reference."""
     rh, kh, vh = (t.to(torch.float32) for t in (rh, kh, vh))
     b, s, h, dh = rh.shape
     if s % chunk:
@@ -197,13 +203,17 @@ def wkv_chunked_ref(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     def to_chunks(x):   # [B, S, H, K] -> [n, B, H, C, K]
         return x.reshape(b, n, chunk, h, dh).permute(1, 0, 3, 2, 4)
 
+    def mm(x):          # a matmul operand: rounded to mm_dtype
+        return x.to(mm_dtype).to(torch.float32)
+
     rc, kc, vc, lwc = map(to_chunks, (rh, kh, vh, lwh))
     la = torch.cumsum(lwc, dim=-2)
     la_prev = la - lwc                                # la_{t-1}, la_0 = 0
     la_end = la[..., -1:, :]                          # [n, B, H, 1, K]
-    r_t = rc * torch.exp(la_prev)                     # bounded by |r|
-    k_in = kc * torch.exp(-la)                        # <= e^(C |lw_min|)
-    k_st = kc * torch.exp(la_end - la)                # bounded by |k|
+    r_t = mm(rc * torch.exp(la_prev))                 # bounded by |r|
+    k_in = mm(kc * torch.exp(-la))                    # <= e^(C |lw_min|)
+    k_st = mm(kc * torch.exp(la_end - la))            # bounded by |k|
+    vm = mm(vc)
     diag = torch.sum(rc * u[None, None, :, None, :] * kc, dim=-1)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=rh.dtype,
                                  device=rh.device), diagonal=-1)
@@ -211,9 +221,9 @@ def wkv_chunked_ref(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     for i in range(n):
         y_inter = r_t[i] @ state
         scores = (r_t[i] @ k_in[i].transpose(-1, -2)) * mask
-        y = y_inter + scores @ vc[i] + diag[i][..., None] * vc[i]
+        y = y_inter + mm(scores) @ vm[i] + diag[i][..., None] * vm[i]
         state = (torch.exp(la_end[i][..., 0, :])[..., None] * state
-                 + k_st[i].transpose(-1, -2) @ vc[i])
+                 + k_st[i].transpose(-1, -2) @ vm[i])
         ys.append(y)
     y = torch.stack(ys) if ys else rh.new_zeros((0, b, h, chunk, dh))
     return y.permute(1, 0, 3, 2, 4).reshape(b, s, h, dh), state

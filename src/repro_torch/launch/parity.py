@@ -1,0 +1,43 @@
+"""How closely two runs of one training step must agree: the port
+against the JAX package on the CPU, and the card against the CPU.  Each
+bound is a share of a magnitude: the loss's of its value, a gradient
+leaf's error of :func:`grad_scale`.  One rule for the CPU tests and for
+``chip_smoke.py``'s card runs (ROADMAP §C10, §C13)."""
+from __future__ import annotations
+
+
+def grad_scale(path: str, grads) -> float:
+    """The magnitude a gradient leaf's error is held against: its own
+    largest (``grads`` maps dotted paths to tensors or arrays).  A key
+    projection's bias has no gradient in exact arithmetic (a row's
+    logits all shift by q·b, which the softmax ignores): both runs give
+    round-off there, held against the ``wk.w`` leaf's scale."""
+    if path.endswith("wk.b"):
+        path = path[:-1] + "w"
+    return max(float(abs(grads[path]).max()), 1e-30)
+
+
+def grad_tolerance(cfg, dtype: str) -> float:
+    """A gradient leaf's tolerance, a share of :func:`grad_scale`.
+    float32 compute: 2**-7 where the bf16 attention's cotangents reach
+    the leaf (§C10: every leaf of a model with attention); RWKV has
+    none, so its leaves, the decay LoRA's among them, are held to 1e-5.
+    bf16 compute: 2**-6, whisper's 2**-5 (§C13: the bias, token and
+    SSM-input gradients are sums over the bf16 rows, which XLA adds in
+    bf16 and PyTorch in float32, and cuBLAS and the CPU in other orders:
+    up to 1.08 × 2**-7 measured, and whisper's ~2**-6, where every
+    linear has a bias)."""
+    if dtype == "float32":
+        return 1e-5 if cfg.family == "ssm" else 2.0 ** -7
+    return 2.0 ** -5 if cfg.family == "encdec" else 2.0 ** -6
+
+
+def loss_tolerance(cfg, dtype: str, *, card: bool = False) -> float:
+    """The loss's tolerance, a share of its value: 1e-5 in float32
+    compute, 2**-7 in bf16.  Card against CPU, the MoE's float32 loss
+    is held to 1e-4: its dispatch and combine round the expert rows and
+    gate values to bf16 (as JAX's do), so an f32 ulp upstream that
+    cuBLAS sums in another order can flip a bf16 rounding."""
+    if dtype != "float32":
+        return 2.0 ** -7
+    return 1e-4 if card and cfg.family == "moe" else 1e-5

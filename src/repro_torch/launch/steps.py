@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.tree import (tree_leaves, tree_map,
                                    tree_unflatten_like)
 from repro_torch.layers.common import Ctx
+from repro_torch.layers.scan import ScanGraphs
 from repro_torch.models.base import Model
 from repro_torch.optim import (adamw_init, adamw_update,
                                clip_by_global_norm, is_trainable)
@@ -81,8 +82,11 @@ def make_train_step(model: Model, ctx: Ctx, *, accum: int = 1,
     payload that is reduced: the transport seam a fault study corrupts.
 
     The step builds a new state and leaves ``state`` unchanged (the loop's
-    recompute re-runs a step from it).
+    recompute re-runs a step from it).  It owns the CUDA graphs its
+    scans replay on the card (``ctx.scan_graphs``, made here): they are
+    freed with the step.
     """
+    ctx = ctx.replace(scan_graphs=ScanGraphs())
     grad_fn = make_grad_fn(model, ctx)
 
     def train_step(state, batch):

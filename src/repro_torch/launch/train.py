@@ -9,10 +9,12 @@ checksummed async checkpoints, straggler telemetry).  Training runs
 under ``torch.use_deterministic_algorithms`` (a recompute or a restart
 reproduces the step bit for bit).
 
-Runs on the card unless ``--device cpu`` asks for the CPU (without a card
-it raises).  ``--smoke`` reduces the arch to smoke size.  The JAX CLI's
-mesh flags (``--mesh``, ``--mesh-shape``, ``--device-count``) exit with 2,
-naming ROADMAP A8.
+Trains every family the port serves (``--arch``: the dense LMs,
+granite-moe with its load-balance loss, the float RWKV6, whisper, hymba
+and llava).  Runs on the card unless ``--device cpu`` asks for the CPU
+(without a card it raises).  ``--smoke`` reduces the arch to smoke
+size.  The JAX CLI's mesh flags (``--mesh``, ``--mesh-shape``,
+``--device-count``) exit with 2, naming ROADMAP A8.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --device cpu \\
         --smoke --steps 20 --compress
@@ -101,7 +103,8 @@ def main(argv=None) -> int:
                          f"{cfg.train_accum} accumulation microbatches")
 
     shape = ShapeConfig("cli", "train", args.seq_len, args.batch)
-    model = build_model(cfg)
+    # whisper's learned decoder positions: the text, the meta tokens, 8
+    model = build_model(cfg, max_pos=args.seq_len + cfg.meta_tokens + 8)
     ctx = Ctx(quant=False, float_abft=args.float_abft,
               compute_dtype=torch.bfloat16)
     step_fn = make_train_step(model, ctx, accum=cfg.train_accum,

@@ -11,20 +11,27 @@ import torch
 class Ctx:
     """Per-call layer context.
 
-    ``quant=True`` selects the paper's int8 pipeline (Fig. 1) with ABFT.
-    Protection is governed by ``plan`` (a
-    :class:`repro_torch.protect.ProtectionPlan`); when ``plan`` is None the
-    legacy booleans apply: ``abft`` gates int8 GEMM + EB verification and
-    ``float_abft`` gates float-GEMM ABFT.  ``wkv_chunk > 0`` selects the
-    chunked matmul form of the RWKV6 WKV recurrence (kernel K4 on the
-    card) over a prefill's whole chunks.  ``moe_gather`` selects the
-    MoE's scatter / gather dispatch (False: the one-hot einsums) and
-    ``moe_seq_groups`` runs its token groups one at a time
-    (:mod:`repro_torch.layers.moe`).  The JAX context's sharding, layer
-    scan and cost-probe fields and its bf16 WKV operands
-    (``wkv_mm_bf16``) belong to slices not ported yet; its ``ssm_chunk``
-    (a training remat of the Mamba scan, the same steps) is not needed
-    (:mod:`repro_torch.layers.mamba`).
+    ``quant=True`` selects the paper's int8 pipeline (Fig. 1) with ABFT;
+    False is the float training path.  Protection is governed by ``plan``
+    (a :class:`repro_torch.protect.ProtectionPlan`); when ``plan`` is
+    None the legacy booleans apply: ``abft`` gates int8 GEMM + EB
+    verification and ``float_abft`` gates float-GEMM ABFT.
+    ``wkv_chunk > 0`` selects the chunked matmul form of the RWKV6 WKV
+    recurrence: in the int8 serving prefill over the whole chunks (kernel
+    K4 on the card), in the float form when the length divides (plain
+    PyTorch under autograd, with bf16 matmul operands and float32
+    accumulation where ``wkv_mm_bf16``).  ``ssm_chunk > 0`` runs the
+    Mamba scan in chunks, each recomputed in the backward (JAX's
+    two-level remat: the same steps, less memory).  ``moe_gather``
+    selects the MoE's scatter / gather dispatch (False: the one-hot
+    einsums) and ``moe_seq_groups`` runs its token groups one at a time
+    (:mod:`repro_torch.layers.moe`).  ``scan_graphs`` (a
+    :class:`repro_torch.layers.scan.ScanGraphs`, which
+    :func:`repro_torch.launch.steps.make_train_step` makes for its step)
+    replays the training scans' token loops from CUDA graphs on the
+    card; None runs them eagerly.  It is the step's cache, not a
+    setting: equality and hashing ignore it.  The JAX context's
+    sharding, layer scan and cost-probe fields wait for ROADMAP A8.
     """
     quant: bool = False                   # int8 serving path
     abft: bool = True                     # ABFT verification on (legacy)
@@ -32,8 +39,12 @@ class Ctx:
     plan: Optional[Any] = None            # ProtectionPlan (overrides flags)
     compute_dtype: Any = torch.bfloat16
     wkv_chunk: int = 0                    # >0: chunked matmul-form WKV6
+    wkv_mm_bf16: bool = False             # bf16 WKV matmul operands (f32 acc)
+    ssm_chunk: int = 0                    # >0: chunked, rematted mamba scan
     moe_gather: bool = False              # scatter/gather MoE dispatch
     moe_seq_groups: bool = False          # MoE token groups one at a time
+    scan_graphs: Optional[Any] = dataclasses.field(default=None,
+                                                   compare=False)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

@@ -11,11 +11,14 @@ card), and ``dt_proj`` is a float product.
 
 The scan runs in plain PyTorch, one token a step, with JAX's operations
 in JAX's order; the factors that do not depend on h (``exp(Δ A)`` and
-``Δ B x``) are made for every token at once, elementwise, so each step is
-a multiply, an add and the ``C · h`` product.  The JAX package has no
-Pallas kernel here; its ``Ctx.ssm_chunk`` two-level scan is a training
-remat of the same steps, so it gives the plain scan's result and the port
-has only the plain scan.
+``Δ B x``) are made for a run of tokens at once, elementwise, so each
+step is a multiply and an add (:mod:`repro_torch.layers.scan`), and the
+``C · h`` products follow as one batched product.  The JAX package has
+no Pallas kernel here.  ``ctx.ssm_chunk > 0`` (when it divides the
+length) runs JAX's two-level scan: chunk after chunk, each under
+``torch.utils.checkpoint``, so the backward keeps h at the chunk bounds
+and recomputes one chunk's steps at a time (the same steps, the same
+numbers; the scan holds no protected call, so no counter moves twice).
 
 The depthwise causal conv (kernel 4) is written with shifts; its state
 (the last 3 inputs) joins the decode cache with the SSM state h.
@@ -24,10 +27,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import policy
 from repro_torch.layers.common import Ctx
 from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
+from repro_torch.layers.scan import linear_scan
 
 CONV_K = 4
 
@@ -78,6 +83,20 @@ def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
     return y, xc[:, -(CONV_K - 1):, :]
 
 
+def _scan(h, dt, xc, b_t, c_t, a, graphs=None):
+    """The selective scan over a run of tokens from state h: -> (y
+    [B,S,di], h).  What does not read h is made for the whole run at
+    once (``exp(Δ A)``, ``Δ B x``; [B,S,di,N]); the token loop
+    (:func:`repro_torch.layers.scan.linear_scan`) runs ``h_t = exp(Δ_t
+    A) ∘ h_{t-1} + Δ_t B_t x_t`` alone, and ``y_t = C_t · h_t`` is one
+    batched product after it (JAX's step's operations).  ``graphs``:
+    the training step's cache of captured loops (``ctx.scan_graphs``)."""
+    da = torch.exp(dt[..., None] * a[None, None])
+    dbx = (dt * xc)[..., None] * b_t[:, :, None, :]
+    hs = linear_scan(da, dbx, h, graphs)
+    return torch.einsum("bsdn,bsn->bsd", hs, c_t), hs[:, -1]
+
+
 def mamba(p, x: torch.Tensor, cache, ctx: Ctx, *, d_inner: int,
           n_state: int, dt_rank: int = 32):
     """x [B,S,d]; cache {"conv": [B,K-1,di], "h": [B,di,N]} (f32).
@@ -100,16 +119,21 @@ def mamba(p, x: torch.Tensor, cache, ctx: Ctx, *, d_inner: int,
                     + p["dt_proj"]["b"].to(torch.float32))  # [B,S,di]
     a = -torch.exp(p["a_log"].to(torch.float32))            # [di,N]
 
-    # the factors of every step that do not read h: [B,S,di,N]
-    da = torch.exp(dt[..., None] * a[None, None])
-    dbx = (dt * xc)[..., None] * b_t[:, :, None, :]
-    h = cache["h"]
-    ys = []
-    for t in range(x.shape[1]):
-        h = da[:, t] * h + dbx[:, t]
-        ys.append(torch.einsum("bdn,bn->bd", h, c_t[:, t]))
-    y = torch.stack(ys, dim=1) + xc * p["d_skip"].to(torch.float32)[
-        None, None, :]
+    s = x.shape[1]
+    chunk = ctx.ssm_chunk
+    if chunk and s > 1 and s % chunk == 0:
+        ys = []
+        h = cache["h"]
+        for i in range(0, s, chunk):
+            y_c, h = checkpoint(_scan, h, dt[:, i:i + chunk],
+                                xc[:, i:i + chunk], b_t[:, i:i + chunk],
+                                c_t[:, i:i + chunk], a, ctx.scan_graphs,
+                                use_reentrant=False)
+            ys.append(y_c)
+        ys = torch.cat(ys, dim=1)
+    else:
+        ys, h = _scan(cache["h"], dt, xc, b_t, c_t, a, ctx.scan_graphs)
+    y = ys + xc * p["d_skip"].to(torch.float32)[None, None, :]
     y = y.to(ctx.compute_dtype) * F.silu(
         z.to(torch.float32)).to(ctx.compute_dtype)
     y, r3 = apply_linear(p["out_proj"], y, ctx, name="ssm.out_proj")

@@ -11,11 +11,16 @@ recurrence is an outer-product state update, not a GEMM, so the paper's
 ABFT does not apply to it; the R/K/V/G/O projections and the channel-mix
 are int8 ABFT linears like any other (kernels K3 and K1 on the card).
 
-Prefill runs the recurrence in its chunked matmul form over the whole
-chunks of ``ctx.wkv_chunk`` (kernel K4 on the card) and the per-token
-recurrence over the tail, carrying the state; decode (S = 1) runs the
-per-token recurrence.  Only the int8 serving form of the
-layers is ported; the float (training) form waits for ROADMAP A7.
+The layers come in two forms, as in the JAX package: int8 projections
+(``quant``, the serving form) and float ones (``w``, the training form).
+The int8 prefill runs the recurrence in its chunked matmul form over the
+whole chunks of ``ctx.wkv_chunk`` (kernel K4 on the card) and the
+per-token recurrence over the tail, carrying the state.  The float form
+chooses as JAX does: the chunked form (K4's plain version,
+:func:`repro_torch.kernels.ref.wkv_chunked_ref`, differentiable) when the length divides by the chunk, else the
+per-token recurrence over every token.  K4 has no backward (nor has the
+JAX package's Pallas kernel), so training never reaches it.  Decode
+(S = 1) runs the per-token recurrence.
 """
 from __future__ import annotations
 
@@ -26,9 +31,11 @@ import torch.nn.functional as F
 
 from repro_torch.core import policy
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.layers.common import Ctx
-from repro_torch.layers.linear import apply_linear, init_qlinear
+from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
 from repro_torch.layers.norms import init_layernorm, layernorm
+from repro_torch.layers.scan import linear_scan
 
 
 def _normal(gen: torch.Generator, shape, scale: float, device):
@@ -38,21 +45,29 @@ def _normal(gen: torch.Generator, shape, scale: float, device):
 
 
 def init_timemix(gen: torch.Generator, d: int, n_heads: int, *, device,
-                 lora_rank: int = 64):
+                 lora_rank: int = 64, quant: bool = False,
+                 dtype=torch.float32):
+    """The JAX ``init_timemix``'s tree and distributions (not its values:
+    the generators differ): the projections int8 (``quant``) or float
+    ``{w}`` without bias, the other leaves in ``dtype``."""
     dh = d // n_heads
 
     def q(d_in, d_out):
-        return init_qlinear(gen, d_in, d_out, bias=False, device=device)
+        return maybe_qlinear_init(gen, d_in, d_out, quant, dtype,
+                                  bias=False, device=device)
+
+    def normal(shape, scale):
+        return _normal(gen, shape, scale, device).to(dtype)
 
     return {
-        "mu": _normal(gen, (5, d), 0.5, device),
-        "w0": _normal(gen, (d,), 0.5, device),
-        "w_lora_a": _normal(gen, (d, lora_rank), 0.02, device),
-        "w_lora_b": _normal(gen, (lora_rank, d), 0.02, device),
-        "bonus": _normal(gen, (n_heads, dh), 0.5, device),
+        "mu": normal((5, d), 0.5),
+        "w0": normal((d,), 0.5),
+        "w_lora_a": normal((d, lora_rank), 0.02),
+        "w_lora_b": normal((lora_rank, d), 0.02),
+        "bonus": normal((n_heads, dh), 0.5),
         "wr": q(d, d), "wk": q(d, d), "wv": q(d, d), "wg": q(d, d),
         "wo": q(d, d),
-        "ln_x": init_layernorm(d, device=device),
+        "ln_x": init_layernorm(d, device=device, dtype=dtype),
     }
 
 
@@ -68,20 +83,33 @@ def _token_shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
 LOG_W_MIN = -5.0
 
 
-def wkv_recurrent(rh, kh, vh, lwh, u, state):
+def wkv_recurrent(rh, kh, vh, lwh, u, state, graphs=None):
     """Per-token reference recurrence (the paper-faithful form; decode).
 
     rh/kh/vh/lwh [B,S,H,dh] f32 (lwh = log decay), u [H,dh],
-    state [B,H,dh,dh].  Returns (ys [B,S,H,dh], new_state)."""
-    wh = torch.exp(lwh)
-    ys = []
-    for t in range(rh.shape[1]):
-        r_t, k_t, v_t, w_t = rh[:, t], kh[:, t], vh[:, t], wh[:, t]
-        kv = k_t[..., :, None] * v_t[..., None, :]              # [B,H,dh,dh]
-        wkv = state + u[None, :, :, None] * kv
-        ys.append((r_t[..., None, :] @ wkv)[..., 0, :])         # [B,H,dh]
-        state = w_t[..., :, None] * state + kv
-    return torch.stack(ys, dim=1), state
+    state [B,H,dh,dh].  Returns (ys [B,S,H,dh], new_state).
+
+    JAX's scan step, with only what reads the state left in the token
+    loop (:func:`repro_torch.layers.scan.linear_scan`): ``kv = k ⊗ v``
+    and ``u ∘ kv`` are made for every token at once, the loop runs
+    ``S_t = w_t ∘ S_{t-1} + kv_t``, and every token's ``y_t = r_t ·
+    (S_{t-1} + u ∘ kv_t)`` is one batched product after it.  Each value
+    is computed by the operation JAX's step computes it with.
+    ``graphs``: the training step's cache of captured loops
+    (``ctx.scan_graphs``)."""
+    kv = kh[..., :, None] * vh[..., None, :]                # [B,S,H,dh,dh]
+    states = linear_scan(torch.exp(lwh)[..., :, None], kv, state, graphs)
+    prev = torch.cat([state[:, None], states[:, :-1]], dim=1)
+    wkv = prev + u[None, None, :, :, None] * kv
+    ys = (rh[..., None, :] @ wkv).squeeze(-2)               # [B,S,H,dh]
+    return ys, states[:, -1]
+
+
+def _check_chunk(chunk: int) -> None:
+    if chunk * abs(LOG_W_MIN) > 80.0:
+        raise ValueError(
+            f"chunk={chunk} exceeds the f32-safe envelope for "
+            f"LOG_W_MIN={LOG_W_MIN}; use chunk <= {int(80 / abs(LOG_W_MIN))}")
 
 
 def wkv_chunked(rh, kh, vh, lwh, u, state, *, chunk: int = 16):
@@ -92,10 +120,7 @@ def wkv_chunked(rh, kh, vh, lwh, u, state, *, chunk: int = 16):
 
     The intra-chunk factor e^{-la_j} reaches e^{chunk·|LOG_W_MIN|}, so the
     chunk must keep that clear of the f32 maximum (e^88.7)."""
-    if chunk * abs(LOG_W_MIN) > 80.0:
-        raise ValueError(
-            f"chunk={chunk} exceeds the f32-safe envelope for "
-            f"LOG_W_MIN={LOG_W_MIN}; use chunk <= {int(80 / abs(LOG_W_MIN))}")
+    _check_chunk(chunk)
     return kops.wkv_chunked(rh, kh, vh, lwh, u, state, chunk=chunk)
 
 
@@ -104,9 +129,13 @@ def timemix(p, x, x_prev, state, ctx: Ctx, *, n_heads: int
                        policy.FaultReport]:
     """x [B,S,d], x_prev [B,d], state S [B,H,dh,dh] (f32).
 
-    ``ctx.wkv_chunk > 0`` runs the chunked matmul form over the first
-    ``(S // chunk) * chunk`` tokens (S > 1) and the per-token recurrence
-    over the rest, carrying the state; otherwise the recurrence runs alone.
+    Int8 projections (the serving form): ``ctx.wkv_chunk > 0`` runs the
+    chunked form (K4) over the first ``(S // chunk) * chunk`` tokens
+    (S > 1) and the per-token recurrence over the rest, carrying the
+    state.  Float projections: as JAX, the chunked form
+    (:func:`repro_torch.kernels.ref.wkv_chunked_ref`, plain PyTorch,
+    bf16 operands where ``ctx.wkv_mm_bf16``)
+    when ``S % chunk == 0``, else the recurrence over every token.
     Returns (y, new_x_prev, new_state, report)."""
     b, s, d = x.shape
     dh = d // n_heads
@@ -133,21 +162,35 @@ def timemix(p, x, x_prev, state, ctx: Ctx, *, n_heads: int
     u = p["bonus"].to(torch.float32)                             # [H,dh]
 
     chunk = ctx.wkv_chunk
-    head = (s // chunk) * chunk if chunk and s > 1 else 0
-    ys = []
-    if head:
-        # r, k, v in the compute dtype: K4 reads bf16 as it is and the
-        # plain path casts to f32 (exact), as the JAX layer does
-        y_head, state = wkv_chunked(rh[:, :head], kh[:, :head],
-                                    vh[:, :head], lwh[:, :head], u, state,
-                                    chunk=chunk)
-        ys.append(y_head)
-    if head < s:
-        y_tail, state = wkv_recurrent(
-            *(t[:, head:].to(torch.float32) for t in (rh, kh, vh)),
-            lwh[:, head:], u, state)
-        ys.append(y_tail)
-    y = (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)).reshape(b, s, d)
+    if "w_packed" not in p["wr"]:
+        rh, kh, vh = (t.to(torch.float32) for t in (rh, kh, vh))
+        if chunk and s > 1 and s % chunk == 0:
+            _check_chunk(chunk)
+            y, state = kref.wkv_chunked_ref(
+                rh, kh, vh, lwh, u, state, chunk=chunk,
+                mm_dtype=(torch.bfloat16 if ctx.wkv_mm_bf16
+                          else torch.float32))
+        else:
+            y, state = wkv_recurrent(rh, kh, vh, lwh, u, state,
+                                     ctx.scan_graphs)
+        y = y.reshape(b, s, d)
+    else:
+        head = (s // chunk) * chunk if chunk and s > 1 else 0
+        ys = []
+        if head:
+            # r, k, v in the compute dtype: K4 reads bf16 as it is and the
+            # plain path casts to f32 (exact), as the JAX layer does
+            y_head, state = wkv_chunked(rh[:, :head], kh[:, :head],
+                                        vh[:, :head], lwh[:, :head], u,
+                                        state, chunk=chunk)
+            ys.append(y_head)
+        if head < s:
+            y_tail, state = wkv_recurrent(
+                *(t[:, head:].to(torch.float32) for t in (rh, kh, vh)),
+                lwh[:, head:], u, state)
+            ys.append(y_tail)
+        y = (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)).reshape(
+            b, s, d)
     y = layernorm(p["ln_x"], y.to(ctx.compute_dtype))
     y = y * F.silu(g.to(torch.float32)).to(ctx.compute_dtype)
     y, r5 = apply_linear(p["wo"], y, ctx, name="tm.wo")
@@ -155,11 +198,14 @@ def timemix(p, x, x_prev, state, ctx: Ctx, *, n_heads: int
             policy.merge_reports(r1, r2, r3, r4, r5))
 
 
-def init_channelmix(gen: torch.Generator, d: int, d_ff: int, *, device):
+def init_channelmix(gen: torch.Generator, d: int, d_ff: int, *, device,
+                    quant: bool = False, dtype=torch.float32):
     return {
-        "mu": _normal(gen, (2, d), 0.5, device),
-        "wk": init_qlinear(gen, d, d_ff, bias=False, device=device),
-        "wv": init_qlinear(gen, d_ff, d, bias=False, device=device),
+        "mu": _normal(gen, (2, d), 0.5, device).to(dtype),
+        "wk": maybe_qlinear_init(gen, d, d_ff, quant, dtype, bias=False,
+                                 device=device),
+        "wv": maybe_qlinear_init(gen, d_ff, d, quant, dtype, bias=False,
+                                 device=device),
     }
 
 

@@ -13,13 +13,13 @@ the port has:
 The decoder LMs (``dense``, ``moe``, the ``hybrid`` hymba and the
 ``vlm`` llava, :mod:`.lm`), the ``ssm`` family (RWKV6, :mod:`.rwkv`) and
 the ``encdec`` whisper (:mod:`.whisper`, whose learned decoder positions
-``max_pos`` sizes) serve; the ``dlrm`` family raises
+``max_pos`` sizes) serve and train; the ``dlrm`` family raises
 :class:`NotImplementedError` naming its own model module.  RWKV's
 recurrent state does not grow, so it ignores ``cache_len``.  ``init``
 gives the float form unless ``quant`` asks for the int8 serving form, as
-JAX's does; RWKV has only its int8 form here.  ``loss`` trains the
-``dense`` family: the others' training (MoE's load-balance loss, the
-float RWKV, whisper, hymba and llava) waits for ROADMAP A7 and raises.
+JAX's does.  ``loss`` is JAX's for every family: masked next-token cross
+entropy (the meta-token and patch prefix labelled ``IGNORE``) plus 0.01
+times the MoE load-balance loss.
 """
 from __future__ import annotations
 
@@ -33,14 +33,6 @@ from repro_torch.models import lm, rwkv, whisper
 
 #: the families the facade serves
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
-
-#: ROADMAP items that train each family ``loss`` does not train yet
-_NO_LOSS = {
-    "moe": "A7 (MoE training: the load-balance loss)",
-    "ssm": "A7 (the float RWKV path)",
-    **{f: "A7 (training of the other families)"
-       for f in ("encdec", "hybrid", "vlm")},
-}
 
 IGNORE = -1
 
@@ -78,14 +70,10 @@ class Model:
     def init(self, seed: int, *, quant: bool = False,
              dtype=torch.float32, device="cuda"):
         """Random parameters from ``seed``: the float form in ``dtype``,
-        or with ``quant`` the int8 serving form (the only form RWKV has
-        in the port)."""
+        or with ``quant`` the int8 serving form."""
         if self.cfg.family == "ssm":
-            if not quant:
-                raise NotImplementedError(
-                    "the float RWKV is not ported yet (ROADMAP "
-                    f"{_NO_LOSS['ssm']}); pass quant=True")
-            return rwkv.init_rwkv(seed, self.cfg, device=device)
+            return rwkv.init_rwkv(seed, self.cfg, quant=quant, dtype=dtype,
+                                  device=device)
         if self.cfg.family == "encdec":
             return whisper.init_whisper(seed, self.cfg, self.max_pos,
                                         quant=quant, dtype=dtype,
@@ -95,16 +83,25 @@ class Model:
 
     def loss(self, params, batch, ctx: Ctx):
         """Masked next-token cross entropy + 0.01 x the load-balance loss
-        (0 for ``dense``).  -> (loss, (metrics, report)); the metrics
+        (0 but for ``moe``).  -> (loss, (metrics, report)); the metrics
         hold ``loss``, ``aux_loss`` and the report's counters."""
-        if self.cfg.family in _NO_LOSS:
-            raise NotImplementedError(
-                f"training family {self.cfg.family!r} is not ported yet "
-                f"(ROADMAP {_NO_LOSS[self.cfg.family]}); loss trains "
-                f"'dense'")
-        logits, rep, aux = lm.lm_logits(params, batch["tokens"], ctx,
-                                        self.cfg)
-        loss = cross_entropy(logits, batch["labels"], self.cfg.vocab)
+        cfg = self.cfg
+        labels = batch["labels"]
+        if cfg.family == "encdec":
+            logits, rep, aux = whisper.whisper_logits(
+                params, batch["frames"], batch["tokens"], ctx, cfg)
+        elif cfg.family == "ssm":
+            logits, rep, aux = rwkv.rwkv_logits(params, batch["tokens"],
+                                                ctx, cfg)
+        else:
+            logits, rep, aux = lm.lm_logits(params, batch["tokens"], ctx,
+                                            cfg, patches=batch.get("patches"))
+            prefix = logits.shape[1] - labels.shape[1]
+            if prefix > 0:   # vlm patches / hymba meta tokens: no loss there
+                labels = torch.cat([torch.full(
+                    (labels.shape[0], prefix), IGNORE, dtype=labels.dtype,
+                    device=labels.device), labels], dim=1)
+        loss = cross_entropy(logits, labels, cfg.vocab)
         loss = loss + 0.01 * aux
         metrics = {"loss": loss, "aux_loss": aux, **rep.as_metrics()}
         return loss, (metrics, rep)
@@ -135,8 +132,8 @@ class Model:
         widens each lane's first prefill cache, so a lane whose plan
         quantizes the cache gets QuantKV leaves."""
         if self.cfg.family == "ssm":
-            return rwkv.init_rwkv_state_values(self.cfg, batch,
-                                               device=device)
+            return rwkv.init_rwkv_cache(self.cfg, batch, cache_len,
+                                        device=device)
         if self.cfg.family == "encdec":
             return whisper.init_whisper_cache(self.cfg, batch, cache_len,
                                               device=device)

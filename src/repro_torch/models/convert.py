@@ -14,11 +14,15 @@ bits into ``torch.bfloat16``:
   ``lm_head`` and ``layers`` (``ln1``, ``ln2``, ``attn``, ``mlp``) with
   every leaf stacked on a leading ``[L, ...]`` axis, which
   :mod:`repro_torch.models.lm` indexes as it is;
-* RWKV6 (``init_rwkv(..., quant=True)``): ``embed`` ``{table, alphas,
-  betas, rowsums}``, ``ln0``/``ln_out`` ``{scale, bias}``, ``head``
-  ``{w_packed, alpha, colsum}`` and ``layers`` with every leaf stacked on
-  a leading ``[L, ...]`` axis (``ln1``, ``tm``, ``ln2``, ``cm``), which
-  :mod:`repro_torch.models.rwkv` indexes as it is;
+* RWKV6 (``init_rwkv``): ``embed`` ``{table, alphas, betas, rowsums}``
+  (int8) or ``{table}`` (float), ``ln0``/``ln_out`` ``{scale, bias}``,
+  ``head`` ``{w_packed, alpha, colsum}`` or ``{w}`` and ``layers`` with
+  every leaf stacked on a leading ``[L, ...]`` axis (``ln1``, ``tm``
+  with ``mu``, ``w0``, the decay LoRA and ``bonus``, ``ln2``, ``cm``),
+  which :mod:`repro_torch.models.rwkv` indexes as it is;
+* the MoE LM (granite): the dense LM's tree with ``moe`` {``router``,
+  ``gate``, ``up``, ``down``} in place of ``mlp``, the experts stacked
+  ``[L, E, k, n]`` (float ``w``) or packed ``[L, E, k, n + 128]``;
 * the hybrid LM (hymba): the dense LM's tree, each layer with ``ssm``
   (``in_proj``, ``x_proj``, ``out_proj`` linears, ``conv_w``,
   ``dt_proj {w, b}``, ``a_log``, ``d_skip``), ``attn_out_norm`` and
@@ -29,7 +33,7 @@ bits into ``torch.bfloat16``:
   mlp}, ln, head}``, the LayerNorms ``{scale, bias}``, every linear with
   bias but the head, each stack of layers on a leading ``[L, ...]``
   axis;
-* the float LM (``init_lm(..., quant=False)``): ``{w}`` linears and the
+* the float form of each (``quant=False``): ``{w}`` linears and the
   float token table ``{table}``, stacked as above;
 * the whole training state (``launch.steps.init_train_state``):
   ``params``, ``opt`` ``{m, v, count}``, ``step`` and ``comm``, whose

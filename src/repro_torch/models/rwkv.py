@@ -1,5 +1,7 @@
 """RWKV6 (Finch) language model: stacked time-mix + channel-mix blocks,
-int8-quantized with ABFT on every projection and on the token embedding.
+in the int8 serving form (ABFT on every projection and on the token
+embedding) or the float training form, as the JAX package's
+``models/rwkv.py``.
 
 The parameter and state trees keep the JAX package's layout, so
 :func:`repro_torch.models.convert.from_jax` carries its weights over
@@ -12,8 +14,9 @@ there:
 * the recurrent state ("cache") is ``S [L, B, H, dh, dh]``,
   ``x_tm [L, B, d]`` and ``x_cm [L, B, d]``, all float32.
 
-Decode state is O(1) per layer: the "KV cache" never grows.  The training
-forward (``rwkv_logits``) waits for ROADMAP A7.
+Decode state is O(1) per layer: the "KV cache" never grows.  The
+training forward (:func:`rwkv_logits`) keeps every layer's activations,
+where JAX remats its layer scan (the same numbers, more memory).
 """
 from __future__ import annotations
 
@@ -23,41 +26,53 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import policy
 from repro_torch.device import resolve_device
 from repro_torch.layers import rwkv6 as rk
-from repro_torch.layers.common import Ctx, layer_at, stack_layers
-from repro_torch.layers.embedding import apply_embed, init_qembed
-from repro_torch.layers.linear import apply_linear, init_qlinear
+from repro_torch.layers.common import (Ctx, init_stacked, layer_at,
+                                       stack_layers, unstack_layers)
+from repro_torch.layers.embedding import apply_embed, init_embed, init_qembed
+from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
 from repro_torch.layers.norms import init_layernorm, layernorm
 
 
-def _init_layer(gen, cfg: ArchConfig, device):
+def _init_layer(gen, cfg: ArchConfig, quant: bool, dtype, device):
     return {
-        "ln1": init_layernorm(cfg.d_model, device=device),
-        "tm": rk.init_timemix(gen, cfg.d_model, cfg.n_heads, device=device),
-        "ln2": init_layernorm(cfg.d_model, device=device),
-        "cm": rk.init_channelmix(gen, cfg.d_model, cfg.d_ff, device=device),
+        "ln1": init_layernorm(cfg.d_model, device=device, dtype=dtype),
+        "tm": rk.init_timemix(gen, cfg.d_model, cfg.n_heads, device=device,
+                              quant=quant, dtype=dtype),
+        "ln2": init_layernorm(cfg.d_model, device=device, dtype=dtype),
+        "cm": rk.init_channelmix(gen, cfg.d_model, cfg.d_ff, device=device,
+                                 quant=quant, dtype=dtype),
     }
 
 
 @torch.no_grad()
-def init_rwkv(seed: int, cfg: ArchConfig, *, device="cuda"):
-    """Random int8 RWKV6 parameters from ``seed``, made on ``device``.
+def init_rwkv(seed: int, cfg: ArchConfig, *, quant: bool = False,
+              dtype=torch.float32, device="cuda"):
+    """Random RWKV6 parameters from ``seed``, made on ``device``: the
+    float form in ``dtype``, or with ``quant`` the int8 serving form.
 
-    The JAX ``init_rwkv(..., quant=True)`` distributions (not its values:
-    the generators differ): float parameters normal times the JAX
-    ``param()`` scale (0.5 for ``mu``, ``w0``, ``bonus``; 0.02 for the
-    decay LoRA), layer norms at scale 1 and bias 0, int8 projections
-    and head as :func:`init_qlinear` without bias, the token table as
-    :func:`init_qembed` over the padded vocabulary."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    The JAX ``init_rwkv``'s distributions (not its values: the generators
+    differ): float parameters normal times the JAX ``param()`` scale (0.5
+    for ``mu``, ``w0``, ``bonus``; 0.02 for the decay LoRA and the float
+    token table), layer norms at scale 1 and bias 0, the projections and
+    head without bias (int8 as :func:`init_qlinear`, float ``w`` at
+    ``d_in ** -0.5``), the token table over the padded vocabulary.
+    ``device="meta"`` gives the tree's shapes and dtypes without
+    storage."""
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     vp = cfg.vocab_padded
+    embed = (init_qembed(gen, vp, cfg.d_model, device=dev) if quant
+             else init_embed(gen, vp, cfg.d_model, dtype=dtype, device=dev))
     return {
-        "embed": init_qembed(gen, vp, cfg.d_model, device=dev),
-        "ln0": init_layernorm(cfg.d_model, device=dev),
-        "layers": stack_layers([_init_layer(gen, cfg, dev)
-                          for _ in range(cfg.n_layers)]),
-        "ln_out": init_layernorm(cfg.d_model, device=dev),
-        "head": init_qlinear(gen, cfg.d_model, vp, bias=False, device=dev),
+        "embed": embed,
+        "ln0": init_layernorm(cfg.d_model, device=dev, dtype=dtype),
+        "layers": init_stacked(lambda: _init_layer(gen, cfg, quant, dtype,
+                                                   dev), cfg.n_layers),
+        "ln_out": init_layernorm(cfg.d_model, device=dev, dtype=dtype),
+        "head": maybe_qlinear_init(gen, cfg.d_model, vp, quant, dtype,
+                                   bias=False, device=dev),
     }
 
 
@@ -79,32 +94,44 @@ def _block(layer_p, x, state, ctx: Ctx, cfg: ArchConfig):
 
 def _layers(params, x, states, ctx: Ctx, cfg: ArchConfig, rep):
     """Every block in order, from the stacked ``states``; returns the new
-    stacked states."""
+    stacked states.  The stacks are unbound once (``unstack_layers``), so
+    the layers' gradients stack in one op, as JAX's scan gives them."""
     new = []
-    for i in range(cfg.n_layers):
-        x, st, r = _block(layer_at(params["layers"], i), x,
-                          layer_at(states, i), ctx, cfg)
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+    for i, layer_p in enumerate(layers):
+        x, st, r = _block(layer_p, x, layer_at(states, i), ctx, cfg)
         rep = policy.merge_reports(rep, r)
         new.append(st)
     return x, stack_layers(new), rep
 
 
-@torch.no_grad()
-def rwkv_hidden(params, tokens, states, ctx: Ctx, cfg: ArchConfig):
-    """tokens [B,S] from stacked ``states`` -> (final-normed hidden
-    [B,S,d], new states, report)."""
+def rwkv_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, states=None):
+    """tokens [B,S] from stacked ``states`` (zero states if None) ->
+    (final-normed hidden [B,S,d], new states, report).  Differentiable:
+    the training loss takes its gradient through it; the serving entry
+    points call it under ``torch.no_grad``."""
+    if states is None:
+        states = init_rwkv_state_values(cfg, tokens.shape[0],
+                                        device=tokens.device)
     x, rep = apply_embed(params["embed"], tokens, ctx)
     x = layernorm(params["ln0"], x)
     x, new_states, rep = _layers(params, x, states, ctx, cfg, rep)
     return layernorm(params["ln_out"], x), new_states, rep
 
 
+def rwkv_logits(params, tokens, ctx: Ctx, cfg: ArchConfig):
+    """Training forward: logits [B, S, vocab_padded], report and the aux
+    loss (0: RWKV has no MoE)."""
+    x, _, rep = rwkv_hidden(params, tokens, ctx, cfg)
+    logits, r_h = apply_linear(params["head"], x, ctx, name="lm_head")
+    return logits, policy.merge_reports(rep, r_h), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 @torch.no_grad()
 def rwkv_prefill(params, tokens, ctx: Ctx, cfg: ArchConfig):
     """Returns last-token logits + the recurrent state as 'cache'."""
-    states = init_rwkv_state_values(cfg, tokens.shape[0],
-                                    device=tokens.device)
-    x, states, rep = rwkv_hidden(params, tokens, states, ctx, cfg)
+    x, states, rep = rwkv_hidden(params, tokens, ctx, cfg)
     logits, r_h = apply_linear(params["head"], x[:, -1, :], ctx,
                                name="lm_head")
     return logits, states, policy.merge_reports(rep, r_h)
@@ -132,3 +159,11 @@ def init_rwkv_state_values(cfg: ArchConfig, batch: int, *, device):
         "x_tm": torch.zeros((L, batch, cfg.d_model), device=device),
         "x_cm": torch.zeros((L, batch, cfg.d_model), device=device),
     }
+
+
+def init_rwkv_cache(cfg: ArchConfig, batch: int, cache_len: int,
+                    dtype=torch.bfloat16, *, device):
+    """The zero recurrent state (JAX's ``init_rwkv_cache``): ``cache_len``
+    and ``dtype`` are irrelevant, the state is O(1) and float32."""
+    del cache_len, dtype
+    return init_rwkv_state_values(cfg, batch, device=device)

@@ -1224,3 +1224,95 @@ def test_training_cell_on_card_equals_cpu(dev, cell_id):
     assert torch.equal(card.trials, cpu.trials)
     assert torch.equal(card.clean, cpu.clean)
     assert card.metrics.detected == cpu.metrics.detected
+
+
+# ------------------- training of the other families (A7) --------------------
+
+FAMILIES_TRAINED = ["granite-moe-3b-a800m", "rwkv6-1.6b",
+                    "whisper-large-v3", "hymba-1.5b",
+                    "llava-next-mistral-7b"]
+
+
+def _family_batch(cfg, dev_name, b=4, s=16):
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.patch_dim:
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.n_patches, cfg.patch_dim)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev_name) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", FAMILIES_TRAINED)
+def test_family_train_step_on_card_within_tolerance_of_the_cpu(dev, arch):
+    """One training step of the family's reduced model on the card
+    against the CPU run, float32 compute: the loss and each gradient
+    leaf within :mod:`repro_torch.launch.parity`'s tolerances, card
+    against CPU; the step (2 microbatches, the checked compression,
+    AdamW) with 0 comm errors on both and its loss within the loss's
+    tolerance."""
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.core.inject import leaf_paths
+    from repro_torch.device import deterministic
+    from repro_torch.launch.parity import (grad_scale, grad_tolerance,
+                                           loss_tolerance)
+    from repro_torch.launch.steps import (init_train_state, make_grad_fn,
+                                          make_train_step)
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.models.convert import to_device
+    cfg = reduce_cfg(get_arch(arch))
+    model = build_model(cfg, max_pos=64)
+    ctx = Ctx(quant=False, compute_dtype=torch.float32)
+    s_cpu = init_train_state(model, 0, compress=True, device="cpu")
+    s_dev = to_device(s_cpu, dev)
+    b_cpu, b_dev = _family_batch(cfg, "cpu"), _family_batch(cfg, dev)
+    grad = make_grad_fn(model, ctx)
+    step = make_train_step(model, ctx, accum=2, peak_lr=1e-3, warmup=0,
+                           total_steps=10, compress=True)
+    with deterministic():
+        (l_c, _), g_c = grad(s_cpu["params"], b_cpu)
+        (l_d, _), g_d = grad(s_dev["params"], b_dev)
+        _, m_c = step(s_cpu, b_cpu)
+        _, m_d = step(s_dev, b_dev)
+    loss_tol = loss_tolerance(cfg, "float32", card=True)
+    assert abs(float(l_d) - float(l_c)) <= loss_tol * abs(float(l_c))
+    tol = grad_tolerance(cfg, "float32")
+    named = dict(leaf_paths(g_c))
+    for (path, a), (_, b) in zip(leaf_paths(g_c), leaf_paths(g_d)):
+        scale = grad_scale(path, named)
+        assert float((a - b.cpu()).abs().max()) <= tol * scale, path
+    assert int(m_c["comm/errors"]) == int(m_d["comm/errors"]) == 0
+    assert abs(float(m_d["loss_final"]) - float(m_c["loss_final"])) <= \
+        loss_tol * abs(float(m_c["loss_final"]))
+
+
+def test_linear_scan_graph_equals_the_eager_loop(dev):
+    """A training step's scan replays its token loops from the step's
+    CUDA graphs: the same kernels on the same operands, so its output
+    and gradients equal the loop run eagerly on the card bit for bit
+    (and the CPU's within float32 round-off)."""
+    from repro_torch.layers import scan
+    rng = np.random.default_rng(3)
+    a, b = (torch.from_numpy(rng.uniform(0.2, 1.0, (2, 40, 6, 5)).astype(
+        np.float32)), torch.from_numpy(rng.standard_normal(
+            (2, 40, 6, 5)).astype(np.float32)))
+    h0 = torch.from_numpy(rng.standard_normal((2, 6, 5)).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((2, 40, 6, 5)).astype(
+        np.float32))
+    runs = []
+    graphs = scan.ScanGraphs()
+    for device, cache in ((dev, graphs), (dev, None), ("cpu", None)):
+        ts = [t.to(device).requires_grad_() for t in (a, b, h0)]
+        out = scan.linear_scan(*ts, graphs=cache)
+        (out * ct.to(device)).sum().backward()
+        runs.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    # the forward and the backward loop were captured
+    assert len(graphs._graphs) == 2
+    for x, y in zip(runs[0], runs[1]):
+        assert torch.equal(x, y)
+    for x, y in zip(runs[0], runs[2]):
+        assert float((x - y).abs().max()) <= 1e-6 * float(y.abs().max())

@@ -14,7 +14,8 @@ its FaultReport counters exactly.  The serving engines of both packages
 serve the same burst (every arrival inside one step) to the same tokens,
 steps and counters, in float32 (``torch_family_parity``).  What the port
 still refuses: the paged lanes for hymba, llava and whisper (as JAX
-does) and their training.
+does).  The three train (``tests/test_torch_train_*.py`` hold them to
+JAX): here the facade's loss on the port's own float weights.
 """
 import dataclasses
 import json
@@ -227,8 +228,21 @@ def test_paged_lanes_refuse_as_jax_does(arch):
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "hymba-1.5b",
                                   "llava-next-mistral-7b"])
-def test_training_the_families_is_refused(arch):
-    model = t_base.build_model(reduce_cfg(get_arch(arch)))
-    with pytest.raises(NotImplementedError,
-                       match=r"A7 \(training of the other families\)"):
-        model.loss({}, {}, TCtx())
+def test_the_families_train(arch):
+    """``Model.loss`` over the port's own float weights: a finite loss,
+    logits over the meta-token and patch prefix and the text, and a
+    finite gradient reaching every leaf."""
+    from repro_torch.core.inject import leaf_paths
+    from repro_torch.launch.steps import make_grad_fn
+    from torch_family_parity import train_batch
+    cfg = reduce_cfg(get_arch(arch))
+    model = t_base.build_model(cfg, max_pos=64)
+    params = model.init(0, device="cpu")
+    batch = from_jax(train_batch(cfg, 0), "cpu")
+    (loss, metrics), grads = make_grad_fn(model, TCtx(
+        quant=False, compute_dtype=torch.float32))(params, batch)
+    assert np.isfinite(float(loss)) and float(metrics["aux_loss"]) == 0.0
+    for path, g in leaf_paths(grads):
+        assert torch.isfinite(g).all(), path
+        if not path.endswith("wk.b"):   # 0 in exact arithmetic
+            assert g.abs().max() > 0, path

@@ -433,14 +433,17 @@ def test_float_lm_logits_and_cross_entropy_match_jax():
 
 
 def test_lm_and_facade_refuse_what_is_not_ported(monkeypatch):
-    # the hybrid and VLM families serve now (tests/test_torch_families.py);
-    # their training, and the families models.lm does not run, are refused
-    for fam, item in (("hybrid", "A7"), ("vlm", "A7"),
-                      ("hybrid", "training of the other families"),
-                      ("vlm", "training of the other families")):
-        cfg = dataclasses.replace(T_CFG, family=fam)
+    # the hybrid and VLM families serve and train now
+    # (tests/test_torch_families.py, tests/test_torch_train_*.py); the two
+    # configs too large for one card, and the families models.lm does not
+    # run, are refused
+    from repro_torch.configs import registry
+    for arch, item in (("mistral-large-123b", "A8"),
+                       ("llama4-scout-17b-a16e", "A8"),
+                       ("mistral-large-123b", "outgrow one card"),
+                       ("llama4-scout-17b-a16e", "over one card")):
         with pytest.raises(NotImplementedError, match=item):
-            t_base.build_model(cfg).loss({}, {}, TCtx())
+            registry.get_arch(arch)
     for fam, exc, item in (("dlrm", NotImplementedError, "models.dlrm"),
                            ("ssm", ValueError, "not a decoder LM"),
                            ("encdec", ValueError, "not a decoder LM")):

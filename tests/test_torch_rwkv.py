@@ -303,7 +303,7 @@ def test_fault_counters_match_jax_under_flips(weights, dtype):
 
 
 def test_init_rwkv_distributions():
-    p = t_rwkv.init_rwkv(3, T_CFG, device="cpu")
+    p = t_rwkv.init_rwkv(3, T_CFG, quant=True, device="cpu")
     w = p["layers"]["tm"]["wr"]["w_packed"][..., :T_CFG.d_model]
     assert w.dtype == torch.int8 and int(w.min()) >= -127
     a = p["head"]["alpha"]
@@ -323,7 +323,7 @@ def test_init_rwkv_distributions():
     assert torch.equal(enc["layers"]["cm"]["wk"]["w_packed"],
                        p["layers"]["cm"]["wk"]["w_packed"])
     assert torch.equal(enc["embed"]["rowsums"], e["rowsums"])
-    q = t_rwkv.init_rwkv(3, T_CFG, device="cpu")
+    q = t_rwkv.init_rwkv(3, T_CFG, quant=True, device="cpu")
     assert torch.equal(q["layers"]["cm"]["wv"]["w_packed"],
                        p["layers"]["cm"]["wv"]["w_packed"])
 

@@ -67,3 +67,26 @@ def test_cli_writes_the_jax_artifact_keys(tmp_path):
     for name in want["plans"]:
         assert set(got["plans"][name]) >= set(want["plans"][name])
         assert got["plans"][name]["plan"] == want["plans"][name]["plan"]
+
+
+def test_ladder_cuts_the_depth_on_request():
+    """A config cut in depth, width kept, is served as given: each
+    protected rung checks one layer's projections and the head a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduce_cfg
+    full = t_slo.run_ladder("llama3.2-1b", device="cpu", emit=lambda m: 0,
+                            **_KW)
+    # the reduced config (what ``smoke`` serves) at 1 of its 2 layers
+    cut = dataclasses.replace(reduce_cfg(get_arch("llama3.2-1b")),
+                              n_layers=1)
+    one = t_slo.run_ladder(cut, device="cpu", emit=lambda m: 0,
+                           **dict(_KW, smoke=False))
+    assert one["arch"] == full["arch"] == "llama3.2-1b"
+    for name in ("log", "recompute+kv"):
+        got, want = one["plans"][name], full["plans"][name]
+        assert got["completed"] == want["completed"] == _KW["requests"]
+        # the reduced Llama's 2 layers of 7 projections and the head a
+        # step, against 1 layer's and the head
+        assert want["counters"]["qgemm_checks"] == 15 * want["steps"]
+        assert got["counters"]["qgemm_checks"] == 8 * got["steps"]

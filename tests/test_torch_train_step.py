@@ -18,8 +18,8 @@ over the reduced Llama-3.2-1B and the same numpy inputs.
   with JAX's ``make_train_step`` given the same gradients; with clipping
   active the norm's sum order moves the result by float32 ulps.
 * The float ``Model.init``, ``input_specs`` and ``train_state_shapes``
-  give JAX's tree, shapes and dtypes; MoE and RWKV training are refused
-  naming ROADMAP A7; the CLI trains the smoke model on the CPU with 0
+  give JAX's tree, shapes and dtypes; MoE and RWKV train (held to JAX
+  in ``tests/test_torch_train_*.py``); the CLI trains the smoke model on the CPU with 0
   ``comm/errors`` and refuses the mesh flags naming A8.
 """
 import dataclasses
@@ -396,17 +396,23 @@ def test_train_state_shapes_and_input_specs_match_jax(models):
             assert tspec[k].dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch,item", [("granite-moe-3b-a800m", "A7"),
-                                       ("rwkv6-1.6b", "A7")])
-def test_moe_and_ssm_training_refused(arch, item):
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "rwkv6-1.6b"])
+def test_moe_and_ssm_train(arch):
+    """The MoE and the float RWKV train on the port's own weights: a
+    finite loss (granite's with its load-balance loss), every leaf's
+    gradient finite; RWKV keeps its int8 serving form under ``quant``."""
     m = build_model(reduce_cfg(get_arch(arch)))
     batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
-    with pytest.raises(NotImplementedError, match=item):
-        m.loss({}, batch, Ctx(quant=False))
+    params = m.init(0, device="cpu")
+    (loss, metrics), grads = tsteps.make_grad_fn(m, Ctx(
+        quant=False, compute_dtype=torch.float32))(params, batch)
+    assert np.isfinite(float(loss))
+    assert (float(metrics["aux_loss"]) > 0) == (m.cfg.family == "moe")
+    assert all(torch.isfinite(g).all() for g in tree_leaves(grads))
     if m.cfg.family == "ssm":
-        with pytest.raises(NotImplementedError, match=item):
-            m.init(0, device="cpu")
-        assert "embed" in m.init(0, quant=True, device="cpu")
+        assert params["embed"]["table"].dtype == torch.float32
+        q = m.init(0, quant=True, device="cpu")
+        assert q["embed"]["table"].dtype == torch.int8
 
 
 def test_whole_train_state_converts_from_jax(models):

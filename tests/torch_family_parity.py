@@ -1,7 +1,8 @@
 """Helpers shared by the port's parity tests of ROADMAP §A7's families
-(``tests/test_torch_{families,mamba,whisper}.py``): the reduced configs
-and JAX weights, a prefill with greedy decodes through both packages,
-and both serving engines over one burst.
+(``tests/test_torch_{families,mamba,whisper}.py`` and
+``tests/test_torch_train_*.py``): the reduced configs and JAX weights, a
+prefill with greedy decodes through both packages, both serving engines
+over one burst, and the training loss and gradients of both packages.
 
 The JAX side runs op by op (``jax.disable_jit``, ROADMAP §C5), which
 compiles every primitive once per shape and dtype in a process: the
@@ -31,6 +32,8 @@ from repro.serving import chat_stream as j_chat_stream
 from repro.sharding import values_of
 from repro_torch.configs import get_arch, reduce_cfg
 from repro_torch.core.inject import victim_leaf_index
+from repro_torch.launch.parity import (grad_scale, grad_tolerance,
+                                       loss_tolerance)
 from repro_torch.layers.common import Ctx as TCtx
 from repro_torch.models import base as t_base
 from repro_torch.models.convert import from_jax
@@ -236,3 +239,128 @@ def engine_matches_jax(arch):
     assert not any(v for k, v in counters.items()
                    if not k.endswith("_checks"))
     return tel
+
+
+# ------------------------------ training ------------------------------------
+
+def same_metric_keys(tmet, jmet):
+    """The port's metric keys are JAX's, but for the counters of op kinds
+    another test registered in this process on one side only
+    (``register_op_kind`` is process-wide)."""
+    from repro.core.policy import op_kinds as j_kinds
+    from repro_torch.core.policy import op_kinds as t_kinds
+    only_j = set(j_kinds()) - set(t_kinds())
+    only_t = set(t_kinds()) - set(j_kinds())
+
+    def own(keys, others):
+        return {k for k in keys
+                if not any(k.startswith(f"abft/{o}_") for o in others)}
+    assert own(tmet, only_t) == own(jmet, only_j)
+
+
+def train_cfgs(arch):
+    """The reduced config of ``tests/helpers.reduce_cfg`` in both
+    packages (the train CLI's ``--smoke``)."""
+    return small_arch(arch), reduce_cfg(get_arch(arch))
+
+
+def train_batch(cfg, seed: int, b: int = 2, s: int = 16) -> dict:
+    """A numpy training batch of ``s`` text tokens: tokens, next-token
+    labels, and llava's patches or whisper's frames."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.patch_dim:
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.n_patches, cfg.patch_dim)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+_TRAIN_W = {}
+
+
+def train_weights(arch, seed: int, max_pos: int = 64):
+    """JAX's float parameters of the reduced model from ``seed``, as
+    numpy (whisper's position table ``max_pos`` rows)."""
+    key = (arch, seed, max_pos)
+    if key not in _TRAIN_W:
+        jm = j_base.Model(train_cfgs(arch)[0], max_pos=max_pos)
+        _TRAIN_W[key] = np_tree(jax.jit(lambda k: jm.init(k))(
+            jax.random.key(seed)))
+    return _TRAIN_W[key]
+
+
+_JAX_GRAD = {}
+
+
+def jax_value_and_grad(arch, dtype: str, np_params, batch, max_pos=64,
+                       **ctx_kw):
+    """``jax.value_and_grad(Model.loss)`` of the reduced model: jitted in
+    float32 (the training path has no quantizer, so jit moves nothing
+    §C5 speaks of), op by op in bf16 (XLA's fusions keep float32
+    intermediates an op-by-op run rounds).  -> (loss, metrics,
+    [(dotted path, gradient)] in the flatten order)."""
+    jm = j_base.Model(train_cfgs(arch)[0], max_pos=max_pos)
+    jctx = JCtx(plan=j_default_plan(), quant=False,
+                compute_dtype=getattr(jnp, dtype), **ctx_kw)
+
+    def loss_fn(p, b):
+        loss, (metrics, _rep) = jm.loss(p, b, jctx)
+        return loss, metrics
+
+    fn = jax.value_and_grad(loss_fn, has_aux=True)
+    jp = jax.tree.map(jnp.asarray, np_params)
+    jb = jax.tree.map(jnp.asarray, batch)
+    if dtype == "float32":
+        key = (arch, max_pos, tuple(sorted(ctx_kw.items())))
+        if key not in _JAX_GRAD:
+            _JAX_GRAD[key] = jax.jit(fn)
+        (loss, metrics), grads = _JAX_GRAD[key](jp, jb)
+    else:
+        with jax.disable_jit():
+            (loss, metrics), grads = fn(jp, jb)
+    leaves = [(".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in path), np.asarray(g, np.float32))
+              for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]]
+    return float(loss), {k: float(v) for k, v in metrics.items()}, leaves
+
+
+def port_value_and_grad(arch, dtype: str, np_params, batch, max_pos=64,
+                        **ctx_kw):
+    """The port's ``make_grad_fn(Model.loss)`` on the same weights and
+    batch: -> (loss, metrics, [(dotted path, gradient)])."""
+    from repro_torch.core.inject import leaf_paths
+    from repro_torch.launch.steps import make_grad_fn
+    tm = t_base.Model(train_cfgs(arch)[1], max_pos=max_pos)
+    ctx = TCtx(plan=default_plan(), quant=False,
+               compute_dtype=getattr(torch, dtype), **ctx_kw)
+    (loss, metrics), grads = make_grad_fn(tm, ctx)(
+        from_jax(np_params, "cpu"), from_jax(batch, "cpu"))
+    return float(loss), {k: float(v) for k, v in metrics.items()}, \
+        [(p, g.to(torch.float32).numpy()) for p, g in leaf_paths(grads)]
+
+
+def check_loss_and_grads(arch, dtype: str, seed: int, tol=None, **ctx_kw):
+    """Both packages' loss and every gradient leaf on JAX's weights and
+    the same batch, within :func:`loss_tolerance` and ``tol`` (default
+    :func:`grad_tolerance`).  Returns (jax loss and metrics, port loss and
+    metrics)."""
+    cfg = train_cfgs(arch)[1]
+    w = train_weights(arch, seed)
+    batch = train_batch(cfg, seed)
+    jl, jmet, jg = jax_value_and_grad(arch, dtype, w, batch, **ctx_kw)
+    tl, tmet, tg = port_value_and_grad(arch, dtype, w, batch, **ctx_kw)
+    assert np.isfinite(tl) and \
+        abs(tl - jl) <= loss_tolerance(cfg, dtype) * abs(jl)
+    same_metric_keys(tmet, jmet)
+    assert [p for p, _ in tg] == [p for p, _ in jg]
+    scales = dict(jg)
+    tol = grad_tolerance(cfg, dtype) if tol is None else tol
+    for (path, a), (_, b) in zip(jg, tg):
+        assert b.shape == a.shape, path
+        err = float(np.abs(a - b).max()) / grad_scale(path, scales)
+        assert err <= tol, (path, err, tol)
+    return (jl, jmet), (tl, tmet)
