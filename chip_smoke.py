@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Twenty-three paths run, each with every launch counter set to 0 just
+Twenty-six paths run, each with every launch counter set to 0 just
 before it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
 int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
 (K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
@@ -18,7 +18,10 @@ full-width Llama-3.2-1B trained under faults (no kernel of the port: all
 six counters read 0), int8 whisper-large-v3, hymba-1.5b,
 llava-next-mistral-7b and internlm2-20b chat serving (K1-K3), one path
 each, and rwkv6-1.6b, whisper-large-v3, hymba-1.5b, llava-next-mistral-7b
-and granite-moe-3b-a800m trained (all six counters 0), one path each.
+and granite-moe-3b-a800m trained (all six counters 0), one path each,
+and the data mesh (all six counters 0): Llama-3.2-1B's deferred and
+ZeRO-1 steps over an NCCL world of one, and the ``multidevice`` grid
+on 4 gloo ranks sharing the card, one path each.
 Each phase's seconds are printed.  Phases (any
 failure exits non-zero; nothing is caught and passed over):
 
@@ -333,7 +336,23 @@ failure exits non-zero; nothing is caught and passed over):
    float32 and bf16 compute; granite again with one byte of its
    ``moe.gate`` expert stack's int8 payload flipped in transit at step
    2: ``comm/errors`` 1 there, one recompute, final parameters equal to
-   the clean run's bit for bit; all six launch counters 0 on each path.
+   the clean run's bit for bit; all six launch counters 0 on each path;
+21. the data mesh: full-width Llama-3.2-1B at phase 18's depth, 8 x 256
+   tokens in its 4 microbatches, deterministic algorithms, over an NCCL
+   world of one rank (this process): the deferred step with the checked
+   int8 reduction over the group, 2 steps in ``TrainLoop``, equal bit
+   for bit to ``make_train_step(compress=True)`` from the same state
+   and batches (parameters and ``comm/errors``), its step ms and a
+   profiled step's busy share; the same loop with rank 0's payload
+   flipped in transit at the second step (``comm/errors`` 1 there, one
+   recompute, parameters equal bit for bit); the ZeRO-1 step, 2 steps,
+   its peak against the reckoned bf16 parameters and three flat float32
+   vectors, and the reduced model's ZeRO-1 steps card against CPU; then
+   ``--grid multidevice --quick`` on 4 gloo ranks sharing the card
+   (launched once), gated against both JAX artifacts (Wilson overlap in
+   every cell, the differ) with its acceptance cell attributed to shard
+   0, each rank's memory; all six launch counters 0 on each path (in
+   every rank).
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
@@ -342,8 +361,9 @@ instances), and ``launches_by_path`` holds every kernel's count on each
 of the paths (DLRM serve, RWKV serve, campaign, thresholds, overhead,
 float DLRM, Llama serve, Llama paged serve, granite serve, serving soak,
 the SLO ladder of each model, observability, training, whisper, hymba,
-llava, internlm2, and the training of rwkv6, whisper, hymba, llava and
-granite),
+llava, internlm2, the training of rwkv6, whisper, hymba, llava and
+granite, and the mesh's deferred step, ZeRO-1 step and multidevice
+grid),
 all six counts set to 0
 just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -3242,16 +3262,20 @@ GRANITE = "granite-moe-3b-a800m"
 #: 19, hymba and llava at 8 of 32, internlm2 at 12 of 48 (whisper stays
 #: whole: its build's check needs its layer stack, 1.60 GB, above the
 #: 0.80 GB its token table's build takes, and at 16 + 16 the two meet).
-#: For memory, 20 (PERF.md §4 reckons each): the training loop holds the
-#: pre-step state and builds the new one, so the peak is about two
-#: 16 B/param states, the float32 gradient sum and the activations, and
-#: these two models pass ~72 GiB at full depth
+#: 20, for the time phase 21 takes: granite trained at 9 of
+#: 32 layers, hymba at 16 of 32 and whisper at 16 + 16 (a cut of an
+#: encoder-decoder cuts both stacks); llava at 7 of 32 for memory (the
+#: training loop holds the pre-step state and builds the new one, so the
+#: peak is about two 16 B/param states, the float32 gradient sum and the
+#: activations: PERF.md §4 reckons it).  21, Llama over the data mesh at
+#: phase 18's depth
 LLAMA = "llama3.2-1b"
 DEPTH = {(15, GRANITE): 8, (16, LLAMA): 8, (16, GRANITE): 4,
-         (18, LLAMA): 8,
+         (18, LLAMA): 8, (21, LLAMA): 8,
          (19, "hymba-1.5b"): 8, (19, "llava-next-mistral-7b"): 8,
          (19, "internlm2-20b"): 12,
-         (20, "llava-next-mistral-7b"): 7, (20, GRANITE): 17}
+         (20, "llava-next-mistral-7b"): 7, (20, GRANITE): 9,
+         (20, "hymba-1.5b"): 16, (20, "whisper-large-v3"): 16}
 
 
 def depth_cut(phase: int, arch: str):
@@ -3262,7 +3286,10 @@ def depth_cut(phase: int, arch: str):
     from repro_torch.configs import get_arch
     cfg = get_arch(arch)
     if (phase, arch) in DEPTH:
-        cfg = dataclasses.replace(cfg, n_layers=DEPTH[phase, arch])
+        cut = {"n_layers": DEPTH[phase, arch]}
+        if cfg.enc_layers:
+            cut["enc_layers"] = DEPTH[phase, arch]
+        cfg = dataclasses.replace(cfg, **cut)
     return cfg
 
 
@@ -5334,6 +5361,422 @@ def train_families_phase(torch, dev) -> dict:
     return {"launches": launches_by, "record": record}
 
 
+#: phase 21's multidevice grid, gated as the training grid is
+MULTIDEVICE_JAX = ("src/repro_torch/campaign/baselines/"
+                   "BENCH_campaign_multidevice_quick.json")
+MULTIDEVICE_BASELINE = ("benchmarks/baselines/"
+                        "BENCH_campaign_multidevice_quick.json")
+MULTIDEVICE_ACCEPT = ("train_payload_shard/bitflip/significant/2x16/int8/"
+                      "steps2/shards4")
+
+
+def _mesh_grid_rank(world, out_dir):
+    """One of phase 21c's ranks: ``--grid multidevice --quick`` over the
+    world (the CLI's rank body), this rank's launch counts from 0 and
+    its memory; rank 0 returns the artifact and every rank's record."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.campaign.__main__ import _grid_rank
+    wrappers = zero_launches()
+    args = argparse.Namespace(quick=True, seed=0, samples=0, out=out_dir,
+                              chunk=0)
+    result = _grid_rank(world, "multidevice", args)
+    on_card = world.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    mine = {"rank": world.rank, "pid": os.getpid(),
+            "device": str(world.device), "backend": world.backend,
+            "reserved": torch.cuda.memory_reserved() if on_card else 0,
+            "max_allocated": (torch.cuda.max_memory_allocated()
+                              if on_card else 0),
+            "launches": read_launches(wrappers)}
+    every = [None] * world.size
+    dist.all_gather_object(every, mine)
+    # the card's memory while every rank still holds its context
+    used = smi_used_mib() if on_card and world.rank == 0 else None
+    dist.barrier()
+    if world.rank != 0:
+        return None
+    return {"artifact": result, "ranks": every, "used_mib": used}
+
+
+def smi_used_mib():
+    """The card's used memory (MiB) as ``nvidia-smi`` reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return int(out.stdout.split()[0])
+
+
+#: phase 21b's reduced ZeRO-1 run card against CPU: the shares of the
+#: master weights' and of the bf16 parameters' update elements that may
+#: lie more than lr / 100 apart.  In bf16 compute the card's gradients
+#: part from the CPU's by their sums' order, and Adam's second step
+#: turns that into update differences: 5.2% of the master's elements
+#: and 0.23% of the parameters' on the H100.  A step that skips its
+#: update, or takes it with another bias correction, rate or weight
+#: decay, moves more than half of them.
+ZERO1_OFF_SHARE = {"master": 0.10, "params": 0.01}
+
+
+def zero1_card_vs_cpu(torch, dev, mesh_dev) -> dict:
+    """The reduced Llama's two ZeRO-1 steps over the world of one on the
+    card against the same steps over a gloo group of one on the CPU,
+    from one start.  The float32 master weights and the bf16 parameters
+    are held by their update (the state less the start): every element
+    within ``adam_step_tolerance`` (a bf16 parameter one rounding step
+    more, where the masters straddle it), at most
+    :data:`ZERO1_OFF_SHARE` of them more than lr / 100 apart, the CPU's
+    update a real one, and the card's parameters its master weights
+    rounded to bf16.  The first moments within ``grad_tolerance(cfg,
+    "bfloat16")`` of their largest magnitude, the second (squares)
+    within twice that, losses within ``loss_tolerance``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch, reduce_cfg
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import make_dataset
+    from repro_torch.data.pipeline import to_device as batch_to
+    from repro_torch.device import deterministic
+    from repro_torch.launch.parity import (adam_step_tolerance,
+                                           grad_tolerance, loss_tolerance)
+    from repro_torch.launch.steps import (init_zero1_state,
+                                          make_train_step_zero1, ravel)
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.sharding import DataMesh
+
+    cfg = reduce_cfg(get_arch(LLAMA))
+    model = build_model(cfg, max_pos=64)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
+    data = make_dataset(cfg, ShapeConfig("p21", "train", 16, 4))
+    cpu_mesh = DataMesh((0,), None, dist.new_group([0], backend="gloo"))
+    lr, n_steps = 1e-4, 2
+    runs = {}
+    # the port's init draws on the device it is given: both runs start
+    # from the CPU's draw
+    start = init_zero1_state(model, 0, cpu_mesh, device="cpu")
+    for name, device, mesh in (("card", dev, mesh_dev),
+                               ("cpu", torch.device("cpu"), cpu_mesh)):
+        step = make_train_step_zero1(model, ctx, mesh, accum=2,
+                                     peak_lr=lr, warmup=0, total_steps=10)
+        state = tree_map(lambda x: x.to(device), start)
+        losses = []
+        with deterministic():
+            for t in range(n_steps):
+                state, m = step(state, batch_to(data.batch_at(t), device))
+                losses.append(float(m["loss_final"]))
+        runs[name] = {"params": ravel(state["params"], torch.float32).cpu(),
+                      "opt": {k: v.cpu() for k, v in state["opt"].items()},
+                      "losses": losses}
+    tol = grad_tolerance(cfg, "bfloat16")
+    bound, off_at = adam_step_tolerance(lr, n_steps), lr / 100
+
+    def err(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def bf16_ulp(x):
+        x = x.abs().clamp(min=torch.finfo(torch.float32).tiny)
+        return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+    c, p = runs["card"], runs["cpu"]
+    begin = {"master": start["opt"]["master"],
+             "params": ravel(start["params"], torch.float32)}
+    got = {"master": c["opt"]["master"], "params": c["params"]}
+    want = {"master": p["opt"]["master"], "params": p["params"]}
+    out, bad = {"tolerance": tol, "update_bound": bound}, []
+    for k in ("master", "params"):
+        off = ((got[k] - begin[k]) - (want[k] - begin[k])).abs()
+        slack = bound + (bf16_ulp(torch.maximum(got[k].abs(),
+                                                want[k].abs()))
+                         if k == "params" else 0.0)
+        out[f"{k}_update_max"] = float(off.max())
+        out[f"{k}_off_share"] = float((off > off_at).double().mean())
+        out[f"{k}_moved_share"] = float(
+            ((want[k] - begin[k]).abs() > off_at).double().mean())
+        if bool((off > slack).any()) \
+                or out[f"{k}_off_share"] > ZERO1_OFF_SHARE[k] \
+                or out[f"{k}_moved_share"] <= (0.5 if k == "master"
+                                               else 0.25):
+            bad.append(k)
+    if not torch.equal(c["params"], c["opt"]["master"].to(
+            torch.bfloat16).float()):
+        bad.append("params are not the master weights in bf16")
+    out.update({k: err(c["opt"][k], p["opt"][k]) for k in ("m", "v")})
+    out["loss"] = max(abs(a - b) / abs(b) for a, b in zip(c["losses"],
+                                                         p["losses"]))
+    if out["m"] > tol:
+        bad.append("m")
+    if out["v"] > 2 * tol:
+        bad.append("v")
+    if out["loss"] > loss_tolerance(cfg, "bfloat16", card=True):
+        bad.append("loss")
+    if bad:
+        fail(f"phase 21b: the reduced ZeRO-1 steps card vs CPU outside "
+             f"the tolerances at {bad}: {out}")
+    return out
+
+
+def mesh_phase(torch, dev, out_dir) -> dict:
+    """Phase 21: the data mesh on the card.  Full-width Llama-3.2-1B at
+    its depth in :data:`DEPTH` (phase 18's), 8 x 256 tokens in its
+    microbatches, bf16 compute, deterministic algorithms, over an NCCL
+    world of one rank (this process): (a) the deferred step with the
+    checked int8 reduction, 2 steps in ``TrainLoop``, against
+    ``make_train_step(compress=True)`` from the same state and batches:
+    with one rank the all-reduce is the identity, so the parameters and
+    ``comm/errors`` must be equal bit for bit; step ms and a profiled
+    step's busy share; (d) the same loop with rank 0's payload flipped
+    in transit at the second step: ``comm/errors`` 1 there, one
+    recompute, final parameters equal to (a)'s bit for bit; (b) the
+    ZeRO-1 step, 2 steps: peak allocation against the reckoned bf16
+    parameters and three flat float32 vectors, the reduced model card
+    against CPU; (c) ``--grid multidevice --quick`` on 4 gloo ranks
+    sharing the card, the world launched once, gated against both JAX
+    artifacts as the CPU test is, each rank's memory.  No kernel of the
+    port runs on these paths: every launch counter reads 0 (in every
+    rank of (c))."""
+    import argparse  # noqa: F401
+    import tempfile
+
+    from repro_torch.campaign.diff import diff_artifacts, wilson_gate
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inject import victim_leaf_index
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import BatchShard, make_dataset
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.device import deterministic
+    from repro_torch.launch.steps import (init_train_state,
+                                          init_zero1_state, make_train_step,
+                                          make_train_step_deferred,
+                                          make_train_step_zero1,
+                                          zero1_state_shapes)
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.runtime import LoopConfig, TrainLoop
+    from repro_torch.sharding import (close_world, init_world, launch,
+                                      make_data_mesh, rank_device)
+
+    t0 = time.perf_counter()
+    card = smi_line()
+    launches_by, record = {}, {"card": card}
+    cfg = depth_cut(21, LLAMA)
+    model = build_model(cfg)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
+    n_steps, batch, seq = 2, 8, 256
+    dataset = make_dataset(cfg, ShapeConfig("phase21", "train", seq, batch))
+    store = tempfile.TemporaryDirectory(prefix="phase21_")
+    world = init_world(0, 1, os.path.join(store.name, "store"), dev)
+    if dev.type == "cuda" and world.backend != "nccl":
+        fail(f"phase 21: a world of one on the card took {world.backend}")
+    mesh = make_data_mesh(1, device_type=dev.type)
+    try:
+        # ------ 21a. the deferred step against the one-device step -------
+        wrappers = zero_launches()
+        calls, step_ms = [], []
+
+        def instrumented(fn):
+            def step(state, b):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                new, m = fn(state, b)
+                calls.append((int(state["step"]), int(m["comm/errors"])))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                return new, m
+            return step
+
+        def train(fn, **loop_kw):
+            calls.clear()
+            step_ms.clear()
+            loop = TrainLoop(instrumented(fn), dataset, cfg=LoopConfig(
+                fault_policy="recompute", log_every=1), **loop_kw)
+            loop.ckpt = _NoCheckpoints()      # phase 18 holds the loop's
+            with deterministic():
+                final, _ = loop.run(init_train_state(
+                    model, 0, compress=True, device=dev), n_steps)
+            return final, loop.stats, list(calls), list(step_ms)
+
+        kw = dict(accum=cfg.train_accum, total_steps=n_steps)
+        one, stats_one, calls_one, ms_one = train(
+            make_train_step(model, ctx, compress=True, **kw))
+        params_one = one["params"]
+        del one
+        deferred_fn = make_train_step_deferred(model, ctx, mesh, **kw)
+        mesh_kw = dict(shardings=BatchShard(0, 1), group=mesh.group)
+        final_a, stats_a, calls_a, ms_a = train(deferred_fn, **mesh_kw)
+        differ = [i for i, (a, b) in enumerate(zip(
+            tree_leaves(params_one), tree_leaves(final_a["params"])))
+            if not torch.equal(a, b)]
+        if differ or calls_a != calls_one or any(e for _, e in calls_a) \
+                or stats_a != stats_one:
+            fail(f"phase 21a: the deferred step over a world of one is not "
+                 f"the one-device step bit for bit (leaves {differ} differ, "
+                 f"calls {calls_a} vs {calls_one}, {stats_a})")
+        data0 = to_device(dataset.batch_at(0), dev)
+        with deterministic():
+            prof = profile_step(torch, lambda: deferred_fn(final_a, data0))
+        del final_a
+        log(f"21a on {card}: the deferred step (NCCL world of one, "
+            f"{cfg.n_layers} of 16 layers, {n_steps} steps of {batch} x "
+            f"{seq} in {cfg.train_accum} microbatches) equals "
+            f"make_train_step(compress=True) bit for bit: comm/errors per "
+            f"call {calls_a}; step ms {[round(x, 1) for x in ms_a]} "
+            f"(one-device {[round(x, 1) for x in ms_one]}); profiled step "
+            f"{prof.get('kernels')} device operations, "
+            f"{prof.get('device_ms', 0):.1f} of {prof.get('wall_ms', 0):.1f}"
+            f" ms (busy {prof.get('busy_share')}); "
+            f"{time.perf_counter() - t0:.1f}s into the phase")
+        record["deferred"] = {"calls": calls_a, "step_ms": ms_a,
+                              "one_device_step_ms": ms_one,
+                              "profile": prof,
+                              "seconds": time.perf_counter() - t0}
+
+        # ------ 21d. rank 0's payload flipped in transit, second step -----
+        vidx, vpath = victim_leaf_index(params_one, "mlp",
+                                        prefer_int8=False)
+        struck = []
+
+        def flip_at_1(payload, state):
+            if int(state["step"]) == 1 and not struck:
+                leaf = tree_leaves(payload["q"])[vidx]
+                leaf.view(-1).view(torch.uint8)[12345] ^= 1 << 6
+                struck.append(1)
+            return payload
+
+        final_d, stats_d, calls_d, _ = train(make_train_step_deferred(
+            model, ctx, mesh, payload_hook=flip_at_1, **kw), **mesh_kw)
+        same_d = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params_one), tree_leaves(final_d["params"])))
+        want = [(0, 0), (1, 1), (1, 0)]
+        if calls_d != want or stats_d != {"recomputes": 1, "restores": 0,
+                                          "faulty_steps": 1} or not same_d:
+            fail(f"phase 21d: calls {calls_d} (want {want}), {stats_d}, "
+                 f"final params equal to 21a's: {same_d}")
+        del final_d, params_one
+        torch.cuda.empty_cache()
+        log(f"21d: a byte of {vpath}'s int8 payload flipped on rank 0 at "
+            f"the second step: comm/errors per call {calls_d}, {stats_d}, "
+            f"final params equal to 21a's bit for bit; "
+            f"{time.perf_counter() - t0:.1f}s into the phase")
+        record["flip"] = {"calls": calls_d, "stats": stats_d,
+                          "seconds": time.perf_counter() - t0}
+        launches_by["mesh deferred"] = read_launches(wrappers)
+
+        # ------------- 21b. the ZeRO-1 step over the world of one ---------
+        wrappers = zero_launches()
+        shapes, _ = zero1_state_shapes(model, 1)
+        reckon = (sum(x.numel() * x.element_size()
+                      for x in tree_leaves(shapes["params"]))
+                  + 3 * shapes["opt"]["master"].numel() * 4)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zstep = make_train_step_zero1(model, ctx, mesh, **kw)
+        zstate = init_zero1_state(model, 0, mesh, device=dev)
+        z_ms, z_losses = [], []
+        with deterministic():
+            for t in range(n_steps):
+                b = to_device(dataset.batch_at(t), dev)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                zstate, m = zstep(zstate, b)
+                z_losses.append(float(m["loss_final"]))
+                z_ms.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - held
+        del zstate
+        torch.cuda.empty_cache()
+        if not all(math.isfinite(x) for x in z_losses):
+            fail(f"phase 21b: ZeRO-1 losses {z_losses}")
+        reduced = zero1_card_vs_cpu(torch, dev, mesh)
+        log(f"21b: ZeRO-1 over the world of one: losses "
+            f"{[round(x, 4) for x in z_losses]}, step ms "
+            f"{[round(x, 1) for x in z_ms]}; peak allocated "
+            f"{peak / 2**30:.2f} GiB against the reckoned "
+            f"{reckon / 2**30:.2f} GiB (bf16 params + 3 flat f32) over "
+            f"{held / 2**30:.2f} GiB held; reduced card vs CPU {reduced}; "
+            f"{time.perf_counter() - t0:.1f}s into the phase")
+        record["zero1"] = {"step_ms": z_ms, "losses": z_losses,
+                           "peak_allocated": peak, "reckoned": reckon,
+                           "held_before": held, "reduced": reduced,
+                           "seconds": time.perf_counter() - t0}
+        launches_by["mesh zero1"] = read_launches(wrappers)
+    finally:
+        close_world()
+        store.cleanup()
+
+    # ------- 21c. the multidevice grid on 4 gloo ranks sharing the card -----
+    used_before = smi_used_mib() if dev.type == "cuda" else None
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase21c_") as scratch:
+        grid_dir = str(Path(out_dir) / "campaign") if out_dir else scratch
+        got = launch(_mesh_grid_rank, 4, args=(grid_dir,), device=dev)
+    grid_s = time.perf_counter() - t1
+    grid, ranks = got["artifact"], got["ranks"]
+    # the four ranks' device memory: the card's use while they live over
+    # its use before (this process's context and cache), a quarter each
+    per_rank = ((got["used_mib"] - used_before) / 4
+                if used_before is not None else None)
+    if [r["backend"] for r in ranks] != ["gloo"] * 4 or \
+            {r["device"] for r in ranks} != {str(rank_device(dev, 0))}:
+        fail(f"phase 21c: the ranks are not 4 gloo ranks sharing one "
+             f"device: {ranks}")
+    refs = {}
+    for name, path in (("jax_now", MULTIDEVICE_JAX),
+                       ("baseline", MULTIDEVICE_BASELINE)):
+        with open(ROOT / path) as f:
+            refs[name] = json.load(f)
+    cells = {c["cell_id"]: c["metrics"] for c in grid["cells"]}
+    for k, r in refs.items():
+        gate = wilson_gate(r, grid)
+        regressions = diff_artifacts(r, grid)["regressions"]
+        if gate["failed"] or gate["uncovered"] or len(gate["cells"]) != 4 \
+                or regressions:
+            fail(f"phase 21c: the multidevice grid against {k}: "
+                 f"{gate['failed']} {gate['uncovered']} {regressions}")
+    acc = cells[MULTIDEVICE_ACCEPT]
+    n = acc["samples"]
+    if not (acc["collective_verified"] and acc["raw_detection_rate"] == 1.0
+            and acc["escapes"] == 0 and acc["false_positives"] == 0
+            and acc["detection_latency_hist"] == [n, 0]
+            and acc["shard_detections"] == [n, 0, 0, 0]):
+        fail(f"phase 21c: the acceptance cell: {acc}")
+    summed = {k: sum(r["launches"][k] for r in ranks)
+              for k in ranks[0]["launches"]}
+    launches_by["multidevice grid"] = summed
+    log(f"21c: --grid multidevice --quick on 4 gloo ranks sharing "
+        f"{rank_device(dev, 0)} in {grid_s:.1f}s (the world launched once): "
+        + "; ".join(f"{cid} detect {m['detected']}/{m['samples']} escape "
+                    f"{m['escapes']} shards {m['shard_detections']}"
+                    for cid, m in cells.items())
+        + "; Wilson overlap with both JAX artifacts, differ 0 regressions; "
+          f"the 4 ranks took {per_rank} MiB of the card each (nvidia-smi "
+          f"memory.used {got['used_mib']} MiB while they lived, "
+          f"{used_before} MiB before), of it torch reserved "
+        + ", ".join(f"{r['reserved'] / 2**20:.0f}" for r in ranks)
+        + " MiB a rank; the rest is each rank's CUDA context")
+    record["grid"] = {"seconds": grid_s, "ranks": ranks,
+                      "used_mib": got["used_mib"],
+                      "used_before_mib": used_before,
+                      "per_rank_mib": per_rank,
+                      "cells": {cid: {k: m[k] for k in (
+                          "samples", "detected", "escapes",
+                          "false_positives", "shard_detections",
+                          "collective_verified")}
+                          for cid, m in cells.items()}}
+    for path, counts in launches_by.items():
+        if any(counts.values()):
+            fail(f"phase 21 {path}: a kernel of the port launched: {counts}")
+    record["seconds"] = time.perf_counter() - t0
+    log(f"phase 21 launches (all six 0 on every path): {launches_by}; "
+        f"{record['seconds']:.1f}s")
+    return {"launches": launches_by, "record": record}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5846,6 +6289,10 @@ def main() -> int:
     train_fams = train_families_phase(torch, dev)
     details["train_families"] = train_fams["record"]
     phase_done("20 training of the other families")
+    # ------------- 21. the data mesh: deferred, ZeRO-1, the grid -----------
+    mesh = mesh_phase(torch, dev, args.out and str(Path(args.out).parent))
+    details["mesh"] = mesh["record"]
+    phase_done("21 the data mesh")
     kernels[0]["llama_shapes"] = llama["k1_times"]
     kernels[0]["granite_expert_shapes"] = granite["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
@@ -5879,7 +6326,8 @@ def main() -> int:
                "observability": obs_path["launches"],
                "training": training["launches"],
                **families["launches"],
-               **train_fams["launches"]}
+               **train_fams["launches"],
+               **mesh["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

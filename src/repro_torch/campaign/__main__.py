@@ -14,6 +14,7 @@ Examples::
         --plan "*:policy=recompute,kv_cache:on"             # every tenant
     python -m repro_torch.campaign --grid adaptive --quick  # threshold loop
     python -m repro_torch.campaign --grid training --quick  # train seams
+    python -m repro_torch.campaign --grid multidevice --quick  # 4 ranks
     python -m repro_torch.campaign --diff OLD.json NEW.json # exit 1 on
                                                             # regression
     python -m repro_torch.campaign --trend                  # baseline history
@@ -26,11 +27,18 @@ the paged lane's plan of the ``paging`` grid, as the JAX CLI does.
 ``--obs-dir`` exports the run's fault events (JSONL), Chrome trace and
 Prometheus text; ``--monitor`` attaches the detection-health monitor.
 
-The JAX package's other grids (``multidevice``, ``full``) and
-``--device-count`` exit with 2, naming the ROADMAP item that ports them.
-A grid that trains (``training``) runs under
+``--grid multidevice`` (and ``full``, which holds its specs) runs its
+sharded cells over a data mesh of ranks launched once for the run
+(``--device-count N``; 4 when it is absent, as the JAX CLI forces 4 host
+devices): ``gloo`` ranks on the CPU, and on the card one rank a device
+or, with more ranks than cards, ``gloo`` ranks sharing them.  Rank 0
+prints and writes the artifact.  Another grid has no sharded cell and
+runs on one rank whatever ``--device-count`` says.  A grid that trains
+(``training``, ``multidevice``) runs under
 ``torch.use_deterministic_algorithms``; the CLI sets
 ``CUBLAS_WORKSPACE_CONFIG`` before CUDA initialises.
+
+    python -m repro_torch.campaign --grid multidevice --quick --device cpu
 """
 from __future__ import annotations
 
@@ -38,22 +46,35 @@ import argparse
 import os
 import sys
 
-#: flags of the JAX campaign CLI whose subsystems wait for later slices
-_NOT_PORTED = {
-    "--device-count": "A8 (sharding and launch)",
-}
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet (ROADMAP "
-                     f"{_NOT_PORTED[option_string]})")
+def _grid_rank(world, grid: str, args) -> dict:
+    """One rank of a sharded grid's world: the campaign, rank 0 printing
+    and writing the artifact."""
+    from repro_torch.campaign.artifacts import markdown_table
+    from repro_torch.campaign.executor import CHUNK, run_campaign
+    from repro_torch.campaign.grids import GRIDS
+    kw = {"samples": args.samples} if grid == "multidevice" else {}
+    if grid == "multidevice":
+        kw["quick"] = args.quick
+    specs = GRIDS[grid](seed=args.seed, **kw)
+    name = f"{grid}_quick" if grid == "multidevice" and args.quick \
+        else grid
+    result = run_campaign(name, specs, device=world.device,
+                          out_dir=args.out, chunk=args.chunk or CHUNK,
+                          world=world,
+                          verbose=lambda s: print(s, flush=True))
+    if world.rank == 0:
+        print()
+        print(markdown_table(result))
+        print(f"artifact: "
+              f"{os.path.join(args.out, 'BENCH_campaign_' + name)}.json",
+              flush=True)
+    return result
 
 
 def main(argv=None) -> int:
     # cuBLAS reads it when CUDA initialises; the training grid needs it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    from repro_torch.campaign.grids import GRIDS, NOT_PORTED
+    from repro_torch.campaign.grids import GRIDS, SHARDED_GRIDS
 
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.campaign",
@@ -64,12 +85,13 @@ def main(argv=None) -> int:
                          "paper or training, their quick variants")
     ap.add_argument("--grid", default=None,
                     help="quick, pallas, paper, thresholds, soak, "
-                         "victims, training, paging, serving_soak or "
-                         "adaptive")
+                         "victims, training, multidevice, full, paging, "
+                         "serving_soak or adaptive")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--samples", type=int, default=0,
                     help="override the per-cell sample count (quick / "
-                         "pallas / thresholds / victims / training grids)")
+                         "pallas / thresholds / victims / training / "
+                         "multidevice grids)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the cells run (default: the card; no "
                          "fallback)")
@@ -115,9 +137,9 @@ def main(argv=None) -> int:
                     help="attach the live detection-health monitor to "
                          "the obs bus (windowed alert rules + per-scope "
                          "health states; summary printed at the end)")
-    for flag in _NOT_PORTED:
-        ap.add_argument(flag, nargs="*", action=_NotPorted,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--device-count", type=int, default=0,
+                    help="ranks of the data mesh the sharded cells run "
+                         "over (multidevice, full; 4 when absent)")
     args = ap.parse_args(argv)
 
     if args.diff:
@@ -136,10 +158,10 @@ def main(argv=None) -> int:
     if grid is None:
         ap.error("pick a grid (--quick / --grid "
                  "{quick,pallas,paper,thresholds,soak,victims,training,"
-                 "paging,serving_soak,adaptive}) or --diff OLD NEW")
-    if grid in NOT_PORTED:
-        ap.error(f"--grid {grid} is not ported yet (ROADMAP "
-                 f"{NOT_PORTED[grid]})")
+                 "multidevice,full,paging,serving_soak,adaptive}) or "
+                 "--diff OLD NEW")
+    if args.device_count < 0:
+        ap.error(f"--device-count {args.device_count}: at least 1 rank")
     engines = ("paging", "serving_soak", "adaptive")
     if grid not in engines and grid not in GRIDS:
         ap.error(f"unknown grid {grid!r} ({', '.join(GRIDS)}, "
@@ -157,6 +179,26 @@ def main(argv=None) -> int:
     if args.monitor:
         from repro_torch.obs import Monitor
         monitor = Monitor()
+
+    if grid in SHARDED_GRIDS:
+        # the world is launched once for the whole run
+        from repro_torch.campaign.executor import resolve_device_count
+        from repro_torch.device import resolve_device
+        from repro_torch.sharding import launch
+        if obs is not None:
+            ap.error(f"--obs-dir / --monitor do not apply to --grid {grid} "
+                     f"(its cells run in a world of ranks)")
+        if not args.device_count:
+            args.device_count = 4
+            print(f"[{grid}] launching 4 ranks for the sharded cells (pass "
+                  f"--device-count to override)", flush=True)
+        dev = resolve_device(args.device)
+        n = resolve_device_count(args.device_count, dev)
+        launch(_grid_rank, n, args=(grid, args), device=dev)
+        return 0
+    if args.device_count > 1:
+        print(f"[{grid}] no cell of this grid shards: it runs on one rank "
+              f"(--device-count {args.device_count})", flush=True)
 
     from repro_torch.campaign.artifacts import markdown_table
     if grid == "serving_soak":

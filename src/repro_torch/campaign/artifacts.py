@@ -21,9 +21,12 @@ from repro_torch.campaign.spec import CampaignSpec
 SCHEMA_VERSION = 1
 
 
-def environment_info(device: torch.device) -> dict:
+def environment_info(device: torch.device, ranks: int = 1) -> dict:
+    """The run's environment; ``ranks``: the processes of its world (a
+    JAX run's forced host devices)."""
     on_card = device.type == "cuda"
     return {
+        "ranks": ranks,
         "torch": torch.__version__,
         "backend": device.type,
         "device": (torch.cuda.get_device_name(device) if on_card
@@ -37,14 +40,14 @@ def environment_info(device: torch.device) -> dict:
 def campaign_to_dict(name: str, specs: List[CampaignSpec],
                      cells: List[dict], skipped: List[dict],
                      wall_s: float, seed: int,
-                     device: torch.device) -> dict:
+                     device: torch.device, ranks: int = 1) -> dict:
     """``cells`` entries: {"plan": CellPlan, "metrics": CellMetrics,
     "seconds": float}."""
     return {
         "schema": SCHEMA_VERSION,
         "campaign": name,
         "seed": seed,
-        "env": environment_info(device),
+        "env": environment_info(device, ranks),
         "wall_seconds": wall_s,
         "specs": [s.to_dict() for s in specs],
         "skipped": skipped,

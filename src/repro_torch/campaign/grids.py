@@ -15,6 +15,10 @@
 ``training`` — training-step resilience: faults at every seam of the
              compressed-gradient pipeline, single step and a multi-step
              soak (:mod:`repro_torch.campaign.targets_training`).
+``multidevice`` — the training soaks over a data mesh of ranks, so the
+             checked all-reduce verifies a real collective.
+``full``   — ``paper``, the KV-cache sweep, ``soak``, ``training`` and
+             ``multidevice``.
 """
 from __future__ import annotations
 
@@ -203,19 +207,73 @@ def training_specs(seed: int = 0, quick: bool = False,
     return [single, soak]
 
 
-#: the JAX package's other grids and the ROADMAP items that port them
-NOT_PORTED = {
-    "multidevice": "A8 (sharding and launch: the data mesh)",
-    "full": "A8 (sharding and launch: its multidevice specs)",
-}
+#: the mesh seams (repro_torch.campaign.targets_training): one rank's
+#: payload in transit and the summed payload after the reduction
+MULTIDEVICE_TARGETS = ("train_payload_shard", "train_reduced")
 
+
+def multidevice_specs(seed: int = 0, quick: bool = False,
+                      samples: int = 0,
+                      shards: int = 4) -> List[CampaignSpec]:
+    """Mesh-sharded campaign execution: the training soaks run over a
+    data mesh of ``shards`` ranks, so ``checked_psum`` verifies a real
+    collective at every step instead of the one-device path every other
+    grid takes.
+
+    Two specs: the mesh seams at the full shard count (a one-rank int8
+    payload flip only the additivity check after the all-reduce can see,
+    and the summed payload after verification, the post-reduction
+    escape window), then ``train_payload`` over ``mesh=(1, shards)``, the
+    same seam with and without a real reduction in the loop.
+
+    The CLI launches 4 ranks for this grid when ``--device-count`` is
+    absent; a smaller world runs each cell on what it has, with a
+    warning and ``collective_verified`` False."""
+    n = samples or (4 if quick else 12)
+    soak_steps = 2 if quick else 4
+    seams = CampaignSpec(
+        name="multidevice-seams",
+        targets=MULTIDEVICE_TARGETS,
+        fault_models=("bitflip",),
+        bit_bands=("significant",),
+        dtypes=("int8", "int32"),
+        samples=n, clean_samples=2, seed=seed,
+        steps=soak_steps, mesh=(shards,))
+    contrast = CampaignSpec(
+        name="multidevice-contrast",
+        targets=("train_payload",),
+        fault_models=("bitflip",),
+        bit_bands=("significant",),
+        dtypes=("int8",),
+        samples=n, clean_samples=2, seed=seed,
+        steps=soak_steps, mesh=(1, shards))
+    return [seams, contrast]
+
+
+def full_specs(seed: int = 0) -> List[CampaignSpec]:
+    kv = CampaignSpec(
+        name="kv-sweep",
+        targets=("kv_cache",),
+        fault_models=("bitflip", "random_value"),
+        bit_bands=("all", "low", "significant", "exponent"),
+        dtypes=("int8", "float32"),
+        samples=400, seed=seed, measure_overhead=True)
+    return paper_specs(seed) + [kv] + soak_specs(seed) \
+        + training_specs(seed) + multidevice_specs(seed)
+
+
+#: the grids whose cells shard over a data mesh (the CLI launches ranks)
+SHARDED_GRIDS = ("multidevice", "full")
 
 #: the grids the port runs, by CLI name
 GRIDS = {"quick": quick_specs, "paper": paper_specs,
          "thresholds": thresholds_specs, "pallas": pallas_specs,
          "soak": soak_specs, "victims": victims_specs,
-         "training": training_specs}
+         "training": training_specs, "multidevice": multidevice_specs,
+         "full": full_specs}
 
 __all__ = ["quick_specs", "paper_specs", "thresholds_specs", "pallas_specs",
            "soak_specs", "victims_specs", "training_specs",
-           "TRAINING_TARGETS", "VICTIM_PATTERNS", "GRIDS", "NOT_PORTED"]
+           "multidevice_specs", "full_specs", "TRAINING_TARGETS",
+           "MULTIDEVICE_TARGETS", "VICTIM_PATTERNS", "SHARDED_GRIDS",
+           "GRIDS"]

@@ -174,10 +174,6 @@ def register_target(target: InjectableTarget) -> InjectableTarget:
 
 
 def get_target(name: str) -> InjectableTarget:
-    from repro_torch.campaign.targets_training import NOT_PORTED
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"target {name!r} is not ported yet "
-                                  f"(ROADMAP {NOT_PORTED[name]})")
     if name not in TARGETS:
         raise KeyError(
             f"unknown target {name!r}; registered: {sorted(TARGETS)}")

@@ -1,5 +1,5 @@
 """Training-step injectable targets: faults in the optimizer pipeline (the
-JAX package's ``campaign/targets_training.py``, single device).
+JAX package's ``campaign/targets_training.py``).
 
 A real optimizer step, ``model.loss`` -> gradient -> int8 error-feedback
 compression -> :func:`~repro_torch.runtime.compression.checked_psum` ->
@@ -23,9 +23,28 @@ flip at the cell's seam:
   surfaces a step later.
 * ``train_moments``   — the AdamW first moment: silent optimizer-state
   corruption (bound 0).
+* ``train_payload_shard`` — one rank's int8 payload after the encode,
+  before the all-reduce: corruption in transit on a real mesh.  The
+  corrupted rank's contribution shifts the summed residue while the sum
+  of the per-rank checksums (encoded before the flip) does not, so the
+  flip is seen after the collective by the additivity check (bound 1:
+  |Δ| = 2^k ≤ 128 < 8191), never before.  At ``data_shards=1`` it is
+  ``train_payload``.
+* ``train_reduced``   — the summed int32 payload after the verified
+  collective, before decompression: the post-reduction window (bound 0).
 
-The mesh seams (``train_payload_shard``, ``train_reduced``) and sharded
-soaks run over a data mesh and wait for ROADMAP A8.
+Over a data mesh (``plan.data_shards`` > 1, a
+:func:`repro_torch.sharding.make_data_mesh` the executor hands the
+build) every rank takes its own slice of the seeded stream
+(``steps × shards + 1`` batches: rank ``s`` takes batch ``t × shards +
+s`` at step ``t``), keeps its own error-feedback residual, and the
+payload goes through a real all-reduce with the mod-8191 check live at
+every step;
+:func:`~repro_torch.runtime.compression.checked_psum_attributed` also
+gives each rank's own receive-side count, folded into the artifact's
+``shard_detections``.  Shard-local seams (:data:`SHARD_LOCAL_POINTS`)
+strike rank 0 only; the others strike every rank alike, so the
+parameters stay replicated.
 
 Ground truth is a clean twin: the same steps over the same batches with
 no flip, run once per cell at build.  ``corrupted`` is an exact
@@ -63,9 +82,11 @@ from repro_torch.device import deterministic
 from repro_torch.optim import (adamw_init, adamw_update,
                                clip_by_global_norm)
 from repro_torch.runtime.compression import (CompressionState,
-                                             checked_psum, compress_grads,
+                                             checked_psum,
+                                             checked_psum_attributed,
+                                             compress_grads,
                                              decompress_grads,
-                                             init_compression)
+                                             init_compression, psum)
 
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_LR = 1e-3
@@ -76,31 +97,32 @@ MAX_GRAD_NORM = 1.0
 #: by AdamW's eps, every trial masked)
 TRAIN_DEFAULT_VICTIM = "mlp"
 
-#: the single-device injection seams, in pipeline order
-INJECT_POINTS = ("grad_pre", "payload", "error_feedback", "grad_post",
-                 "moment")
+#: injection seams, in pipeline order
+INJECT_POINTS = ("grad_pre", "payload", "payload_shard", "error_feedback",
+                 "reduced", "grad_post", "moment")
 
-#: the JAX package's mesh seams and the ROADMAP item that ports them
-NOT_PORTED = {
-    "train_payload_shard": "A8 (sharding and launch: the data mesh)",
-    "train_reduced": "A8 (sharding and launch: the data mesh)",
-}
+#: seams that strike a rank's own state on a data mesh: rank 0 only;
+#: every other seam strikes replicated values alike on every rank
+SHARD_LOCAL_POINTS = ("grad_pre", "payload_shard", "error_feedback")
 
 
 def _inject_point(plan: CellPlan) -> str:
     """The seam a cell injects at; ``train_payload`` picks the payload
     (int8) or the error-feedback residual (float32) by its dtype."""
     point = {"train_grad_pre": "grad_pre", "train_grad_post": "grad_post",
-             "train_moments": "moment"}.get(plan.target)
+             "train_moments": "moment",
+             "train_payload_shard": "payload_shard",
+             "train_reduced": "reduced"}.get(plan.target)
     if point is not None:
         return point
     return "payload" if plan.dtype == "int8" else "error_feedback"
 
 
 def _seam_dtype(plan: CellPlan) -> torch.dtype:
-    """The dtype of the leaf the seam flips (the payload is int8, every
-    other seam's tree float32)."""
-    return torch.int8 if _inject_point(plan) == "payload" else torch.float32
+    """The dtype of the leaf the seam flips: the payload's int8, the
+    summed payload's int32, every other seam's tree float32."""
+    return {"payload": torch.int8, "payload_shard": torch.int8,
+            "reduced": torch.int32}.get(_inject_point(plan), torch.float32)
 
 
 def cell_keys(plan: CellPlan) -> np.ndarray:
@@ -144,10 +166,10 @@ def _fwd_errors(metrics) -> torch.Tensor:
 
 
 def _train_build(plan: CellPlan, gen: torch.Generator, *, device,
-                 plain: bool = False, params=None):
+                 plain: bool = False, params=None, mesh=None):
     """The reduced Llama-3.2-1B, its optimizer and compression state, the
-    cell's batches and the clean twin.  The path runs no kernel, so
-    ``plain`` changes nothing."""
+    cell's batches (this rank's, over ``mesh``) and the clean twin.  The
+    path runs no kernel, so ``plain`` changes nothing."""
     del gen, plain
     from repro_torch.configs import get_arch, reduce_cfg
     from repro_torch.configs.base import ShapeConfig
@@ -159,11 +181,8 @@ def _train_build(plan: CellPlan, gen: torch.Generator, *, device,
     from repro_torch.models.convert import to_device as tree_to
     from repro_torch.protect import default_plan
 
-    if plan.data_shards > 1:
-        raise NotImplementedError(
-            f"{plan.target}: a sharded soak is not ported yet (ROADMAP "
-            f"{NOT_PORTED['train_reduced']})")
     dev = torch.device(device)
+    shards = mesh.size if mesh is not None else 1
     batch, seq_len = plan.shape
     cfg = reduce_cfg(get_arch(TRAIN_ARCH))
     model = build_model(cfg)
@@ -173,13 +192,16 @@ def _train_build(plan: CellPlan, gen: torch.Generator, *, device,
         params = model.init(seed, device="cpu")
     params = tree_to(params, dev)
 
-    # the seeded pipeline's batches, one a step, plus a held-out batch the
+    # the seeded pipeline's batches, one a step (a rank's own on a mesh:
+    # every rank reduces a different payload), plus a held-out batch the
     # post-soak loss is taken on (a fault in the last update moves only
     # that loss)
     dataset = make_dataset(cfg, ShapeConfig("campaign", "train",
                                             seq_len, batch))
-    per_step = [to_device(dataset.batch_at(t), dev)
-                for t in range(plan.steps + 1)]
+    me = mesh.rank if mesh is not None else 0
+    per_step = [to_device(dataset.batch_at(t * shards + me), dev)
+                for t in range(plan.steps)]
+    per_step.append(to_device(dataset.batch_at(plan.steps * shards), dev))
     grad_fn = make_grad_fn(model, ctx)
 
     def loss_only(p, mb):
@@ -194,8 +216,8 @@ def _train_build(plan: CellPlan, gen: torch.Generator, *, device,
              "grad_fn": grad_fn, "loss_only": loss_only,
              "victim_idx": victim_idx, "victim_path": victim_path,
              "victim_numel": tree_leaves(params)[victim_idx].numel(),
-             "device": dev}
-    clean_params, clean_errs, clean_losses, clean_final = _run_soak(
+             "device": dev, "mesh": mesh}
+    clean_params, clean_errs, clean_losses, clean_final, _ = _run_soak(
         state, plan, (), [False] * plan.steps)
     state.update(clean_params=clean_params, clean_errs=clean_errs,
                  clean_losses=clean_losses, clean_final_loss=clean_final)
@@ -213,26 +235,45 @@ def _flip_(tree, vidx: int, faults) -> None:
 def _run_soak(state, plan: CellPlan, faults, mask) -> Tuple:
     """``plan.steps`` train steps with ``faults`` struck at the cell's
     seam on the steps where ``mask`` is True.  -> (final params, errors
-    [steps], losses [steps], the held-out loss of the final params)."""
+    [steps], losses [steps], the held-out loss of the final params, this
+    rank's receive-side counts [steps]).  On a mesh the errors and
+    losses are the mesh's (summed, averaged) and a shard-local seam
+    strikes rank 0 only."""
     point = _inject_point(plan)
     vidx = state["victim_idx"]
+    mesh = state["mesh"]
+    group = mesh.group if mesh is not None else None
+    shards = mesh.size if mesh is not None else 1
+    on_rank = mesh is None or point not in SHARD_LOCAL_POINTS \
+        or mesh.rank == 0
     params, opt, error = state["params"], state["opt"], state["comm"].error
-    errs, losses = [], []
+    errs, losses, local = [], [], []
     with deterministic():
         for step, strike in enumerate(mask):
             strike = strike and bool(faults)
+            here = strike and on_rank
             (loss, metrics), grads = state["grad_fn"](
                 params, state["batches"][step])
-            if strike and point == "grad_pre":
+            if here and point == "grad_pre":
                 _flip_(grads, vidx, faults)
             payload, comm = compress_grads(grads,
                                            CompressionState(error=error))
-            if strike and point == "payload":
+            if here and point in ("payload", "payload_shard"):
+                # at data_shards=1 one shard's payload is the payload
                 _flip_(payload["q"], vidx, faults)
-            if strike and point == "error_feedback":
+            if here and point == "error_feedback":
                 _flip_(comm.error, vidx, faults)
-            summed, scale_sum, comm_errs = checked_psum(payload, None)
-            mean = decompress_grads(summed, scale_sum, 1)
+            if mesh is None:
+                # the single-device check is the receive-side verify
+                summed, scale_sum, comm_errs = checked_psum(payload, None)
+                mine = comm_errs
+            else:
+                summed, scale_sum, comm_errs, mine = \
+                    checked_psum_attributed(payload, group)
+            if strike and point == "reduced":
+                # after the verify: every rank's sum flipped alike
+                _flip_(summed, vidx, faults)
+            mean = decompress_grads(summed, scale_sum, shards)
             if strike and point == "grad_post":
                 _flip_(mean, vidx, faults)
             clipped, _ = clip_by_global_norm(mean, MAX_GRAD_NORM)
@@ -240,10 +281,18 @@ def _run_soak(state, plan: CellPlan, faults, mask) -> Tuple:
             if strike and point == "moment":
                 _flip_(opt["m"], vidx, faults)
             error = comm.error
-            errs.append(_fwd_errors(metrics) + comm_errs)
+            fwd = _fwd_errors(metrics)
+            if mesh is not None:
+                fwd = psum(torch.as_tensor(fwd, dtype=torch.int32,
+                                           device=loss.device), group)
+                loss = psum(loss, group) / torch.tensor(
+                    float(shards), device=loss.device)
+            errs.append(fwd + comm_errs)
             losses.append(loss)
+            local.append(mine)
         final_loss = state["loss_only"](params, state["eval_batch"])
-    return params, torch.stack(errs), torch.stack(losses), final_loss
+    return (params, torch.stack(errs), torch.stack(losses), final_loss,
+            torch.stack(local))
 
 
 def divergence(params_f, params_c) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -273,14 +322,23 @@ def _train_soak(state, plan: CellPlan, t: Trial) -> dict:
     steps = plan.steps
     mask = [True] * steps if plan.persistent \
         else [s == 0 for s in range(steps)]
-    params_f, errs, losses, final_loss = _run_soak(state, plan, t.faults,
-                                                   mask)
+    params_f, errs, losses, final_loss, local = _run_soak(
+        state, plan, t.faults, mask)
     div, changed = divergence(params_f, state["clean_params"])
     loss_div = torch.maximum(
         torch.max(torch.abs(losses - state["clean_losses"])),
         torch.abs(final_loss - state["clean_final_loss"]))
-    return {"detected_steps": errs > 0, "corrupted": changed,
-            "divergence": div, "loss_divergence": loss_div}
+    out = {"detected_steps": errs > 0, "corrupted": changed,
+           "divergence": div, "loss_divergence": loss_div}
+    mesh = state["mesh"]
+    if mesh is not None:
+        # per-rank attribution: did rank s's receive-side verify fire
+        import torch.distributed as dist
+        mine = (local.sum() > 0).to(torch.int32).reshape(1)
+        every = [torch.empty_like(mine) for _ in range(mesh.size)]
+        dist.all_gather(every, mine, group=mesh.group)
+        out["shard_detected"] = torch.cat(every) > 0
+    return out
 
 
 def _train_trial(state, plan: CellPlan, t: Trial):
@@ -320,9 +378,11 @@ def _train_overhead(state, plan: CellPlan):
 
 
 def _train_bound(plan: CellPlan):
-    if _inject_point(plan) == "payload":
+    if _inject_point(plan) in ("payload", "payload_shard"):
         # |Δ| = 2^k ≤ 128 < 8191: one int8 bit flip always moves the
-        # payload's residue
+        # payload's residue (one rank's moves the sum's; the same flip
+        # on every rank may cancel mod 8191 and leave the sum clean:
+        # masked, so the effective rate the bound speaks of is still 1)
         if plan.fault_model == "bitflip" and plan.flips == 1:
             return 1.0
         return None
@@ -350,7 +410,14 @@ _register("train_grad_pre", ("float32",), _F32_BANDS)
 _register("train_grad_post", ("float32",), _F32_BANDS)
 _register("train_payload", ("int8", "float32"), _F32_BANDS)
 _register("train_moments", ("float32",), _F32_BANDS)
+# the mesh seams: one rank's payload in transit (seen after the
+# all-reduce by the additivity check) and the summed int32 payload after
+# the verified collective (the post-reduction escape window)
+_register("train_payload_shard", ("int8",),
+          ("all", "low", "significant", "sign"))
+_register("train_reduced", ("int32",),
+          ("all", "low", "significant", "sign"))
 
 
 __all__ = ["TRAIN_ARCH", "TRAIN_LR", "MAX_GRAD_NORM", "INJECT_POINTS",
-           "NOT_PORTED", "cell_keys", "divergence"]
+           "SHARD_LOCAL_POINTS", "cell_keys", "divergence"]

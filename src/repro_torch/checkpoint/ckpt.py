@@ -126,15 +126,21 @@ def _step_dir(base: str, step: int) -> str:
     return os.path.join(base, f"step_{step:09d}")
 
 
-def latest_step(base: str) -> Optional[int]:
-    """Largest committed step in ``base`` (None if empty)."""
+def _committed(base: str) -> List[int]:
+    """The committed steps in ``base``."""
     if not os.path.isdir(base):
-        return None
+        return []
     steps = []
     for name in os.listdir(base):
         m = _STEP_RE.match(name)
         if m and os.path.exists(os.path.join(base, name, "COMMIT")):
             steps.append(int(m.group(1)))
+    return steps
+
+
+def latest_step(base: str) -> Optional[int]:
+    """Largest committed step in ``base`` (None if empty)."""
+    steps = _committed(base)
     return max(steps) if steps else None
 
 
@@ -193,13 +199,16 @@ def _savez(path: str, named) -> None:
                     f.write(raw[i:i + _CHUNK])
 
 
-def save_checkpoint(base: str, step: int, state: Any) -> str:
-    """Synchronous checksummed save.  Returns the committed directory."""
+def save_checkpoint(base: str, step: int, state: Any, *,
+                    shard: Optional[int] = None) -> str:
+    """Synchronous checksummed save (as shard ``shard``, by default this
+    process's rank).  Returns the committed directory."""
     snap = _Snapshot(state)
-    return _write(base, step, snap, snap.copies())
+    return _write(base, step, snap, snap.copies(), shard)
 
 
-def _write(base: str, step: int, snap: _Snapshot, arrays) -> str:
+def _write(base: str, step: int, snap: _Snapshot, arrays,
+           shard_index: Optional[int] = None) -> str:
     """Write ``arrays`` (the snapshot's host copies, in order) and the
     manifest into the step's directory, then commit it."""
     final = _step_dir(base, step)
@@ -219,7 +228,9 @@ def _write(base: str, step: int, snap: _Snapshot, arrays) -> str:
             for i in range(n)
         },
     }
-    shard = os.path.join(tmp, f"shard_{_process_index():05d}.npz")
+    if shard_index is None:
+        shard_index = _process_index()
+    shard = os.path.join(tmp, f"shard_{shard_index:05d}.npz")
     _savez(shard, ((f"a{i}", a) for i, a in enumerate(arrays)))
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f)
@@ -237,10 +248,11 @@ def _write(base: str, step: int, snap: _Snapshot, arrays) -> str:
 
 
 def load_checkpoint(base: str, step: int, like: Any, *,
-                    verify: bool = True) -> Any:
-    """Restore ``step`` into the structure of ``like`` (a tensor tree).
-    Each leaf lands on the device of ``like``'s leaf in its place and is
-    verified there."""
+                    verify: bool = True, shard: Optional[int] = None) -> Any:
+    """Restore ``step`` into the structure of ``like`` (a tensor tree)
+    from shard ``shard`` (by default this process's rank's).  Each leaf
+    lands on the device of ``like``'s leaf in its place and is verified
+    there."""
     d = _step_dir(base, step)
     with open(os.path.join(d, "MANIFEST.json")) as f:
         manifest = json.load(f)
@@ -249,7 +261,9 @@ def load_checkpoint(base: str, step: int, like: Any, *,
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, "
             f"target structure has {len(leaves_like)}")
-    shard = os.path.join(d, f"shard_{_process_index():05d}.npz")
+    if shard is None:
+        shard = _process_index()
+    shard = os.path.join(d, f"shard_{shard:05d}.npz")
 
     def read(key):
         # each reader its own handle: the members are read (and their
@@ -276,13 +290,25 @@ def load_checkpoint(base: str, step: int, like: Any, *,
 
 
 class CheckpointManager:
-    """Async save + keep-last-k + resume, for the fault-tolerant loop."""
+    """Async save + keep-last-k + resume, for the fault-tolerant loop.
+
+    With ``group`` (the data group of a replicated state: every rank
+    holds the same state, as the train CLI's mesh step keeps it) only
+    the group's rank 0 writes, as shard 0, and every rank restores from
+    that full copy once rank 0's write is done (a barrier), so a world
+    of any size, a smaller one after an elastic restart too, resumes
+    from it."""
 
     def __init__(self, base: str, *, keep_last: int = 3,
-                 save_every: int = 100):
+                 save_every: int = 100, group=None):
         self.base = base
         self.keep_last = keep_last
         self.save_every = save_every
+        self.group = group
+        self.writer = True
+        if group is not None:
+            import torch.distributed as dist
+            self.writer = dist.get_rank(group) == 0
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         #: the last save's step and seconds: the caller's snapshot
@@ -291,17 +317,19 @@ class CheckpointManager:
         os.makedirs(base, exist_ok=True)
 
     def maybe_save(self, step: int, state: Any, *, force: bool = False):
-        if not force and (self.save_every <= 0
-                          or step % self.save_every != 0):
+        if not self.writer or not force and (
+                self.save_every <= 0 or step % self.save_every != 0):
             return False
         self.wait()
         t0 = time.perf_counter()
         snap = _Snapshot(state)
         feed = _Feed(len(snap.checksums))
 
+        shard = None if self.group is None else 0
+
         def work():
             try:
-                _write(self.base, step, snap, feed)
+                _write(self.base, step, snap, feed, shard)
                 self.last_save["write_s"] = time.perf_counter() - t0
                 self._gc()
             except BaseException as e:  # surfaced on the next wait()
@@ -338,19 +366,30 @@ class CheckpointManager:
         """(state, step) from the newest committed checkpoint, else None.
         A corrupt newest step falls back to the previous committed one."""
         self.wait()
+        shard = None
+        if self.group is not None:
+            import torch.distributed as dist
+            if dist.get_world_size(self.group) > 1:
+                dist.barrier(group=self.group)    # rank 0's write is done
+            shard = 0
         step = latest_step(self.base)
         tried = []
         while step is not None:
             try:
                 return (load_checkpoint(self.base, step, like,
-                                        verify=verify), step)
+                                        verify=verify, shard=shard), step)
             # any unreadable committed step (our checksum, zip CRC, torn
-            # file) is corruption: evict it and fall back one step
+            # file) is corruption: evict it and fall back one step (the
+            # writer evicts; a reader of rank 0's copy only passes it)
             except Exception as e:  # noqa: BLE001 — deliberate fallback
                 tried.append(str(e))
-                shutil.rmtree(_step_dir(self.base, step),
-                              ignore_errors=True)
-                step = latest_step(self.base)
+                if self.writer:
+                    shutil.rmtree(_step_dir(self.base, step),
+                                  ignore_errors=True)
+                    step = latest_step(self.base)
+                else:
+                    older = [s for s in _committed(self.base) if s < step]
+                    step = max(older) if older else None
         if tried:
             raise CheckpointCorruption(
                 "all checkpoints corrupt:\n" + "\n".join(tried))

@@ -29,9 +29,10 @@ ARCHS = {
 #: ids of the JAX package's registry that wait for later slices of the
 #: port, with the ROADMAP item that ports each
 NOT_PORTED = {
-    "mistral-large-123b": "A8 (sharding: its int8 weights outgrow one card)",
-    "llama4-scout-17b-a16e": "A8 (sharding: its int8 experts alone are "
-                             "~97 GB, over one card)",
+    "mistral-large-123b": "A8.4 (tensor parallelism: its int8 weights "
+                          "outgrow one card)",
+    "llama4-scout-17b-a16e": "A8.4 (tensor parallelism: its int8 experts "
+                             "alone are ~97 GB, over one card)",
 }
 
 

@@ -14,16 +14,18 @@ batches are equal bit for bit.
 - :class:`Prefetcher` — a background thread that makes the next batches
   (and, given a device, moves them there) while the caller runs.
 
-:func:`make_dataset` serves every family of the registry; placing a
-batch across a device mesh (the JAX ``shard_batch``) waits for ROADMAP
-A8.
+- :func:`shard_batch` — a data rank's rows of the host-global batch
+  (:class:`BatchShard`), what JAX's ``shard_batch`` places on each
+  device of the mesh.
+
+:func:`make_dataset` serves every family of the registry.
 """
 from __future__ import annotations
 
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -134,15 +136,48 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+class BatchShard(NamedTuple):
+    """Which rows of a global batch a data rank takes: shard ``index`` of
+    ``count``.  With ``accum`` > 1 each of the ``accum`` microbatches the
+    step splits the batch into is split over the ranks (JAX shards the
+    global batch and then splits it into microbatches, so a microbatch
+    holds rows of every rank); with 1, a contiguous block (JAX's
+    ``P("data")``)."""
+    index: int
+    count: int
+    accum: int = 1
+
+
+def shard_batch(batch: Dict, shardings: BatchShard) -> Dict:
+    """The rows of ``batch`` (numpy arrays or tensors, the global batch
+    leading) that rank ``shardings.index`` takes: microbatch ``i``'s
+    ``index``-th block, for each ``i``, in order."""
+    a, n, i = shardings.accum, shardings.count, shardings.index
+
+    def take(x):
+        b = x.shape[0]
+        if b % (a * n):
+            raise ValueError(f"a batch of {b} rows does not split into "
+                             f"{a} microbatches over {n} shards")
+        rest = tuple(x.shape[1:])
+        return x.reshape((a, n, b // (a * n)) + rest)[:, i].reshape(
+            (b // n,) + rest)
+
+    return {k: take(v) for k, v in batch.items()}
+
+
 class Prefetcher:
     """Double-buffered background batch pipeline: a thread makes the next
-    ``depth`` batches of ``it`` (moved to ``device`` when one is given)
-    while the caller consumes.  Use it as a context manager, or call
-    :meth:`close`, to stop the thread."""
+    ``depth`` batches of ``it`` (cut to a rank's rows by
+    :func:`shard_batch` when ``shardings`` is given, then moved to
+    ``device`` when one is) while the caller consumes.  Use it as a
+    context manager, or call :meth:`close`, to stop the thread."""
 
-    def __init__(self, it: Iterator, device=None, depth: int = 2):
+    def __init__(self, it: Iterator, device=None, depth: int = 2,
+                 shardings: Optional[BatchShard] = None):
         self._it = it
         self._device = device
+        self._shardings = shardings
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._done = object()
         self._stop = threading.Event()
@@ -163,6 +198,8 @@ class Prefetcher:
     def _fill(self):
         try:
             for batch in self._it:
+                if self._shardings is not None:
+                    batch = shard_batch(batch, self._shardings)
                 if self._device is not None:
                     batch = to_device(batch, self._device)
                 if not self._put(batch):

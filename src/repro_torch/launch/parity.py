@@ -41,3 +41,13 @@ def loss_tolerance(cfg, dtype: str, *, card: bool = False) -> float:
     if dtype != "float32":
         return 2.0 ** -7
     return 1e-4 if card and cfg.family == "moe" else 1e-5
+
+
+def adam_step_tolerance(lr: float, steps: int) -> float:
+    """An absolute bound on a parameter after ``steps`` AdamW steps of
+    two runs whose gradients differ by round-off (a bf16 cotangent, an
+    int8 code one apart at a rounding boundary): Adam normalizes each
+    element's step, so an element whose gradient is near zero (or whose
+    code splits between 0 and ±1) may step by up to ``lr`` either way in
+    one run and not in the other, 2·``lr`` a step at most."""
+    return 2.0 * lr * steps

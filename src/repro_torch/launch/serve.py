@@ -36,9 +36,11 @@ per-tenant latency percentiles next to the ABFT fault counters::
 ``--inject-step`` restores the clean weight right after the faulty step
 (unless ``--inject-persistent``), and the log says whether and when the
 flip was flagged.  As in the JAX CLI, a KV-cache flip is reached through
-the engine's API (``FaultInjection(target="kv")``) only.  The JAX serve
-CLI's ``--device-count`` (sharding) is rejected with the ROADMAP item
-that ports it.
+the engine's API (``FaultInjection(target="kv")``) only.
+``--device-count N`` asks for N devices, as the JAX CLI forces N host
+devices: the port checks that N exist (any N on ``--device cpu``, else
+``torch.cuda.device_count()``; fewer exit with 2) and, as JAX does,
+serves on the first.
 """
 from __future__ import annotations
 
@@ -48,18 +50,6 @@ import json
 import logging
 import os
 import sys
-
-#: flags of the JAX driver whose subsystems wait for later slices
-_NOT_PORTED = {
-    "--device-count": "A8 (sharding and launch)",
-}
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet (ROADMAP "
-                     f"{_NOT_PORTED[option_string]})")
-
 
 def parse_tenant(arg: str):
     """``NAME[:WEIGHT]=PLAN`` -> (name, weight, plan_text)."""
@@ -159,10 +149,19 @@ def main(argv=None) -> int:
                     help="--adaptive: seed initial bounds from a "
                          "committed --grid thresholds sweep artifact "
                          "instead of the ops' static defaults")
-    for flag in _NOT_PORTED:
-        ap.add_argument(flag, nargs="?", action=_NotPorted,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--device-count", type=int, default=0,
+                    help="devices the run asks for (it serves on the "
+                         "first, as the JAX CLI does)")
     args = ap.parse_args(argv)
+    if args.device_count:
+        import torch
+        have = (args.device_count if args.device == "cpu"
+                else torch.cuda.device_count())
+        if args.device_count < 1 or args.device_count > have:
+            ap.error(f"--device-count {args.device_count}: {have} "
+                     f"{args.device} device(s) here (ROADMAP A8.1: the "
+                     f"port serves on the first of the devices it asks "
+                     f"for, which must exist)")
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.protect import (ProtectionPlan, default_plan,

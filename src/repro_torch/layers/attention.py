@@ -25,7 +25,8 @@ and values from ``x_kv`` without RoPE, and :func:`attention_decode` with
 ``cross=True`` reads the static cache of the encoder memory's K and V.
 
 Not ported from the JAX module: the sequence-parallel ``constrain``
-calls (sharding, ROADMAP A8).
+calls, which split the KV sequence over a model axis (tensor
+parallelism, ROADMAP A8.4; on a data mesh they move nothing).
 """
 from __future__ import annotations
 

@@ -31,7 +31,10 @@ class Ctx:
     replays the training scans' token loops from CUDA graphs on the
     card; None runs them eagerly.  It is the step's cache, not a
     setting: equality and hashing ignore it.  The JAX context's
-    sharding, layer scan and cost-probe fields wait for ROADMAP A8.
+    ``rules`` and ``abft_tp_local`` serve tensor parallelism (ROADMAP
+    A8.4: on the data meshes the port runs, ``sharding.constrain`` is
+    the identity); its layer-scan and cost-probe fields (``no_remat``,
+    ``unroll_*``) serve the dry-run and the HLO tools (A8.3, A8.5).
     """
     quant: bool = False                   # int8 serving path
     abft: bool = True                     # ABFT verification on (legacy)

@@ -27,8 +27,9 @@ a step where no token routed to that expert.
 over the same slots (the combine sums in float32).  The slot assignment
 is computed once, as integers, for both.  ``ctx.moe_seq_groups`` runs
 the groups one at a time (JAX's scan), with the result of one block.
-The JAX module's sharding hooks (``_tp`` / ``constrain``) wait for
-ROADMAP A8.
+The JAX module's sharding hooks (``_tp`` / ``constrain``) place the
+expert axis over a model axis: tensor parallelism, ROADMAP A8.4 (on a
+data mesh, the only mesh the port runs, they move nothing).
 """
 from __future__ import annotations
 

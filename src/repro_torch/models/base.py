@@ -139,6 +139,27 @@ class Model:
                                               device=device)
         return lm.init_lm_cache(self.cfg, batch, cache_len, device=device)
 
+    def param_axes(self, *, quant: bool = False):
+        """The logical axes of :meth:`init`'s tree, one tuple of names a
+        leaf (JAX's ``LogicalParam`` axes;
+        :func:`repro_torch.sharding.param_axes`)."""
+        from repro_torch.sharding.logical import param_axes
+        return param_axes(self.init(0, quant=quant, device="meta"))
+
+    def train_state_axes(self, *, compress: bool = False):
+        """The logical axes of the training state
+        (:func:`repro_torch.launch.steps.init_train_state`; JAX's
+        ``train_state_lp``)."""
+        from repro_torch.sharding.logical import train_state_axes
+        return train_state_axes(self.init(0, device="meta"),
+                                compress=compress)
+
+    def input_axes(self, shape) -> dict:
+        """The logical axes of :meth:`input_specs` (JAX's
+        ``input_specs`` leaves' axes): the batch first."""
+        from repro_torch.sharding.logical import input_axes
+        return input_axes(self.input_specs(shape))
+
     def input_specs(self, shape) -> dict:
         """{name: TensorSpec} of a batch of the shape suite ``shape``
         (a :class:`~repro_torch.configs.base.ShapeConfig`)."""

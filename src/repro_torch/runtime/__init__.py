@@ -1,7 +1,8 @@
 """Training runtime: the int8 error-feedback gradient compression with
-its mod-8191 checked all-reduce, straggler telemetry and the
-fault-tolerant loop (the JAX package's ``runtime``; its elastic re-mesh
-waits for ROADMAP A8)."""
+its mod-8191 checked all-reduce, straggler telemetry, the fault-tolerant
+loop and the elastic re-mesh of a data-parallel world (the JAX package's
+``runtime``).  A re-mesh keeps the model axis at 1: tensor parallelism
+waits for ROADMAP A8.4."""
 from repro_torch.runtime.compression import (  # noqa: F401
     CompressionState,
     checked_psum,
@@ -10,6 +11,10 @@ from repro_torch.runtime.compression import (  # noqa: F401
     init_compression,
 )
 from repro_torch.runtime.straggler import StragglerMonitor  # noqa: F401
+from repro_torch.runtime.elastic import (  # noqa: F401
+    plan_remesh,
+    remesh_state,
+)
 from repro_torch.runtime.loop import (  # noqa: F401
     LoopConfig,
     TrainLoop,

@@ -98,7 +98,9 @@ def verify_payload(payload: dict) -> torch.Tensor:
                            payload["checksum"], payload["q"]))
 
 
-def _psum(x: torch.Tensor, group) -> torch.Tensor:
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX's ``psum`` over the ranks of ``group``: a new tensor (``x``
+    itself for ``group=None``, the one-device degenerate case)."""
     if group is None:
         return x
     import torch.distributed as dist
@@ -117,11 +119,11 @@ def checked_psum(payload: dict, group=None):
     compress time, so the mismatch branch is reachable without a
     process group."""
     q32 = tree_map(lambda q: q.to(torch.int32), payload["q"])
-    summed = tree_map(lambda q: _psum(q, group), q32)
-    scale_sum = tree_map(lambda s: _psum(s, group), payload["scale"])
+    summed = tree_map(lambda q: psum(q, group), q32)
+    scale_sum = tree_map(lambda s: psum(s, group), payload["scale"])
     # additivity: checksum(psum(q)) == psum(checksum(q)) mod M
     expected = tree_map(
-        lambda c: torch.remainder(_psum(torch.remainder(c, MOD), group),
+        lambda c: torch.remainder(psum(torch.remainder(c, MOD), group),
                                   MOD), payload["checksum"])
     errs = tree_map(lambda e, s: e != _mod_checksum(s), expected, summed)
     return summed, scale_sum, _count(errs)
@@ -156,5 +158,6 @@ def compressed_allreduce(grads, state: CompressionState,
 
 
 __all__ = ["MOD", "CompressionState", "init_compression", "compress_grads",
+           "psum",
            "verify_payload", "checked_psum", "checked_psum_attributed",
            "decompress_grads", "compressed_allreduce"]

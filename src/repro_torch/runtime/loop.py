@@ -5,8 +5,8 @@
 
 Per step:
   1. the next batch from the seeded pipeline (a pure function of the
-     step, so a restart regenerates the exact stream), moved to the
-     state's device;
+     step, so a restart regenerates the exact stream), cut to the rank's
+     rows over a data mesh (``shardings``), moved to the state's device;
   2. the train step (grad accumulation, compression, AdamW; ABFT and
      ``comm/errors`` counters in its metrics), read on the host with one
      device-to-host copy;
@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.tree import tree_leaves
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.runtime.straggler import StragglerMonitor
 
 log = logging.getLogger("repro_torch.loop")
@@ -79,12 +80,17 @@ class TrainLoop:
     """Drives (state, batch) -> (state, metrics) with fault handling."""
 
     def __init__(self, step_fn: Callable, dataset, *, cfg: LoopConfig,
+                 shardings=None, group=None,
                  metrics_hook: Optional[Callable] = None,
                  obs=None, monitor=None, adapt=None,
                  on_threshold: Optional[Callable] = None):
         self.step_fn = step_fn
         self.dataset = dataset
         self.cfg = cfg
+        #: a data rank's rows of each batch
+        #: (:class:`repro_torch.data.pipeline.BatchShard`), as JAX's
+        #: loop places each batch with its ``shardings``
+        self.shardings = shardings
         self.metrics_hook = metrics_hook
         if monitor is not None and obs is None:
             from repro_torch.obs import Observability
@@ -104,9 +110,11 @@ class TrainLoop:
         self.on_threshold = on_threshold
         if adapt is not None:
             adapt.bind(obs)
+        # a data group's replicated state: rank 0 writes, all restore
         self.ckpt = CheckpointManager(cfg.ckpt_dir,
                                       keep_last=cfg.keep_last,
-                                      save_every=cfg.save_every)
+                                      save_every=cfg.save_every,
+                                      group=group)
         self.straggler = StragglerMonitor(threshold=cfg.straggler_threshold)
         self.stats = {"recomputes": 0, "restores": 0, "faulty_steps": 0}
 
@@ -164,7 +172,10 @@ class TrainLoop:
 
         host: Dict[str, Any] = {}
         while step < n_steps:
-            batch = _batch_to(self.dataset.batch_at(step), device)
+            batch = self.dataset.batch_at(step)
+            if self.shardings is not None:
+                batch = shard_batch(batch, self.shardings)
+            batch = _batch_to(batch, device)
             self.straggler.step_start()
             pre_state = state
             t_step = time.perf_counter()

@@ -1,0 +1,190 @@
+"""Sharding (the JAX package's ``sharding``): logical axes and rules, the
+data mesh, and the SPMD launcher that takes ``shard_map``'s place.
+
+JAX forces N host devices into one process and ``shard_map``s a step
+over them.  The port runs one process a rank instead: :func:`launch`
+starts a world of N ranks once (``torch.multiprocessing``, spawned, the
+rendezvous a ``FileStore`` in a temporary directory, never the network)
+and runs ``fn(world, *args)`` on each.  The backend is ``gloo`` on the
+CPU; on the card ``nccl`` when every rank has a device of its own, and
+``gloo`` when ranks share one (NCCL refuses two ranks on one device;
+gloo all-reduces CUDA tensors through the host).  A rank that fails
+fails the launch: the others are stopped and the error is raised, with
+nothing run again on fewer ranks.
+
+:func:`make_data_mesh` is the one-axis ``("data",)`` mesh over some of
+the world's ranks: a ``DeviceMesh`` and its process group (every rank
+of the world makes each mesh, in the same order, as
+``torch.distributed.new_group`` asks).
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import pickle
+import tempfile
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+from repro_torch.sharding.logical import (Spec, constrain, input_axes,
+                                          mesh_shape_of, param_axes,
+                                          placements_for, placements_of,
+                                          spec_for, specs_of,
+                                          train_state_axes)
+from repro_torch.sharding.rules import (Rules, batch_axes, serve_rules,
+                                        train_rules)
+
+#: seconds a rank waits in a collective or the rendezvous before it
+#: fails (and with it the launch): a rank that died leaves no survivor
+#: blocked for longer
+TIMEOUT_S = 600
+
+
+@dataclasses.dataclass(frozen=True)
+class World:
+    """One rank's view of a launched world."""
+    rank: int
+    size: int
+    device: torch.device
+    backend: str
+
+
+def backend_for(device: torch.device, n_ranks: int) -> str:
+    """``gloo`` on the CPU or when ranks share a card, else ``nccl``."""
+    if device.type == "cpu":
+        return "gloo"
+    return "nccl" if n_ranks <= torch.cuda.device_count() else "gloo"
+
+
+def rank_device(device: torch.device, rank: int) -> torch.device:
+    """The device of ``rank``: the CPU, or card ``rank`` modulo the
+    cards there are (ranks share cards round-robin)."""
+    if device.type == "cpu":
+        return device
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def init_world(rank: int, size: int, store_path: str, device,
+               timeout_s: float = TIMEOUT_S) -> World:
+    """Join this process to a world of ``size`` ranks whose rendezvous
+    is the ``FileStore`` at ``store_path``; -> its :class:`World`."""
+    import torch.distributed as dist
+    device = torch.device(device)
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = backend_for(device, size)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store_path, size), rank=rank,
+        world_size=size, timeout=datetime.timedelta(seconds=timeout_s))
+    return World(rank, size, dev, backend)
+
+
+def close_world() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _rank_main(rank: int, size: int, store_path: str, device, fn,
+               args, out_path: str, timeout_s: float) -> None:
+    # the ranks share the host's cores (on the card too: their steps are
+    # the host's launches)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    world = init_world(rank, size, store_path, device, timeout_s)
+    try:
+        result = fn(world, *args)
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(result, f)
+    finally:
+        close_world()
+
+
+def _by_name(fn: Callable) -> Callable:
+    """``fn`` as its module's importable name holds it: a function of a
+    module run with ``python -m`` lives in ``__main__``, which a spawned
+    rank cannot import by that name."""
+    import importlib
+    import sys
+    main = sys.modules.get("__main__")
+    spec = getattr(main, "__spec__", None)
+    if fn.__module__ == "__main__" and spec is not None:
+        return getattr(importlib.import_module(spec.name), fn.__name__)
+    return fn
+
+
+def launch(fn: Callable, size: int, *, args: Sequence = (),
+           device="cpu", timeout_s: float = TIMEOUT_S) -> Any:
+    """Run ``fn(world, *args)`` on every rank of a world of ``size``
+    ranks, launched once; -> rank 0's return value.  ``fn`` must be
+    importable by name (the ranks are spawned).  Any rank's exception
+    stops the others and is raised here."""
+    import torch.multiprocessing as mp
+    if size < 1:
+        raise ValueError(f"a world needs at least one rank, not {size}")
+    fn = _by_name(fn)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as d:
+        out = os.path.join(d, "rank0.pkl")
+        mp.start_processes(
+            _rank_main, args=(size, os.path.join(d, "store"), str(device),
+                              fn, tuple(args), out, timeout_s),
+            nprocs=size, join=True, start_method="spawn")
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+
+@dataclasses.dataclass
+class DataMesh:
+    """A one-axis ``("data",)`` mesh: its ranks (of the world), the
+    ``DeviceMesh`` and the process group; ``group`` is None on a rank
+    outside the mesh."""
+    ranks: tuple
+    device_mesh: Any
+    group: Any
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def member(self) -> bool:
+        return self.group is not None
+
+    @property
+    def rank(self) -> int:
+        """This rank's index in the mesh (its shard)."""
+        import torch.distributed as dist
+        return self.ranks.index(dist.get_rank())
+
+
+def make_data_mesh(n_shards: int, ranks: Optional[Sequence[int]] = None,
+                   device_type: Optional[str] = None) -> DataMesh:
+    """The ``("data",)`` mesh of ``n_shards`` ranks of the current world
+    (``ranks``: an explicit slice, as the campaign places cells; default
+    the world's first).  Every rank of the world calls it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    world = dist.get_world_size()
+    ranks = tuple(range(n_shards)) if ranks is None else tuple(ranks)
+    if len(ranks) != n_shards or world < n_shards:
+        raise ValueError(
+            f"a data mesh of {n_shards} shards needs {n_shards} ranks but "
+            f"the world has {world} (ranks {ranks})")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = DeviceMesh(device_type, torch.tensor(ranks),
+                      mesh_dim_names=("data",))
+    group = mesh.get_group("data") if dist.get_rank() in ranks else None
+    return DataMesh(ranks, mesh, group)
+
+
+__all__ = [
+    "Spec", "spec_for", "mesh_shape_of", "specs_of", "placements_for",
+    "placements_of", "constrain", "param_axes", "train_state_axes",
+    "input_axes", "Rules", "train_rules", "serve_rules", "batch_axes",
+    "TIMEOUT_S", "World", "backend_for", "rank_device", "init_world",
+    "close_world", "launch", "DataMesh", "make_data_mesh",
+]

@@ -247,18 +247,38 @@ def test_importing_the_cli_runs_nothing(capsys, tmp_path, monkeypatch):
     assert list(tmp_path.iterdir()) == []
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--grid", "multidevice", "--quick"], "A8"),
-    (["--grid", "training", "--device-count", "4"], "A8"),
-    (["--grid", "full"], "A8"),
-    (["--grid", "paper", "--device-count", "2"], "A8"),
-    (["--quick", "--device-count", "4"], "A8")])
-def test_cli_refuses_unported_grids_and_flags(capsys, argv, item):
-    with pytest.raises(SystemExit) as ei:
-        cli.main(argv)
-    assert ei.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+@pytest.mark.parametrize("argv,ranks", [
+    (["--grid", "multidevice", "--quick"], 4),
+    (["--grid", "training", "--device-count", "4"], None),
+    (["--grid", "full"], 4),
+    (["--grid", "paper", "--device-count", "2"], None),
+    (["--quick", "--device-count", "4"], None)])
+def test_cli_refuses_unported_grids_and_flags(capsys, monkeypatch, argv,
+                                              ranks):
+    """The grids with sharded cells (``multidevice``, ``full``) launch a
+    world of ranks once for the run, 4 when ``--device-count`` is absent
+    (the multidevice grid itself runs in
+    ``tests/test_torch_campaign_multidevice.py``); another grid takes
+    ``--device-count`` and runs on one rank, saying so."""
+    import repro_torch.sharding as sharding
+    from repro_torch.campaign import executor
+    from repro_torch.campaign.artifacts import campaign_to_dict
+    launched, ran = [], []
+    monkeypatch.setattr(sharding, "launch", lambda fn, n, **kw:
+                        launched.append((fn.__name__, n, kw["args"][0])))
+
+    def run_campaign(name, specs, **kw):
+        ran.append(name)
+        return campaign_to_dict(name, list(specs), [], [], 0.0, 0,
+                                torch.device("cpu"))
+    monkeypatch.setattr(executor, "run_campaign", run_campaign)
+    assert cli.main(argv + ["--device", "cpu", "--out", "-"]) == 0
+    out = capsys.readouterr().out
+    if ranks is None:
+        assert launched == [] and len(ran) == 1
+        assert "no cell of this grid shards" in out
+    else:
+        assert launched == [("_grid_rank", ranks, argv[1])] and ran == []
 
 
 def test_cli_without_a_card_raises(monkeypatch):

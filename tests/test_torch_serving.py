@@ -110,16 +110,33 @@ def test_serve_cli_smoke_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--arch", "mistral-large-123b", "--requests", "1"], "A8"),
-    (["--arch", "llama4-scout-17b-a16e", "--requests", "1"], "A8"),
-    (["--arch", "mistral-large-123b", "--plan", "*:off"], "A8"),
-    (["--device-count", "2"], "A8"),
-    (["--arch", "llama4-scout-17b-a16e"], "A8"),
-    (["--device-count", "4", "--arch", "llama3.2-1b"], "A8"),
-    (["--arch", "mistral-large-123b"], "A8")])
+    (["--arch", "mistral-large-123b", "--requests", "1"], "A8.4"),
+    (["--arch", "llama4-scout-17b-a16e", "--requests", "1"], "A8.4"),
+    (["--arch", "mistral-large-123b", "--plan", "*:off"], "A8.4"),
+    (["--device-count", "2"], None),
+    (["--arch", "llama4-scout-17b-a16e"], "A8.4"),
+    (["--device-count", "4", "--arch", "llama3.2-1b"], None),
+    (["--arch", "mistral-large-123b"], "A8.4")])
 def test_serve_cli_rejects_unported_parts(capsys, flag, item):
+    """The two configs that outgrow one card exit with 2 naming A8.4;
+    ``--device-count N`` is accepted (any N on the CPU) and the run
+    serves on the first device, as the JAX CLI does."""
+    if item is None:
+        assert serve.main(["--device", "cpu", "--smoke", "--requests",
+                           "2"] + flag) == 0
+        return
     with pytest.raises(SystemExit) as ei:
         serve.main(["--device", "cpu", "--smoke"] + flag)
     assert ei.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and item in err
+
+
+def test_serve_cli_device_count_needs_the_devices(capsys, monkeypatch):
+    """On the card a ``--device-count`` above the cards there are exits
+    with 2 (nothing falls back to fewer devices)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit) as ei:
+        serve.main(["--smoke", "--device-count", "2"])
+    assert ei.value.code == 2
+    assert "ROADMAP A8.1" in capsys.readouterr().err

@@ -58,7 +58,7 @@ def test_thresholds_grid_expands_as_jax():
     assert {p.cell_id for p in t_plans} == \
         {c["cell_id"] for c in _baseline()["cells"]}
     assert "thresholds" in grids.GRIDS and "thresholds" not in \
-        grids.NOT_PORTED
+        grids.SHARDED_GRIDS
 
 
 def _plan(band, rel_bound):

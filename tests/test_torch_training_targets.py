@@ -200,8 +200,27 @@ def test_quick_grid_seam_semantics(quick_artifact):
 
 @pytest.mark.parametrize("name", ["train_payload_shard", "train_reduced"])
 def test_mesh_seams_refused(name):
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_target(name)
+    """The mesh seams are registered (ROADMAP A8.2); at one shard a
+    payload flip is the single-device seam's (caught at its step) and a
+    flip of the reduced sum escapes (bound 0).  Their 4-rank cells run
+    in ``tests/test_torch_campaign_multidevice.py``."""
+    from repro_torch.campaign.executor import run_cell
+    from repro_torch.campaign.spec import CampaignSpec, expand
+    target = get_target(name)
+    assert target.shardable
+    dtype = "int8" if name == "train_payload_shard" else "int32"
+    (plan,), _ = expand(CampaignSpec(
+        name="one-shard", targets=(name,), fault_models=("bitflip",),
+        bit_bands=("significant",), dtypes=(dtype,), samples=2,
+        clean_samples=1, seed=0))
+    m = run_cell(plan, device="cpu").metrics
+    assert m.shards == 1 and m.collective_verified is False
+    assert m.false_positives == 0
+    if name == "train_payload_shard":
+        assert m.detected == 2 and m.analytic_bound == 1.0
+    else:
+        assert m.detected == 0 and m.escapes == 2
+        assert m.analytic_bound == 0.0
 
 
 @pytest.mark.parametrize("fault_model,flips,dtype", [
