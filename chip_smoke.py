@@ -27,7 +27,8 @@ failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and print the build times;
+   ``nvcc`` per source, in parallel) and print the build times, with
+   phase 22d's dry-run subprocess beside them (waited for before 3);
 3. make the full-width DLRM (26 tables x 4M rows x 128 int8, random
    weights from a seed) on the card and hold each kernel against its
    plain PyTorch version at the main path's shapes and at one larger
@@ -327,9 +328,10 @@ failure exits non-zero; nothing is caught and passed over):
    patches and whisper's 1500 stub frames, each config's
    ``train_accum`` (granite 16 sequences for its 16), ``compress=True``,
    ``TrainLoop(fault_policy="recompute")``, deterministic algorithms),
-   2 steps each and granite 3, llava at 7 and granite at 17 of their
-   32 layers (the depths that fit ~72 GiB: two states, the gradient sum
-   and the activations); every loss finite, ``comm/errors`` 0; the
+   2 steps each and granite 3, at their depths in ``DEPTH`` (llava at
+   7 of 32 layers, the depth that fits ~72 GiB: two states, the
+   gradient sum and the activations; the others cut for time); every
+   loss finite, ``comm/errors`` 0; the
    state's reckoned bytes beside the peak allocation, step times, text
    tokens/s, one profiled step's device operations and busy share; the
    reduced model's loss and every gradient leaf card against CPU in
@@ -353,6 +355,19 @@ failure exits non-zero; nothing is caught and passed over):
    every cell, the differ) with its acceptance cell attributed to shard
    0, each rank's memory; all six launch counters 0 on each path (in
    every rank).
+22. the dry run against the card: phase 18's step and phase 21's ZeRO-1
+   step reckoned on meta tensors over a world of one by the cost counter
+   and its memory tracker (``repro_torch.launch.costs``), each predicted
+   peak within 15% of the phase's measured ``max_memory_allocated`` and
+   each roofline bound at most the measured step; the ABFT
+   implementation roofline's bound for the unprotected instance and K1
+   at most phase 11's measured time at each of Fig. 5's 28 shapes;
+   ``python -m repro_torch.launch.dryrun --arch mistral-large-123b
+   --shape decode_32k`` run as a subprocess on this machine's PyTorch
+   beside phase 2's build (the one stretch that times no launches, so
+   no timed phase shares the host with it), ending ``ok``, its
+   per-device argument bytes and peak printed against the card's
+   memory; no kernel launched (meta tensors take the plain versions).
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
@@ -362,8 +377,8 @@ of the paths (DLRM serve, RWKV serve, campaign, thresholds, overhead,
 float DLRM, Llama serve, Llama paged serve, granite serve, serving soak,
 the SLO ladder of each model, observability, training, whisper, hymba,
 llava, internlm2, the training of rwkv6, whisper, hymba, llava and
-granite, and the mesh's deferred step, ZeRO-1 step and multidevice
-grid),
+granite, the mesh's deferred step, ZeRO-1 step and multidevice
+grid, and the dry run),
 all six counts set to 0
 just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -3262,8 +3277,8 @@ GRANITE = "granite-moe-3b-a800m"
 #: 19, hymba and llava at 8 of 32, internlm2 at 12 of 48 (whisper stays
 #: whole: its build's check needs its layer stack, 1.60 GB, above the
 #: 0.80 GB its token table's build takes, and at 16 + 16 the two meet).
-#: 20, for the time phase 21 takes: granite trained at 9 of
-#: 32 layers, hymba at 16 of 32 and whisper at 16 + 16 (a cut of an
+#: 20, for the time phases 21 and 22 take: granite trained at 5 of
+#: 32 layers, hymba at 12 of 32 and whisper at 12 + 12 (a cut of an
 #: encoder-decoder cuts both stacks); llava at 7 of 32 for memory (the
 #: training loop holds the pre-step state and builds the new one, so the
 #: peak is about two 16 B/param states, the float32 gradient sum and the
@@ -3274,8 +3289,8 @@ DEPTH = {(15, GRANITE): 8, (16, LLAMA): 8, (16, GRANITE): 4,
          (18, LLAMA): 8, (21, LLAMA): 8,
          (19, "hymba-1.5b"): 8, (19, "llava-next-mistral-7b"): 8,
          (19, "internlm2-20b"): 12,
-         (20, "llava-next-mistral-7b"): 7, (20, GRANITE): 9,
-         (20, "hymba-1.5b"): 16, (20, "whisper-large-v3"): 16}
+         (20, "llava-next-mistral-7b"): 7, (20, GRANITE): 5,
+         (20, "hymba-1.5b"): 12, (20, "whisper-large-v3"): 12}
 
 
 def depth_cut(phase: int, arch: str):
@@ -4425,7 +4440,7 @@ def training_phase(torch, dev, out_dir) -> dict:
     wrappers = zero_launches()
     cfg = depth_cut(18, LLAMA)
     model = build_model(cfg)
-    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16, no_remat=True)
     n_steps, batch, seq = 6, 8, 256
     dataset = make_dataset(cfg, ShapeConfig("phase18", "train", seq, batch))
     shapes = train_state_shapes(model, compress=True)
@@ -5155,7 +5170,7 @@ def reduced_train_card_vs_cpu(torch, dev, arch: str) -> dict:
                          ).batch_at(0)
     out = {}
     for dtype in ("float32", "bfloat16"):
-        fn = make_grad_fn(model, Ctx(quant=False,
+        fn = make_grad_fn(model, Ctx(quant=False, no_remat=True,
                                      compute_dtype=getattr(torch, dtype)))
         with deterministic():
             (l_c, _), g_c = fn(p_cpu, batch_to(batch, "cpu"))
@@ -5209,7 +5224,7 @@ def train_family(torch, dev, arch: str, n_steps: int = 2,
     batch = max(8, cfg.train_accum)
     seq = TRAIN_TEXT + cfg.meta_tokens + cfg.n_patches
     model = build_model(cfg, max_pos=seq + cfg.meta_tokens + 8)
-    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16, no_remat=True)
     dataset = make_dataset(cfg, ShapeConfig("phase20", "train", seq, batch))
     shapes = train_state_shapes(model, compress=True)
     reckon = state_bytes(shapes)
@@ -5453,7 +5468,7 @@ def zero1_card_vs_cpu(torch, dev, mesh_dev) -> dict:
 
     cfg = reduce_cfg(get_arch(LLAMA))
     model = build_model(cfg, max_pos=64)
-    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16, no_remat=True)
     data = make_dataset(cfg, ShapeConfig("p21", "train", 16, 4))
     cpu_mesh = DataMesh((0,), None, dist.new_group([0], backend="gloo"))
     lr, n_steps = 1e-4, 2
@@ -5567,7 +5582,7 @@ def mesh_phase(torch, dev, out_dir) -> dict:
     launches_by, record = {}, {"card": card}
     cfg = depth_cut(21, LLAMA)
     model = build_model(cfg)
-    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16, no_remat=True)
     n_steps, batch, seq = 2, 8, 256
     dataset = make_dataset(cfg, ShapeConfig("phase21", "train", seq, batch))
     store = tempfile.TemporaryDirectory(prefix="phase21_")
@@ -5777,6 +5792,231 @@ def mesh_phase(torch, dev, out_dir) -> dict:
     return {"launches": launches_by, "record": record}
 
 
+#: phase 22: a predicted peak against its measurement, and the dry-run
+#: cell its CLI runs on this machine's PyTorch
+PEAK_TOL = 0.15
+DRYRUN_CELL = ("mistral-large-123b", "decode_32k")
+
+
+def reckon_step(torch, run, args: dict) -> dict:
+    """One step on meta tensors under the cost counter and its memory
+    tracker (:mod:`repro_torch.launch.costs`): the memory keys, the
+    counted cost and its roofline on the H100."""
+    from repro_torch.launch.costs import CostCounter
+    from repro_torch.launch.roofline import roofline_terms
+    counter = CostCounter()
+    counter.arguments(args)
+    with counter:
+        out = run()
+    counter.outputs(out)
+    del out
+    cost = counter.result()
+    return {"memory": counter.memory(), "cost": cost,
+            "roofline": roofline_terms(cost, n_devices=1)}
+
+
+def start_dryrun_cli():
+    """Phase 22d's subprocess, started with the kernels' build and
+    waited for when it ends (:func:`finish_dryrun_cli`), so that it
+    shares the host with no timed phase: ``python -m
+    repro_torch.launch.dryrun`` on :data:`DRYRUN_CELL`, on no card.
+    -> (the process, its output directory)."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="phase22_")
+    arch, shape_name = DRYRUN_CELL
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape_name, "--out", out_dir],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                        "CUDA_VISIBLE_DEVICES": ""})
+    return proc, out_dir
+
+
+def finish_dryrun_cli(cli) -> dict:
+    """Wait for phase 22d's subprocess: its exit code, the ends of its
+    output and its record (None where it wrote none)."""
+    proc, out_dir = cli
+    arch, shape_name = DRYRUN_CELL
+    try:
+        out, err = proc.communicate(timeout=600)
+        path = Path(out_dir) / f"{arch}__{shape_name}__pod16x16.json"
+        rec = json.loads(path.read_text()) if path.exists() else None
+    finally:
+        stop_dryrun_cli(cli)
+    return {"rc": proc.returncode, "out": out[-2000:], "err": err[-3000:],
+            "record": rec}
+
+
+def stop_dryrun_cli(cli) -> None:
+    """Stop phase 22d's subprocess if it still runs; drop its output."""
+    import shutil
+    proc, out_dir = cli
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+    for stream in (proc.stdout, proc.stderr):
+        stream.close()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def dryrun_phase(torch, dev, training: dict, zero1: dict,
+                 gemm_rows: list, cli: dict) -> dict:
+    """Phase 22: the dry run's predictions held against this card.
+    (a) Phase 18's step (Llama-3.2-1B at its depth, 8 x 256 tokens in 4
+    microbatches, bf16 compute, ``compress=True``, ``no_remat=True``)
+    reckoned on meta tensors over a world of one: the predicted peak
+    within :data:`PEAK_TOL` of phase 18's ``max_memory_allocated``, the
+    roofline's step bound at most its measured step; (b) the same for
+    phase 21's ZeRO-1 step, with the peak's breakdown; (c) the ABFT
+    implementation roofline: each Fig. 5 shape's bound for the
+    unprotected instance and K1 at most phase 11's measured times; (d)
+    ``python -m repro_torch.launch.dryrun`` on :data:`DRYRUN_CELL` as a
+    subprocess on this machine's PyTorch (``cli``, from
+    :func:`finish_dryrun_cli`: it ran beside phase 2's build), ending
+    ``ok``, its per-device argument bytes and peak against the card's
+    memory.  Meta tensors launch nothing: all six
+    counters stay 0."""
+    from repro_torch.benchmarks.roofline_table import abft_rows
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.roofline import count_params, model_flops
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.sharding import make_data_mesh
+
+    t0 = time.perf_counter()
+    card = smi_line()
+    wrappers = zero_launches()
+    total_memory = torch.cuda.get_device_properties(dev).total_memory
+    arch, shape_name = DRYRUN_CELL
+    record = {"card": card, "total_memory": total_memory}
+    # ---------------- 22a. phase 18's step, reckoned ------------------
+    cfg = depth_cut(18, LLAMA)
+    model = build_model(cfg)
+    ctx = Ctx(quant=False, compute_dtype=torch.bfloat16, no_remat=True)
+    shape = ShapeConfig("phase18", "train", 256, 8)
+    batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in model.input_specs(shape).items()}
+    state = steps.train_state_shapes(model, compress=True)
+    step = steps.make_train_step(model, ctx, accum=cfg.train_accum,
+                                 total_steps=6, compress=True)
+    a = reckon_step(torch, lambda: step(state, batch), {
+        "params": state["params"], "optimizer": state["opt"],
+        "residuals": state["comm"], "step": state["step"],
+        "batch": batch})
+    measured = training["peak_allocated"]
+    step_s = training["step_ms_median"] / 1e3
+    mf = model_flops("train", count_params(state["params"])["active"],
+                     tokens=8 * 256)
+    a.update(measured_peak=measured, measured_step_s=step_s,
+             model_flops=mf)
+    pred = a["memory"]["peak_estimate_bytes"]
+    bound = a["roofline"]["step_lower_bound_s"]
+    log(f"22a on {card}: phase 18's step reckoned on meta: peak "
+        f"{pred / 2**30:.2f} GiB against the measured "
+        f"{measured / 2**30:.2f} GiB ({pred / measured - 1:+.1%}); "
+        f"bound {bound * 1e3:.1f} ms ({a['roofline']['dominant']}) "
+        f"over the measured step {step_s * 1e3:.1f} ms = "
+        f"{bound / step_s:.3f}; model_flops over counted "
+        f"{mf / a['cost']['flops']:.3f}; breakdown " + ", ".join(
+            f"{k} {v / 2**30:.2f}" for k, v in
+            a["memory"]["breakdown"].items()) + " GiB")
+    if abs(pred / measured - 1) > PEAK_TOL:
+        fail(f"phase 22a: predicted peak {pred} against the measured "
+             f"{measured}")
+    if bound > step_s:
+        fail(f"phase 22a: the step bound {bound} s exceeds the "
+             f"measured step {step_s} s")
+    record["phase18"] = a
+
+    # ---------------- 22b. phase 21's ZeRO-1 step, reckoned -----------
+    cfg21 = depth_cut(21, LLAMA)
+    model21 = build_model(cfg21)
+    with fake_world(1):
+        mesh = make_data_mesh(1, device_type="cpu")
+        zs, _ = steps.zero1_state_shapes(model21, 1)
+        # three flat vectors, each its own storage
+        zs = dict(zs, opt={k: torch.empty_like(v, device="meta")
+                           for k, v in zs["opt"].items()})
+        zstep = steps.make_train_step_zero1(
+            model21, ctx, mesh, accum=cfg21.train_accum, total_steps=2)
+        b = reckon_step(torch, lambda: zstep(zs, batch), {
+            "params": zs["params"], "optimizer": zs["opt"],
+            "step": zs["step"], "batch": batch})
+    measured = zero1["peak_allocated"]
+    pred = b["memory"]["peak_estimate_bytes"]
+    b.update(measured_peak=measured,
+             measured_step_s=statistics.median(zero1["step_ms"]) / 1e3)
+    log(f"22b: phase 21's ZeRO-1 step reckoned on meta: peak "
+        f"{pred / 2**30:.2f} GiB against the measured "
+        f"{measured / 2**30:.2f} GiB ({pred / measured - 1:+.1%}); at "
+        f"the peak " + ", ".join(
+            f"{k} {v / 2**30:.2f}" for k, v in
+            b["memory"]["breakdown"].items()) + " GiB; bound "
+        f"{b['roofline']['step_lower_bound_s'] * 1e3:.1f} ms over the "
+        f"measured {b['measured_step_s'] * 1e3:.1f} ms")
+    if abs(pred / measured - 1) > PEAK_TOL:
+        fail(f"phase 22b: predicted peak {pred} against the measured "
+             f"{measured}")
+    if b["roofline"]["step_lower_bound_s"] > b["measured_step_s"]:
+        fail("phase 22b: the step bound exceeds the measured step")
+    record["zero1"] = b
+
+    # ---------------- 22c. the ABFT roofline against phase 11 ---------
+    bounds = {(r["shape"], r["instance"]): r["bound_ms"]
+              for r in abft_rows()}
+    side = []
+    for r in gemm_rows:
+        shp = tuple(r["shape"])
+        got = {"unprotected": r["cold_ms"]["unprotected"]["median"],
+               "K1": r["cold_ms"]["abft"]["median"]}
+        for inst, ms in got.items():
+            side.append((shp, inst, bounds[shp, inst], ms))
+    log("22c: the ABFT roofline's bound against phase 11's measured "
+        "cold medians (ms), per Fig. 5 shape: " + "; ".join(
+            f"{'x'.join(map(str, s))} {i} {bd:.5f} <= {ms:.5f}"
+            for s, i, bd, ms in side))
+    over = [x for x in side if x[2] > x[3]]
+    if len(side) != 56 or over:
+        fail(f"phase 22c: {len(side)} rows, bounds over the measured "
+             f"times: {over}")
+    record["abft_roofline"] = [
+        {"shape": s, "instance": i, "bound_ms": bd, "measured_ms": ms}
+        for s, i, bd, ms in side]
+
+    # ---------------- 22d. the dry-run CLI on this machine ------------
+    rec = cli["record"]
+    if cli["rc"] or rec is None:
+        fail(f"phase 22d: the dry run exited {cli['rc']}: "
+             f"{cli['out']} {cli['err']}")
+    if rec["status"] != "ok":
+        fail(f"phase 22d: {rec.get('error')}")
+    mem = rec["memory_per_device"]
+    log(f"22d: python -m repro_torch.launch.dryrun --arch {arch} "
+        f"--shape {shape_name} on this machine's torch "
+        f"{rec['torch']}: {rec['status']} in "
+        f"{rec['compile_seconds']} s; per device argument bytes "
+        f"{mem['argument_bytes'] / 2**30:.2f} GiB and peak "
+        f"{mem['peak_estimate_bytes'] / 2**30:.2f} GiB against the "
+        f"card's {total_memory / 2**30:.2f} GiB "
+        f"(torch.cuda.get_device_properties(0).total_memory = "
+        f"{total_memory}); roofline {rec['roofline']['dominant']}-bound"
+        f", {rec['roofline']['step_lower_bound_s'] * 1e3:.2f} ms; flags "
+        f"{rec['cost_per_device']['flags']}")
+    record["cli"] = {k: rec[k] for k in (
+        "status", "torch", "compile_seconds", "memory_per_device",
+        "cost_per_device", "roofline", "params", "model_vs_hlo")}
+    launches = read_launches(wrappers)
+    if any(launches.values()):
+        fail(f"phase 22: the dry run launched a kernel: {launches}")
+    record["seconds"] = time.perf_counter() - t0
+    log(f"phase 22 launches (all six must be 0): {launches}; "
+        f"{record['seconds']:.1f}s")
+    return {"launches": launches, "record": record}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5824,14 +6064,26 @@ def main() -> int:
     print(details["card"], flush=True)
 
     # ------------------------------ 2. build --------------------------------
+    # phase 22d's dry-run CLI (host work, no card) runs beside the build,
+    # which times no launches
+    cli = start_dryrun_cli()
     t0 = time.perf_counter()
-    built = _build.build()
+    try:
+        built = _build.build()
+    except BaseException:
+        stop_dryrun_cli(cli)
+        raise
     details["build_s"] = time.perf_counter() - t0
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln]
         log(f"built {name} in {info['seconds']:.1f}s; " + "; ".join(regs))
     log(f"build wall {details['build_s']:.1f}s")
+    dry_cli = finish_dryrun_cli(cli)
+    details["dryrun_cli_wait_s"] = time.perf_counter() - t0 - \
+        details["build_s"]
+    log(f"phase 22d's dry-run CLI ended "
+        f"{details['dryrun_cli_wait_s']:.1f}s after the build")
     phase_done("1-2 card and build")
 
     # ---------------------- 3. kernels vs plain versions --------------------
@@ -6293,6 +6545,11 @@ def main() -> int:
     mesh = mesh_phase(torch, dev, args.out and str(Path(args.out).parent))
     details["mesh"] = mesh["record"]
     phase_done("21 the data mesh")
+    # ---------- 22. the dry run's predictions against phases 11-21 ---------
+    dry = dryrun_phase(torch, dev, training["record"],
+                       mesh["record"]["zero1"], overhead["gemm"], dry_cli)
+    details["dryrun"] = dry["record"]
+    phase_done("22 the dry run against the card")
     kernels[0]["llama_shapes"] = llama["k1_times"]
     kernels[0]["granite_expert_shapes"] = granite["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
@@ -6327,7 +6584,8 @@ def main() -> int:
                "training": training["launches"],
                **families["launches"],
                **train_fams["launches"],
-               **mesh["launches"]}
+               **mesh["launches"],
+               "dryrun": dry["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

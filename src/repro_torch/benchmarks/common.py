@@ -16,7 +16,14 @@ from repro_torch.campaign.spec import DLRM_GEMM_SHAPES as GEMM_SHAPES
 L2_BYTES = 50 * 2**20
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
+#: link rates a card sends at: NVLink 4 within an 8-card host (450 GB/s
+#: each way, NVIDIA's H100 SXM data sheet) and one 400 Gb/s NDR
+#: InfiniBand adapter a card between hosts (50 GB/s, NVIDIA's DGX H100
+#: reference architecture)
+NVLINK_BYTES_PER_S = 450e9
+NETWORK_BYTES_PER_S = 50e9
 #: rounds of alternating protected / unprotected timings a cell takes
 ROUNDS = 5
 
@@ -140,6 +147,7 @@ def markdown(title: str, header: Sequence[str], rows: Sequence[Sequence]
 
 
 __all__ = ["GEMM_SHAPES", "L2_BYTES", "HBM_BYTES_PER_S", "INT8_OPS_PER_S",
-           "F32_OPS_PER_S", "ROUNDS", "Timer", "HostTimer", "make_timer",
+           "BF16_OPS_PER_S", "F32_OPS_PER_S", "NVLINK_BYTES_PER_S",
+           "NETWORK_BYTES_PER_S", "ROUNDS", "Timer", "HostTimer", "make_timer",
            "alternate", "spread", "overhead", "bound_ms", "device_info",
            "pct", "markdown"]

@@ -4,7 +4,7 @@ the CPU, to exercise the arithmetic only).
 
 Examples::
 
-    python -m repro_torch.benchmarks.run                    # Fig. 5 + Table I
+    python -m repro_torch.benchmarks.run            # Fig. 5, Table I, rooflines
     python -m repro_torch.benchmarks.run --only eb_overhead --out bench/
     python -m repro_torch.benchmarks.run --quick --device cpu
 
@@ -19,7 +19,7 @@ import os
 import sys
 import time
 
-BENCHES = ("gemm_overhead", "eb_overhead")
+BENCHES = ("gemm_overhead", "eb_overhead", "roofline_table")
 
 
 def main(argv=None) -> int:
@@ -37,13 +37,15 @@ def main(argv=None) -> int:
                     help="also write BENCH_overhead.json here")
     args = ap.parse_args(argv)
 
-    from repro_torch.benchmarks import common, eb_overhead, gemm_overhead
+    from repro_torch.benchmarks import (common, eb_overhead, gemm_overhead,
+                                        roofline_table)
     from repro_torch.device import resolve_device
 
     dev = resolve_device(args.device)
     timer = common.make_timer(dev)
     result = {"device": common.device_info(dev), "rounds": common.ROUNDS}
-    mods = {"gemm_overhead": gemm_overhead, "eb_overhead": eb_overhead}
+    mods = {"gemm_overhead": gemm_overhead, "eb_overhead": eb_overhead,
+            "roofline_table": roofline_table}
     for name in ([args.only] if args.only else BENCHES):
         mod = mods[name]
         t0 = time.perf_counter()

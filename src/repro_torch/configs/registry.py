@@ -1,18 +1,22 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-The paper's own DLRM, RWKV6-1.6B, the dense Llama-3.2-1B, Qwen3-8B and
-InternLM2-20B, the MoE granite-moe-3b-a800m, the encoder-decoder
-whisper-large-v3, the hybrid hymba-1.5b and the VLM
-llava-next-mistral-7b are ported.
-The other ids the JAX package knows are listed so that asking for one
-says it is not ported yet, instead of claiming the id is unknown.
+Every id of the JAX package's registry: the paper's own DLRM, RWKV6-1.6B,
+the dense Llama-3.2-1B, Qwen3-8B, InternLM2-20B and Mistral-Large-123B,
+the MoEs granite-moe-3b-a800m and Llama-4-Scout-17B-16E, the
+encoder-decoder whisper-large-v3, the hybrid hymba-1.5b and the VLM
+llava-next-mistral-7b.  The dry run (:mod:`repro_torch.launch.dryrun`)
+reckons every one of them on a meta mesh; the two in :data:`SHARDED_ONLY`
+outgrow one card, so the entry points that run a model
+(:func:`refuse_unsharded`: the serve and train CLIs, the serving engine)
+refuse them until a model axis runs on real ranks.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (dlrm, granite_moe_3b_a800m, hymba_1b5,
                                  internlm2_20b, llama3_2_1b,
-                                 llava_next_mistral_7b, qwen3_8b, rwkv6_1b6,
-                                 whisper_large_v3)
+                                 llama4_scout_17b_a16e,
+                                 llava_next_mistral_7b, mistral_large_123b,
+                                 qwen3_8b, rwkv6_1b6, whisper_large_v3)
 
 ARCHS = {
     "whisper-large-v3": whisper_large_v3.CONFIG,
@@ -23,12 +27,14 @@ ARCHS = {
     "granite-moe-3b-a800m": granite_moe_3b_a800m.CONFIG,
     "hymba-1.5b": hymba_1b5.CONFIG,
     "llava-next-mistral-7b": llava_next_mistral_7b.CONFIG,
+    "mistral-large-123b": mistral_large_123b.CONFIG,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
     "dlrm": dlrm.CONFIG,            # the paper's own architecture
 }
 
-#: ids of the JAX package's registry that wait for later slices of the
-#: port, with the ROADMAP item that ports each
-NOT_PORTED = {
+#: ids whose model outgrows one card, with the ROADMAP item that runs
+#: them (a model axis on real ranks)
+SHARDED_ONLY = {
     "mistral-large-123b": "A8.4 (tensor parallelism: its int8 weights "
                           "outgrow one card)",
     "llama4-scout-17b-a16e": "A8.4 (tensor parallelism: its int8 experts "
@@ -36,11 +42,18 @@ NOT_PORTED = {
 }
 
 
-def get_arch(name: str):
-    if name in NOT_PORTED:
+def refuse_unsharded(name: str) -> None:
+    """Raise :class:`NotImplementedError` naming the ROADMAP item for an
+    id that runs only with a model axis (:data:`SHARDED_ONLY`)."""
+    if name in SHARDED_ONLY:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP {NOT_PORTED[name]}); "
-            f"the port serves {sorted(ARCHS)}")
+            f"arch {name!r} runs only sharded over a model axis, which "
+            f"is not ported yet to real ranks (ROADMAP "
+            f"{SHARDED_ONLY[name]}); its dry run reckons it: python -m "
+            f"repro_torch.launch.dryrun --arch {name}")
+
+
+def get_arch(name: str):
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]

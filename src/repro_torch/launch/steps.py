@@ -63,9 +63,8 @@ def make_grad_fn(model: Model, ctx: Ctx):
         for p in leaves:
             g = next(got) if p.requires_grad else None
             if g is None:
-                g = torch.zeros(p.shape, dtype=torch.float32
-                                if not is_trainable(p) else p.dtype,
-                                device=p.device)
+                g = torch.zeros_like(p, dtype=torch.float32
+                                     if not is_trainable(p) else p.dtype)
             grads.append(g)
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
@@ -85,8 +84,8 @@ def accumulate(grad_fn, params, batch, accum: int):
     scan does; one microbatch gives ``grad_fn``'s own."""
     if accum == 1:
         return grad_fn(params, batch)
-    g_acc = tree_map(lambda p: torch.zeros(
-        p.shape, dtype=torch.float32, device=p.device), params)
+    g_acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     losses, mets = [], []
     for i in range(accum):
         mb = {k: v.reshape((accum, v.shape[0] // accum)

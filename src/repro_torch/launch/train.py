@@ -131,6 +131,12 @@ def _mesh_ranks(ap, args) -> int:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
+    from repro_torch.configs.registry import get_arch, refuse_unsharded
+    try:
+        get_arch(args.arch)
+        refuse_unsharded(args.arch)
+    except (KeyError, NotImplementedError) as e:
+        ap.error(str(e))
     # cuBLAS reads it when CUDA initialises (deterministic GEMMs)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.device import resolve_device

@@ -24,9 +24,10 @@ Cross-attention (whisper's decoder): :func:`attention` takes its keys
 and values from ``x_kv`` without RoPE, and :func:`attention_decode` with
 ``cross=True`` reads the static cache of the encoder memory's K and V.
 
-Not ported from the JAX module: the sequence-parallel ``constrain``
-calls, which split the KV sequence over a model axis (tensor
-parallelism, ROADMAP A8.4; on a data mesh they move nothing).
+The ``constrain`` calls sit at the JAX module's sites with its axes:
+the H-layout q, k and v over ``heads_x``, the caches sequence-parallel
+over ``kv_seq``.  On one device and on a data mesh they move nothing;
+the dry run's meta ``DTensor`` s are redistributed by them.
 """
 from __future__ import annotations
 
@@ -44,8 +45,26 @@ from repro_torch.paging.cache import PagedKV
 from repro_torch.protect.ops import KV_CACHE, KV_CACHE_PAGED
 from repro_torch.protect.runtime import (kv_rule, paged_kv_rule,
                                          protected_call)
+from repro_torch.sharding.logical import constrain
 
 NEG_INF = -1e30
+
+#: the axes of a grouped-layout cache [B, Kv, S, dh] and of its QuantKV
+#: fields' per-row vectors [B, Kv, S]
+_CACHE_AXES = ("batch", None, "kv_seq", None)
+_ROW_AXES = ("batch", None, "kv_seq")
+
+
+def _constrain_cache(kv, rules):
+    """The sequence-parallel constraint of one cache leaf: a plain tensor,
+    or a :class:`QuantKV` field by field (the payload has a trailing head
+    dim; the affine parameters and rowsums do not)."""
+    if isinstance(kv, QuantKV):
+        return QuantKV(q=constrain(kv.q, _CACHE_AXES, rules),
+                       alpha=constrain(kv.alpha, _ROW_AXES, rules),
+                       beta=constrain(kv.beta, _ROW_AXES, rules),
+                       rowsum=constrain(kv.rowsum, _ROW_AXES, rules))
+    return constrain(kv, _CACHE_AXES, rules)
 
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
@@ -95,13 +114,17 @@ def _project(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim, positions,
     return q, k, v, (r1, r2, r3)
 
 
-def _h_layout(q, k, v, n_heads: int, n_kv: int):
-    """Repeat the KV heads to H and move heads before the sequence."""
+def _h_layout(q, k, v, n_heads: int, n_kv: int, rules=None):
+    """Repeat the KV heads to H and move heads before the sequence; the
+    three are constrained to ``("batch", "heads_x", None, None)`` (H
+    shards over ``model`` where it divides)."""
     g = n_heads // n_kv
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
-    return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    axes = ("batch", "heads_x", None, None)
+    return tuple(constrain(t.transpose(1, 2), axes, rules)
+                 for t in (q, k, v))
 
 
 def _qkv(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim, positions, use_rope,
@@ -112,7 +135,7 @@ def _qkv(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim, positions, use_rope,
                              head_dim=head_dim, positions=positions,
                              use_rope=use_rope, rope_theta=rope_theta,
                              x_kv=x_kv, kv_positions=kv_positions)
-    return (*_h_layout(q, k, v, n_heads, n_kv), reps)
+    return (*_h_layout(q, k, v, n_heads, n_kv, ctx.rules), reps)
 
 
 def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -151,10 +174,9 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
     # the chunks' contributions in bf16, as JAX's scan does
     qf = q.to(torch.bfloat16)
     qp = q_positions[:, None, :, None]                     # [B,1,Sq,1]
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    m = q.new_full((b, h, sq), NEG_INF, dtype=torch.float32)
+    l = q.new_zeros((b, h, sq), dtype=torch.float32)
+    acc = q.new_zeros((b, h, sq, dh), dtype=torch.float32)
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         s = _bf16_matmul(qf, k[:, :, sl].transpose(-1, -2)) * scale
@@ -210,7 +232,7 @@ def attention_prefill(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim,
     q, kh, vh, reps = _project(p, x, ctx, n_heads=n_heads, n_kv=n_kv,
                                head_dim=head_dim, positions=positions,
                                use_rope=use_rope, rope_theta=rope_theta)
-    qh, k_full, v_full = _h_layout(q, kh, vh, n_heads, n_kv)
+    qh, k_full, v_full = _h_layout(q, kh, vh, n_heads, n_kv, ctx.rules)
     out = flash_attention(qh, k_full, v_full, q_positions=positions,
                           kv_positions=positions, causal=True, window=window,
                           prefix_global=prefix_global, chunk=chunk)
@@ -230,6 +252,7 @@ def attention_prefill(p, x, ctx: Ctx, *, n_heads, n_kv, head_dim,
     else:
         cache = {"k": torch.nn.functional.pad(kt, pad),
                  "v": torch.nn.functional.pad(vt, pad)}
+    cache = {n: _constrain_cache(c, ctx.rules) for n, c in cache.items()}
     return y, cache, policy.merge_reports(*reps, r4)
 
 
@@ -282,6 +305,8 @@ def attention_decode(p, x, cache, pos, ctx: Ctx, *, n_heads: int, n_kv: int,
                                           k_new[:, 0]),
                      "v": KV_CACHE.update(cache["v"], bidx, pos,
                                           v_new[:, 0])}
+            cache = {n: _constrain_cache(c, ctx.rules)
+                     for n, c in cache.items()}
             op, rule = "kv_cache", None
         # verified read + affine-expanded attention off the int8 cache
         out, r_kv = protected_call(
@@ -294,6 +319,7 @@ def attention_decode(p, x, cache, pos, ctx: Ctx, *, n_heads: int, n_kv: int,
 
     cache = {"k": set_rows(cache["k"], bidx, pos, k_new[:, 0]),
              "v": set_rows(cache["v"], bidx, pos, v_new[:, 0])}
+    cache = {n: _constrain_cache(c, ctx.rules) for n, c in cache.items()}
     return _attend_cache(p, q, cache, pos, ctx, reports, n_heads=n_heads,
                          n_kv=n_kv, head_dim=head_dim, window=window,
                          prefix_global=prefix_global)

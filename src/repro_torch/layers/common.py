@@ -30,12 +30,23 @@ class Ctx:
     :func:`repro_torch.launch.steps.make_train_step` makes for its step)
     replays the training scans' token loops from CUDA graphs on the
     card; None runs them eagerly.  It is the step's cache, not a
-    setting: equality and hashing ignore it.  The JAX context's
-    ``rules`` and ``abft_tp_local`` serve tensor parallelism (ROADMAP
-    A8.4: on the data meshes the port runs, ``sharding.constrain`` is
-    the identity); its layer-scan and cost-probe fields (``no_remat``,
-    ``unroll_*``) serve the dry-run and the HLO tools (A8.3, A8.5).
+    setting: equality and hashing ignore it.
+
+    ``rules`` (JAX's) are the sharding rules :func:`repro_torch.sharding.
+    constrain` reads at the layers' constraint sites: on one device and
+    on a data mesh a constraint moves nothing, on the dry run's meta
+    ``DTensor`` s it redistributes.  ``no_remat`` (JAX's) keeps every
+    layer's activations in training; by default the LM families
+    recompute each layer in the backward (``torch.utils.checkpoint``), as
+    JAX remats its layer scan.  JAX's ``unroll_layers`` and
+    ``unroll_time`` have no counterpart: XLA's ``cost_analysis`` counts a
+    ``while`` body once, so JAX's probes unrolled their scans, while the
+    port's layer and time loops are Python loops whose every trip the
+    cost counter (:mod:`repro_torch.launch.costs`) sees.  JAX's
+    ``abft_tp_local`` (per-shard checksums) waits for tensor parallelism
+    on real ranks (ROADMAP A8.4).
     """
+    rules: Optional[dict] = dataclasses.field(default=None, hash=False)
     quant: bool = False                   # int8 serving path
     abft: bool = True                     # ABFT verification on (legacy)
     float_abft: bool = False              # float ABFT on GEMMs (legacy)
@@ -45,6 +56,7 @@ class Ctx:
     wkv_mm_bf16: bool = False             # bf16 WKV matmul operands (f32 acc)
     ssm_chunk: int = 0                    # >0: chunked, rematted mamba scan
     moe_gather: bool = False              # scatter/gather MoE dispatch
+    no_remat: bool = False                # keep every layer's activations
     moe_seq_groups: bool = False          # MoE token groups one at a time
     scan_graphs: Optional[Any] = dataclasses.field(default=None,
                                                    compare=False)

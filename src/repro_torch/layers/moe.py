@@ -27,9 +27,9 @@ a step where no token routed to that expert.
 over the same slots (the combine sums in float32).  The slot assignment
 is computed once, as integers, for both.  ``ctx.moe_seq_groups`` runs
 the groups one at a time (JAX's scan), with the result of one block.
-The JAX module's sharding hooks (``_tp`` / ``constrain``) place the
-expert axis over a model axis: tensor parallelism, ROADMAP A8.4 (on a
-data mesh, the only mesh the port runs, they move nothing).
+JAX's token-parallel constraint (``_tp``) sits at its site: on one
+device and on a data mesh it moves nothing; on the dry run's meta
+``DTensor`` s it redistributes the expert input.
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ from repro_torch.layers.common import Ctx
 from repro_torch.layers.linear import init_linear
 from repro_torch.protect import ops as pops
 from repro_torch.protect.runtime import protected_call
+from repro_torch.sharding.logical import constrain
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -200,6 +201,11 @@ def _moe_group(p, xg, gate_vals, gate_idx, ctx: Ctx, n_experts: int,
     else:
         e_in, combine = _dispatch_onehot(xg, gate_vals, slot, n_experts,
                                          capacity)
+    # token-parallel experts only where the rules map "moe_tokens" (an
+    # unconditional constraint would demand replication of the unmapped
+    # dimensions), as JAX's ``_tp``
+    if ctx.rules is not None and ctx.rules.get("moe_tokens") is not None:
+        e_in = constrain(e_in, ("expert", "moe_tokens", None), ctx.rules)
     gate_h, r1 = _expert_matmul(p["gate"], e_in, ctx)
     up_h, r2 = _expert_matmul(p["up"], e_in, ctx)
     h = F.silu(gate_h.to(torch.float32)).to(ctx.compute_dtype) * up_h

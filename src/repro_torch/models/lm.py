@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import policy
@@ -42,6 +43,7 @@ from repro_torch.layers.mlp import init_mlp, mlp
 from repro_torch.layers.moe import init_moe, moe_ffn
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.paging.cache import PagedKV
+from repro_torch.sharding.logical import constrain
 
 HUGE_WINDOW = 1 << 30
 
@@ -184,30 +186,32 @@ def lm_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, *, patches=None,
               with_cache: bool = False, cache_len: int = 0):
     """Embed + all layers.  Returns (x [B,S',d], cache | None, report,
     aux); S' counts the meta tokens and patches before the text, and the
-    cache is stacked ``[L, ...]`` as the JAX layer scan stacks it.  Differentiable: the training loss takes its gradient
-    through it (float parameters that require grad); the serving entry
-    points call it under ``torch.no_grad``.  The stacked leaves are
-    unbound into layers once (``unstack_layers``), so the layers'
-    gradients are stacked in one op, as JAX's scan gives them.  JAX remats
-    the layer scan; the port keeps every layer's activations instead:
-    at a microbatch of 2 x 256 tokens they are small beside the float32
-    training state, and remat changes memory, not numbers."""
+    cache is stacked ``[L, ...]`` as the JAX layer scan stacks it.
+    Differentiable: the training loss takes its gradient through it
+    (float parameters that require grad); the serving entry points call
+    it under ``torch.no_grad``.  The stacked leaves are unbound into
+    layers once (``unstack_layers``), so the layers' gradients are
+    stacked in one op, as JAX's scan gives them.  Under autograd each
+    layer is recomputed in the backward (``torch.utils.checkpoint``), as
+    JAX remats its layer scan, unless ``ctx.no_remat``: remat changes
+    memory, not numbers.  The hidden state is constrained to
+    ``("batch", "seq", None)`` before and after every layer, at JAX's
+    sites."""
     _check_family(cfg)
     x_text, rep0 = apply_embed(params["embed"], tokens, ctx)
     reports = [rep0]
     x = _prefix_embeds(params, x_text, ctx, cfg, patches, reports)
     rep = policy.merge_reports(*reports)
     b, s, _ = x.shape
+    x = constrain(x, ("batch", "seq", None), ctx.rules)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
               head_dim=cfg.head_dim_, positions=positions,
               rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
               prefix_global=cfg.meta_tokens, chunk=cfg.attn_chunk)
-    caches = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = unstack_layers(params["layers"], cfg.n_layers)
-    for layer_p, window in zip(layers, _windows(cfg)):
+
+    def body(layer_p, window, x):
         h = rmsnorm(layer_p["ln1"], x)
         if with_cache:
             a_out, cache_l, r_a = attn.attention_prefill(
@@ -217,25 +221,39 @@ def lm_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, *, patches=None,
         else:
             a_out, r_a = attn.attention(layer_p["attn"], h, ctx, causal=True,
                                         window=window, **kw)
-        rep = policy.merge_reports(rep, r_a)
+            cache_l = None
         if cfg.family == "hybrid":
             s_out, ssm_cache, r_s = mam.mamba(
                 layer_p["ssm"], h, mam.init_mamba_cache(
                     b, cfg.d_inner_, cfg.ssm_state, device=x.device), ctx,
                 d_inner=cfg.d_inner_, n_state=cfg.ssm_state)
-            rep = policy.merge_reports(rep, r_s)
+            r_a = policy.merge_reports(r_a, r_s)
             x = x + _ssm_mix(layer_p, a_out, s_out)
             if with_cache:
                 cache_l["ssm"] = ssm_cache
         else:
             x = x + a_out
-        if with_cache:
-            caches.append(cache_l)
         h2 = rmsnorm(layer_p["ln2"], x)
         f_out, aux_l, r_f = _ffn(layer_p, h2, ctx, cfg)
         x = x + f_out
+        x = constrain(x, ("batch", "seq", None), ctx.rules)
+        return x, aux_l, policy.merge_reports(r_a, r_f), cache_l
+
+    remat = (not with_cache and not ctx.no_remat
+             and torch.is_grad_enabled())
+    caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+    for layer_p, window in zip(layers, _windows(cfg)):
+        if remat:
+            x, aux_l, r_l, cache_l = checkpoint(body, layer_p, window, x,
+                                                use_reentrant=False)
+        else:
+            x, aux_l, r_l, cache_l = body(layer_p, window, x)
+        if with_cache:
+            caches.append(cache_l)
         aux = aux + aux_l
-        rep = policy.merge_reports(rep, r_f)
+        rep = policy.merge_reports(rep, r_l)
     x = rmsnorm(params["final_norm"], x)
     cache = stack_layers(caches) if with_cache else None
     return x, cache, rep, aux
@@ -246,6 +264,7 @@ def lm_logits(params, tokens, ctx: Ctx, cfg: ArchConfig, patches=None):
     as :func:`lm_hidden`)."""
     x, _, rep, aux = lm_hidden(params, tokens, ctx, cfg, patches=patches)
     logits, r_h = apply_linear(params["lm_head"], x, ctx, name="lm_head")
+    logits = constrain(logits, ("batch", "seq", "vocab"), ctx.rules)
     return logits, policy.merge_reports(rep, r_h), aux
 
 

@@ -31,6 +31,7 @@ from repro_torch.layers.common import (Ctx, init_stacked, layer_at,
 from repro_torch.layers.embedding import apply_embed, init_embed, init_qembed
 from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
 from repro_torch.layers.norms import init_layernorm, layernorm
+from repro_torch.sharding.logical import constrain
 
 
 def _init_layer(gen, cfg: ArchConfig, quant: bool, dtype, device):
@@ -100,6 +101,7 @@ def _layers(params, x, states, ctx: Ctx, cfg: ArchConfig, rep):
     layers = unstack_layers(params["layers"], cfg.n_layers)
     for i, layer_p in enumerate(layers):
         x, st, r = _block(layer_p, x, layer_at(states, i), ctx, cfg)
+        x = constrain(x, ("batch", "seq", None), ctx.rules)
         rep = policy.merge_reports(rep, r)
         new.append(st)
     return x, stack_layers(new), rep
@@ -115,6 +117,7 @@ def rwkv_hidden(params, tokens, ctx: Ctx, cfg: ArchConfig, states=None):
                                         device=tokens.device)
     x, rep = apply_embed(params["embed"], tokens, ctx)
     x = layernorm(params["ln0"], x)
+    x = constrain(x, ("batch", "seq", None), ctx.rules)
     x, new_states, rep = _layers(params, x, states, ctx, cfg, rep)
     return layernorm(params["ln_out"], x), new_states, rep
 
@@ -124,6 +127,7 @@ def rwkv_logits(params, tokens, ctx: Ctx, cfg: ArchConfig):
     loss (0: RWKV has no MoE)."""
     x, _, rep = rwkv_hidden(params, tokens, ctx, cfg)
     logits, r_h = apply_linear(params["head"], x, ctx, name="lm_head")
+    logits = constrain(logits, ("batch", "seq", "vocab"), ctx.rules)
     return logits, policy.merge_reports(rep, r_h), \
         torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -35,6 +35,7 @@ from repro_torch.layers.linear import apply_linear, maybe_qlinear_init
 from repro_torch.layers.mlp import init_mlp, mlp
 from repro_torch.layers.norms import init_layernorm, layernorm
 from repro_torch.layers.rope import sinusoid_positions
+from repro_torch.sharding.logical import constrain
 
 
 def _attn_init(gen, cfg: ArchConfig, quant, dtype, device):
@@ -107,6 +108,7 @@ def encode(params, frames, ctx: Ctx, cfg: ArchConfig):
     b, t, d = frames.shape
     x = frames.to(ctx.compute_dtype) + sinusoid_positions(
         t, d, device=frames.device).to(ctx.compute_dtype)[None]
+    x = constrain(x, ("batch", "seq", None), ctx.rules)
     positions = torch.arange(t, dtype=torch.int32,
                              device=frames.device)[None].expand(b, t)
     rep = policy.empty_report()
@@ -146,6 +148,7 @@ def decode_train(params, tokens, memory, ctx: Ctx, cfg: ArchConfig,
     mem_pos = torch.arange(t_enc, dtype=torch.int32,
                            device=dev)[None].expand(b, t_enc)
     x, rep = _dec_embed(params, tokens, positions, ctx)
+    x = constrain(x, ("batch", "seq", None), ctx.rules)
     heads = _heads(cfg)
     caches = []
     for layer_p in unstack_layers(params["dec"]["layers"], cfg.n_layers):
@@ -190,6 +193,7 @@ def whisper_logits(params, frames, tokens, ctx: Ctx, cfg: ArchConfig):
     memory, r_enc = encode(params, frames, ctx, cfg)
     x, _, r_dec = decode_train(params, tokens, memory, ctx, cfg)
     logits, r_h = apply_linear(params["dec"]["head"], x, ctx, name="lm_head")
+    logits = constrain(logits, ("batch", "seq", "vocab"), ctx.rules)
     return logits, policy.merge_reports(r_enc, r_dec, r_h), \
         torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -16,9 +16,11 @@ back to replication.  A spec is a plain tuple (JAX's ``PartitionSpec``
 entries, trailing ``None`` trimmed); :func:`placements_of` turns specs
 into ``torch.distributed.tensor`` placements on a ``DeviceMesh``.
 
-The port runs data meshes only (ROADMAP A8.1–A8.2): a ``model`` axis
-larger than 1, where the specs above shard weights, is computed here
-but executed nowhere until A8.4.
+The port runs data meshes on real ranks (ROADMAP A8.1–A8.2).  A
+``model`` axis larger than 1, where the specs above shard weights, is
+executed on meta ``DTensor`` s by the dry run
+(:mod:`repro_torch.launch.dryrun`), where :func:`constrain` redistributes
+activations as JAX's constraints do; on real ranks it waits for A8.4.
 """
 from __future__ import annotations
 
@@ -115,18 +117,34 @@ def placements_for(spec: Spec, mesh_dim_names: Sequence[str]) -> tuple:
 def placements_of(axes_tree, shapes_tree, rules: dict, device_mesh) -> Any:
     """The placement tree of a tensor tree on ``device_mesh``."""
     names = tuple(device_mesh.mesh_dim_names)
-    return _map_axes(lambda s: placements_for(s, names),
-                     specs_of(axes_tree, shapes_tree, rules, device_mesh))
+    ms = mesh_shape_of(device_mesh)
+    # per leaf: a spec holds tuples of mesh axes, not an axes tree
+    return _map_axes(lambda ax, t: placements_for(
+        spec_for(tuple(t.shape), ax, rules, ms), names), axes_tree,
+        shapes_tree)
 
 
 def constrain(x, axes: Sequence[Optional[str]], rules: Optional[dict],
               mesh=None):
-    """JAX's ``with_sharding_constraint`` by logical axes.  On a data
-    mesh (no axis but ``data`` and ``pod`` larger than 1) a constraint
-    moves nothing: activations are local to their rank, so ``x`` is
-    returned as is.  A model axis larger than 1 waits for tensor
-    parallelism (ROADMAP A8.4)."""
-    if rules is None or mesh is None:
+    """JAX's ``with_sharding_constraint`` by logical axes.  A ``DTensor``
+    is redistributed, on its own mesh, to the placements of
+    :func:`spec_for` of its global shape (so no ambient mesh is needed).
+    A plain tensor is local to its rank and returned as is: without
+    rules, without ``mesh``, or on a data mesh (no axis but ``data`` and
+    ``pod`` larger than 1).  A plain tensor on a ``mesh`` with a model
+    axis larger than 1 raises: that axis runs on real ranks only with
+    tensor parallelism (ROADMAP A8.4)."""
+    if rules is None:
+        return x
+    device_mesh = getattr(x, "device_mesh", None)
+    if device_mesh is not None:
+        spec = spec_for(tuple(x.shape), axes, rules,
+                        mesh_shape_of(device_mesh))
+        want = placements_for(spec, tuple(device_mesh.mesh_dim_names))
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(device_mesh, want)
+    if mesh is None:
         return x
     ms = mesh_shape_of(mesh)
     if any(size > 1 for a, size in ms.items() if a not in ("data", "pod")):
@@ -230,6 +248,33 @@ def train_state_axes(params, *, compress: bool = False) -> dict:
     return state
 
 
+#: a serving cache's leaves by (parent, name): JAX's ``init_*_cache``
+#: axes (the leading layer axis, which no rule maps, first)
+_CACHE = {
+    ("attn", "k"): ("layers", "batch", None, "kv_seq", None),
+    ("attn", "v"): ("layers", "batch", None, "kv_seq", None),
+    ("self", "k"): ("layers", "batch", None, "kv_seq", None),
+    ("self", "v"): ("layers", "batch", None, "kv_seq", None),
+    ("cross", "k"): ("layers", "batch", None, None, None),
+    ("cross", "v"): ("layers", "batch", None, None, None),
+    ("ssm", "conv"): ("layers", "batch", None, "mlp"),
+    ("ssm", "h"): ("layers", "batch", "mlp", None),
+    (None, "S"): ("layers", "batch", "heads_x", None, None),
+    (None, "x_tm"): ("layers", "batch", None),
+    (None, "x_cm"): ("layers", "batch", None),
+}
+
+
+def cache_axes(cache) -> Any:
+    """The axes tree of a serving cache (``Model.init_cache``): the LM
+    and hybrid caches, whisper's self and cross caches, RWKV's state."""
+    def rec(node, parent, name):
+        if isinstance(node, dict):
+            return {k: rec(v, name, k) for k, v in node.items()}
+        return _CACHE[parent, name]
+    return rec(cache, None, None)
+
+
 def input_axes(specs: dict) -> dict:
     """The axes tree of a batch (``Model.input_specs``): the batch axis
     first, every other dimension unsharded."""
@@ -256,4 +301,5 @@ def tree_of_specs_leaves(tree) -> list:
 
 __all__ = ["Spec", "spec_for", "mesh_shape_of", "specs_of",
            "placements_for", "placements_of", "constrain", "param_axes",
-           "train_state_axes", "input_axes", "tree_of_specs_leaves"]
+           "train_state_axes", "cache_axes", "input_axes",
+           "tree_of_specs_leaves"]

@@ -40,7 +40,7 @@ from repro.serving import ServingEngine as JEngine  # noqa: E402
 from repro.serving import TenantSpec as JTenant  # noqa: E402
 from repro_torch.configs import get_arch, reduce_cfg  # noqa: E402
 from repro_torch.configs.base import ShapeConfig as TShape  # noqa: E402
-from repro_torch.configs.registry import NOT_PORTED  # noqa: E402
+from repro_torch.configs.registry import SHARDED_ONLY  # noqa: E402
 from repro_torch.data import pipeline as t_data  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.layers.common import Ctx as TCtx  # noqa: E402
@@ -72,11 +72,18 @@ def test_configs_and_reduced_configs_are_the_jax_ones(arch):
 
 
 def test_registry_still_refuses_the_sharded_ids():
-    assert sorted(NOT_PORTED) == ["llama4-scout-17b-a16e",
-                                  "mistral-large-123b"]
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="A8"):
-            get_arch(arch)
+    # the two ids are registered (their configs are JAX's field for
+    # field) and refused where a model would run: the train CLI exits 2
+    # naming A8.4
+    from repro_torch.launch import train
+    assert sorted(SHARDED_ONLY) == ["llama4-scout-17b-a16e",
+                                    "mistral-large-123b"]
+    for arch in SHARDED_ONLY:
+        assert dataclasses.asdict(get_arch(arch)) == \
+            dataclasses.asdict(j_arch(arch))
+        with pytest.raises(SystemExit) as e:
+            train.main(["--arch", arch, "--device", "cpu", "--smoke"])
+        assert e.value.code == 2
 
 
 # ------------------------------ the prefix ----------------------------------

@@ -437,13 +437,18 @@ def test_lm_and_facade_refuse_what_is_not_ported(monkeypatch):
     # (tests/test_torch_families.py, tests/test_torch_train_*.py); the two
     # configs too large for one card, and the families models.lm does not
     # run, are refused
+    from repro.configs import get_arch as j_arch
     from repro_torch.configs import registry
     for arch, item in (("mistral-large-123b", "A8"),
                        ("llama4-scout-17b-a16e", "A8"),
                        ("mistral-large-123b", "outgrow one card"),
                        ("llama4-scout-17b-a16e", "over one card")):
+        # registered as data, field for field JAX's; refused where a
+        # model would run
+        assert dataclasses.asdict(registry.get_arch(arch)) == \
+            dataclasses.asdict(j_arch(arch))
         with pytest.raises(NotImplementedError, match=item):
-            registry.get_arch(arch)
+            registry.refuse_unsharded(arch)
     for fam, exc, item in (("dlrm", NotImplementedError, "models.dlrm"),
                            ("ssm", ValueError, "not a decoder LM"),
                            ("encdec", ValueError, "not a decoder LM")):
