@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Twenty-six paths run, each with every launch counter set to 0 just
+These paths run, each with every launch counter set to 0 just
 before it and read just after: the paper's int8 DLRM serving (kernels K1-K3),
 int8 RWKV6-1.6B chat serving (K1-K4), the main-path resilience campaign
 (K1-K3), the ``thresholds`` grid (K2), the paper's overhead benchmarks
@@ -21,14 +21,19 @@ each, and rwkv6-1.6b, whisper-large-v3, hymba-1.5b, llava-next-mistral-7b
 and granite-moe-3b-a800m trained (all six counters 0), one path each,
 and the data mesh (all six counters 0): Llama-3.2-1B's deferred and
 ZeRO-1 steps over an NCCL world of one, and the ``multidevice`` grid
-on 4 gloo ranks sharing the card, one path each.
+on 4 gloo ranks sharing the card, one path each, and the model axis:
+Llama-3.2-1B's tensor-parallel steps with granite's data-mesh step
+(one path, all six counters 0 in every rank), mistral-large-123b and
+llama4-scout-17b-a16e served (K1-K3), one path each, and each trained
+where the tracker fits it on the card (all six counters 0).
 Each phase's seconds are printed.  Phases (any
 failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the build times, with
-   phase 22d's dry-run subprocess beside them (waited for before 3);
+   phase 22d's dry-run subprocess and phase 23a's reckoning on meta
+   tensors beside them (both waited for before 3);
 3. make the full-width DLRM (26 tables x 4M rows x 128 int8, random
    weights from a seed) on the card and hold each kernel against its
    plain PyTorch version at the main path's shapes and at one larger
@@ -368,6 +373,27 @@ failure exits non-zero; nothing is caught and passed over):
    no timed phase shares the host with it), ending ``ok``, its
    per-device argument bytes and peak printed against the card's
    memory; no kernel launched (meta tensors take the plain versions).
+23. the model axis: (a) full-width Llama-3.2-1B at its depth in
+   ``DEPTH``, the train CLI's context (``train_rules``, bf16, layer
+   remat), trained by the model-mesh step on a (1, 2) and a (2, 2) mesh
+   of gloo ranks sharing the card (launched once), 2 steps each on
+   phase 18's global batch, held against the one-device step from the
+   same state (losses within ``loss_tolerance``, the update within
+   ``adam_step_tolerance`` with at most 5% of it more than lr / 100
+   apart); per rank the step ms, the collectives' share of it and the
+   peak beside the dry run's tracker's prediction (reckoned in this
+   process while the ranks run); (b) granite-moe on a data mesh of 2,
+   float32: its loss equal to the one-device loss on the global batch
+   within ``loss_tolerance`` (ROADMAP §C17), the mean of the halves'
+   losses beside it; (c) mistral-large-123b and llama4-scout-17b-a16e
+   built at full width at their depths in ``DEPTH`` (bytes equal to the
+   reckoning), 2 chat requests served with no error, K1 and K3 bit for
+   bit against their plain versions at every shape the serve handed
+   them, K2 on the token table; (d) both trained at full width at the
+   depth whose reckoned peak (the tracker, on meta tensors) stays under
+   70 GiB, the measured peak within 15% of it, or, where no depth fits,
+   the reckoned bytes printed; no kernel of the port on (a), (b) and
+   (d).
 
 The line before the last is ``{"kernels": [...]}``: K1-K4 and the two
 unprotected instances; ``launches`` is the count of the kernel's own path
@@ -378,7 +404,8 @@ float DLRM, Llama serve, Llama paged serve, granite serve, serving soak,
 the SLO ladder of each model, observability, training, whisper, hymba,
 llava, internlm2, the training of rwkv6, whisper, hymba, llava and
 granite, the mesh's deferred step, ZeRO-1 step and multidevice
-grid, and the dry run),
+grid, the dry run, the tensor-parallel steps, and the two large
+configs' serving and training),
 all six counts set to 0
 just before each path and read just after.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -3286,7 +3313,8 @@ GRANITE = "granite-moe-3b-a800m"
 #: phase 18's depth
 LLAMA = "llama3.2-1b"
 DEPTH = {(15, GRANITE): 8, (16, LLAMA): 8, (16, GRANITE): 4,
-         (18, LLAMA): 8, (21, LLAMA): 8,
+         (18, LLAMA): 8, (21, LLAMA): 8, (23, LLAMA): 2, (23, GRANITE): 2,
+         (23, "mistral-large-123b"): 2, (23, "llama4-scout-17b-a16e"): 2,
          (19, "hymba-1.5b"): 8, (19, "llava-next-mistral-7b"): 8,
          (19, "internlm2-20b"): 12,
          (20, "llava-next-mistral-7b"): 7, (20, GRANITE): 5,
@@ -6017,6 +6045,613 @@ def dryrun_phase(torch, dev, training: dict, zero1: dict,
     return {"launches": launches, "record": record}
 
 
+# ------------------------------ 23. the model axis ---------------------------
+#: phase 23a's meshes of gloo ranks sharing the card, phase 18's global
+#: batch (in one microbatch: each microbatch gathers every FSDP block
+#: through the host again), the train CLI's learning rate, and the share
+#: of the update's elements allowed more than lr / 100 from the
+#: one-device step's (phase 21b's rule): in bf16 compute the meshes sum
+#: a row-parallel product's partials and the attention's cotangents in
+#: another order, and Adam's second step turns that into update
+#: differences (10.1% of them on the (1, 2) mesh on the H100); a step
+#: that skips its update, or takes it with another rate, bias
+#: correction or gradient, moves more than half of them
+TP_MESHES = ((1, 2), (2, 2))
+TP_BATCH, TP_SEQ, TP_STEPS, TP_LR = 8, 256, 2, 3e-4
+TP_SHARE = 0.25
+#: phase 23b: granite's data mesh, its global batch (each rank's 512
+#: tokens one whole MoE group of granite's 512) and float32 compute
+MOE_MESH, MOE_BATCH, MOE_SEQ = 2, 4, 256
+#: phase 23c: the two configs that do not fit one card at full depth,
+#: served cut in depth (DEPTH), and 23d: trained at the depth whose
+#: reckoned peak stays under TRAIN_PEAK_BYTES (each at accum 1, 2 x 128
+#: tokens: the state, not the activations, sets the peak)
+BIG = ("mistral-large-123b", "llama4-scout-17b-a16e")
+BIG_PROMPT, BIG_NEW = 32, 4
+TRAIN_PEAK_BYTES = 70 * 2**30
+BIG_TRAIN_BATCH, BIG_TRAIN_SEQ = 2, 128
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Host seconds spent in ``torch.distributed``'s blocking
+    collectives while the block runs (``clock["seconds"]``): the
+    all-reduces, all-gathers and reduce-scatters the model-mesh step
+    issues, each timed to the end of its wait.  With gloo ranks sharing
+    a card each is a host copy and a host reduction the step waits for
+    (``DTensor``'s functional collectives run as these on gloo,
+    :class:`repro_torch.sharding.gspmd.GspmdMode`)."""
+    import torch.distributed as dist
+    clock = {"seconds": 0.0}
+    names = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+    real = {n: getattr(dist, n) for n in names}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                clock["seconds"] += time.perf_counter() - t0
+        return run
+    for n in names:
+        setattr(dist, n, timed(real[n]))
+    try:
+        yield clock
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+def _tp_rank(world):
+    """One of phase 23a-b's ranks (gloo, sharing the card): 23a the
+    model-mesh step over TP_MESHES, then on rank 0 the one-device step
+    it is held against; 23b granite's data mesh on ranks 0-1.  Rank 0
+    returns every rank's record and the comparisons."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import BatchShard, make_dataset
+    from repro_torch.data.pipeline import shard_batch, to_device
+    from repro_torch.device import deterministic
+    from repro_torch.launch.parity import (adam_step_tolerance,
+                                           loss_tolerance)
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.sharding import gspmd, make_data_mesh, make_model_mesh
+    from repro_torch.sharding.rules import train_rules
+
+    dev = world.device
+    wrappers = zero_launches()
+    cfg = tp_cfg()
+    model = build_model(cfg)
+    # the train CLI's context: JAX's rules, bf16 compute, layer remat
+    ctx = Ctx(rules=train_rules(), quant=False, compute_dtype=torch.bfloat16)
+    data = make_dataset(cfg, ShapeConfig("phase23", "train", TP_SEQ,
+                                         TP_BATCH))
+    kw = dict(accum=cfg.train_accum, peak_lr=TP_LR, warmup=0,
+              total_steps=10)
+    mine, finals = {"rank": world.rank, "meshes": {}}, {}
+    for shape in TP_MESHES:
+        n = shape[0] * shape[1]
+        mesh = make_model_mesh(shape, ranks=range(n), device_type="cuda")
+        if world.rank >= n:
+            continue
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state = init_train_state(model, 0, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        blocks = sum(x.numel() * x.element_size() for x in (
+            getattr(t, "_local_tensor", t) for t in tree_leaves(state)))
+        step = make_train_step(model, ctx, mesh=mesh, **kw)
+        rec = {"step_ms": [], "collective_ms": [], "losses": [],
+               "grad_norms": [], "built_s": built_s, "blocks": blocks}
+        for t in range(TP_STEPS):
+            local = to_device(shard_batch(data.batch_at(t), BatchShard(
+                mesh.batch_rank, mesh.n_batch, cfg.train_accum)), dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with deterministic(), collective_clock() as clock:
+                state, m = step(state, local)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t1) * 1e3)
+            rec["collective_ms"].append(clock["seconds"] * 1e3)
+            rec["losses"].append(float(m["loss_final"]))
+            rec["grad_norms"].append(float(m["grad_norm"]))
+        rec["peak"] = torch.cuda.max_memory_allocated() - held
+        # the whole parameters, each leaf gathered in turn; rank 0 keeps
+        # them on the card for the comparison
+        whole = [gspmd.whole(p) for p in tree_leaves(state["params"])]
+        if world.rank == 0:
+            finals[shape] = whole
+        del state, step, whole
+        mine["meshes"][shape] = rec
+    dist.barrier()
+
+    out = {}
+    if world.rank == 0:
+        # 23a's reference: the one-device step from the same state and
+        # batches, on the same card
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = [p.clone() for p in tree_leaves(model.init(0, device=dev))]
+        state = init_train_state(model, 0, device=dev)
+        step = make_train_step(model, ctx, **kw)
+        one = {"step_ms": [], "losses": [], "grad_norms": []}
+        for t in range(TP_STEPS):
+            b = to_device(data.batch_at(t), dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with deterministic():
+                state, m = step(state, b)
+            torch.cuda.synchronize()
+            one["step_ms"].append((time.perf_counter() - t1) * 1e3)
+            one["losses"].append(float(m["loss_final"]))
+            one["grad_norms"].append(float(m["grad_norm"]))
+        want = tree_leaves(state["params"])
+        held = {}
+        for shape, got in finals.items():
+            worst, off, total, moved = 0.0, 0, 0, 0
+            for g, w, s in zip(got, want, start):
+                d = (g.float() - s.float()) - (w.float() - s.float())
+                worst = max(worst, float(d.abs().max()))
+                off += int((d.abs() > TP_LR / 100).sum())
+                moved += int(((w.float() - s.float()).abs()
+                              > TP_LR / 100).sum())
+                total += d.numel()
+            held[shape] = {"max_update_diff": worst,
+                           "share_off": off / total,
+                           "reference_moved": moved / total}
+        out = {"one_device": one, "held": held,
+               "adam_step_tolerance": adam_step_tolerance(TP_LR, TP_STEPS),
+               "loss_tolerance": loss_tolerance(cfg, "bfloat16")}
+        del state, step, start, want, finals
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # 23b: granite on a data mesh of 2, float32, against the one-device
+    # loss on the global batch (§C17)
+    gcfg = dataclasses.replace(depth_cut(23, GRANITE), train_accum=1)
+    gmodel = build_model(gcfg)
+    gctx = Ctx(rules=train_rules(), quant=False,
+               compute_dtype=torch.float32)
+    gdata = make_dataset(gcfg, ShapeConfig("phase23b", "train", MOE_SEQ,
+                                           MOE_BATCH))
+    dmesh = make_data_mesh(MOE_MESH, device_type="cuda")
+    moe = None
+    if dmesh.member:
+        gstate = init_train_state(gmodel, 0, device=dev)
+        gstep = make_train_step(gmodel, gctx, mesh=dmesh, accum=1,
+                                peak_lr=TP_LR, warmup=0, total_steps=10)
+        batch = gdata.batch_at(0)
+        local = to_device(shard_batch(batch, BatchShard(dmesh.rank,
+                                                        dmesh.size)), dev)
+        with deterministic():
+            _, m = gstep(gstate, local)
+        moe = {"mesh_loss": float(m["loss_final"])}
+        if world.rank == 0:
+            whole = to_device(batch, dev)
+            with torch.no_grad(), deterministic():
+                moe["global_loss"] = float(gmodel.loss(
+                    gstate["params"], whole, gctx)[0])
+                halves = [float(gmodel.loss(gstate["params"], {
+                    k: v[h * MOE_BATCH // 2:(h + 1) * MOE_BATCH // 2]
+                    for k, v in whole.items()}, gctx)[0]) for h in (0, 1)]
+            moe["mean_of_halves"] = sum(halves) / 2
+            moe["loss_tolerance"] = loss_tolerance(gcfg, "float32",
+                                                   card=True)
+            moe["layers"] = gcfg.n_layers
+        del gstate, gstep
+    mine["launches"] = read_launches(wrappers)
+    every = [None] * world.size
+    dist.all_gather_object(every, mine)
+    dist.barrier()
+    if world.rank != 0:
+        return None
+    return {"ranks": every, "moe": moe, "cfg_layers": cfg.n_layers, **out}
+
+
+def tp_cfg():
+    """Phase 23a's Llama-3.2-1B: full width, its depth in DEPTH, the
+    global batch in one microbatch."""
+    import dataclasses
+    return dataclasses.replace(depth_cut(23, LLAMA), train_accum=1)
+
+
+def tp_predictions(torch) -> dict:
+    """Phase 23a's step reckoned by the dry run's tracker on a fake world
+    of each mesh (``launch/costs``): rank 0's peak, which is every rank's
+    (the blocks are even), and its collectives' link bytes."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.base import build_model
+    from repro_torch.sharding.rules import train_rules
+
+    cfg = tp_cfg()
+    model = build_model(cfg)
+    shape = ShapeConfig("phase23", "train", TP_SEQ, TP_BATCH)
+    out = {}
+    for mshape in TP_MESHES:
+        with dryrun.fake_world(mshape[0] * mshape[1]):
+            mesh = dryrun.make_mesh(mshape, ("data", "model"))
+            counter, _ = dryrun.run_step(model, shape, train_rules(), mesh)
+        mem = counter.memory()
+        out[mshape] = {"peak": mem["peak_estimate_bytes"],
+                       "arguments": mem["argument_bytes"],
+                       "link_bytes": counter.result()[
+                           "collective_link_bytes"]}
+    return out
+
+
+def big_serve(torch, dev, arch: str) -> dict:
+    """Phase 23c for one config: full width at its depth in DEPTH (int8,
+    seed 0), the bytes built against the reckoning, 2 chat requests of
+    BIG_NEW tokens on a ``*:policy=log`` tenant with no error; every K1
+    shape (each expert's too) and K3 width the serve launched, and K2 on
+    the token table at the prompt's tokens, held bit for bit against
+    the plain versions."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import LANE
+    from repro_torch.core.inject import leaf_paths
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.kernels.abft_qgemm import abft_qgemm_cuda
+    from repro_torch.kernels.quantize_rows import quantize_rows_cuda
+    from repro_torch.models.base import build_model
+    from repro_torch.protect import default_plan
+    from repro_torch.serving import Request, ServingEngine, TenantSpec
+
+    t0 = time.perf_counter()
+    cfg = depth_cut(23, arch)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shapes = build_model(cfg, max_pos=BIG_PROMPT + BIG_NEW + 16).init(
+        0, quant=True, device="meta")
+    reckoned = sum(t.numel() * t.element_size()
+                   for _, t in leaf_paths(shapes))
+    engine = ServingEngine(cfg, [TenantSpec("default", default_plan())],
+                           n_slots=2, max_prompt=BIG_PROMPT,
+                           max_new_tokens=BIG_NEW, seed=0, device=dev)
+    torch.cuda.synchronize()
+    built = sum(t.numel() * t.element_size()
+                for _, t in leaf_paths(engine.params))
+    build_s = time.perf_counter() - t0
+    if built != reckoned:
+        fail(f"23c {arch}: built {built} B against {reckoned} reckoned")
+    # the shapes the serve hands K1 and K3, recorded on the way
+    seen_k1, seen_k3 = {}, {}
+    real_mm, real_q = kops.abft_qgemm, kops.quantize_rows
+
+    def tap_mm(a_q, b_packed, **kw):
+        bp = b_packed[0] if b_packed.dim() == 3 else b_packed
+        m = a_q.shape[-2]
+        seen_k1.setdefault((m, bp.shape[0], bp.shape[1] - LANE), bp)
+        return real_mm(a_q, b_packed, **kw)
+
+    def tap_q(x, **kw):
+        seen_k3.setdefault(tuple(x.reshape(-1, x.shape[-1]).shape), None)
+        return real_q(x, **kw)
+
+    reqs = [Request(rid=i, tenant="default", arrival_s=0.0,
+                    prompt_len=BIG_PROMPT, max_new_tokens=BIG_NEW,
+                    seed=300 + i) for i in range(2)]
+    kops.abft_qgemm, kops.quantize_rows = tap_mm, tap_q
+    try:
+        wrappers = zero_launches()
+        tel = engine.run(reqs)
+        launches = read_launches(wrappers)
+    finally:
+        kops.abft_qgemm, kops.quantize_rows = real_mm, real_q
+    s = tel.summary()
+    counters, per = s["faults"]["counters"], s["per_tenant"]["default"]
+    toks = [t for r in tel.requests for t in (r.tokens or [])]
+    if per["completed"] != 2 or per["aborted"] or \
+            len(toks) != 2 * BIG_NEW or \
+            not all(0 <= t < cfg.vocab for t in toks) or \
+            counters["qgemm_errors"] or counters["kv_cache_errors"]:
+        fail(f"23c {arch}: {per}, tokens {toks}, counters {counters}")
+    if min(launches[k] for k in ("abft_qgemm", "quantize_rows",
+                                 "abft_embeddingbag")) <= 0:
+        fail(f"23c {arch}: a kernel of the path never launched: {launches}")
+    step_ms = {k: float(np.median([ev.duration_s * 1e3 for ev in tel.steps
+                                   if ev.kind == k]))
+               for k in ("prefill", "decode")}
+    # K1 (C, err_rows, column check) and K3 (q, alpha, beta) at each
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for (m, k, n), bp in seen_k1.items():
+        a = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        for col in (False, True):
+            for g, w, what in zip(abft_qgemm_cuda(a, bp, with_colcheck=col),
+                                  ref.abft_qgemm_ref(a, bp,
+                                                     with_colcheck=col),
+                                  ("C", "err_rows", "col_check")):
+                if not torch.equal(g, w):
+                    fail(f"23c {arch}: K1 {what} differs at m={m} (k={k}, "
+                         f"n={n}) col_check={col}")
+    for (m, k) in seen_k3:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        for g, w, what in zip(quantize_rows_cuda(x),
+                              ref.quantize_rows_ref(x),
+                              ("q", "alpha", "beta")):
+            if not torch.equal(g, w):
+                fail(f"23c {arch}: K3 {what} differs at {m}x{k}")
+    emb = engine.params["embed"]
+    enc4 = (emb["table"][None], emb["alphas"][None], emb["betas"][None],
+            emb["rowsums"][None])
+    prompt = torch.from_numpy(engine._chat_tokens(
+        reqs[0], BIG_PROMPT).astype(np.int32)).to(dev)
+    k2 = eb_checks(torch, enc4, prompt.reshape(1, -1, 1),
+                   f"{arch} {BIG_PROMPT} tokens")
+    rec = {"layers": cfg.n_layers, "of": get_arch(arch).n_layers,
+           "bytes": built, "build_s": build_s,
+           "k1_shapes": sorted(seen_k1), "k3_shapes": sorted(seen_k3),
+           "table": list(emb["table"].shape), "k2": k2,
+           "launches": launches, "counters": counters,
+           "step_ms_median": step_ms,
+           "seconds": time.perf_counter() - t0}
+    del engine, emb, enc4, tel, seen_k1
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def big_train(torch, dev, arch: str) -> dict:
+    """Phase 23d for one config: the one-device train step (the CLI's
+    context, float32 AdamW state) reckoned on meta tensors by the
+    tracker at 1 and 2 layers, the deepest cut whose reckoned peak stays
+    under TRAIN_PEAK_BYTES picked (and reckoned again), and 2 steps
+    trained there at full width: finite losses, the measured peak within
+    PEAK_TOL of the reckoning.  Where no depth fits, the reckoned bytes
+    at 1 layer are the record and nothing trains."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.device import deterministic
+    from repro_torch.launch import steps
+    from repro_torch.layers.common import Ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.sharding.rules import train_rules
+
+    t0 = time.perf_counter()
+    full = get_arch(arch)
+    ctx = Ctx(rules=train_rules(), quant=False, compute_dtype=torch.bfloat16)
+    shape = ShapeConfig("phase23d", "train", BIG_TRAIN_SEQ, BIG_TRAIN_BATCH)
+
+    def cut(n):
+        return dataclasses.replace(full, n_layers=n, train_accum=1)
+
+    def reckon(n):
+        model = build_model(cut(n))
+        state = steps.train_state_shapes(model)
+        batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                 for k, v in model.input_specs(shape).items()}
+        step = steps.make_train_step(model, ctx, total_steps=10)
+        return reckon_step(torch, lambda: step(state, batch), {
+            "params": state["params"], "optimizer": state["opt"],
+            "step": state["step"], "batch": batch})["memory"]
+
+    one, two = reckon(1), reckon(2)
+    per_layer = two["peak_estimate_bytes"] - one["peak_estimate_bytes"]
+    base = one["peak_estimate_bytes"] - per_layer
+    held = torch.cuda.memory_allocated()
+    room = TRAIN_PEAK_BYTES - held
+    depth = int((room - base) // per_layer) if per_layer > 0 else 0
+    depth = max(0, min(depth, full.n_layers))
+    rec = {"reckoned_peak_1": one["peak_estimate_bytes"],
+           "reckoned_peak_2": two["peak_estimate_bytes"],
+           "state_bytes_1": steps.state_bytes(steps.train_state_shapes(
+               build_model(cut(1)))),
+           "held": held, "layers": depth, "of": full.n_layers}
+    if depth < 1:
+        rec["seconds"] = time.perf_counter() - t0
+        return rec
+    mem = one if depth == 1 else two if depth == 2 else reckon(depth)
+    rec["reckoned_peak"] = mem["peak_estimate_bytes"]
+    if held + rec["reckoned_peak"] > TRAIN_PEAK_BYTES:
+        fail(f"23d {arch}: the picked depth {depth} reckons "
+             f"{rec['reckoned_peak']} B over {TRAIN_PEAK_BYTES}")
+    model = build_model(cut(depth))
+    data = make_dataset(cut(depth), shape)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = zero_launches()
+    state = steps.init_train_state(model, 0, device=dev)
+    step = steps.make_train_step(model, ctx, total_steps=10)
+    losses, ms = [], []
+    for t in range(2):
+        b = to_device(data.batch_at(t), dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with deterministic():
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss_final"]))
+    peak = torch.cuda.max_memory_allocated() - held
+    rec["launches"] = read_launches(wrappers)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(losses=losses, step_ms=ms, peak=peak,
+               seconds=time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"23d {arch}: losses {losses}")
+    if abs(peak / rec["reckoned_peak"] - 1) > PEAK_TOL:
+        fail(f"23d {arch}: peak {peak} B against the reckoned "
+             f"{rec['reckoned_peak']}")
+    return rec
+
+
+def start_tp_reckoning(torch):
+    """Phase 23a's predictions (:func:`tp_predictions`), reckoned in a
+    thread of this process beside phase 2's build (which times no
+    launches); :func:`finish_tp_reckoning` joins it before phase 3, so
+    no timed phase shares the host or the interpreter with it."""
+    import threading
+    job = {"pred": None, "error": None}
+
+    def run():
+        try:
+            job["pred"] = tp_predictions(torch)
+        except BaseException as e:          # noqa: BLE001 - raised on join
+            job["error"] = e
+    job["thread"] = threading.Thread(target=run)
+    job["thread"].start()
+    return job
+
+
+def finish_tp_reckoning(job) -> dict:
+    job["thread"].join()
+    if job["error"] is not None:
+        raise job["error"]
+    return job["pred"]
+
+
+def model_axis_phase(torch, dev, pred: dict) -> dict:
+    """Phase 23: the model axis.  (a) Full-width Llama-3.2-1B at its
+    depth in DEPTH trained by the model-mesh step (the train CLI's
+    context: ``train_rules``, bf16, layer remat) on a (1, 2) and a (2, 2)
+    mesh of gloo ranks sharing the card, 2 steps each on phase 18's
+    global batch (8 x 256, in one microbatch), against the one-device
+    step from the same state: each loss within ``loss_tolerance``, the
+    update within ``adam_step_tolerance`` with at most TP_SHARE of its
+    elements more than lr / 100 apart; per rank the step ms, the
+    collectives' share of it and the peak, beside the dry run's
+    tracker's prediction for the rank (``pred``, from
+    :func:`start_tp_reckoning`); (b) granite-moe on a data mesh of
+    2, float32: the mesh step's loss equal to the one-device loss on the
+    global batch within ``loss_tolerance`` (§C17), the mean of the
+    halves' losses printed beside it; (c) mistral-large-123b and
+    llama4-scout-17b-a16e served at full width, cut in depth; (d) both
+    trained at full width at the depth the tracker reckons under 70 GiB
+    (or, where none fits, the reckoned bytes).  The training paths launch
+    no kernel of the port (all six counters 0, in every rank)."""
+    from repro_torch.sharding import launch
+
+    t0 = time.perf_counter()
+    card = smi_line()
+    record, launches_by = {"card": card}, {}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    got = launch(_tp_rank, 4, device=dev)
+    ranks_ = got["ranks"]
+    one = got["one_device"]
+    for shape in TP_MESHES:
+        recs = [r["meshes"][shape] for r in ranks_ if shape in r["meshes"]]
+        losses = recs[0]["losses"]
+        held = got["held"][shape]
+        bad = [t for t, (a, b) in enumerate(zip(losses, one["losses"]))
+               if abs(a - b) > got["loss_tolerance"] * abs(b)]
+        if bad or not all(math.isfinite(x) for x in losses) or \
+                held["max_update_diff"] > got["adam_step_tolerance"] or \
+                held["share_off"] > TP_SHARE or \
+                held["reference_moved"] < 0.5:
+            fail(f"phase 23a {shape}: losses {losses} against the one-device "
+                 f"{one['losses']} (steps {bad} off), update {held}")
+        p = pred[shape]
+        log(f"23a on {card}: Llama-3.2-1B at {got['cfg_layers']} of 16 "
+            f"layers, full width, {TP_BATCH} x {TP_SEQ} tokens in one "
+            f"microbatch, TP {shape} over {len(recs)} gloo ranks sharing "
+            f"the card: losses {losses} (one device {one['losses']}); the "
+            f"update within {held['max_update_diff']:.3g} of the one-device "
+            f"step's (adam_step_tolerance {got['adam_step_tolerance']:.3g}), "
+            f"{held['share_off']:.4%} of it more than lr/100 apart "
+            f"(allowed {TP_SHARE:.0%}); per rank: step ms "
+            + "; ".join(f"{[round(x, 1) for x in r['step_ms']]}, "
+                        f"collectives {[round(c / s, 3) for c, s in zip(r['collective_ms'], r['step_ms'])]} "
+                        f"of it, peak {r['peak'] / 2**30:.2f} GiB (blocks "
+                        f"{r['blocks'] / 2**30:.2f})" for r in recs)
+            + f"; the tracker's prediction for each rank: peak "
+            f"{p['peak'] / 2**30:.2f} GiB, arguments "
+            f"{p['arguments'] / 2**30:.2f} GiB")
+        record[f"tp {shape}"] = {"ranks": recs, "held": held,
+                                 "prediction": p}
+    record["one_device"] = one
+    launches_by["tp training"] = {
+        k: sum(r["launches"][k] for r in ranks_)
+        for k in ranks_[0]["launches"]}
+    moe = got["moe"]
+    off = abs(moe["mesh_loss"] - moe["global_loss"]) / abs(
+        moe["global_loss"])
+    old = abs(moe["mean_of_halves"] - moe["global_loss"]) / abs(
+        moe["global_loss"])
+    if off > moe["loss_tolerance"]:
+        fail(f"phase 23b: granite's data-mesh loss {moe} ({off:.3g} off)")
+    log(f"23b: granite-moe at {moe['layers']} of 32 layers, full width, "
+        f"float32, {MOE_BATCH} x {MOE_SEQ} tokens over a data mesh of "
+        f"{MOE_MESH} gloo ranks: loss {moe['mesh_loss']} against the "
+        f"one-device loss on the global batch {moe['global_loss']} "
+        f"({off:.3g} of it; allowed {moe['loss_tolerance']:.0e}); the mean "
+        f"of the halves' own losses {moe['mean_of_halves']} ({old:.3g} "
+        f"off, what the step took before §C17)")
+    record["moe_data_mesh"] = {**moe, "off": off, "halves_off": old}
+    # ---------------- 23c. the two large configs served ----------------
+    for arch in BIG:
+        rec = big_serve(torch, dev, arch)
+        launches_by[f"serve {arch}"] = rec["launches"]
+        log(f"23c on {card}: {arch} at {rec['layers']} of {rec['of']} "
+            f"layers, full width, {rec['bytes'] / 1e9:.3f} GB of int8 "
+            f"(built in {rec['build_s']:.1f}s): 2 requests of {BIG_NEW} "
+            f"tokens, step medians ms {rec['step_ms_median']}, launches "
+            f"{rec['launches']}, counters "
+            f"{ {k: v for k, v in rec['counters'].items() if v} }; K1 "
+            f"bit-exact (C, err_rows, column check) at (m, k, n) "
+            f"{rec['k1_shapes']}; K3 at {rec['k3_shapes']}; K2 on the "
+            f"{tuple(rec['table'])} table at the prompt's tokens; "
+            f"{rec['seconds']:.1f}s")
+        record[f"serve {arch}"] = {k: v for k, v in rec.items()
+                                   if k != "launches"}
+    # ---------------- 23d. the two large configs trained ---------------
+    for arch in BIG:
+        rec = big_train(torch, dev, arch)
+        if rec["layers"] < 1:
+            log(f"23d on {card}: {arch} does not train on one card at full "
+                f"width: at 1 layer the tracker reckons a peak of "
+                f"{rec['reckoned_peak_1'] / 2**30:.2f} GiB (state "
+                f"{rec['state_bytes_1'] / 2**30:.2f} GiB), over "
+                f"{TRAIN_PEAK_BYTES / 2**30:.0f} GiB with "
+                f"{rec['held'] / 2**30:.2f} GiB held")
+        else:
+            launches_by[f"train {arch}"] = rec.pop("launches")
+            log(f"23d on {card}: {arch} trained at {rec['layers']} of "
+                f"{rec['of']} layers, full width, {BIG_TRAIN_BATCH} x "
+                f"{BIG_TRAIN_SEQ} tokens: losses {rec['losses']}, step ms "
+                f"{[round(x, 1) for x in rec['step_ms']]}, peak "
+                f"{rec['peak'] / 2**30:.2f} GiB against the reckoned "
+                f"{rec['reckoned_peak'] / 2**30:.2f} GiB (1 layer "
+                f"{rec['reckoned_peak_1'] / 2**30:.2f}, 2 layers "
+                f"{rec['reckoned_peak_2'] / 2**30:.2f})")
+        record[f"train {arch}"] = rec
+    for path, counts in launches_by.items():
+        if (path.startswith("train") or path == "tp training") and \
+                any(counts.values()):
+            fail(f"phase 23 {path}: a kernel of the port launched: {counts}")
+    record["seconds"] = time.perf_counter() - t0
+    log(f"phase 23 launches: {launches_by}; {record['seconds']:.1f}s")
+    return {"launches": launches_by, "record": record}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6064,14 +6699,16 @@ def main() -> int:
     print(details["card"], flush=True)
 
     # ------------------------------ 2. build --------------------------------
-    # phase 22d's dry-run CLI (host work, no card) runs beside the build,
-    # which times no launches
+    # phase 22d's dry-run CLI and phase 23a's reckoning (host work, no
+    # card) run beside the build, which times no launches
     cli = start_dryrun_cli()
+    tp_job = start_tp_reckoning(torch)
     t0 = time.perf_counter()
     try:
         built = _build.build()
     except BaseException:
         stop_dryrun_cli(cli)
+        finish_tp_reckoning(tp_job)
         raise
     details["build_s"] = time.perf_counter() - t0
     for name, info in built.items():
@@ -6082,8 +6719,12 @@ def main() -> int:
     dry_cli = finish_dryrun_cli(cli)
     details["dryrun_cli_wait_s"] = time.perf_counter() - t0 - \
         details["build_s"]
+    tp_pred = finish_tp_reckoning(tp_job)
+    details["tp_reckoning_wait_s"] = time.perf_counter() - t0 - \
+        details["build_s"]
     log(f"phase 22d's dry-run CLI ended "
-        f"{details['dryrun_cli_wait_s']:.1f}s after the build")
+        f"{details['dryrun_cli_wait_s']:.1f}s and phase 23a's reckoning "
+        f"{details['tp_reckoning_wait_s']:.1f}s after the build")
     phase_done("1-2 card and build")
 
     # ---------------------- 3. kernels vs plain versions --------------------
@@ -6550,6 +7191,10 @@ def main() -> int:
                        mesh["record"]["zero1"], overhead["gemm"], dry_cli)
     details["dryrun"] = dry["record"]
     phase_done("22 the dry run against the card")
+    # ------- 23. the model axis: TP training, the two large configs --------
+    axis = model_axis_phase(torch, dev, tp_pred)
+    details["model_axis"] = axis["record"]
+    phase_done("23 the model axis")
     kernels[0]["llama_shapes"] = llama["k1_times"]
     kernels[0]["granite_expert_shapes"] = granite["k1_times"]
     kernels[1]["llama_token_table"] = llama["k2_times"]
@@ -6585,7 +7230,8 @@ def main() -> int:
                **families["launches"],
                **train_fams["launches"],
                **mesh["launches"],
-               "dryrun": dry["launches"]}
+               "dryrun": dry["launches"],
+               **axis["launches"]}
     for row in kernels:
         row["launches_by_path"] = {p: counts[row["name"]]
                                    for p, counts in by_path.items()}

@@ -28,6 +28,10 @@ Layout (one directory per step)::
   save or a restore.
 - ``keep_last`` garbage collection, and a restore that falls back past a
   corrupt newest step.
+- A sharded state (``DTensor`` leaves, a model mesh's) is saved whole,
+  in the same layout: every rank gathers each leaf in turn and the
+  group's rank 0 keeps the host copy; a restore reads the whole leaf
+  and cuts each rank's block out by the leaf's placements.
 """
 from __future__ import annotations
 
@@ -158,6 +162,28 @@ class _Snapshot:
         self.dtypes = [_dtype_name(t) for t in self.leaves]
         self.shapes = [list(t.shape) for t in self.leaves]
 
+    @classmethod
+    def gathered(cls, state: Any, keep: bool):
+        """(snapshot, host copies) of a state with ``DTensor`` leaves:
+        each leaf made whole in turn, a collective every rank takes part
+        in; the copies and checksums are kept where ``keep`` (the
+        writer), each whole leaf dropped once copied."""
+        from repro_torch.sharding.gspmd import whole
+        snap = cls.__new__(cls)
+        leaves = tree_leaves(state)
+        snap.leaves = None
+        snap.treedef = _treedef(state)
+        snap.dtypes = [_dtype_name(t) for t in leaves]
+        snap.shapes = [list(t.shape) for t in leaves]
+        snap.checksums, arrays = [], []
+        for t in leaves:
+            full = whole(t)
+            if keep:
+                snap.checksums.append(tensor_checksum(full))
+                arrays.append(_to_numpy(full))
+            del full
+        return snap, arrays
+
     def copies(self):
         """The leaves' host copies in flatten order (the snapshot lets
         go of each leaf once copied)."""
@@ -263,6 +289,8 @@ def load_checkpoint(base: str, step: int, like: Any, *,
             f"target structure has {len(leaves_like)}")
     if shard is None:
         shard = _process_index()
+    from repro_torch.sharding import distribute
+    from repro_torch.sharding.gspmd import is_dtensor
     shard = os.path.join(d, f"shard_{shard:05d}.npz")
 
     def read(key):
@@ -285,6 +313,9 @@ def load_checkpoint(base: str, step: int, like: Any, *,
                     raise CheckpointCorruption(
                         f"{d}: leaf {key} checksum mismatch "
                         f"(manifest {meta['checksum']}, got {got})")
+            if is_dtensor(ref):
+                # this rank's block of the whole leaf, by its placements
+                t = distribute(t, ref.device_mesh, ref.placements)
             leaves.append(t)
     return tree_unflatten_like(like, leaves)
 
@@ -317,12 +348,23 @@ class CheckpointManager:
         os.makedirs(base, exist_ok=True)
 
     def maybe_save(self, step: int, state: Any, *, force: bool = False):
-        if not self.writer or not force and (
-                self.save_every <= 0 or step % self.save_every != 0):
+        if not force and (self.save_every <= 0
+                          or step % self.save_every != 0):
             return False
-        self.wait()
+        from repro_torch.sharding.gspmd import is_dtensor
+        sharded = any(is_dtensor(t) for t in tree_leaves(state))
+        if not self.writer and not sharded:
+            return False
+        if self.writer:
+            self.wait()
         t0 = time.perf_counter()
-        snap = _Snapshot(state)
+        if sharded:
+            # every rank takes part in each leaf's gather
+            snap, arrays = _Snapshot.gathered(state, keep=self.writer)
+            if not self.writer:
+                return False
+        else:
+            snap, arrays = _Snapshot(state), None
         feed = _Feed(len(snap.checksums))
 
         shard = None if self.group is None else 0
@@ -340,7 +382,7 @@ class CheckpointManager:
         self._thread.start()
         # the copies are the sync point: the state may change once this
         # returns, while the writer goes on
-        for arr in snap.copies():
+        for arr in (snap.copies() if arrays is None else arrays):
             feed.q.put(arr)
         self.last_save["snapshot_s"] = time.perf_counter() - t0
         return True

@@ -5,10 +5,10 @@ the dense Llama-3.2-1B, Qwen3-8B, InternLM2-20B and Mistral-Large-123B,
 the MoEs granite-moe-3b-a800m and Llama-4-Scout-17B-16E, the
 encoder-decoder whisper-large-v3, the hybrid hymba-1.5b and the VLM
 llava-next-mistral-7b.  The dry run (:mod:`repro_torch.launch.dryrun`)
-reckons every one of them on a meta mesh; the two in :data:`SHARDED_ONLY`
-outgrow one card, so the entry points that run a model
-(:func:`refuse_unsharded`: the serve and train CLIs, the serving engine)
-refuse them until a model axis runs on real ranks.
+reckons every one of them on a meta mesh.  Every id is served and
+trained like any other (reduced with ``--smoke``, cut in depth on the
+card); the two in :data:`SHARDED_ONLY` do not fit one card at full
+depth.
 """
 from __future__ import annotations
 
@@ -32,25 +32,12 @@ ARCHS = {
     "dlrm": dlrm.CONFIG,            # the paper's own architecture
 }
 
-#: ids whose model outgrows one card, with the ROADMAP item that runs
-#: them (a model axis on real ranks)
+#: ids that do not fit one card at full depth, and why: the card runs
+#: them cut in depth (``chip_smoke.DEPTH``), a mesh's model axis whole
 SHARDED_ONLY = {
-    "mistral-large-123b": "A8.4 (tensor parallelism: its int8 weights "
-                          "outgrow one card)",
-    "llama4-scout-17b-a16e": "A8.4 (tensor parallelism: its int8 experts "
-                             "alone are ~97 GB, over one card)",
+    "mistral-large-123b": "its int8 weights are ~123 GB",
+    "llama4-scout-17b-a16e": "its int8 experts alone are ~97 GB",
 }
-
-
-def refuse_unsharded(name: str) -> None:
-    """Raise :class:`NotImplementedError` naming the ROADMAP item for an
-    id that runs only with a model axis (:data:`SHARDED_ONLY`)."""
-    if name in SHARDED_ONLY:
-        raise NotImplementedError(
-            f"arch {name!r} runs only sharded over a model axis, which "
-            f"is not ported yet to real ranks (ROADMAP "
-            f"{SHARDED_ONLY[name]}); its dry run reckons it: python -m "
-            f"repro_torch.launch.dryrun --arch {name}")
 
 
 def get_arch(name: str):

@@ -61,6 +61,11 @@ from repro_torch.models.base import build_model
 from repro_torch.sharding.logical import (cache_axes, input_axes,
                                           mesh_shape_of, param_axes,
                                           placements_of, train_state_axes)
+from repro_torch.sharding import gspmd
+from repro_torch.sharding.gspmd import (_RESHAPES, GspmdGather,  # noqa: F401
+                                        _contiguous_stride, _infer_shape,
+                                        _is_shard, _masked, _shard_axes,
+                                        _view_groups, unregister_pointwise)
 from repro_torch.sharding.rules import serve_rules, train_rules
 
 LM_ARCHS = [a for a in list_archs() if a != "dlrm"]
@@ -137,7 +142,7 @@ def fake_world(n_ranks: int):
     try:
         yield
     finally:
-        _unregister_pointwise()
+        unregister_pointwise()
         dist.destroy_process_group()
 
 
@@ -194,138 +199,14 @@ def _meta_batch(model, shape) -> dict:
 
 # ------------------------------ GSPMD's ways --------------------------------
 #
-# ``DTensor`` partitions some ops otherwise than GSPMD does, and refuses
-# others.  GSPMD pads a dimension that does not divide its shards and
-# tiles a reshape over two dimensions; ``DTensor`` would all-gather a
-# weight to slice its packed checksum lanes off, or refuse to split 8 KV
-# heads over a model axis of 16.  It keeps a partial sum through a
-# product (and all-gathers the weight instead), makes a buffer shaped
-# like a sharded tensor whole, all-gathers rows for a log-sum-exp over
-# a sharded dimension or for a gather or scatter along one (the label's
-# logit, a decode step's cache row), and lacks strategies for a few ops
-# in older releases.  :func:`gspmd_hook`, the counter's
-# ``dtensor_hook``, takes each of these as GSPMD does, and
-# :class:`GspmdGather` the gather above autograd (so that its gradient
-# stays sharded too): the reckoned program is JAX's partitioned one;
-# every other op is ``DTensor``'s own.
-
-_RESHAPES = {"view", "reshape", "_unsafe_view"}
-_PRODUCTS = {"mm", "bmm", "addmm", "baddbmm"}
-
-
-_FACTORIES = {"new_zeros", "new_empty", "new_ones", "new_full"}
-#: elementwise ops whose DTensor strategy has been seen to exist in this
-#: fake world
-_CHECKED: set = set()
-#: what :func:`_register_pointwise` added to DTensor's sharding
-#: propagator in this fake world: (op, the propagator's tables it
-#: entered); :func:`fake_world` takes them out again on exit
-_REGISTERED: list = []
-
-
-def _propagator():
-    from torch.distributed.tensor import DTensor
-    return DTensor._op_dispatcher.sharding_propagator
-
-
-def _register_pointwise(func) -> bool:
-    """Give ``func`` DTensor's elementwise strategy (its module's own
-    registration, across PyTorch releases) until the fake world ends;
-    False where neither form exists."""
-    from torch.distributed.tensor._ops import _pointwise_ops as pw
-    prop = _propagator()
-    tables = {k: v for k, v in vars(prop).items() if isinstance(v, dict)}
-    had = {k for k, t in tables.items() if func in t}
-    if hasattr(pw, "_register_single_dim_pointwise"):
-        pw._register_single_dim_pointwise(func)
-    elif hasattr(pw, "pointwise_strategy"):
-        prop.register_op_strategy(func, pw.pointwise_strategy)
-    else:
-        return False
-    _REGISTERED.append((func, [k for k, t in tables.items()
-                               if func in t and k not in had]))
-    return True
-
-
-def _unregister_pointwise() -> None:
-    """Take :func:`_register_pointwise`'s strategies out of DTensor's
-    process-wide propagator (and its cache of propagated shardings)."""
-    if _REGISTERED:
-        prop = _propagator()
-        for func, names in _REGISTERED:
-            for name in names:
-                getattr(prop, name).pop(func, None)
-        cache = getattr(prop.propagate_op_sharding, "cache_clear", None)
-        if cache is not None:
-            cache()
-    _REGISTERED.clear()
-    _CHECKED.clear()
-
-
-def _factory_like(func, x, args, kwargs):
-    """``x.new_*(size)`` of ``x``'s rank, or of a prefix of ``x``'s shape
-    (a flash attention's running max), sharded as ``x`` along every
-    dimension whose size it keeps, replicated along the others."""
-    from torch.distributed.tensor import DTensor, Replicate
-    name = func.overloadpacket.__name__
-    dtype = kwargs.get("dtype") or x.dtype
-    size = torch.Size(args[1])
-    placements = [p if not _is_shard(p) or p.dim < len(size) and
-                  size[p.dim] == x.shape[p.dim] else Replicate()
-                  for p in x.placements]
-    placements = [p if _is_shard(p) or p.is_replicate() else Replicate()
-                  for p in placements]
-    local = list(size)
-    for i, p in enumerate(placements):
-        if _is_shard(p):
-            local[p.dim] //= x.device_mesh.size(i)
-    device = x._local_tensor.device
-    kind = {"new_zeros": torch.zeros, "new_empty": torch.empty,
-            "new_ones": torch.ones}.get(name)
-    if kind is None:
-        loc = torch.full(local, args[2], dtype=dtype, device=device)
-    else:
-        loc = kind(local, dtype=dtype, device=device)
-    return DTensor.from_local(loc, x.device_mesh, placements,
-                              run_check=False, shape=size,
-                              stride=_contiguous_stride(size))
-
-
-def _view_groups(src, dst) -> list:
-    """The dimensions of a reshape from ``src`` to ``dst`` in groups of
-    equal element count: ``[(src dims, dst dims), ...]``."""
-    groups, i, j = [], 0, 0
-    while i < len(src) or j < len(dst):
-        gi, gj = [i] if i < len(src) else [], [j] if j < len(dst) else []
-        a = src[i] if i < len(src) else 1
-        b = dst[j] if j < len(dst) else 1
-        i, j = i + 1, j + 1
-        while a != b:
-            if a < b and i < len(src):
-                a *= src[i]
-                gi.append(i)
-                i += 1
-            elif j < len(dst):
-                b *= dst[j]
-                gj.append(j)
-                j += 1
-            else:
-                break
-        groups.append((gi, gj))
-    return groups
-
-
-def _infer_shape(numel: int, shape) -> torch.Size:
-    """A reshape's result shape, its ``-1`` filled in (without making a
-    tensor: under the counter that would count as an allocation)."""
-    shape = list(shape)
-    if -1 in shape:
-        rest = 1
-        for d in shape:
-            if d != -1:
-                rest *= d
-        shape[shape.index(-1)] = numel // rest if rest else 0
-    return torch.Size(shape)
+# The ways GSPMD partitions ops that ``DTensor`` takes otherwise are
+# :mod:`repro_torch.sharding.gspmd`'s, shared with the tensor-parallel
+# step on real ranks.  The dry run adds the ones that reckon rank 0's
+# shard without its values: GSPMD pads a dimension that does not divide
+# its shards (a slice of a sharded dimension stays sharded), selects an
+# index of a sharded dimension from its owner, and merges dimensions
+# where a sharded one is not the outermost (a gradient flattened for its
+# checksum); ``DTensor`` would all-gather for each.
 
 
 def _merge(x, shape):
@@ -363,64 +244,6 @@ def _merge(x, shape):
     return DTensor.from_local(loc, x.device_mesh, placements,
                               run_check=False, shape=out_shape,
                               stride=_contiguous_stride(out_shape))
-
-
-def _reshard(out, src_shape, freed):
-    """Shard ``out`` again over each mesh axis in ``freed`` (``(axis,
-    source dim)``) along the first dimension of its source dim's group
-    that the axis divides and no other axis shards."""
-    from torch.distributed.tensor import Shard
-    placements = list(out.placements)
-    groups = _view_groups(list(src_shape), list(out.shape))
-    for axis, d in freed:
-        k = out.device_mesh.size(axis)
-        taken = {p.dim for p in placements if _is_shard(p)}
-        dst = next((g for s_, g in groups if d in s_), [])
-        pick = next((o for o in dst if out.shape[o] % k == 0
-                     and o not in taken), None)
-        if pick is not None:
-            placements[axis] = Shard(pick)
-    if placements != list(out.placements):
-        out = out.redistribute(out.device_mesh, placements)
-    return out
-
-
-def _reduces_sharded(x, dims) -> bool:
-    dims = [dims] if isinstance(dims, int) else list(dims)
-    return any(_shard_axes(x, d % x.dim()) for d in dims)
-
-
-def _partial(x) -> bool:
-    return any(p.is_partial() and "MaskPartial" not in type(p).__name__
-               for p in x.placements)
-
-
-def _is_shard(p) -> bool:
-    """A placement that splits a tensor dimension (``Shard`` or
-    ``_StridedShard``, which is not a ``Shard``)."""
-    return p.is_shard() or "StridedShard" in type(p).__name__
-
-
-def _masked(x) -> bool:
-    """``x`` holds a masked partial (``DTensor``'s vocab-parallel gather
-    and embedding), which a view would leave with a mask of the wrong
-    shape."""
-    return any("MaskPartial" in type(p).__name__ for p in x.placements)
-
-
-def _shard_axes(x, dim: int, strided: bool = True) -> list:
-    """The mesh axes that split ``x``'s dimension ``dim`` (strided
-    shards among them unless ``strided`` is False)."""
-    return [i for i, p in enumerate(x.placements)
-            if (_is_shard(p) if strided else p.is_shard()) and p.dim == dim]
-
-
-def _contiguous_stride(shape) -> tuple:
-    stride, acc = [], 1
-    for d in reversed(tuple(shape)):
-        stride.append(acc)
-        acc *= max(d, 1)
-    return tuple(reversed(stride))
 
 
 def _slice(x, dim: int, start, end, step: int):
@@ -480,217 +303,13 @@ def _select(x, dim: int):
     return y.redistribute(x.device_mesh, done)
 
 
-def _index(counter, func, x, args, kwargs):
-    """GSPMD's gather (``x[i, :, j]``) or scatter (``x[i, :, j] = v``)
-    along sharded dimensions: each rank's own op on its shard (indices
-    off its shard touch nothing); a gather's result a partial sum over
-    the axes that shard an indexed dimension, reduced across them, and
-    split as its indices are over the axes ``x`` is whole on (a token
-    table's lookup keeps the batch's split); a scatter's indices and
-    values made whole.  ``DTensor`` would all-gather the indexed
-    dimensions (a decode step's cache write, every layer; the token
-    table, every step).  ``NotImplemented`` unless every sharded
-    dimension of ``x`` is indexed."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    indices = list(args[1])
-    indexed = {d for d, i in enumerate(indices) if i is not None}
-    sharded = {p.dim for p in x.placements if _is_shard(p)}
-    if not sharded or not sharded <= indexed or any(
-            not (p.is_shard() or p.is_replicate()) for p in x.placements):
-        return NotImplemented
-    mesh = x.device_mesh
-    name = func.overloadpacket.__name__
-    if name != "index":
-        def whole(a):
-            if not isinstance(a, DTensor):
-                return a
-            return a.redistribute(mesh, [Replicate()] *
-                                  mesh.ndim)._local_tensor
-        with counter:
-            loc = func(x._local_tensor, [whole(i) for i in indices],
-                       *(whole(a) for a in args[2:]), **kwargs)
-            if name == "index_put_":
-                return x
-            return DTensor.from_local(loc, mesh, x.placements,
-                                      run_check=False, shape=x.shape,
-                                      stride=x.stride())
-
-    # the broadcast index dims sit where the indexed dims were when those
-    # are adjacent, else first (NumPy's rule)
-    nb = len(torch.broadcast_shapes(*(i.shape for i in indices
-                                      if i is not None)))
-    dims = sorted(indexed)
-    p0 = dims[0] if dims == list(range(dims[0], dims[-1] + 1)) else 0
-    keep = {}                  # mesh axis x is whole on -> broadcast dim
-    for a in range(mesh.ndim):
-        if x.placements[a].is_shard():
-            continue
-        split = {i.placements[a].dim + nb - i.dim() for i in indices
-                 if isinstance(i, DTensor) and i.placements[a].is_shard()}
-        if len(split) > 1:
-            return NotImplemented
-        if split:
-            keep[a] = split.pop()
-
-    def local(i):
-        """Rank 0's part of index ``i``: whole over the axes that shard
-        ``x``, its first chunk over those in ``keep``."""
-        if i is None:
-            return None
-        own = set()
-        if isinstance(i, DTensor):
-            i = i.redistribute(mesh, [
-                q if a in keep and q.is_shard() else Replicate()
-                for a, q in enumerate(i.placements)])
-            own = {a for a, q in enumerate(i.placements) if q.is_shard()}
-            i = i._local_tensor
-        for a, b in keep.items():
-            d = b - (nb - i.dim())
-            if a not in own and d >= 0 and i.shape[d] > 1:
-                i = i.narrow(d, 0, -(-i.shape[d] // mesh.size(a)))
-        return i
-
-    # the global result's shape, reckoned outside the counter
-    shape = func(torch.empty(x.shape, dtype=x.dtype, device="meta"),
-                 [None if i is None else torch.empty(
-                     i.shape, dtype=i.dtype, device="meta")
-                  for i in indices]).shape
-    part = [Partial() if p.is_shard() else Shard(p0 + keep[a]) if a in keep
-            else Replicate() for a, p in enumerate(x.placements)]
-    with counter:
-        loc = func(x._local_tensor, [local(i) for i in indices])
-        y = DTensor.from_local(loc, mesh, part, run_check=False,
-                               shape=shape, stride=_contiguous_stride(shape))
-        return y.redistribute(mesh, [Replicate() if q.is_partial() else q
-                                     for q in part])
-
-
-class GspmdGather(torch.overrides.TorchFunctionMode):
-    """The dry run's gather along a sharded dimension (the label's logit
-    in the cross-entropy, over a vocabulary sharded on ``model``), taken
-    above autograd as GSPMD partitions it: each rank gathers from its
-    own shard (indices off it give 0) and the partial sums are reduced
-    across the shards.  Its gradient is then each rank's scatter into
-    its own shard, where ``DTensor`` would make the gradient's buffer
-    over the whole vocabulary."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func in (torch.gather, torch.Tensor.gather) and not kwargs:
-            out = _gather(*args)
-            if out is not None:
-                return out
-        return func(*args, **kwargs)
-
-
-def _gather(x, dim, index, *rest):
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    if rest or not isinstance(x, DTensor) or \
-            not isinstance(index, DTensor):
-        return None
-    dim = dim % x.dim()
-    axes = _shard_axes(x, dim)
-    if not axes or any(not x.placements[i].is_shard() for i in axes) or \
-            any(p != q for i, (p, q) in enumerate(
-                zip(x.placements, index.placements)) if i not in axes):
-        return None
-    # rank 0's shard holds the first rows of ``dim``
-    loc = x.to_local()
-    il = index.to_local()
-    n = loc.shape[dim]
-    hit = il < n
-    g = torch.gather(loc, dim, torch.clamp(il, 0, n - 1))
-    g = torch.where(hit, g, torch.zeros((), dtype=g.dtype, device=g.device))
-    part = [Partial() if i in axes else p for i, p in enumerate(x.placements)]
-    y = DTensor.from_local(g, x.device_mesh, part, run_check=False,
-                           shape=index.shape,
-                           stride=_contiguous_stride(index.shape))
-    return y.redistribute(x.device_mesh, [
-        Replicate() if i in axes else p for i, p in enumerate(part)])
-
-
-def gspmd_hook(counter, func, args, kwargs):
-    """:class:`CostCounter`'s ``dtensor_hook`` for the dry run: the ops
-    the comment above names, as GSPMD partitions them; ``NotImplemented``
-    (``DTensor``'s own way) for every other op."""
+def _reckon(counter, func, x, args, kwargs):
+    """The dry run's own branches (the comment above): a slice, narrow or
+    select of a sharded dimension, a merging reshape, the reshape of an
+    empty tensor; ``NotImplemented`` for every other op."""
     from torch.distributed.tensor import DTensor, Replicate
     name = func.overloadpacket.__name__
-    if func.namespace == "c10d":
-        # a torch.distributed collective over a group (the deferred
-        # step's data axis, manual as under JAX's shard_map): each rank
-        # reduces its own shards
-        def local(a):
-            if isinstance(a, DTensor):
-                return a._local_tensor
-            if isinstance(a, (list, tuple)):
-                return type(a)(local(b) for b in a)
-            return a
-        with counter:
-            return func(*local(list(args)), **kwargs)
-    if name in _PRODUCTS and any(
-            isinstance(a, DTensor) and _partial(a) for a in args):
-        # GSPMD reduces a partial sum before a product consumes it;
-        # DTensor would keep it and all-gather the weight instead
-        with counter:
-            return func(*(a.redistribute(a.device_mesh, [
-                Replicate() if p.is_partial() else p for p in a.placements])
-                if isinstance(a, DTensor) and _partial(a) else a
-                for a in args), **kwargs)
-    if func not in _CHECKED and torch.Tag.pointwise in func.tags:
-        # an elementwise op this PyTorch's DTensor has no strategy for
-        # (older releases lack the comparisons): registered as one
-        _CHECKED.add(func)
-        with counter:
-            try:
-                return func(*args, **kwargs)
-            except NotImplementedError as e:
-                if "sharding strategy" not in str(e) or \
-                        not _register_pointwise(func):
-                    raise
-            return func(*args, **kwargs)
-    x = args[0] if args else None
-    if not isinstance(x, DTensor):
-        return NotImplemented
-    if name in _FACTORIES and (len(args[1]) == x.dim() or tuple(
-            args[1]) == tuple(x.shape[:len(args[1])])):
-        # a buffer of ``x``'s rank (a slice's backward) or of its leading
-        # dimensions is laid out as ``x`` along the dimensions they
-        # share: DTensor would replicate it whole
-        with counter:
-            return _factory_like(func, x, args, kwargs)
-    if name in ("index", "index_put", "index_put_"):
-        out = _index(counter, func, x, args, kwargs)
-        if out is not NotImplemented:
-            return out
-    if name in ("argmax", "argmin") and len(args) > 1 and \
-            args[1] is not None and _reduces_sharded(x, args[1]):
-        # an index reduction over shards: the rows gathered first
-        # (DTensor's own strategy mis-shapes it)
-        with counter:
-            axes = _shard_axes(x, args[1] % x.dim())
-            x = x.redistribute(x.device_mesh, [
-                Replicate() if i in axes else p
-                for i, p in enumerate(x.placements)])
-            return func(x, *args[1:], **kwargs)
-    if name == "logsumexp" and _reduces_sharded(x, args[1]):
-        # GSPMD's two-stage reduction: the max and the sum of the shards
-        # reduced across them; DTensor would all-gather the rows
-        with counter:
-            dims = args[1]
-            keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
-            m = torch.amax(x, dim=dims, keepdim=True).detach()
-            out = torch.log(torch.sum(torch.exp(x - m), dim=dims,
-                                      keepdim=True)) + m
-            if not keep:
-                # one dimension at a time (older DTensor has no strategy
-                # for squeeze over a list)
-                for d in sorted((d % x.dim() for d in ([dims] if isinstance(
-                        dims, int) else dims)), reverse=True):
-                    out = out.squeeze(d)
-            return out
-    is_view = getattr(func, "is_view", False)
-    if name not in _RESHAPES and name not in ("slice", "narrow", "select") \
-            and not (is_view and _masked(x)):
+    if name not in ("slice", "narrow", "select") and name not in _RESHAPES:
         return NotImplemented
     with counter:
         if _masked(x):
@@ -698,57 +317,46 @@ def gspmd_hook(counter, func, args, kwargs):
                 Replicate() if "MaskPartial" in type(p).__name__ else p
                 for p in x.placements])
         rest = list(args[1:])
-        if name in ("slice", "narrow", "select"):
-            dim = rest[0] if rest else kwargs.get("dim", 0)
-            dim = dim % x.dim()
-            if name == "select":
-                out = _select(x, dim)
-            elif name == "narrow":
-                start = rest[1] % x.shape[dim] if rest[1] < 0 else rest[1]
-                out = _slice(x, dim, start, start + rest[2], 1)
-            else:
-                vals = rest[1:] + [None] * (3 - len(rest[1:]))
-                start, end, step = vals[0], vals[1], vals[2] or 1
-                out = _slice(x, dim, kwargs.get("start", start),
-                             kwargs.get("end", end),
-                             kwargs.get("step", step))
-            return func(x, *rest, **kwargs) if out is None else out
-        if name not in _RESHAPES:
-            return func(x, *rest, **kwargs)
-        merged = _merge(x, rest[0])
-        if merged is not None:
-            return merged
-        if x.numel() == 0:
-            # DTensor's view rules loop forever on an empty tensor: its
-            # reshape is replicated and holds nothing
-            from torch.distributed.tensor import DTensor
-            shape = _infer_shape(0, rest[0])
-            return DTensor.from_local(
-                torch.empty(shape, dtype=x.dtype, device="meta"),
-                x.device_mesh, [Replicate()] * x.device_mesh.ndim,
-                run_check=False)
-        # a reshape DTensor refuses: replicate over one mesh axis after
-        # another, from the last, until it goes; then shard the result
-        # over those axes again along a dimension the split made (GSPMD
-        # re-tiles such a reshape: a microbatch split [B] -> [A, B/A],
-        # 8 KV heads of 64 over a model axis of 16)
-        placements = list(x.placements)
-        freed = []
-        for i in range(len(placements), -1, -1):
-            if i < len(placements):
-                if not _is_shard(placements[i]):
-                    continue
-                freed.append((i, placements[i].dim))
-                placements[i] = Replicate()
-                x = x.redistribute(x.device_mesh, placements)
-            try:
-                out = func(x, *rest, **kwargs)
-            except RuntimeError:
-                if not any(_is_shard(p) for p in placements):
-                    raise
-                continue
-            return _reshard(out, x.shape, freed)
-        raise AssertionError("unreachable")
+        if name in _RESHAPES:
+            merged = _merge(x, rest[0])
+            if merged is not None:
+                return merged
+            if x.numel() == 0:
+                # DTensor's view rules loop forever on an empty tensor: its
+                # reshape is replicated and holds nothing
+                shape = _infer_shape(0, rest[0])
+                return DTensor.from_local(
+                    torch.empty(shape, dtype=x.dtype, device="meta"),
+                    x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                    run_check=False)
+            return gspmd._retile(func, x, rest, kwargs)
+        dim = rest[0] if rest else kwargs.get("dim", 0)
+        dim = dim % x.dim()
+        if name == "select":
+            out = _select(x, dim)
+        elif name == "narrow":
+            start = rest[1] % x.shape[dim] if rest[1] < 0 else rest[1]
+            out = _slice(x, dim, start, start + rest[2], 1)
+        else:
+            vals = rest[1:] + [None] * (3 - len(rest[1:]))
+            start, end, step = vals[0], vals[1], vals[2] or 1
+            out = _slice(x, dim, kwargs.get("start", start),
+                         kwargs.get("end", end), kwargs.get("step", step))
+        return func(x, *rest, **kwargs) if out is None else out
+
+
+def gspmd_hook(counter, func, args, kwargs):
+    """:class:`CostCounter`'s ``dtensor_hook`` for the dry run: its own
+    branches (:func:`_reckon`), then :func:`repro_torch.sharding.gspmd.
+    gspmd_hook`'s; ``NotImplemented`` (``DTensor``'s own way) for every
+    other op."""
+    from torch.distributed.tensor import DTensor
+    x = args[0] if args else None
+    if isinstance(x, DTensor) and func.namespace != "c10d":
+        out = _reckon(counter, func, x, args, kwargs)
+        if out is not NotImplemented:
+            return out
+    return gspmd.gspmd_hook(counter, func, args, kwargs)
 
 
 # ------------------------------ the steps -----------------------------------

@@ -163,7 +163,7 @@ def main(argv=None) -> int:
                      f"port serves on the first of the devices it asks "
                      f"for, which must exist)")
 
-    from repro_torch.configs.registry import get_arch, refuse_unsharded
+    from repro_torch.configs.registry import get_arch
     from repro_torch.protect import (ProtectionPlan, default_plan,
                                      unprotected_plan)
     from repro_torch.serving import (FaultInjection, ServingEngine,
@@ -180,8 +180,7 @@ def main(argv=None) -> int:
         ap.error("--arrival trace needs --trace FILE")
     try:
         cfg = get_arch(args.arch)
-        refuse_unsharded(args.arch)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         ap.error(str(e))
 
     if args.tenant:

@@ -20,7 +20,14 @@ process a rank) each step takes its rank's rows of the global batch
   on each rank's flat float32 block of the master weights and moments,
   one bf16 all-gather of the parameters.
 
-A ``model`` axis (tensor parallelism) waits for ROADMAP A8.4.
+On a mesh with a model axis (:func:`repro_torch.sharding.make_model_mesh`,
+``(d, m)``): :func:`make_train_step` with such a ``mesh`` is JAX's jitted
+step under ``train_rules`` (FSDP over ``data``, tensor parallelism over
+``model``): the state is ``DTensor`` s placed by the rules
+(:func:`init_train_state` with ``mesh``), each microbatch the
+``DTensor`` of the batch shards' rows, and the one-device step body runs
+on them under GSPMD's ways (:mod:`repro_torch.sharding.gspmd`).  The
+deferred and ZeRO-1 steps stay data-only, as JAX's (ROADMAP §C15).
 """
 from __future__ import annotations
 
@@ -157,7 +164,9 @@ def make_train_step(model: Model, ctx: Ctx, *, accum: int = 1,
     a fault study corrupts.
 
     ``mesh`` (a data mesh, :func:`repro_torch.sharding.make_data_mesh`)
-    says where the step's one gradient collective goes:
+    says where the step's one gradient collective goes (a model mesh,
+    :func:`repro_torch.sharding.make_model_mesh`, takes the module
+    docstring's ``DTensor`` step instead):
 
     * ``deferred=False``, the train CLI's step: ``batch`` is this rank's
       rows of the global batch, laid out so each microbatch's rows are
@@ -165,7 +174,9 @@ def make_train_step(model: Model, ctx: Ctx, *, accum: int = 1,
       accum))``); the float gradients and the loss are mean-all-reduced
       and the metrics reduced over the mesh before compression, which
       then verifies alone (``group=None``), so every rank takes JAX's
-      jitted step on the global batch (GSPMD over a ``(d, 1)`` mesh);
+      jitted step on the global batch (GSPMD over a ``(d, 1)`` mesh; a
+      MoE's load-balance statistics are all-reduced over the mesh's
+      group first, ``Ctx.data_group``, ROADMAP §C17);
     * ``deferred=True`` (:func:`make_train_step_deferred`): ``batch`` is
       this rank's contiguous rows; the gradients are accumulated with no
       collective, then the int8 payload goes through ``checked_psum``
@@ -178,7 +189,19 @@ def make_train_step(model: Model, ctx: Ctx, *, accum: int = 1,
     scans replay on the card (``ctx.scan_graphs``, made here): they are
     freed with the step.
     """
+    from repro_torch.sharding import ModelMesh
+    if isinstance(mesh, ModelMesh):
+        if deferred:
+            raise ValueError("the deferred step is data-only, as JAX's "
+                             "(ROADMAP §C15): a data mesh, not a model one")
+        return _make_model_mesh_step(
+            model, ctx, mesh, accum=accum, peak_lr=peak_lr, warmup=warmup,
+            total_steps=total_steps, max_grad_norm=max_grad_norm,
+            compress=compress, payload_hook=payload_hook)
     ctx = ctx.replace(scan_graphs=ScanGraphs())
+    if mesh is not None and not deferred:
+        # the MoE's load-balance statistics over the global batch (§C17)
+        ctx = ctx.replace(data_group=mesh.group)
     grad_fn = make_grad_fn(model, ctx)
     # the checked reduction's group and replica count: the mesh's for the
     # deferred step, else the verify-only one-device path
@@ -217,6 +240,100 @@ def make_train_step(model: Model, ctx: Ctx, *, accum: int = 1,
         if deferred:
             metrics = reduce_metrics(metrics, mesh)
         return new_state, metrics
+
+    return train_step
+
+
+def batch_placements(mesh, ndim: int) -> list:
+    """A batch leaf's placements on a model mesh: its rows split over
+    every axis but ``model`` (JAX's ``batch`` rule), replicated over
+    ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Replicate() if a == "model" else Shard(0) for a in mesh.axes] \
+        if ndim else [Replicate()] * len(mesh.axes)
+
+
+def place_batch(batch: dict, mesh) -> dict:
+    """This batch shard's rows (``shard_batch(batch, BatchShard(
+    mesh.batch_rank, mesh.n_batch))``) as the ``DTensor`` s of the global
+    batch."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.gspmd import _contiguous_stride
+    out = {}
+    for k, v in batch.items():
+        shape = (v.shape[0] * mesh.n_batch,) + tuple(v.shape[1:])
+        out[k] = DTensor.from_local(
+            v.contiguous(), mesh.device_mesh, batch_placements(mesh, v.dim()),
+            run_check=False, shape=torch.Size(shape),
+            stride=_contiguous_stride(shape))
+    return out
+
+
+def whole_metrics(metrics: dict) -> dict:
+    """A model-mesh step's metrics as plain tensors: a ``DTensor`` metric
+    (a reduction over the sharded global batch) is already the global
+    value, every rank alike."""
+    from repro_torch.sharding.gspmd import is_dtensor
+    return {k: v.full_tensor() if is_dtensor(v) else v
+            for k, v in metrics.items()}
+
+
+def _make_model_mesh_step(model: Model, ctx: Ctx, mesh, *, accum: int,
+                          peak_lr: float, warmup: int, total_steps: int,
+                          max_grad_norm: float, compress: bool,
+                          payload_hook: Optional[Callable]):
+    """:func:`make_train_step` on a model mesh (the module docstring):
+    ``state`` from :func:`init_train_state` with ``mesh``; ``batch``
+    this batch shard's rows, laid out so each microbatch's rows are split
+    over the shards (``shard_batch(batch, BatchShard(mesh.batch_rank,
+    mesh.n_batch, accum))``).  The gradients come back in their
+    parameters' placements (JAX's ``out_shardings``); the metrics are the
+    global batch's, every rank alike."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.sharding.gspmd import GspmdGather, GspmdMode
+    from repro_torch.sharding.rules import train_rules
+    ctx = ctx.replace(scan_graphs=ScanGraphs(),
+                      rules=ctx.rules or train_rules(mesh.multi_pod))
+    grad_fn = make_grad_fn(model, ctx)
+
+    def placed_grad_fn(params, local):
+        return grad_fn(params, place_batch(local, mesh))
+
+    def train_step(state, batch):
+        params = state["params"]
+        # the layers' plain tensors (RoPE tables, masks, constants) take
+        # part as replicated
+        with implicit_replication(), GspmdGather(), GspmdMode():
+            (loss, metrics), grads = accumulate(placed_grad_fn, params,
+                                                batch, accum)
+            grads = tree_map(lambda g, p: g.redistribute(
+                p.device_mesh, p.placements) if g.placements != p.placements
+                else g, grads, params)
+            metrics = dict(metrics)
+            new_state = {}
+            if compress:
+                payload, new_comm = compress_grads(grads, state["comm"])
+                del grads
+                if payload_hook is not None:
+                    payload = payload_hook(payload, state)
+                summed, scale_sum, comm_errs = checked_psum(payload, None)
+                del payload
+                grads = decompress_grads(summed, scale_sum, 1)
+                del summed
+                metrics["comm/errors"] = comm_errs
+                new_state["comm"] = new_comm
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            lr = warmup_cosine(state["step"], peak=peak_lr, warmup=warmup,
+                               total=total_steps)
+            new_params, new_opt = adamw_update(grads, state["opt"], params,
+                                               lr)
+            new_state.update(params=new_params, opt=new_opt,
+                             step=state["step"] + 1)
+            metrics.update({"grad_norm": gnorm, "lr": lr,
+                            "loss_final": loss})
+            return new_state, whole_metrics(metrics)
 
     return train_step
 
@@ -390,11 +507,22 @@ def init_comm_state(params_shapes, n_data: int) -> CompressionState:
 
 
 def init_train_state(model: Model, seed: int, *, dtype=torch.float32,
-                     compress: bool = False, device="cuda"):
+                     compress: bool = False, device="cuda", mesh=None):
     """The concrete training state: float parameters from ``seed``, zero
     AdamW moments, step 0 (and with ``compress`` the zero error-feedback
-    residuals, as :func:`make_train_step` ``(compress=True)`` needs)."""
+    residuals, as :func:`make_train_step` ``(compress=True)`` needs).
+    With ``mesh`` (a model mesh) the parameters are this rank's blocks
+    of the same ones, placed by ``train_rules`` as JAX's
+    ``in_shardings`` place them, and the moments and residuals follow
+    them; the step counter is replicated."""
     params = model.init(seed, dtype=dtype, device=device)
+    if mesh is not None:
+        from repro_torch.sharding import distribute_tree
+        from repro_torch.sharding.logical import param_axes
+        from repro_torch.sharding.rules import train_rules
+        params = distribute_tree(params, param_axes(params),
+                                 train_rules(mesh.multi_pod),
+                                 mesh.device_mesh)
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32,
                                  device=tree_leaves(params)[0].device)}

@@ -15,30 +15,35 @@ and llava).  Runs on the card unless ``--device cpu`` asks for the CPU
 (without a card it raises).  ``--smoke`` reduces the arch to smoke
 size.
 
-``--mesh host --mesh-shape d,1`` trains data-parallel over ``d`` ranks
-that ``--device-count d`` launches (``d`` when it is absent): ``gloo``
-ranks on the CPU, one rank a device on the card.  Each rank takes its
-rows of every microbatch; the float gradients are mean-all-reduced over
-the data group and then every rank takes the one-device step
-(``--compress``: the checked reduction with ``group=None``), JAX's
-jitted step on the global batch.  Rank 0 logs and writes the
-checkpoints.  A model axis (``--mesh-shape d,m``, m > 1) exits with 2
-naming ROADMAP A8.4, and so does a MoE arch on a data mesh (its
-load-balance loss is not a mean over the batch's rows, §C17);
-``--mesh single|multi`` exits with the production mesh's error on a
-world smaller than 256 (512) ranks, as JAX does on a host, and
-otherwise with A8.4 (its model axis of 16).
+``--mesh host --mesh-shape d,m`` trains over ``d·m`` ranks that
+``--device-count`` launches (``d·m`` when it is absent): ``gloo`` ranks
+on the CPU, one rank a device on the card.  With ``m`` = 1 the mesh is a
+data mesh: each rank takes its rows of every microbatch, the float
+gradients are mean-all-reduced over the data group and then every rank
+takes the one-device step (``--compress``: the checked reduction with
+``group=None``), JAX's jitted step on the global batch (a MoE's
+load-balance statistics are all-reduced over the group first, ROADMAP
+§C17).  With ``m`` > 1 the state and each microbatch are ``DTensor`` s
+placed by ``train_rules`` (FSDP over ``data``, tensor parallelism over
+``model``) and the step runs on them (:func:`repro_torch.launch.steps.
+make_train_step` on a model mesh).  ``--mesh single|multi`` is the
+production mesh, (16, 16) or (2, 16, 16): on a world smaller than 256
+(512) ranks it exits with JAX's error on a host.  Rank 0 logs and writes
+the checkpoints (a sharded state gathered to it leaf by leaf).
 
     python -m repro_torch.launch.train --arch llama3.2-1b --device cpu \\
         --smoke --steps 20 --compress
     python -m repro_torch.launch.train --device cpu --smoke \\
         --mesh-shape 2,1 --device-count 2 --compress
+    python -m repro_torch.launch.train --device cpu --smoke \\
+        --mesh-shape 2,2 --device-count 4 --steps 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import math
 import os
 import sys
 import tempfile
@@ -80,9 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _mesh_ranks(ap, args) -> int:
-    """The data axis the flags ask for; a request the port cannot run
-    exits with 2 naming its ROADMAP item."""
+def _mesh_ranks(ap, args) -> tuple:
+    """The mesh the flags ask for, ``(data, model)`` or the production
+    mesh's shape; a request the port cannot run exits with 2 naming its
+    ROADMAP item (JAX's error where JAX's CLI fails alike)."""
     from repro_torch.launch.mesh import check_host_world, production_grid
     world = args.device_count
     if world < 0:
@@ -92,30 +98,18 @@ def _mesh_ranks(ap, args) -> int:
             grid = production_grid(args.mesh == "multi", world or 1)
         except ValueError as e:
             ap.error(f"--mesh {args.mesh}: {e} (the production mesh needs "
-                     f"{256 if args.mesh == 'single' else 512} ranks; its "
-                     f"model axis of 16 waits for ROADMAP A8.4)")
-        ap.error(f"--mesh {args.mesh}: a {grid.shape} mesh has a model axis "
-                 f"of 16: tensor parallelism is not ported yet (ROADMAP "
-                 f"A8.4)")
-    try:
-        shape = tuple(int(x) for x in (args.mesh_shape or
-                                       f"{world or 1},1").split(","))
-    except ValueError:
-        shape = ()
-    if len(shape) != 2 or min(shape) < 1:
-        ap.error(f"--mesh-shape {args.mesh_shape}: expected data,model")
-    d, m = shape
-    if m > 1:
-        ap.error(f"--mesh-shape {d},{m}: a model axis of {m} is tensor "
-                 f"parallelism, not ported yet (ROADMAP A8.4)")
-    if d > 1:
-        from repro_torch.configs import get_arch
-        if get_arch(args.arch).family == "moe":
-            ap.error(f"--arch {args.arch} on a data mesh of {d}: the MoE's "
-                     f"load-balance loss is taken over the whole batch, "
-                     f"so the mean of the ranks' losses is not JAX's step "
-                     f"on the global batch (ROADMAP A8.4, §C17)")
-    have = world or d
+                     f"{256 if args.mesh == 'single' else 512} ranks: "
+                     f"--device-count, ROADMAP A8.4)")
+        shape = tuple(grid.shape)
+    else:
+        try:
+            shape = tuple(int(x) for x in (args.mesh_shape or
+                                           f"{world or 1},1").split(","))
+        except ValueError:
+            shape = ()
+        if len(shape) != 2 or min(shape) < 1:
+            ap.error(f"--mesh-shape {args.mesh_shape}: expected data,model")
+    have = world or math.prod(shape)
     if args.device != "cpu":
         import torch
         have = min(have, torch.cuda.device_count())
@@ -125,36 +119,37 @@ def _mesh_ranks(ap, args) -> int:
         ap.error(f"{e} (ROADMAP A8.1"
                  + (": one rank a device on the card)"
                     if args.device != "cpu" else ")"))
-    return d
+    return shape
 
 
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    from repro_torch.configs.registry import get_arch, refuse_unsharded
+    from repro_torch.configs.registry import get_arch
     try:
         get_arch(args.arch)
-        refuse_unsharded(args.arch)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         ap.error(str(e))
     # cuBLAS reads it when CUDA initialises (deterministic GEMMs)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.device import resolve_device
     dev = resolve_device(args.device)
-    d = _mesh_ranks(ap, args)
-    if d == 1:
+    shape = _mesh_ranks(ap, args)
+    n = math.prod(shape)
+    if n == 1:
         return train(args)
     from repro_torch.sharding import launch
-    return launch(_train_rank, d, args=(args,), device=dev)
+    return launch(_train_rank, n, args=(args, shape), device=dev)
 
 
-def _train_rank(world, args) -> int:
-    return train(args, world)
+def _train_rank(world, args, shape) -> int:
+    return train(args, world, shape)
 
 
-def train(args, world=None) -> int:
+def train(args, world=None, shape=(1, 1)) -> int:
     """Train as the flags say, on one device or as one rank of ``world``
-    (the data mesh is the whole world)."""
+    on the mesh of ``shape`` (a data mesh when its model axis is 1, the
+    whole world either way)."""
     import torch
 
     from repro_torch.configs import get_arch, reduce_cfg
@@ -166,44 +161,57 @@ def train(args, world=None) -> int:
     from repro_torch.layers.common import Ctx
     from repro_torch.models.base import build_model
     from repro_torch.runtime import LoopConfig, TrainLoop
+    from repro_torch.sharding.rules import train_rules
 
     lead = world is None or world.rank == 0
     logging.basicConfig(level=logging.INFO if lead else logging.WARNING,
                         format="%(asctime)s %(name)s %(message)s")
     log = logging.getLogger("repro_torch.train")
     dev = world.device if world is not None else resolve_device(args.device)
-    mesh = shardings = None
-    if world is not None:
+    mesh = shardings = group = None
+    n_batch, batch_rank = 1, 0
+    if world is not None and shape[-1] == 1:
         from repro_torch.sharding import make_data_mesh
         mesh = make_data_mesh(world.size)
+        n_batch, batch_rank, group = mesh.size, mesh.rank, mesh.group
+    elif world is not None:
+        import torch.distributed as dist
+
+        from repro_torch.sharding import make_model_mesh
+        mesh = make_model_mesh(shape)
+        n_batch, batch_rank = mesh.n_batch, mesh.batch_rank
+        group = dist.group.WORLD
 
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = reduce_cfg(cfg)
     if args.accum > 1:
         cfg = dataclasses.replace(cfg, train_accum=args.accum)
-    parts = cfg.train_accum * (mesh.size if mesh is not None else 1)
+    parts = cfg.train_accum * n_batch
     if args.batch % parts:
         raise SystemExit(f"--batch {args.batch} is not a multiple of the "
                          f"{cfg.train_accum} accumulation microbatches"
-                         + (f" x {mesh.size} data ranks" if mesh else ""))
+                         + (f" x {n_batch} data ranks" if mesh else ""))
     if mesh is not None:
-        shardings = BatchShard(mesh.rank, mesh.size, cfg.train_accum)
+        shardings = BatchShard(batch_rank, n_batch, cfg.train_accum)
 
-    shape = ShapeConfig("cli", "train", args.seq_len, args.batch)
+    data_shape = ShapeConfig("cli", "train", args.seq_len, args.batch)
     # whisper's learned decoder positions: the text, the meta tokens, 8
     model = build_model(cfg, max_pos=args.seq_len + cfg.meta_tokens + 8)
-    ctx = Ctx(quant=False, float_abft=args.float_abft,
-              compute_dtype=torch.bfloat16)
+    tp = mesh if shape[-1] > 1 else None
+    # JAX's CLI passes the train rules; they move nothing but on a model
+    # mesh's DTensors
+    ctx = Ctx(rules=train_rules(len(shape) == 3), quant=False,
+              float_abft=args.float_abft, compute_dtype=torch.bfloat16)
     step_fn = make_train_step(model, ctx, accum=cfg.train_accum,
                               peak_lr=args.lr, total_steps=args.steps,
                               compress=args.compress, mesh=mesh)
-    state = init_train_state(model, 0, compress=args.compress, device=dev)
-    dataset = make_dataset(cfg, shape)
+    state = init_train_state(model, 0, compress=args.compress, device=dev,
+                             mesh=tp)
+    dataset = make_dataset(cfg, data_shape)
     n_params = sum(x.numel() for x in tree_leaves(state["params"]))
     log.info("arch=%s params=%.1fM device=%s accum=%d mesh=%s", cfg.name,
-             n_params / 1e6, dev, cfg.train_accum,
-             (mesh.size, 1) if mesh is not None else (1, 1))
+             n_params / 1e6, dev, cfg.train_accum, tuple(shape))
 
     def hook(step, metrics):
         log.info("step %d loss=%.4f gnorm=%.3f gemm_err=%d eb_err=%d"
@@ -218,7 +226,7 @@ def train(args, world=None) -> int:
         step_fn, dataset,
         cfg=LoopConfig(ckpt_dir=args.ckpt_dir, save_every=args.save_every,
                        fault_policy=args.fault_policy),
-        shardings=shardings, group=mesh.group if mesh is not None else None,
+        shardings=shardings, group=group,
         metrics_hook=hook if lead else None)
     with deterministic():
         state, metrics = loop.run(state, args.steps)

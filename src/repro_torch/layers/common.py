@@ -42,9 +42,14 @@ class Ctx:
     ``unroll_time`` have no counterpart: XLA's ``cost_analysis`` counts a
     ``while`` body once, so JAX's probes unrolled their scans, while the
     port's layer and time loops are Python loops whose every trip the
-    cost counter (:mod:`repro_torch.launch.costs`) sees.  JAX's
-    ``abft_tp_local`` (per-shard checksums) waits for tensor parallelism
-    on real ranks (ROADMAP A8.4).
+    cost counter (:mod:`repro_torch.launch.costs`) sees.
+    ``abft_tp_local`` is JAX's flag for per-shard checksums under tensor
+    parallelism; as in JAX, nothing reads it.  ``data_group`` (the data
+    mesh step's, :func:`repro_torch.launch.steps.make_train_step`) is the
+    process group over whose ranks a replicated step splits the batch:
+    the MoE's load-balance statistics are all-reduced over it, so each
+    rank's loss holds the global batch's (ROADMAP §C17).  Like
+    ``scan_graphs`` it is the step's, not a setting.
     """
     rules: Optional[dict] = dataclasses.field(default=None, hash=False)
     quant: bool = False                   # int8 serving path
@@ -58,6 +63,9 @@ class Ctx:
     moe_gather: bool = False              # scatter/gather MoE dispatch
     no_remat: bool = False                # keep every layer's activations
     moe_seq_groups: bool = False          # MoE token groups one at a time
+    abft_tp_local: bool = False           # per-shard checksums (JAX's flag)
+    data_group: Optional[Any] = dataclasses.field(default=None,
+                                                  compare=False)
     scan_graphs: Optional[Any] = dataclasses.field(default=None,
                                                    compare=False)
 

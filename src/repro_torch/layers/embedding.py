@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import policy, table_rowsums
 from repro_torch.layers.common import Ctx
 from repro_torch.protect.runtime import protected_call
+from repro_torch.sharding.gspmd import is_dtensor, vocab_lookup
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, *,
@@ -29,9 +30,15 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, *,
 
 
 def embed(p, tokens: torch.Tensor, ctx: Ctx):
-    """tokens [...] -> ([..., d] in the compute dtype, empty report)."""
-    return p["table"][tokens.long()].to(ctx.compute_dtype), \
-        policy.empty_report()
+    """tokens [...] -> ([..., d] in the compute dtype, empty report).  A
+    ``DTensor`` table (a mesh's) is looked up by
+    :func:`repro_torch.sharding.gspmd.vocab_lookup`, each rank in its
+    own rows of the vocabulary."""
+    table = p["table"]
+    if is_dtensor(table):
+        return vocab_lookup(table, tokens).to(ctx.compute_dtype), \
+            policy.empty_report()
+    return table[tokens.long()].to(ctx.compute_dtype), policy.empty_report()
 
 
 def init_qembed(gen: torch.Generator, vocab: int, d: int, *, device):

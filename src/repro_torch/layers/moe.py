@@ -127,13 +127,52 @@ def _route(xg: torch.Tensor, router_w: torch.Tensor, k: int):
     return probs, gate_vals, gate_idx
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over ``group``'s ranks, whose gradient is the sum of the
+    ranks' gradients (each rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _batch_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean over the global batch of the ranks' equal-sized means:
+    their sum over ``group`` over its size.  Each rank's loss then reads
+    the global batch's statistics; the sum's gradient, summed over the
+    ranks, reaches each rank's own tokens, so the step's mean over the
+    ranks of their gradients is the global batch's gradient."""
+    import torch.distributed as dist
+    n = torch.tensor(float(dist.get_world_size(group)), dtype=x.dtype,
+                     device=x.device)
+    return _AllReduceSum.apply(x, group) / n
+
+
 def _aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor,
-              n_experts: int) -> torch.Tensor:
-    """Switch-style load-balance loss."""
+              n_experts: int, group=None) -> torch.Tensor:
+    """Switch-style load-balance loss: a product of two means over the
+    batch's tokens.  On ``DTensor`` s the means are reductions over the
+    sharded batch; with ``group`` (a data mesh's replicated step, each
+    rank holding its rows) each mean is all-reduced over it first
+    (ROADMAP §C17)."""
     frac_tokens = torch.mean(
         F.one_hot(gate_idx[..., 0], n_experts).to(torch.float32),
         dim=(0, 1))
     frac_probs = torch.mean(probs, dim=(0, 1))
+    if group is not None:
+        frac_tokens = _batch_mean(frac_tokens, group)
+        frac_probs = _batch_mean(frac_probs, group)
     return n_experts * torch.sum(frac_tokens * frac_probs)
 
 
@@ -169,7 +208,7 @@ def moe_ffn(p, x: torch.Tensor, ctx: Ctx, *, n_experts: int, top_k: int,
 
     router_w = p["router"]["w"].to(torch.float32)
     probs, gate_vals, gate_idx = _route(xg, router_w, top_k)
-    aux = _aux_loss(probs, gate_idx, n_experts)
+    aux = _aux_loss(probs, gate_idx, n_experts, ctx.data_group)
 
     capacity = max(int(g_sz * top_k * capacity_factor / n_experts), 4)
     capacity = min(capacity, g_sz)

@@ -31,8 +31,9 @@ def is_trainable(x: torch.Tensor) -> bool:
 
 def adamw_init(params):
     def mom(p):
+        # zeros_like: a sharded parameter's moments are sharded alike
         if is_trainable(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros((0,), dtype=torch.float32, device=p.device)
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else None

@@ -1,8 +1,9 @@
 """Training runtime: the int8 error-feedback gradient compression with
 its mod-8191 checked all-reduce, straggler telemetry, the fault-tolerant
 loop and the elastic re-mesh of a data-parallel world (the JAX package's
-``runtime``).  A re-mesh keeps the model axis at 1: tensor parallelism
-waits for ROADMAP A8.4."""
+``runtime``).  A re-mesh re-cuts a data-parallel world (model axis 1);
+a model mesh's state is saved whole and re-cut to its placements by the
+checkpoint (:mod:`repro_torch.checkpoint`)."""
 from repro_torch.runtime.compression import (  # noqa: F401
     CompressionState,
     checked_psum,

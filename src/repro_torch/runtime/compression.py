@@ -40,8 +40,7 @@ class CompressionState(NamedTuple):
 
 def init_compression(params) -> CompressionState:
     return CompressionState(error=tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params))
+        lambda p: torch.zeros_like(p, dtype=torch.float32), params))
 
 
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:

@@ -177,10 +177,8 @@ class ServingEngine:
                  max_new_tokens: int = 32, queue_depth: int = 0,
                  seed: int = 0, compute_dtype=None, dlrm_extras=None,
                  paging=None, device="cuda"):
-        from repro_torch.configs.registry import refuse_unsharded
         from repro_torch.device import resolve_device
 
-        refuse_unsharded(cfg.name)
         self.is_dlrm = cfg.family == "dlrm"
         if not tenants:
             raise ValueError("need at least one TenantSpec")

@@ -15,7 +15,11 @@ nothing run again on fewer ranks.
 :func:`make_data_mesh` is the one-axis ``("data",)`` mesh over some of
 the world's ranks: a ``DeviceMesh`` and its process group (every rank
 of the world makes each mesh, in the same order, as
-``torch.distributed.new_group`` asks).
+``torch.distributed.new_group`` asks).  :func:`make_model_mesh` is the
+``("data", "model")`` mesh (``("pod", "data", "model")`` for two pods)
+with its batch and model groups, on which the tensor-parallel step
+holds its state and batch as ``DTensor`` s
+(:func:`distribute_tree` places a tree by its axes and the rules).
 """
 from __future__ import annotations
 
@@ -181,8 +185,134 @@ def make_data_mesh(n_shards: int, ranks: Optional[Sequence[int]] = None,
     return DataMesh(ranks, mesh, group)
 
 
+@dataclasses.dataclass
+class ModelMesh:
+    """A mesh with a model axis: ``("data", "model")``, or ``("pod",
+    "data", "model")``; the ``DeviceMesh``, the group of the ranks that
+    split the batch (``pod`` x ``data``, one model coordinate) and the
+    model axis's group (None on a rank outside the mesh)."""
+    device_mesh: Any
+    batch_group: Any
+    model_group: Any
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.device_mesh.shape)
+
+    @property
+    def axes(self) -> tuple:
+        return tuple(self.device_mesh.mesh_dim_names)
+
+    @property
+    def n_batch(self) -> int:
+        """The batch's shards: the product of every axis but ``model``."""
+        n = 1
+        for a, s in zip(self.axes, self.shape):
+            if a != "model":
+                n *= s
+        return n
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's shard of the batch (its ``pod``, ``data``
+        coordinate, row-major)."""
+        coord = self.device_mesh.get_coordinate()
+        i = 0
+        for a, s, c in zip(self.axes, self.shape, coord):
+            if a != "model":
+                i = i * s + c
+        return i
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+
+def make_model_mesh(shape: Sequence[int], ranks: Optional[Sequence[int]]
+                    = None, device_type: Optional[str] = None) -> ModelMesh:
+    """The ``("data", "model")`` mesh of ``shape`` (three dimensions:
+    ``("pod", "data", "model")``) over ranks of the current world
+    (``ranks``, default its first), with its groups.  Every rank of the
+    world calls it."""
+    import logging
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    # DTensor's advice on sequential all-reduces (a 2-D mesh's partial
+    # sums) and the CPU group's all-to-all fallback: known, not faults
+    for name in ("torch.distributed.tensor._redistribute",
+                 "torch._logging._internal"):
+        logging.getLogger(name).setLevel(logging.ERROR)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a model mesh is 2-D or 3-D, not {shape}")
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = make_host_mesh(shape, axes, ranks=ranks, device_type=device_type)
+    member = mesh.get_coordinate() is not None
+    if len(shape) == 2:
+        return ModelMesh(mesh, mesh.get_group("data") if member else None,
+                         mesh.get_group("model") if member else None)
+    # the pod x data groups, one a model coordinate: every rank makes each
+    grid = mesh.mesh.reshape(-1, shape[-1]).tolist()
+    batch_group = None
+    for m in range(shape[-1]):
+        members = [row[m] for row in grid]
+        g = dist.new_group(members)
+        if dist.get_rank() in members:
+            batch_group = g
+    return ModelMesh(mesh, batch_group,
+                     mesh.get_group("model") if member else None)
+
+
+def distribute(t: torch.Tensor, device_mesh, placements, device=None):
+    """``t`` (the whole tensor, on any device) as the ``DTensor`` of
+    ``placements``: this rank's block cut out and copied to ``device``
+    (default ``t``'s), no collective."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, device_mesh, placements)
+    loc = t
+    for d, (n, o) in enumerate(zip(shape, offset)):
+        if n != t.shape[d]:
+            loc = loc.narrow(d, o, n)
+    loc = loc.to(device or t.device, copy=True).contiguous()
+    return DTensor.from_local(loc, device_mesh, placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def distribute_tree(tree, axes, rules, device_mesh, device=None):
+    """A tensor tree as ``DTensor`` s by its axes tree and ``rules``: each
+    rank's blocks (:func:`repro_torch.runtime.elastic.remesh_state`'s
+    cut), on ``device``, under the placements of :func:`placements_of`."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.runtime.elastic import remesh_state
+    from repro_torch.sharding.logical import _map_axes
+    blocks = remesh_state(tree, axes, rules, device_mesh, device)
+    names = tuple(device_mesh.mesh_dim_names)
+    ms = mesh_shape_of(device_mesh)
+    return _map_axes(lambda ax, t, b: DTensor.from_local(
+        b.contiguous(), device_mesh,
+        placements_for(spec_for(tuple(t.shape), ax, rules, ms), names),
+        run_check=False, shape=t.shape, stride=t.stride()),
+        axes, tree, blocks)
+
+
+def full_tree(tree):
+    """A tree's ``DTensor`` leaves made whole (a collective each, every
+    rank alike), other leaves as they are."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.sharding.gspmd import whole
+    return tree_map(whole, tree)
+
+
 __all__ = [
-    "Spec", "spec_for", "mesh_shape_of", "specs_of", "placements_for",
+    "ModelMesh", "make_model_mesh", "distribute", "distribute_tree",
+    "full_tree", "Spec", "spec_for", "mesh_shape_of", "specs_of", "placements_for",
     "placements_of", "constrain", "param_axes", "train_state_axes",
     "input_axes", "Rules", "train_rules", "serve_rules", "batch_axes",
     "TIMEOUT_S", "World", "backend_for", "rank_device", "init_world",

@@ -16,11 +16,11 @@ back to replication.  A spec is a plain tuple (JAX's ``PartitionSpec``
 entries, trailing ``None`` trimmed); :func:`placements_of` turns specs
 into ``torch.distributed.tensor`` placements on a ``DeviceMesh``.
 
-The port runs data meshes on real ranks (ROADMAP A8.1–A8.2).  A
-``model`` axis larger than 1, where the specs above shard weights, is
-executed on meta ``DTensor`` s by the dry run
-(:mod:`repro_torch.launch.dryrun`), where :func:`constrain` redistributes
-activations as JAX's constraints do; on real ranks it waits for A8.4.
+The port runs data meshes and model meshes on real ranks: on a model
+mesh (ROADMAP A8.4) the train step's state and batch are ``DTensor`` s
+placed by :func:`placements_of`, and :func:`constrain` redistributes
+activations as JAX's constraints do, as it does on the dry run's meta
+``DTensor`` s (:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -129,29 +129,21 @@ def constrain(x, axes: Sequence[Optional[str]], rules: Optional[dict],
     """JAX's ``with_sharding_constraint`` by logical axes.  A ``DTensor``
     is redistributed, on its own mesh, to the placements of
     :func:`spec_for` of its global shape (so no ambient mesh is needed).
-    A plain tensor is local to its rank and returned as is: without
-    rules, without ``mesh``, or on a data mesh (no axis but ``data`` and
-    ``pod`` larger than 1).  A plain tensor on a ``mesh`` with a model
-    axis larger than 1 raises: that axis runs on real ranks only with
-    tensor parallelism (ROADMAP A8.4)."""
+    A plain tensor is local to its rank and returned as is: on one
+    device, on a data mesh (each rank's rows), and on a model mesh,
+    whose every tensor on the step's path is a ``DTensor``.  ``mesh`` is
+    JAX's argument, which the port needs not."""
+    del mesh
     if rules is None:
         return x
     device_mesh = getattr(x, "device_mesh", None)
-    if device_mesh is not None:
-        spec = spec_for(tuple(x.shape), axes, rules,
-                        mesh_shape_of(device_mesh))
-        want = placements_for(spec, tuple(device_mesh.mesh_dim_names))
-        if tuple(x.placements) == want:
-            return x
-        return x.redistribute(device_mesh, want)
-    if mesh is None:
+    if device_mesh is None:
         return x
-    ms = mesh_shape_of(mesh)
-    if any(size > 1 for a, size in ms.items() if a not in ("data", "pod")):
-        raise NotImplementedError(
-            f"a {ms} mesh shards activations over a model axis: tensor "
-            f"parallelism is not ported yet (ROADMAP A8.4)")
-    return x
+    spec = spec_for(tuple(x.shape), axes, rules, mesh_shape_of(device_mesh))
+    want = placements_for(spec, tuple(device_mesh.mesh_dim_names))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(device_mesh, want)
 
 
 # ------------------------------ axes trees ----------------------------------

@@ -8,8 +8,9 @@ cell per family).
   ``jax.eval_shape`` tree: the float tree a train cell counts, the int8
   tree a serving cell counts;
 * mistral-large-123b and llama4-scout-17b-a16e: JAX's configs field for
-  field, refused by the serve CLI, the train CLI and the serving engine
-  naming ROADMAP A8.4 (they run only sharded over a model axis);
+  field, run (reduced) by the serve CLI, the train CLI and the serving
+  engine, which refused them before a model axis ran on real ranks
+  (ROADMAP A8.4);
 """
 import dataclasses
 
@@ -64,17 +65,33 @@ def test_sharded_configs_are_jax(arch):
 
 @pytest.mark.parametrize("entry", ["serve", "train", "engine"])
 @pytest.mark.parametrize("arch", sorted(SHARDED_ONLY))
-def test_entry_points_refuse_the_sharded_configs(arch, entry, capsys):
+def test_entry_points_refuse_the_sharded_configs(arch, entry, caplog,
+                                                 tmp_path):
+    """No entry point refuses the two configs now: each runs their
+    reduced configs on the CPU (serve: 2 requests; train: 2 steps; the
+    engine: a burst of 2 chat requests), with no error."""
     if entry == "engine":
-        from repro_torch.serving import ServingEngine, TenantSpec
+        from repro_torch.configs import reduce_cfg
         from repro_torch.protect import default_plan
-        with pytest.raises(NotImplementedError, match="A8.4"):
-            ServingEngine(get_arch(arch), [TenantSpec(
-                "default", default_plan(), 1.0)], device="cpu")
+        from repro_torch.serving import (ServingEngine, TenantSpec,
+                                         chat_stream)
+        eng = ServingEngine(reduce_cfg(get_arch(arch)), [TenantSpec(
+            "default", default_plan(), 1.0)], n_slots=2, max_prompt=16,
+            max_new_tokens=4, device="cpu")
+        tel = eng.run(chat_stream(2, tenants={"default": 1.0},
+                                  rate_rps=1e6, seed=0, mean_prompt=8,
+                                  max_prompt=16, mean_output=2,
+                                  max_output=4))
+        assert tel.summary()["per_tenant"]["default"]["completed"] == 2
         return
+    import logging
+    caplog.set_level(logging.INFO)
     from repro_torch.launch import serve, train
-    main = serve.main if entry == "serve" else train.main
-    with pytest.raises(SystemExit) as e:
-        main(["--arch", arch, "--device", "cpu", "--smoke"])
-    assert e.value.code == 2
-    assert "A8.4" in capsys.readouterr().err
+    if entry == "serve":
+        assert serve.main(["--arch", arch, "--device", "cpu", "--smoke",
+                           "--requests", "2"]) == 0
+    else:
+        assert train.main(["--arch", arch, "--device", "cpu", "--smoke",
+                           "--steps", "2", "--seq-len", "16", "--batch",
+                           "2", "--ckpt-dir", str(tmp_path)]) == 0
+        assert "'faulty_steps': 0" in caplog.text

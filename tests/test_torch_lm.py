@@ -434,21 +434,23 @@ def test_float_lm_logits_and_cross_entropy_match_jax():
 
 def test_lm_and_facade_refuse_what_is_not_ported(monkeypatch):
     # the hybrid and VLM families serve and train now
-    # (tests/test_torch_families.py, tests/test_torch_train_*.py); the two
-    # configs too large for one card, and the families models.lm does not
-    # run, are refused
+    # (tests/test_torch_families.py, tests/test_torch_train_*.py), and so
+    # do the two configs too large for one card at full depth (reduced
+    # here); the families models.lm does not run are refused
     from repro.configs import get_arch as j_arch
     from repro_torch.configs import registry
-    for arch, item in (("mistral-large-123b", "A8"),
-                       ("llama4-scout-17b-a16e", "A8"),
-                       ("mistral-large-123b", "outgrow one card"),
-                       ("llama4-scout-17b-a16e", "over one card")):
-        # registered as data, field for field JAX's; refused where a
-        # model would run
-        assert dataclasses.asdict(registry.get_arch(arch)) == \
-            dataclasses.asdict(j_arch(arch))
-        with pytest.raises(NotImplementedError, match=item):
-            registry.refuse_unsharded(arch)
+    for arch, item in (("mistral-large-123b", "123 GB"),
+                       ("llama4-scout-17b-a16e", "97 GB"),
+                       ("mistral-large-123b", "dense"),
+                       ("llama4-scout-17b-a16e", "moe")):
+        # registered as data, field for field JAX's, named in
+        # SHARDED_ONLY, and the LM builds their reduced configs
+        cfg = registry.get_arch(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(j_arch(arch))
+        assert item in registry.SHARDED_ONLY[arch] or item == cfg.family
+        small = reduce_cfg(cfg)
+        assert t_lm.init_lm(0, small, device="cpu")["embed"]["table"] \
+            .shape == (small.vocab_padded, small.d_model)
     for fam, exc, item in (("dlrm", NotImplementedError, "models.dlrm"),
                            ("ssm", ValueError, "not a decoder LM"),
                            ("encdec", ValueError, "not a decoder LM")):

@@ -110,26 +110,27 @@ def test_serve_cli_smoke_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--arch", "mistral-large-123b", "--requests", "1"], "A8.4"),
-    (["--arch", "llama4-scout-17b-a16e", "--requests", "1"], "A8.4"),
-    (["--arch", "mistral-large-123b", "--plan", "*:off"], "A8.4"),
-    (["--device-count", "2"], None),
-    (["--arch", "llama4-scout-17b-a16e"], "A8.4"),
-    (["--device-count", "4", "--arch", "llama3.2-1b"], None),
-    (["--arch", "mistral-large-123b"], "A8.4")])
-def test_serve_cli_rejects_unported_parts(capsys, flag, item):
-    """The two configs that outgrow one card exit with 2 naming A8.4;
-    ``--device-count N`` is accepted (any N on the CPU) and the run
-    serves on the first device, as the JAX CLI does."""
-    if item is None:
-        assert serve.main(["--device", "cpu", "--smoke", "--requests",
-                           "2"] + flag) == 0
-        return
-    with pytest.raises(SystemExit) as ei:
-        serve.main(["--device", "cpu", "--smoke"] + flag)
-    assert ei.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+    (["--arch", "mistral-large-123b", "--requests", "1"], 1),
+    (["--arch", "llama4-scout-17b-a16e", "--requests", "1"], 1),
+    (["--arch", "mistral-large-123b", "--plan", "*:off"], 2),
+    (["--device-count", "2"], 2),
+    (["--arch", "llama4-scout-17b-a16e"], 2),
+    (["--device-count", "4", "--arch", "llama3.2-1b"], 2),
+    (["--arch", "mistral-large-123b"], 2)])
+def test_serve_cli_rejects_unported_parts(tmp_path, flag, item):
+    """Nothing here is refused now: the two configs that outgrow one
+    card at full depth serve reduced (``--smoke``), every request done
+    with no error; ``--device-count N`` is accepted (any N on the CPU)
+    and the run serves on the first device, as the JAX CLI does."""
+    out = tmp_path / "tel.json"
+    argv = ["--device", "cpu", "--smoke", "--json", str(out)] + flag
+    if "--requests" not in flag:
+        argv += ["--requests", "2"]
+    assert serve.main(argv) == 0
+    tel = json.loads(out.read_text())
+    assert tel["summary"]["per_tenant"]["default"]["completed"] == item
+    counters = tel["summary"]["faults"]["counters"]
+    assert not any(v for k, v in counters.items() if "error" in k)
 
 
 def test_serve_cli_device_count_needs_the_devices(capsys, monkeypatch):

@@ -173,8 +173,9 @@ def test_production_mesh_error_is_jax_on_a_host(multi_pod):
 
 def test_placements_and_constrain():
     """A spec's placements (``Shard`` where a tensor dimension is split
-    over the mesh axis, else ``Replicate``); ``constrain`` is the
-    identity on a data mesh and refuses a model axis (A8.4)."""
+    over the mesh axis, else ``Replicate``); ``constrain`` returns a
+    plain tensor as it is, on a data mesh and on a model mesh, whose
+    step's tensors are ``DTensor`` s (A8.4)."""
     from torch.distributed.tensor import Replicate, Shard
     assert placements_for(("data", None, ("pod", "model")),
                           ("pod", "data", "model")) == \
@@ -185,8 +186,8 @@ def test_placements_and_constrain():
     r = rules.train_rules()
     assert constrain(x, ("batch", "embed"), r, {"data": 4, "model": 1}) is x
     assert constrain(x, ("batch", "embed"), None, {"data": 4}) is x
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        constrain(x, ("batch", "embed"), r, {"data": 2, "model": 2})
+    assert constrain(x, ("batch", "embed"), r, {"data": 2, "model": 2}) \
+        is x
 
 
 @pytest.mark.parametrize("accum", [1, 2, 4])

@@ -408,20 +408,36 @@ def test_mesh_loss_is_the_mean_of_the_shards_but_for_moe(arch, linear):
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["--mesh-shape", "2,2"], "A8.4"),
-    (["--arch", "granite-moe-3b-a800m", "--mesh-shape", "2,1"], "§C17"),
+    (["--mesh-shape", "2,2"], (2, 2)),
+    (["--arch", "granite-moe-3b-a800m", "--mesh-shape", "2,1",
+      "--device-count", "2"], "mesh=(2, 1)"),
     (["--mesh-shape", "4,1", "--device-count", "2"],
      "needs 4 devices but only 2 are available"),
     (["--mesh", "single"], "cannot reshape array of size 1 into shape "
                            "(16,16)"),
-    (["--mesh", "multi", "--device-count", "512"], "A8.4")])
-def test_cli_refuses_what_the_port_cannot_run(capsys, argv, says):
-    """A model axis, a MoE on a data mesh, a production mesh on a small
-    world (JAX's error on a host) and too few ranks exit with 2, naming
-    the ROADMAP item."""
+    (["--mesh", "multi", "--device-count", "512"], (2, 16, 16))])
+def test_cli_refuses_what_the_port_cannot_run(capfd, tmp_path, argv, says):
+    """What the port runs now: a model axis and the production mesh on a
+    world of its 512 ranks resolve to their meshes (checked without
+    launching: ``_mesh_ranks``); a MoE trains on a data mesh (its
+    load-balance statistics all-reduced, §C17).  What it still refuses
+    exits with 2 naming the ROADMAP item: a production mesh on a small
+    world (JAX's error on a host) and too few ranks."""
     from repro_torch.launch import train
+    if isinstance(says, tuple):
+        ap = train.build_parser()
+        assert train._mesh_ranks(ap, ap.parse_args(
+            ["--smoke", "--device", "cpu"] + argv)) == says
+        return
+    if says.startswith("mesh="):
+        assert train.main(["--smoke", "--device", "cpu", "--steps", "2",
+                           "--seq-len", "16", "--batch", "4", "--ckpt-dir",
+                           str(tmp_path)] + argv) == 0
+        err = capfd.readouterr().err
+        assert says in err and "'faulty_steps': 0" in err
+        return
     with pytest.raises(SystemExit) as ei:
         train.main(["--smoke", "--device", "cpu"] + argv)
     assert ei.value.code == 2
-    err = capsys.readouterr().err
+    err = capfd.readouterr().err
     assert says in err and "ROADMAP A8." in err

@@ -449,20 +449,21 @@ def test_cli_trains_the_smoke_model_on_the_cpu(tmp_path, caplog):
 @pytest.mark.parametrize("argv,refusal", [
     (["--mesh", "single"], "cannot reshape array of size 1 into shape "
                            "(16,16)"),
-    (["--mesh-shape", "2,2"], "not ported yet"),
-    (["--device-count", "4"], None)])
+    (["--mesh-shape", "2,2", "--device-count", "4"], "mesh=(2, 2)"),
+    (["--device-count", "4"], "mesh=(4, 1)")])
 def test_cli_refuses_the_mesh_flags(capfd, tmp_path, argv, refusal):
-    """The mesh flags the port cannot run exit with 2 naming ROADMAP
-    A8.4 (a model axis; the production mesh's on a world smaller than
-    256 ranks, with JAX's error on a host); ``--device-count 4`` trains
-    on a (4, 1) data mesh of gloo ranks."""
+    """The production mesh on a world smaller than 256 ranks exits with
+    2, JAX's error on a host, naming ROADMAP A8.4; ``--mesh-shape 2,2
+    --device-count 4`` trains on a (2, 2) mesh (tensor parallelism over
+    ``model``) and ``--device-count 4`` on a (4, 1) data mesh, of gloo
+    ranks."""
     from repro_torch.launch import train
-    if refusal is None:
+    if refusal.startswith("mesh="):
         assert train.main(["--smoke", "--device", "cpu", "--steps", "2",
                            "--seq-len", "16", "--batch", "8", "--ckpt-dir",
                            str(tmp_path)] + argv) == 0
         err = capfd.readouterr().err
-        assert "mesh=(4, 1)" in err and "'faulty_steps': 0" in err
+        assert refusal in err and "'faulty_steps': 0" in err
         return
     with pytest.raises(SystemExit) as ei:
         train.main(["--smoke", "--device", "cpu"] + argv)
